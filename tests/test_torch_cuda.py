@@ -1,0 +1,133 @@
+"""PyTorch port, on the card: each CUDA kernel against its plain version on
+the same bf16 inputs. Marked ``cuda``; they skip without an NVIDIA GPU.
+
+This file imports neither JAX nor the test helpers, so it runs where JAX
+is not installed. From the repository root on a machine with the card:
+
+    python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+from kata_xpu_device_plugin_tpu_torch.models import gemma_2b, init_params
+from kata_xpu_device_plugin_tpu_torch.models import transformer
+from kata_xpu_device_plugin_tpu_torch.ops import attention, decode_attn, flash, quant
+
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,window,softcap", [
+    (8, 1, 256, 0, 0.0), (8, 2, 128, 64, 30.0), (4, 4, 64, 0, 0.0),
+])
+def test_flash_kernel_matches_plain(cuda_device, H, KV, D, window, softcap):
+    """q/k/v are slices of one fused ``[B, S, (H + 2 KV) D]`` projection,
+    the strided layout the transformer hands the kernel."""
+    rng = np.random.default_rng(D + window)
+    B, S = 2, 256
+    qkv = _randn(rng, (B, S, (H + 2 * KV) * D), cuda_device)
+    q = qkv[..., : H * D].reshape(B, S, H, D)
+    k = qkv[..., H * D: (H + KV) * D].reshape(B, S, KV, D)
+    v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
+    before = flash.flash_forward.launches
+    out = flash.flash_forward(q, k, v, window=window, softcap=softcap)
+    ref = attention.reference_attention(q, k, v, window=window,
+                                        logits_softcap=softcap)
+    mag = attention.reference_attention(q.float(), k.float(), v.abs().float(),
+                                        window=window, logits_softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash.flash_forward.launches == before + 1
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_paged_decode_kernel_matches_plain(cuda_device, int8, bs):
+    rng = np.random.default_rng(bs + int8)
+    B, H, KV, D, NB = 4, 8, 1, 256, 4
+    NT = (2 + B * NB) * bs
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    k = _randn(rng, (1, NT, KV, D), cuda_device)
+    v = _randn(rng, (1, NT, KV, D), cuda_device)
+    if int8:
+        k, v = quant.quantize_kv(k), quant.quantize_kv(v)
+    tables = torch.from_numpy(
+        rng.permutation(B * NB).reshape(B, NB).astype(np.int32) + 2).to(cuda_device)
+    pos = torch.tensor([0, bs - 1, NB * bs - 1, 10_000], dtype=torch.int32,
+                       device=cuda_device)  # the last lane is dead, stale pos
+    kw = dict(block_size=bs, paged_len=NB * bs)
+    before = decode_attn.paged_decode_attention.launches
+    out = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+    ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+    v_abs = (quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs())
+    mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables, pos,
+                                             **kw)
+    torch.cuda.synchronize()
+    assert decode_attn.paged_decode_attention.launches == before + 1
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 128, 4, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_forward(q, q, q)
+    q32 = torch.zeros(1, 128, 4, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        flash.flash_forward(q32, q32, q32)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_run_both_kernels(cuda_device):
+    """generate() on the card pads to kernel lengths and runs both kernels
+    (a bf16 two-layer Gemma); with a plain ``attn_fn`` it runs neither."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=3, device=cuda_device, dtype=torch.bfloat16)
+    prompt = np.random.default_rng(4).integers(0, 512, (2, 50))
+    f0 = flash.flash_forward.launches
+    d0 = decode_attn.paged_decode_attention.launches
+    got = transformer.generate(params, prompt, cfg, 6)
+    assert flash.flash_forward.launches - f0 == cfg.n_layers
+    assert decode_attn.paged_decode_attention.launches - d0 == 5 * cfg.n_layers
+    assert got.shape == (2, 6) and ((got >= 0) & (got < 512)).all()
+    f0 = flash.flash_forward.launches
+    want = transformer.generate(params, prompt, cfg, 6,
+                                attn_fn=attention.reference_attention)
+    assert want.shape == (2, 6) and flash.flash_forward.launches == f0
+
+
+@pytest.mark.cuda
+def test_cuda_server_refuses_what_the_kernels_do_not_take(cuda_device):
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=1, vocab_size=256)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="prefill_buckets"):
+        GenerationServer(params, cfg, max_len=256)
+    with pytest.raises(ValueError, match="sliding-window"):
+        GenerationServer(params, replace(cfg, sliding_window=64), max_len=256,
+                         prefill_buckets=(128,))
+    srv = GenerationServer(params, cfg, max_len=512, prefill_buckets=(128,))
+    with pytest.raises(ValueError, match="largest prefill bucket"):
+        srv.submit(np.zeros(200, np.int32), 4)
+    assert GenerationServer(params, replace(cfg, sliding_window=64), max_len=256,
+                            prefill_buckets=(128,), decode_attn="reference"
+                            ).stats()["decode_backend"] == "reference"

@@ -1,0 +1,123 @@
+"""PyTorch port, hygiene: the port imports nothing of JAX or of the JAX
+package, its modules import without nvcc, Triton or a card, its entry
+points refuse to fall back to the CPU on their own, and ``chip_smoke.py``
+fails without a card or outside a checkout."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from kata_xpu_device_plugin_tpu_torch import resolve_device
+from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+from kata_xpu_device_plugin_tpu_torch.models import generate, init_params
+from kata_xpu_device_plugin_tpu_torch.models.transformer import tiny_test_config
+from kata_xpu_device_plugin_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "kata_xpu_device_plugin_tpu_torch"
+JAX_PKG = "kata_xpu_device_plugin_tpu"
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == JAX_PKG
+            or name.startswith(JAX_PKG + "."))
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_port_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def _run(code, env_extra=None, cwd=REPO):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_package_imports_without_jax_nvcc_or_triton():
+    mods = sorted(
+        "kata_xpu_device_plugin_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py"))
+    code = "\n".join([
+        "import sys",
+        *[f"import {m}" for m in mods],
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        f" or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')]",
+        "assert not bad, bad",
+        "assert 'triton' not in sys.modules",
+        "print('ok')",
+    ])
+    res = _run(code, {"PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    real_exists = os.path.exists
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: "nvcc" not in str(p) and real_exists(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_fwd")
+    assert _build.sources() == ["flash_fwd", "paged_decode"]
+
+
+def test_entry_points_raise_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationServer(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(params, [[1, 2, 3]], cfg, 2)
+    assert generate(params, [[1, 2, 3]], cfg, 2, device="cpu").shape == (1, 2)
+
+
+def test_server_refuses_params_on_another_device():
+    cfg = tiny_test_config(dtype=torch.float32)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="params live on"):
+        GenerationServer(params, cfg, device="meta")
+
+
+def test_chip_smoke_fails_without_a_card():
+    res = _run("import runpy, sys; sys.argv = ['chip_smoke.py']; "
+               "runpy.run_path('chip_smoke.py', run_name='__main__')",
+               {"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
