@@ -10,18 +10,30 @@ Phases, each printing one JSON line:
 1. device — the card (``nvidia-smi`` name and power limit) and CUDA version;
 2. build  — compile every kernel under ``kata_xpu_device_plugin_tpu_torch/csrc``;
 3. check  — each kernel against its plain PyTorch version on the card, bf16,
-   at the main path's shapes and layouts, within the per-element and mean
-   bounds of ``ops.attention.kernel_tolerance``;
+   at the main paths' shapes and layouts, within the per-element and mean
+   bounds of ``ops.attention.kernel_tolerance`` (for the backward kernels
+   with the magnitudes ``ops.flash.backward_magnitudes`` derives); the
+   forward's logsumexp in fp32;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
    both kernels reset just before and read just after; then two requests
    through the kernel path and the plain path: every layer's kernel call
    held against the plain version on its own inputs, and the logits held
-   against the plain path's (``crosscheck``).
+   against the plain path's (``crosscheck``);
+5. train  — Llama-3-8B at its published widths with 8 of its 32 layers
+   (one card's memory), random fp32 parameters from seed 0, bf16 compute:
+   ``make_train_step`` and ``fit`` for 6 AdamW steps on one repeated
+   batch (B=2, S=2048); launch counts reset just before and read just
+   after (8 forward, 8 dq and 8 dk/dv launches a step); the loss must be
+   finite and fall. Then ``train_crosscheck``: one ``next_token_loss``
+   backward at 2 layers, B=1, through the kernels (each layer's forward
+   and backward kernel call held against the plain version on its own
+   inputs) and through ``reference_attention``; the loss difference and
+   the cosine of the whole gradient are printed.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds a ``torch.profiler`` window over two decode rounds of a
-loaded server. Any failed
+loaded server and one over a train step after the run. Any failed
 phase raises: the script exits non-zero and prints no result. Without CUDA,
 or outside a checkout of the repository, it exits non-zero at once.
 """
@@ -204,8 +216,116 @@ def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False):
     return res
 
 
+# The forward's logsumexp against the plain version's, fp32: both form it
+# from fp32 logits of the same bf16 inputs and differ only in summation
+# order (~1e-6 relative); a masking or scaling fault moves it by O(1).
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def check_lse(name: str, lse, ref) -> float:
+    import torch
+
+    err = float((lse - ref).abs().max())
+    if not (math.isfinite(err) and torch.allclose(lse, ref, **LSE_TOL)):
+        raise AssertionError(f"{name}: logsumexp disagrees with plain ({err})")
+    return err
+
+
+def check_grads(name: str, got, want, mags) -> dict:
+    """dq, dk and dv of a backward kernel call against the plain version's
+    on the same inputs, within the bound ``flash.backward_magnitudes``
+    derives; returns one result per gradient."""
+    return {g: check(f"{name} {g}", a, b, m)
+            for g, a, b, m in zip(("dq", "dk", "dv"), got, want, mags)}
+
+
+def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
+             timed=False):
+    """The forward with its logsumexp, then the two backward kernels, on
+    contiguous ``[B, S, heads, D]`` q/k/v and dout (the training layout:
+    q and k come out of rope, v out of its own projection)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    g = torch.Generator(device="cuda").manual_seed(7 * B * S + H + KV + D)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), rnd(B, S, H, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash.flash_forward(q, k, v, return_lse=True, **kw)
+    ref_out, ref_lse = flash.flash_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    lse_err = check_lse(name, lse, ref_lse)
+    del ref_out, ref_lse
+    delta = flash._delta(out, do)
+    got = (flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    want = flash.flash_backward_reference(q, k, v, out, lse, do, **kw)
+    mags = flash.backward_magnitudes(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    res = check_grads(name, got, want, mags)
+    del want, mags
+    row = {"dq": {"case": name, **res["dq"]},
+           "dkv": {"case": name,
+                   **{f: max(res["dk"][f], res["dv"][f]) for f in
+                      ("max_abs_err", "mean_abs_err", "max_err_over_bound")},
+                   "mean_bound": min(res["dk"]["mean_bound"],
+                                     res["dv"]["mean_bound"])}}
+    if timed:
+        ms_dq = time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw), 10)
+        ms_dkv = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), 10)
+        plain = time_ms(lambda: flash.flash_backward_reference(
+            q, k, v, out, lse, do, **kw), 3, 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        library = time_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), do_t, retain_graph=True), 10)
+        pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+        in_bytes = 2.0 * B * S * D * (2 * H + 2 * KV) + 8.0 * B * H * S
+        for key, ms, products, out_bytes in (
+                ("dq", ms_dq, 3, 2.0 * B * S * H * D),
+                ("dkv", ms_dkv, 4, 4.0 * B * S * KV * D)):
+            flops = products * 2.0 * D * pairs
+            nbytes = in_bytes + out_bytes
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+            row[key].update(ms=ms, plain_ms=plain, library_ms=library,
+                            bound_ms=1e3 * max(t_ops, t_bytes),
+                            bound_by="operations" if t_ops > t_bytes else "bytes")
+    timing = {f"{k_}_{f}": row[k_][f] for k_ in ("dq", "dkv") for f in
+              ("ms", "plain_ms", "library_ms", "bound_ms") if f in row[k_]}
+    emit("check", kernel="flash_bwd", B=B, S=S, H=H, KV=KV, D=D, causal=causal,
+         window=window, softcap=softcap, lse_max_abs_err=lse_err,
+         **{k_: {f: v_ for f, v_ in r.items() if f != "case"}
+            for k_, r in res.items()}, **timing)
+    return row
+
+
+def unported_bounds() -> None:
+    """The bound of each TPU kernel not ported yet, at the shape it would
+    run, so its slice starts with a target. ``_decode_kernel``
+    (``ops/decode_attn.py:74``, lock-step dense decode): Gemma-2B, B=8, one
+    shared position 2047, bf16 ``[B, S, KV, D]`` cache — K and V of every
+    live position read once, q read and the output written once."""
+    B, pos, H, KV, D = 8, 2047, 8, 1, 256
+    nbytes = 2 * 2.0 * B * (pos + 1) * KV * D + 2 * 2.0 * B * H * D
+    flops = 4.0 * B * H * D * (pos + 1)
+    emit("bound", kernel="_decode_kernel", replaces=(
+        "kata_xpu_device_plugin_tpu/ops/decode_attn.py:74"),
+         shape=dict(B=B, pos=pos, H=H, KV=KV, D=D), bytes=nbytes, flops=flops,
+         bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS),
+         bound_by="bytes" if nbytes / PEAK_HBM_BYTES > flops / PEAK_BF16_FLOPS
+         else "operations")
+
+
 def phase_checks() -> dict:
-    results = {"flash_fwd": [], "paged_decode": []}
+    results = {"flash_fwd": [], "paged_decode": [], "flash_bwd_dq": [],
+               "flash_bwd_dkv": []}
     f = results["flash_fwd"]
     for B in (1, 8):  # the serving run's prefill groups: N = 1-8 at S 128-1024
         for S in (128, 256):
@@ -221,28 +341,36 @@ def phase_checks() -> dict:
     d.append(decode_case("gemma2b bf16 bs128", 8, 8, 1, 256, 128, False))
     d.append(decode_case("gemma2b int8 bs16", 8, 8, 1, 256, 16, True))
     d.append(decode_case("gemma2b bf16 bs16", 8, 8, 1, 256, 16, False))
+    bwd = [  # llama3-8b widths unless the case says otherwise
+        bwd_case("llama3-8b train B2 S2048", 2, 2048, 32, 8, 128, timed=True),
+        bwd_case("llama3-8b B1 S128", 1, 128, 32, 8, 128),
+        bwd_case("llama3-8b B1 S256", 1, 256, 32, 8, 128),
+        bwd_case("mqa H8 KV1", 2, 256, 8, 1, 128),
+        bwd_case("non-causal", 2, 256, 8, 2, 128, causal=False),
+        bwd_case("window64+softcap50", 2, 256, 8, 2, 128, window=64,
+                 softcap=50.0),
+        bwd_case("D64", 2, 256, 8, 2, 64),
+    ]
+    results["flash_bwd_dq"] = [r["dq"] for r in bwd]
+    results["flash_bwd_dkv"] = [r["dkv"] for r in bwd]
     return results
 
 
-def profile_rounds(params, cfg, kw, rng) -> None:
-    """Where a decode round's device time goes: 8 requests admitted, then
-    two lock-step rounds (16 decode steps) under ``torch.profiler``; device
-    time summed per kernel name and per class, against the host wall."""
+KERNEL_CLASSES = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def profiled(window: str, fn) -> None:
+    """Run ``fn`` under ``torch.profiler`` and print where its device time
+    goes: summed per class (this repository's kernels, cuBLAS GEMMs,
+    everything else) and per kernel name, against the host wall."""
     import torch
     from torch.autograd import DeviceType
 
-    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
-
-    srv = GenerationServer(params, cfg, **kw)
-    for n in rng.integers(500, 1001, 8):
-        srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
-    srv.step()  # admission of all 8 plus one round
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        srv.step()
-        srv.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -250,22 +378,38 @@ def profile_rounds(params, cfg, kw, rng) -> None:
     def dev_us(e):
         return getattr(e, "device_time_total", None) or e.cuda_time_total
 
-    classes = {"paged_decode": 0.0, "flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
+    classes = dict.fromkeys(KERNEL_CLASSES + ("gemm", "other"), 0.0)
     for e in kernels:
         name = e.key.lower()
-        cls = ("paged_decode" if "paged_decode" in name else
-               "flash_fwd" if "flash_fwd" in name else
-               "gemm" if any(t in name for t in ("gemm", "gemv", "sm90", "cutlass",
-                                                  "cublas", "nvjet")) else "other")
+        cls = next((c for c in KERNEL_CLASSES if c in name), None) or (
+            "gemm" if any(t in name for t in ("gemm", "gemv", "sm90", "cutlass",
+                                               "cublas", "nvjet")) else "other")
         classes[cls] += dev_us(e) / 1e3
     busy = sum(classes.values())
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit("profile", window="2 decode rounds (16 steps), 8 lanes, pos 500-1100",
+    emit("profile", window=window,
          wall_ms=round(wall * 1e3, 3), device_busy_ms=round(busy, 3),
          device_idle_share=round(1 - busy / (wall * 1e3), 4),
          by_class_ms={k: round(v, 3) for k, v in classes.items()},
          top=[{"kernel": e.key[:80], "ms": round(dev_us(e) / 1e3, 3),
                "count": e.count} for e in top])
+
+
+def profile_rounds(params, cfg, kw, rng) -> None:
+    """Where a decode round's device time goes: 8 requests admitted, then
+    two lock-step rounds (16 decode steps) under the profiler."""
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+
+    srv = GenerationServer(params, cfg, **kw)
+    for n in rng.integers(500, 1001, 8):
+        srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
+    srv.step()  # admission of all 8 plus one round
+
+    def rounds():
+        srv.step()
+        srv.step()
+
+    profiled("2 decode rounds (16 steps), 8 lanes, pos 500-1100", rounds)
 
 
 def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
@@ -437,6 +581,157 @@ def phase_serve(seed: int = 0, profile: bool = False) -> dict:
     return launches
 
 
+def train_flops_per_step(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one train step, the JAX package's bench convention
+    (``bench.py`` ``measure_train``): 6 x matmul parameters x tokens
+    (embedding gather excluded, untied unembedding included) plus causal
+    attention 6 L B S^2 H Dh."""
+    per_layer = (cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    matmul_params = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    attn = 6 * cfg.n_layers * B * S * S * cfg.n_heads * cfg.head_dim
+    return 6.0 * matmul_params * B * S + attn
+
+
+def phase_train(seed: int = 0, n_layers: int = 8, steps: int = 6,
+                profile: bool = False) -> dict:
+    """``fit`` at Llama-3-8B widths with ``n_layers`` of 32 layers on one
+    batch of B=2 windows of 2048 tokens, seen every step. ``profile`` adds
+    one more step under the profiler."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models import llama3_8b
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        TokenBatchLoader,
+        fit,
+        make_optimizer,
+        make_train_step,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
+
+    cfg = llama3_8b(n_layers=n_layers)
+    B, seq_len = 2, 2047
+    stream = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, B * (seq_len + 1)).astype(np.int32)
+    loader = TokenBatchLoader(stream, batch=B, seq_len=seq_len, shuffle=False)
+    init_state, step = make_train_step(cfg, make_optimizer(), remat=False)
+    stamps = []
+
+    def on_step(_s, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, losses = fit(init_state, step, loader, steps=steps, seed=seed,
+                        on_step=on_step)
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                        (fn.launches for fn in kernels)))
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    if profile:
+        batch = next(loader)
+        profiled(f"train step {steps + 1}, B={B}, S={seq_len + 1}",
+                 lambda: step(state, batch))
+    del state
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    p50 = float(np.median(step_s))
+    tokens = B * (seq_len + 1)
+    flops = train_flops_per_step(cfg, B, seq_len + 1)
+    emit("train", model="llama3_8b", n_layers=n_layers,
+         reduced="n_layers=8 (from 32; one card's memory)", params=n_params,
+         B=B, S=seq_len + 1, steps=steps, losses=losses,
+         first_step_s=stamps[0] - t0, step_s=step_s, step_p50_s=p50,
+         tokens_per_s=tokens / p50, model_flops_per_step=flops,
+         mfu=flops / p50 / PEAK_BF16_FLOPS, peak_mem_bytes=peak,
+         device_mem_bytes=torch.cuda.get_device_properties(0).total_memory,
+         launches=launches)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss not finite and falling: {losses}")
+    want = steps * n_layers
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"train launches {launches}, want {want} each")
+    return launches
+
+
+def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
+    """One ``next_token_loss`` backward at Llama-3-8B widths with
+    ``n_layers`` layers, B=1, S=2048, through the kernels and through
+    ``reference_attention``, from the same fp32 weights and tokens. On the
+    kernel path each layer's forward (with lse) and backward kernel call is
+    held against the plain version on its own inputs; the loss difference
+    and the cosine of the whole gradient are printed, not bounded (random
+    weights carry each layer's rounding on through the model)."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models import init_params, llama3_8b
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import next_token_loss
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
+
+    checks = {"fwd": [], "bwd": []}
+
+    class Checked(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = flash.flash_forward(q, k, v, return_lse=True)
+            ref, ref_lse = flash.flash_reference(q, k, v)
+            mag = reference_attention(q.float(), k.float(), v.abs().float())
+            checks["fwd"].append({**check("train layer fwd", out, ref, mag),
+                                  "lse_max_abs_err": check_lse("layer", lse, ref_lse)})
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            got = flash.flash_backward(q, k, v, out, lse, do)
+            want = flash.flash_backward_reference(q, k, v, out, lse, do)
+            mags = flash.backward_magnitudes(q, k, v, out, lse, do)
+            checks["bwd"].append(check_grads("train layer bwd", got, want, mags))
+            return got
+
+    def checked_attn(q, k, v, causal=True, q_offset=None, **kw):
+        assert causal and q_offset is None and not kw
+        return Checked.apply(q, k, v)
+
+    cfg = llama3_8b(n_layers=n_layers)
+    params = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, 2048))).cuda()
+    xs = [p.requires_grad_() for p in leaves(params)]
+    results = {}
+    for name, fn in (("kernel", checked_attn), ("plain", reference_attention)):
+        loss = next_token_loss(params, toks, cfg, attn_fn=fn)
+        results[name] = (float(loss.detach()), torch.autograd.grad(loss, xs))
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(gk, gp))
+    nk = math.sqrt(sum(float(a.double().square().sum()) for a in gk))
+    np_ = math.sqrt(sum(float(b.double().square().sum()) for b in gp))
+    row = {"n_layers": n_layers, "B": 1, "S": 2048, "loss_kernel": lk,
+           "loss_plain": lp, "loss_diff": lk - lp, "grad_cosine": dot / (nk * np_),
+           "layers_checked_fwd": len(checks["fwd"]),
+           "layers_checked_bwd": len(checks["bwd"]),
+           "fwd_max_err_over_bound": max(c["max_err_over_bound"] for c in checks["fwd"]),
+           "lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks["fwd"]),
+           "bwd_max_err_over_bound": max(c[g]["max_err_over_bound"]
+                                         for c in checks["bwd"] for g in c)}
+    emit("train_crosscheck", **row)
+    if row["layers_checked_fwd"] != n_layers or row["layers_checked_bwd"] != n_layers:
+        raise AssertionError(f"train crosscheck checked {row}")
+    if not (math.isfinite(lk) and math.isfinite(row["grad_cosine"])):
+        raise AssertionError(f"train crosscheck not finite: {row}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -449,22 +744,33 @@ def main(argv: list[str]) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    profile = "--profile" in argv  # adds a profiled window of decode rounds
+    profile = "--profile" in argv  # adds profiled decode rounds and a train step
     phase_device()
     phase_build()
     checks = phase_checks()
-    launches = phase_serve(profile=profile)
+    unported_bounds()
+    launches = {"serve": phase_serve(profile=profile)}
+    launches["train"] = phase_train(profile=profile)
+    train_crosscheck()
+    src = f"{PKG}/csrc"
+    jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"
     meta = {
-        "flash_fwd": dict(route="cuda", source=f"{PKG}/csrc/flash_fwd.cu",
-                          replaces="kata_xpu_device_plugin_tpu/ops/flash.py:70"),
-        "paged_decode": dict(route="cuda", source=f"{PKG}/csrc/paged_decode.cu",
+        "flash_fwd": dict(route="cuda", source=f"{src}/flash_fwd.cu",
+                          replaces=f"{jax_flash}:70"),
+        "paged_decode": dict(route="cuda", source=f"{src}/paged_decode.cu",
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213"),
+        "flash_bwd_dq": dict(route="cuda", source=f"{src}/flash_bwd.cu",
+                             replaces=f"{jax_flash}:219"),
+        "flash_bwd_dkv": dict(route="cuda", source=f"{src}/flash_bwd.cu",
+                              replaces=f"{jax_flash}:283"),
     }
     kernels = []
     for name, cases in checks.items():
         timed = next(c for c in cases if "ms" in c)
+        by_path = {p: n[name] for p, n in launches.items() if name in n}
         kernels.append({
-            "name": name, **meta[name], "launches": launches[name],
+            "name": name, **meta[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err_over_bound": max(c["max_err_over_bound"] for c in cases),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],

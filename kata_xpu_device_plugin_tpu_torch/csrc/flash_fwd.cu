@@ -27,6 +27,12 @@
 // Numerics follow the TPU kernel: fp32 logits times 1/sqrt(D), finite
 // NEG_INF = -1e30 for masked keys, p cast to bf16 before the P·V product,
 // fp32 accumulators, a zero denominator replaced by 1.
+//
+// Training asks for the per-row logsumexp as well (`lse`, fp32 [B, H, Sq],
+// m + log(l) with the same zero-denominator rule, as `_finalize` writes
+// it); the backward kernels in flash_bwd.cu recompute p from it. The write
+// is a template parameter: a null `lse` launches the instantiation without
+// it, so inference runs the kernel it ran before the lse existed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,6 +77,7 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // [B, H, Sq] or null
   int Sq, Sk, H, KV;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -79,7 +86,7 @@ struct Params {
   float softcap, scale;
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const Params p) {
   constexpr int LDS = D + 8;  // padded smem row, in elements
@@ -232,6 +239,14 @@ flash_fwd_kernel(const Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (l[r] == 0.f) l[r] = 1.f;
   }
+  if (LSE && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] < p.Sq)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qpos[r]] =
+            m[r] + logf(l[r]);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] >= p.Sq) continue;
@@ -246,14 +261,14 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = (BQ + 2 * BK) * (D + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  flash_fwd_kernel<D, LSE><<<grid, NTHREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,9 +276,11 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 // Returns a cudaError_t (0 on success). Strides are in elements; every
 // pointer is 16-byte aligned and every stride a multiple of 8 (the wrapper
-// checks). The output is contiguous [B, Sq, H, D].
+// checks). The output is contiguous [B, Sq, H, D]; `lse` is null or a
+// contiguous fp32 [B, H, Sq].
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, int B, int Sq, int Sk, int H, int KV,
+                              void* o, void* lse, int B, int Sq, int Sk, int H,
+                              int KV,
                               int D, long long q_sb, long long q_ss,
                               long long q_sh, long long k_sb, long long k_ss,
                               long long k_sh, long long v_sb, long long v_ss,
@@ -274,6 +291,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.Sq = Sq;
   p.Sk = Sk;
   p.H = H;
@@ -287,9 +305,9 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(p, B, s);
-    case 128: return launch<128>(p, B, s);
-    case 256: return launch<256>(p, B, s);
+    case 64: return lse ? launch<64, true>(p, B, s) : launch<64, false>(p, B, s);
+    case 128: return lse ? launch<128, true>(p, B, s) : launch<128, false>(p, B, s);
+    case 256: return lse ? launch<256, true>(p, B, s) : launch<256, false>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..ops.quant import (
@@ -252,6 +253,15 @@ def _index(leaf, i: int):
     return leaf[i]
 
 
+def _unbind(leaf) -> list:
+    """Per-layer views of a stacked leaf. One ``unbind`` per leaf: its
+    backward stacks the layers' gradients once, where indexing layer by
+    layer would add each into a fresh full-size zero tensor."""
+    if isinstance(leaf, QTensor):
+        return [QTensor(q, s) for q, s in zip(leaf.q.unbind(0), leaf.scale.unbind(0))]
+    return list(leaf.unbind(0))
+
+
 def _cache_write_full(cache, x: torch.Tensor, offset: int) -> None:
     """Write fresh k/v ``x [B, S, KV, D]`` at sequence ``offset``, quantizing
     on the way into an int8 cache."""
@@ -342,8 +352,10 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn], positions, kv_caches, cache_offset,
-            prefill: bool, decode_kernel_fn) -> torch.Tensor:
-    """The decoder stack up to (not including) the final norm."""
+            prefill: bool, decode_kernel_fn, remat: bool = False) -> torch.Tensor:
+    """The decoder stack up to (not including) the final norm. ``remat``
+    (training, no caches) checkpoints each layer: its activations are
+    recomputed in the backward instead of kept."""
     check_supported(cfg)
     if attn_fn is None:
         from ..ops.attention import flash_attention
@@ -354,9 +366,13 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     x = embed(params, tokens, cfg)
-    layers = params["layers"]
+    layers = {k: _unbind(v) for k, v in params["layers"].items()}
     for i in range(cfg.n_layers):
-        layer = {k: _index(v, i) for k, v in layers.items()}
+        layer = {k: v[i] for k, v in layers.items()}
+        if remat and kv_caches is None:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, attn_fn, x, layer, positions, use_reentrant=False)
+            continue
         cache = None
         if kv_caches is not None:
             cache = (_index(kv_caches[0], i), _index(kv_caches[1], i))
@@ -367,16 +383,42 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn] = None, positions=None, kv_caches=None,
-            cache_offset=None, prefill: bool = False, decode_kernel_fn=None):
+            cache_offset=None, prefill: bool = False, decode_kernel_fn=None,
+            remat: bool = False):
     """tokens ``[B, S]`` → fp32 logits ``[B, S, vocab]``; with ``kv_caches``
     also returns the caches (written in place). ``attn_fn`` defaults to
     :func:`..ops.attention.flash_attention`: the plain version on the CPU,
-    the flash kernel (or an error) on CUDA, where a decode step needs
-    ``decode_kernel_fn`` or an explicit plain ``attn_fn``."""
+    the flash kernels (or an error) on CUDA, where a decode step needs
+    ``decode_kernel_fn`` or an explicit plain ``attn_fn``. ``remat=True``
+    wraps each layer in ``torch.utils.checkpoint`` (the JAX package's
+    ``jax.checkpoint``); it applies only without caches."""
     x = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
-                cache_offset, prefill, decode_kernel_fn)
+                cache_offset, prefill, decode_kernel_fn, remat)
     logits = unembed(params, x, cfg)
     return (logits, kv_caches) if kv_caches is not None else logits
+
+
+# ----- loss / training -----------------------------------------------------
+
+
+def token_nll_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of ``targets`` under fp32 ``logits``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.sum()
+
+
+def next_token_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
+                    attn_fn: Optional[AttnFn] = None,
+                    remat: bool = False) -> torch.Tensor:
+    """Mean cross-entropy of predicting ``tokens[:, 1:]`` from
+    ``tokens[:, :-1]``. As in the JAX package, the forward runs on the FULL
+    sequence and the last position's logits are dropped (value-identical
+    for dense configs under the causal mask), so a flash-length batch stays
+    one. MoE configs are not ported, so there is no auxiliary term."""
+    logits = forward(params, tokens, cfg, attn_fn=attn_fn, remat=remat)
+    targets = tokens[:, 1:]
+    return token_nll_sum(logits[:, :-1], targets) / targets.numel()
 
 
 # ----- KV cache / generation ----------------------------------------------

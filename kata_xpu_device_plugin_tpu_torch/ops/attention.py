@@ -1,5 +1,5 @@
-"""Attention: the plain PyTorch version, the prefill dispatch onto the flash
-kernel, and the serving decode backend (counterpart of
+"""Attention: the plain PyTorch version, the dispatch onto the flash
+kernels, and the serving decode backend (counterpart of
 ``kata_xpu_device_plugin_tpu/ops/attention.py``).
 
 Shapes: q ``[B, Sq, H, D]``; k/v ``[B, Sk, KV, D]`` with H a multiple of KV
@@ -89,11 +89,13 @@ def flash_attention(
     window: int = 0,
     logits_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Dispatch: the plain version for CPU tensors; on CUDA the flash kernel
-    or an error. On the card it takes only what the kernel takes —
-    prefill self-attention (no ``q_offset``) at a ``pick_block`` length —
-    so a caller that wants the plain version there passes
-    :func:`reference_attention` as its ``attn_fn``."""
+    """Dispatch: the plain version for CPU tensors (PyTorch's autograd
+    differentiates it); on CUDA the flash kernels or an error. On the card
+    it takes only what the kernels take — self-attention (no ``q_offset``)
+    at a ``pick_block`` length — so a caller that wants the plain version
+    there passes :func:`reference_attention` as its ``attn_fn``. With grad
+    mode on it goes through :class:`.flash.FlashAttention`, whose backward
+    is the two backward kernels."""
     if not q.is_cuda:
         return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, logits_softcap=logits_softcap)
@@ -102,8 +104,10 @@ def flash_attention(
             "flash attention on CUDA takes prefill self-attention only; decode "
             "into a cache goes through the paged decode kernel"
         )
-    from .flash import flash_forward
+    from .flash import FlashAttention, flash_forward
 
+    if torch.is_grad_enabled():
+        return FlashAttention.apply(q, k, v, causal, window, logits_softcap)
     return flash_forward(q, k, v, causal=causal, window=window,
                          softcap=logits_softcap)
 

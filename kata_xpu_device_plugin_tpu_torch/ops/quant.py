@@ -40,15 +40,46 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     return (qt.q.float() * qt.scale).to(dtype)
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with an fp32 result from operands of a's dtype: on CUDA one
-    cuBLAS call that writes fp32 (``aten::mm.dtype``); on the CPU, where that
-    op is not registered, the operands go up to fp32 first (exact for bf16).
-    ``a`` is ``[..., k]`` and ``b`` is ``[k, n]``."""
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype != torch.float32:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
         return out.reshape(a.shape[:-1] + (b.shape[-1],))
     return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """Forward: :func:`_mm_f32`. Backward: two matmuls in the operands'
+    dtype, whose results are the cotangents in that dtype — JAX's
+    ``dot_general`` transpose rule likewise converts each cotangent to its
+    operand's dtype. The fp32 cotangent goes down to that dtype first, so
+    on the card both products stay bf16 tensor-core GEMMs (fp32 ones at
+    vocabulary width would cost several times the forward)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = g.to(a.dtype) @ b.to(a.dtype).t()
+        if ctx.needs_input_grad[1]:
+            a2 = a.reshape(-1, a.shape[-1])
+            gb = (a2.t() @ g.reshape(-1, g.shape[-1]).to(a.dtype)).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an fp32 result from operands of a's dtype: on CUDA one
+    cuBLAS call that writes fp32 (``aten::mm.dtype``); on the CPU the
+    operands go up to fp32 first (exact for bf16). ``a`` is ``[..., k]``
+    and ``b`` is ``[k, n]``. Differentiable through :class:`_MatmulF32`,
+    so the gradient does not depend on whether PyTorch has a formula for
+    ``mm.dtype``."""
+    return _MatmulF32.apply(a, b)
 
 
 def weight_matmul(x: torch.Tensor, w: Any) -> torch.Tensor:

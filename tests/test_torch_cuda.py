@@ -83,6 +83,121 @@ def test_paged_decode_kernel_matches_plain(cuda_device, int8, bs):
     assert res["ok"], res
 
 
+def _qkv_do(rng, dev, B, S, H, KV, D):
+    """q/k/v as strided slices of one fused projection (the inference
+    layout); dout contiguous."""
+    qkv = _randn(rng, (B, S, (H + 2 * KV) * D), dev)
+    q = qkv[..., : H * D].reshape(B, S, H, D)
+    k = qkv[..., H * D: (H + KV) * D].reshape(B, S, KV, D)
+    v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
+    return q, k, v, _randn(rng, (B, S, H, D), dev)
+
+
+BWD_CASES = [  # (H, KV, D, causal, window, softcap)
+    (8, 2, 128, True, 0, 0.0), (4, 1, 64, True, 64, 30.0),
+    (4, 4, 64, False, 0, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,causal,window,softcap", BWD_CASES)
+def test_flash_lse_matches_plain(cuda_device, H, KV, D, causal, window, softcap):
+    """The logsumexp in fp32: both sides form it from fp32 logits of the
+    same bf16 inputs and differ only in summation order (~1e-6 relative);
+    1e-4 + 1e-5 |lse| is far above that and far below any masking or
+    scaling fault (which moves lse by O(1))."""
+    q, k, v, _ = _qkv_do(np.random.default_rng(D + H), cuda_device, 2, 256, H, KV, D)
+    before = flash.flash_forward.launches
+    out, lse = flash.flash_forward(q, k, v, causal, window, softcap,
+                                   return_lse=True)
+    ref, ref_lse = flash.flash_reference(q, k, v, causal, window, softcap)
+    torch.cuda.synchronize()
+    assert flash.flash_forward.launches == before + 1
+    assert lse.shape == (2, H, 256) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    mag = attention.reference_attention(q.float(), k.float(), v.abs().float(),
+                                        causal=causal, window=window,
+                                        logits_softcap=softcap)
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,causal,window,softcap", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda_device, H, KV, D, causal,
+                                            window, softcap):
+    """dq and dk/dv against the plain backward on the same bf16 inputs,
+    out and lse, within the bound ``flash.backward_magnitudes`` derives."""
+    q, k, v, do = _qkv_do(np.random.default_rng(D + 7), cuda_device, 2, 256,
+                          H, KV, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash.flash_forward(q, k, v, return_lse=True, **kw)
+    n_dq, n_dkv = flash.flash_bwd_dq.launches, flash.flash_bwd_dkv.launches
+    got = flash.flash_backward(q, k, v, out, lse, do, **kw)
+    want = flash.flash_backward_reference(q, k, v, out, lse, do, **kw)
+    mags = flash.backward_magnitudes(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_bwd_dq.launches == n_dq + 1
+    assert flash.flash_bwd_dkv.launches == n_dkv + 1
+    for name, a, b, m in zip(("dq", "dk", "dv"), got, want, mags):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        res = attention.kernel_tolerance(a, b, m)
+        assert res["ok"], (name, res)
+
+
+@pytest.mark.cuda
+def test_flash_attention_trains_through_the_kernels(cuda_device):
+    """With grad mode on, ``flash_attention`` on the card is the autograd
+    function: one forward (with lse) and one launch of each backward
+    kernel, giving exactly what the wrappers give called by hand; under
+    ``no_grad`` it is the plain forward launch."""
+    q, k, v, do = _qkv_do(np.random.default_rng(11), cuda_device, 1, 128, 8, 2, 128)
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    f0, d0 = flash.flash_forward.launches, flash.flash_bwd_dq.launches
+    out = attention.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert flash.flash_forward.launches == f0 + 1
+    assert flash.flash_bwd_dq.launches == d0 + 1
+    o2, lse = flash.flash_forward(q.detach(), k.detach(), v.detach(),
+                                  return_lse=True)
+    want = flash.flash_backward(q.detach(), k.detach(), v.detach(), o2, lse, do)
+    torch.testing.assert_close(out.detach(), o2, atol=0, rtol=0)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    with torch.no_grad():
+        assert not attention.flash_attention(q, k, v).requires_grad
+    assert flash.flash_forward.launches == f0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_train_step_runs_the_flash_kernels(cuda_device, remat):
+    """One AdamW step of a two-layer model at Llama-3 head widths (D=128,
+    GQA 2) on the card: every layer's attention runs the forward kernel
+    (twice with remat: once more in the recompute) and each backward
+    kernel once; the loss is finite and the parameters move."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.models import llama3_8b
+    from kata_xpu_device_plugin_tpu_torch.parallel import make_train_step
+
+    cfg = replace(llama3_8b(), n_layers=2, vocab_size=512, d_model=256,
+                  n_heads=4, n_kv_heads=2, d_ff=512)
+    init_state, step = make_train_step(cfg, remat=remat)
+    state = init_state(0)
+    before = state["params"]["layers"]["wq"].clone()
+    toks = np.random.default_rng(0).integers(0, 512, (2, 128))
+    counts = [f.launches for f in (flash.flash_forward, flash.flash_bwd_dq,
+                                   flash.flash_bwd_dkv)]
+    state, loss = step(state, toks)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (flash.flash_forward, flash.flash_bwd_dq,
+                                  flash.flash_bwd_dkv)]
+    assert [a - b for a, b in zip(after, counts)] == [2 * (1 + remat), 2, 2]
+    assert torch.isfinite(loss) and state["step"] == 1
+    assert not torch.equal(state["params"]["layers"]["wq"], before)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 128, 4, 96, device=cuda_device, dtype=torch.bfloat16)
@@ -91,6 +206,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q32 = torch.zeros(1, 128, 4, 64, device=cuda_device)
     with pytest.raises(TypeError, match="bf16"):
         flash.flash_forward(q32, q32, q32)
+    q256 = torch.zeros(1, 128, 4, 256, device=cuda_device, dtype=torch.bfloat16)
+    out, lse = flash.flash_forward(q256, q256, q256, return_lse=True)
+    with pytest.raises(NotImplementedError, match="256"):
+        flash.flash_backward(q256, q256, q256, out, lse, out)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,11 @@ from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
 from kata_xpu_device_plugin_tpu_torch.models import generate, init_params
 from kata_xpu_device_plugin_tpu_torch.models.transformer import tiny_test_config
 from kata_xpu_device_plugin_tpu_torch.ops import _build
+from kata_xpu_device_plugin_tpu_torch.parallel import (
+    TokenBatchLoader,
+    fit,
+    make_train_step,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kata_xpu_device_plugin_tpu_torch"
@@ -80,7 +85,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
                         lambda p: "nvcc" not in str(p) and real_exists(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_fwd")
-    assert _build.sources() == ["flash_fwd", "paged_decode"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
@@ -96,6 +101,11 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(params, [[1, 2, 3]], cfg, 2)
     assert generate(params, [[1, 2, 3]], cfg, 2, device="cpu").shape == (1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg)
+    loader = TokenBatchLoader(list(range(64)), batch=2, seq_len=15)
+    _, losses = fit(*make_train_step(cfg, device="cpu"), loader, steps=1)
+    assert len(losses) == 1
 
 
 def test_server_refuses_params_on_another_device():
