@@ -13,14 +13,34 @@ Phases, each printing one JSON line:
    at the main paths' shapes and layouts, within the per-element and mean
    bounds of ``ops.attention.kernel_tolerance`` (for the backward kernels
    with the magnitudes ``ops.flash.backward_magnitudes`` derives); the
-   forward's logsumexp in fp32;
+   forward's logsumexp in fp32. The paged decode kernel walks permuted,
+   non-contiguous tables with unmapped entries, ragged positions and a dead
+   lane, at Gemma-2B and Llama-3-8B head shapes, single-query and as spans
+   of 4 and 8 rows with ragged query lengths (real rows within the bound
+   and bit-equal to a single-query launch at the row's position, padding
+   rows finite and within max|V|); the dense decode kernel at five shared
+   positions;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
    both kernels reset just before and read just after; then two requests
    through the kernel path and the plain path: every layer's kernel call
    held against the plain version on its own inputs, and the logits held
    against the plain path's (``crosscheck``);
-5. train  — Llama-3-8B at its published widths with 8 of its 32 layers
+5. paged  — the same model served over a paged block pool:
+   ``GenerationServer(max_batch=16, kv_pool_tokens=8000, kv_block_size=16)``,
+   32 requests; every decode step walks the lanes' real block tables with
+   the paged kernel; the pool comes under pressure, so lanes are preempted,
+   spilled and resumed. Asserted: every budget returned, at least one
+   preemption, an empty pool at the end, more than 8 lanes at once. Then
+   one round of a loaded paged server with every layer's kernel call held
+   against the plain version on its own inputs (``paged_crosscheck``), and
+   the slotted server on the same requests for the token-match fraction;
+6. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
+   cache, under ``KATA_TPU_DECODE_KERNEL=1``: 18 x 63 launches of the dense
+   decode kernel, each layer of the first decode step held against the
+   plain version, and the token-match fraction against the run without
+   the opt-in (which launches the dense kernel no time);
+7. train  — Llama-3-8B at its published widths with 8 of its 32 layers
    (one card's memory), random fp32 parameters from seed 0, bf16 compute:
    ``make_train_step`` and ``fit`` for 6 AdamW steps on one repeated
    batch (B=2, S=2048); launch counts reset just before and read just
@@ -169,7 +189,19 @@ def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
     return res
 
 
-def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False):
+def decode_bound(keys: float, B, SQ, H, KV, D, nb, quantized, flops) -> dict:
+    """The least time the card could take for a paged decode call that must
+    read ``keys`` K rows and as many V rows once (payload and, for int8,
+    scale), q and the tables once, and write the output once."""
+    row_bytes = D * (1 if quantized else 2) + (4 if quantized else 0)
+    nbytes = 2 * keys * KV * row_bytes + 2 * 2 * B * SQ * H * D + 4 * B * (nb + 2)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False,
+                dead=False):
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
@@ -188,6 +220,8 @@ def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False):
     pv[0, :bs] = 0.0  # block 0 is the ZERO block
     pos = torch.randint(0, max_len, (B,), generator=g, device="cuda",
                         dtype=torch.int32)
+    if dead:
+        pos[-1] = 10_000  # a dead lane's stale position, past its table
     perm = torch.randperm(B * nb, generator=g, device="cuda").to(torch.int32) + 2
     tables = perm.reshape(B, nb).clone()
     live = torch.arange(nb, device="cuda")[None, :] <= (pos // bs)[:, None]
@@ -204,15 +238,124 @@ def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False):
         res["plain_ms"] = time_ms(
             lambda: paged_decode_reference(q, k, v, tables, pos, **kw), 5, 1)
         res["library_ms"] = None  # no single PyTorch call computes it
-        keys = float((pos + 1).sum())
-        row_bytes = D * (1 if quantized else 2) + (4 if quantized else 0)
-        nbytes = 2 * keys * KV * row_bytes + 2 * 2 * B * H * D + 4 * B * (nb + 1)
-        flops = 4.0 * H * D * keys
-        res["bound_ms"] = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-        res["bound_by"] = ("operations" if flops / PEAK_BF16_FLOPS
-                           > nbytes / PEAK_HBM_BYTES else "bytes")
+        keys = float((pos.clamp(max=max_len - 1) + 1).sum())
+        res.update(decode_bound(keys, B, 1, H, KV, D, nb, quantized,
+                                4.0 * H * D * keys))
     emit("check", kernel="paged_decode", B=B, H=H, KV=KV, D=D, bs=bs,
          int8=quantized, pos=pos.tolist(), **res)
+    return res
+
+
+def decode_mq_case(name, B, H, KV, D, bs, quantized, SQ, max_len=2048,
+                   timed=False):
+    """The multi-query form: spans of ``SQ`` right-aligned rows with ragged
+    query lengths (``q_len = 1`` lanes beside full-width ones) through
+    permuted tables; the last lane is dead. Real rows are held to the plain
+    version and must equal, bit for bit, a single-query launch at the row's
+    own position; padding rows must be finite and within max|V|."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        paged_decode_attention,
+        paged_decode_reference,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(bs + B + SQ + int(quantized))
+    nb = max_len // bs
+    nt = (2 + B * nb) * bs
+    q = torch.randn(B, SQ, H, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pk = torch.randn(1, nt, KV, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pv = torch.randn(1, nt, KV, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pk[0, :bs] = 0.0
+    pv[0, :bs] = 0.0  # block 0 is the ZERO block
+    pos = torch.randint(SQ - 1, max_len, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    pos[0] = SQ - 1  # the shortest span that fits
+    pos[-1] = 10_000  # dead lane
+    q_lens = torch.randint(1, SQ + 1, (B,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    q_lens[0], q_lens[1], q_lens[2] = SQ, 1, SQ
+    perm = torch.randperm(B * nb, generator=g, device="cuda").to(torch.int32) + 2
+    tables = perm.reshape(B, nb).clone()
+    live = torch.arange(nb, device="cuda")[None, :] <= (pos // bs)[:, None]
+    tables = torch.where(live, tables, torch.zeros_like(tables))  # unmapped: ZERO
+    k, v = (quantize_kv(pk), quantize_kv(pv)) if quantized else (pk, pv)
+    kw = dict(block_size=bs, paged_len=max_len)
+    out = paged_decode_attention(q, k, v, tables, pos, q_lens, **kw)
+    ref = paged_decode_reference(q, k, v, tables, pos, q_lens, **kw)
+    mag = paged_decode_reference(q.float(), k, v_abs(v), tables, pos, q_lens, **kw)
+    torch.cuda.synchronize()
+    real = torch.arange(SQ, device="cuda")[None, :] >= SQ - q_lens[:, None]
+    real[-1] = False  # the dead lane's span straddles nothing real
+    res = check(name, out[real], ref[real], mag[real])
+    v_max = float(dequantize_kv(v, torch.bfloat16).float().abs().max())
+    pad_max = float(out.float().abs().max())
+    if not (math.isfinite(pad_max) and pad_max <= v_max):
+        raise AssertionError(f"{name}: padding rows not finite within max|V| "
+                             f"({pad_max} > {v_max})")
+    for j in range(SQ):
+        one = paged_decode_attention(q[:, j:j + 1].contiguous(), k, v, tables,
+                                     pos - (SQ - 1) + j, **kw)
+        if not torch.equal(out[real[:, j], j], one[real[:, j], 0]):
+            raise AssertionError(f"{name}: row {j} differs from the single-"
+                                 "query launch at its position")
+    res["rows_bit_equal_single_query"] = int(real.sum())
+    if timed:
+        res["ms"] = time_ms(lambda: paged_decode_attention(
+            q, k, v, tables, pos, q_lens, **kw), 20)
+        res["plain_ms"] = time_ms(lambda: paged_decode_reference(
+            q, k, v, tables, pos, q_lens, **kw), 5, 1)
+        res["library_ms"] = None
+        live_pos = pos[:-1].float()
+        keys = float((live_pos + 1).sum())
+        row_pos = (live_pos[:, None] - (SQ - 1)
+                   + torch.arange(SQ, device="cuda")[None, :])
+        pairs = float(((row_pos + 1) * real[:-1]).sum())
+        res.update(decode_bound(keys, B, SQ, H, KV, D, nb, quantized,
+                                4.0 * H * D * pairs))
+    emit("check", kernel="paged_decode", form="multi_query", SQ=SQ, B=B, H=H,
+         KV=KV, D=D, bs=bs, int8=quantized, pos=pos.tolist(),
+         q_lens=q_lens.tolist(), **res)
+    return res
+
+
+def dense_case(name, B, S, H, KV, D, pos, timed=False):
+    """The lock-step dense kernel: one token per row into a dense bf16 cache
+    read in place, one device-scalar position for the whole batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        decode_attention_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(S + H + D + pos)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v = rnd(B, 1, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out = decode_attention(q, k, v, p)
+    ref = decode_attention_reference(q, k, v, p)
+    mag = decode_attention_reference(q.float(), k.float(), v.abs().float(), p)
+    torch.cuda.synchronize()
+    res = check(name, out, ref, mag)
+    if timed:
+        res["ms"] = time_ms(lambda: decode_attention(q, k, v, p), 20)
+        res["plain_ms"] = time_ms(lambda: decode_attention_reference(q, k, v, p), 5, 1)
+        qt = q.transpose(1, 2)
+        kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), 20)
+        nbytes = 2 * 2.0 * B * (pos + 1) * KV * D + 2 * 2.0 * B * H * D + 4
+        flops = 4.0 * B * H * D * (pos + 1)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        res.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
+    emit("check", kernel="dense_decode", B=B, S=S, H=H, KV=KV, D=D, pos=pos, **res)
     return res
 
 
@@ -306,26 +449,9 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
     return row
 
 
-def unported_bounds() -> None:
-    """The bound of each TPU kernel not ported yet, at the shape it would
-    run, so its slice starts with a target. ``_decode_kernel``
-    (``ops/decode_attn.py:74``, lock-step dense decode): Gemma-2B, B=8, one
-    shared position 2047, bf16 ``[B, S, KV, D]`` cache — K and V of every
-    live position read once, q read and the output written once."""
-    B, pos, H, KV, D = 8, 2047, 8, 1, 256
-    nbytes = 2 * 2.0 * B * (pos + 1) * KV * D + 2 * 2.0 * B * H * D
-    flops = 4.0 * B * H * D * (pos + 1)
-    emit("bound", kernel="_decode_kernel", replaces=(
-        "kata_xpu_device_plugin_tpu/ops/decode_attn.py:74"),
-         shape=dict(B=B, pos=pos, H=H, KV=KV, D=D), bytes=nbytes, flops=flops,
-         bound_ms=1e3 * max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS),
-         bound_by="bytes" if nbytes / PEAK_HBM_BYTES > flops / PEAK_BF16_FLOPS
-         else "operations")
-
-
 def phase_checks() -> dict:
-    results = {"flash_fwd": [], "paged_decode": [], "flash_bwd_dq": [],
-               "flash_bwd_dkv": []}
+    results = {"flash_fwd": [], "paged_decode": [], "dense_decode": [],
+               "flash_bwd_dq": [], "flash_bwd_dkv": []}
     f = results["flash_fwd"]
     for B in (1, 8):  # the serving run's prefill groups: N = 1-8 at S 128-1024
         for S in (128, 256):
@@ -341,6 +467,39 @@ def phase_checks() -> dict:
     d.append(decode_case("gemma2b bf16 bs128", 8, 8, 1, 256, 128, False))
     d.append(decode_case("gemma2b int8 bs16", 8, 8, 1, 256, 16, True))
     d.append(decode_case("gemma2b bf16 bs16", 8, 8, 1, 256, 16, False))
+    tiles = {}
+    for model, (H, KV, D) in (("gemma2b", (8, 1, 256)), ("llama3-8b", (32, 8, 128))):
+        for bs in (16, 128):
+            for quantized in (True, False):
+                kind = "int8" if quantized else "bf16"
+                # Timed extras (not the kernels line's case): the serving
+                # shape at the paged pool's tile 16 against tile 128.
+                timed = model == "gemma2b" and quantized
+                c = decode_case(f"{model} {kind} bs{bs} dead lane", 8, H, KV, D,
+                                bs, quantized, dead=True, timed=timed)
+                if timed:
+                    tiles[f"bs{bs}_ms"] = c.pop("ms")
+                    for f in ("plain_ms", "library_ms", "bound_ms", "bound_by"):
+                        tiles[f"bs{bs}_{f}"] = c.pop(f)
+                d.append(c)
+                for SQ in (4, 8):
+                    c = decode_mq_case(f"{model} {kind} bs{bs} SQ{SQ}", 8, H, KV,
+                                       D, bs, quantized, SQ,
+                                       timed=timed and SQ == 8 and bs == 16)
+                    if "ms" in c:
+                        tiles.update({f"sq8_bs16_{f}": c.pop(f) for f in (
+                            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                    d.append(c)
+    emit("paged_decode_tiles", shape="B=8 H=8 KV=1 D=256 int8, max_len 2048, "
+         "ragged pos, one dead lane", **tiles)
+    results["paged_decode_extra"] = tiles
+    n = results["dense_decode"]
+    for pos in (0, 127, 128, 1000, 2047):
+        n.append(dense_case(f"gemma2b B8 S2048 pos{pos}", 8, 2048, 8, 1, 256, pos,
+                            timed=pos == 2047))
+    for pos in (5, 2047):
+        n.append(dense_case(f"llama3-8b B8 S2048 pos{pos}", 8, 2048, 32, 8, 128,
+                            pos))
     bwd = [  # llama3-8b widths unless the case says otherwise
         bwd_case("llama3-8b train B2 S2048", 2, 2048, 32, 8, 128, timed=True),
         bwd_case("llama3-8b B1 S128", 1, 128, 32, 8, 128),
@@ -356,7 +515,8 @@ def phase_checks() -> dict:
     return results
 
 
-KERNEL_CLASSES = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNEL_CLASSES = ("paged_decode", "dense_decode", "flash_fwd", "flash_bwd_dq",
+                  "flash_bwd_dkv")
 
 
 def profiled(window: str, fn) -> None:
@@ -395,21 +555,25 @@ def profiled(window: str, fn) -> None:
                "count": e.count} for e in top])
 
 
-def profile_rounds(params, cfg, kw, rng) -> None:
-    """Where a decode round's device time goes: 8 requests admitted, then
-    two lock-step rounds (16 decode steps) under the profiler."""
+def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> None:
+    """Where a decode round's device time goes: ``lanes`` requests admitted,
+    then two lock-step rounds (16 decode steps) under the profiler."""
     from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
 
     srv = GenerationServer(params, cfg, **kw)
-    for n in rng.integers(500, 1001, 8):
+    for n in rng.integers(500, 1001, lanes):
         srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
-    srv.step()  # admission of all 8 plus one round
+    srv.step()  # admission of every request the server holds, plus one round
+    busy = srv.stats()["lanes_busy_peak"]
 
     def rounds():
         srv.step()
         srv.step()
 
-    profiled("2 decode rounds (16 steps), 8 lanes, pos 500-1100", rounds)
+    arena = (f"paged pool, tile {kw['kv_block_size']}" if "kv_pool_tokens" in kw
+             else "slotted arena")
+    profiled(f"2 decode rounds (16 steps), {arena}, {busy} of "
+             f"{kw['max_batch']} lanes busy, pos 500-1100", rounds)
 
 
 def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
@@ -500,19 +664,25 @@ def assert_crosscheck(row: dict, n_layers: int) -> None:
             raise AssertionError(f"{what} logits: kernel vs plain {row}")
 
 
-def phase_serve(seed: int = 0, profile: bool = False) -> dict:
-    import numpy as np
+SERVE_KW = dict(max_len=2048, prefill_buckets=(128, 256, 512, 1024), chunk=8)
+# The paged phase's pool. The requests below never press a pool of 8192
+# tokens into preempting (admission reserves whole prefill buckets, which
+# already cover most requests' budgets); scripts/torch_paged_pool_scan.py
+# replays the schedule on the CPU, and 8000 tokens (498 usable blocks of
+# 16) is the size nearest 8192 at which growth runs the pool dry: three
+# preemptions, twelve lanes at once.
+PAGED_KW = dict(max_batch=16, kv_pool_tokens=8000, kv_block_size=16)
+
+
+def gemma_setup(seed: int = 0):
+    """Full-width Gemma-2B, random bf16 weights from ``seed``, fused."""
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
     from kata_xpu_device_plugin_tpu_torch.models import (
         fuse_decoder_params,
         gemma_2b,
         init_params,
     )
-    from kata_xpu_device_plugin_tpu_torch.ops import attention
-    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import paged_decode_attention
-    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
 
     cfg = gemma_2b()
     t0 = time.perf_counter()
@@ -523,8 +693,70 @@ def phase_serve(seed: int = 0, profile: bool = False) -> dict:
                                        *params["layers"].values()])
     emit("serve_setup", model="gemma_2b", params=n_params,
          init_s=round(time.perf_counter() - t0, 3))
-    kw = dict(max_batch=8, max_len=2048, prefill_buckets=(128, 256, 512, 1024),
-              chunk=8)
+    return params, cfg
+
+
+def run_requests(srv, prompts, budgets):
+    """Submit every request, reset the serving kernels' launch counts, drain
+    the server, read the counts. Returns the outputs in submit order, the
+    wall time, the launches and the server's stats; every request must
+    return its budget of in-vocabulary tokens."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+
+    kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+               "dense_decode": decode_attention}
+    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    outs = [results[rid] for rid in rids]
+    for rid, out, b in zip(rids, outs, budgets):
+        if len(out) != int(b):
+            raise AssertionError(f"request {rid}: {len(out)} tokens, budget {b}")
+        if not ((out >= 0) & (out < srv.cfg.vocab_size)).all():
+            raise AssertionError(f"request {rid}: token out of vocabulary")
+    if set(launches) != {"flash_fwd", "paged_decode"}:
+        raise AssertionError(f"serving must launch the flash and the paged "
+                             f"kernel and no other: {launches}")
+    return outs, wall, launches, srv.stats()
+
+
+def serve_row(stats, wall, budgets, lens, launches) -> dict:
+    import torch
+
+    generated = int(sum(budgets))
+    return dict(
+        requests=len(budgets), prompt_tokens=int(sum(lens)),
+        generated_tokens=generated, wall_s=round(wall, 4),
+        tok_s=round(generated / wall, 2),
+        ttft_p50_s=stats["ttft_s"]["p50"], ttft_p99_s=stats["ttft_s"]["p99"],
+        itl_p50_s=stats["decode_token_s"]["p50"],
+        itl_p99_s=stats["decode_token_s"]["p99"],
+        rounds=stats["rounds"], prefills=stats["prefills"],
+        prefill_batches=stats["prefill_batches"],
+        arena_bytes=stats["arena_bytes"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+
+
+def phase_serve(params, cfg, seed: int = 0, profile: bool = False) -> dict:
+    import numpy as np
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    kw = dict(max_batch=8, **SERVE_KW)
     rng = np.random.default_rng(seed)
 
     # Warm-up on a throwaway server: first cuBLAS and allocator calls.
@@ -537,39 +769,10 @@ def phase_serve(seed: int = 0, profile: bool = False) -> dict:
     budgets = rng.integers(64, 129, 16)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     srv = GenerationServer(params, cfg, **kw)
-    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_forward.launches = 0
-    paged_decode_attention.launches = 0
-    t0 = time.perf_counter()
-    results = srv.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_forward.launches,
-                "paged_decode": paged_decode_attention.launches}
-    stats = srv.stats()
-    for rid, b in zip(rids, budgets):
-        out = results[rid]
-        if len(out) != int(b):
-            raise AssertionError(f"request {rid}: {len(out)} tokens, budget {b}")
-        if not ((out >= 0) & (out < cfg.vocab_size)).all():
-            raise AssertionError(f"request {rid}: token out of vocabulary")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    _, wall, launches, stats = run_requests(srv, prompts, budgets)
     if stats["decode_backend"] != attention.BACKEND_PAGED or stats["kv_quant"] != "int8":
         raise AssertionError(f"unexpected server mode: {stats}")
-    generated = int(sum(budgets))
-    emit("serve", requests=len(rids), prompt_tokens=int(lens.sum()),
-         generated_tokens=generated, wall_s=round(wall, 4),
-         tok_s=round(generated / wall, 2),
-         ttft_p50_s=stats["ttft_s"]["p50"], ttft_p99_s=stats["ttft_s"]["p99"],
-         itl_p50_s=stats["decode_token_s"]["p50"],
-         itl_p99_s=stats["decode_token_s"]["p99"],
-         rounds=stats["rounds"], prefills=stats["prefills"],
-         prefill_batches=stats["prefill_batches"],
-         arena_bytes=stats["arena_bytes"],
-         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    emit("serve", **serve_row(stats, wall, budgets, lens, launches))
     del srv
 
     rows = [crosscheck(params, cfg, prompts[i], kw["prefill_buckets"], kw["max_len"])
@@ -579,6 +782,200 @@ def phase_serve(seed: int = 0, profile: bool = False) -> dict:
     if profile:
         profile_rounds(params, cfg, kw, rng)
     return launches
+
+
+def paged_crosscheck(params, cfg, prompts, budgets) -> dict:
+    """One decode round of a loaded paged server with every layer's kernel
+    call held against the plain version on its own inputs: the pool, the
+    lanes' real (scattered, SCRATCH-filled, remapped) tables and positions
+    exactly as the scheduler hands them over, dead lanes included."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import paged_decode_reference
+
+    srv = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW)
+    for p, b in zip(prompts, budgets):
+        srv.submit(p, int(b))
+    kernel_fn, cases = srv._decode_kernel, []
+    kw = dict(block_size=PAGED_KW["kv_block_size"], paged_len=SERVE_KW["max_len"])
+
+    def checked(q, ck, cv, tables, pos, q_lens=None):
+        out = kernel_fn(q, ck, cv, tables, pos, q_lens)
+        ref = paged_decode_reference(q, ck, cv, tables, pos, q_lens, **kw)
+        mag = paged_decode_reference(q.float(), ck, v_abs(cv), tables, pos,
+                                     q_lens, **kw)
+        cases.append(check("paged layer", out, ref, mag))
+        return out
+
+    srv._decode_kernel = checked
+    srv.step()  # admission of the first lanes, then one round of 8 steps
+    torch.cuda.synchronize()
+    want = cfg.n_layers * SERVE_KW["chunk"]
+    stats = srv.stats()
+    row = {"kernel_calls_checked": len(cases), "lanes": stats["lanes_busy_peak"],
+           "kv_blocks_in_use": stats["kv_blocks_in_use"],
+           "max_err_over_bound": max(c["max_err_over_bound"] for c in cases),
+           "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    emit("paged_crosscheck", **row)
+    if len(cases) != want or row["lanes"] < 2:
+        raise AssertionError(f"paged crosscheck: {row}, want {want} checks")
+    return row
+
+
+def token_match(outs, other, budgets) -> dict:
+    same = sum(int((a == b).sum()) for a, b in zip(outs, other))
+    return {"tokens": same / int(sum(budgets)),
+            "requests_identical": sum(bool((a == b).all())
+                                      for a, b in zip(outs, other))}
+
+
+def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
+    """32 requests over the paged pool, then over the slotted arena for the
+    token-match fraction (printed, not asserted: the two servers batch
+    differently, cuBLAS may pick another kernel per batch size, the tiles
+    differ, and random weights turn one differing rounding into another
+    continuation). A third run puts the fraction in proportion: a paged
+    server with the slotted server's lane count and KV tile (8 lanes, tile
+    128, a pool that never presses) does the slotted server's arithmetic
+    through scattered tables."""
+    import numpy as np
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1001, 32)
+    budgets = rng.integers(64, 129, 32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    srv = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW)
+    outs, wall, launches, stats = run_requests(srv, prompts, budgets)
+    row = serve_row(stats, wall, budgets, lens, launches)
+    row.update({k: stats[k] for k in (
+        "preemptions", "preempted_waiting", "kv_blocks_in_use", "kv_blocks_total",
+        "kv_pool_tokens", "kv_pool_occupancy_peak", "lanes_busy_peak")})
+    del srv
+    slotted = GenerationServer(params, cfg, max_batch=8, **SERVE_KW)
+    outs_s, wall_s, launches_s, stats_s = run_requests(slotted, prompts, budgets)
+    slotted_row = serve_row(stats_s, wall_s, budgets, lens, launches_s)
+    del slotted
+    twin_kw = dict(max_batch=8, kv_pool_tokens=8 * 2048 + 2 * 128,
+                   kv_block_size=128)
+    twin = GenerationServer(params, cfg, **twin_kw, **SERVE_KW)
+    outs_t, wall_t, _, stats_t = run_requests(twin, prompts, budgets)
+    del twin
+    emit("paged", config=PAGED_KW, **row,
+         token_match_vs_slotted=token_match(outs, outs_s, budgets),
+         slotted_same_requests={k: slotted_row[k] for k in (
+             "tok_s", "wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+             "itl_p99_s", "rounds", "arena_bytes", "launches")},
+         same_tile_and_lanes=dict(
+             config=twin_kw, tok_s=round(int(sum(budgets)) / wall_t, 2),
+             rounds=stats_t["rounds"], preemptions=stats_t["preemptions"],
+             token_match_vs_slotted=token_match(outs_t, outs_s, budgets)))
+    if (stats["decode_backend"] != attention.BACKEND_PAGED
+            or stats["kv_quant"] != "int8"):
+        raise AssertionError(f"unexpected server mode: {stats}")
+    if stats["preemptions"] < 1:
+        raise AssertionError("the pool never came under pressure: no preemption")
+    if stats["kv_blocks_in_use"] or stats["preempted_waiting"]:
+        raise AssertionError(f"the pool did not drain: {stats}")
+    if stats["lanes_busy_peak"] <= 8:
+        raise AssertionError(f"peak lanes {stats['lanes_busy_peak']}: no more "
+                             "than the slotted grid")
+    if launches["paged_decode"] != stats["rounds"] * SERVE_KW["chunk"] * cfg.n_layers:
+        raise AssertionError(f"a decode step left the paged kernel: {launches}, "
+                             f"{stats['rounds']} rounds")
+    paged_crosscheck(params, cfg, prompts[:12], budgets[:12])
+    if profile:
+        profile_rounds(params, cfg, dict(**PAGED_KW, **SERVE_KW), rng, lanes=16)
+    return launches
+
+
+def phase_generate(params, cfg, seed: int = 0) -> dict:
+    """``generate()`` under ``KATA_TPU_DECODE_KERNEL=1``: lock-step decode
+    through the dense kernel, counted; then each layer's kernel call of the
+    first decode step held against the plain version on the model's own q,
+    k and v; then the run without the opt-in (the paged kernel over the
+    slotted re-view) for the token-match fraction."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.constants import ENV_DECODE_KERNEL
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        CUDA_PAD,
+        _decode_scan,
+        generate,
+        prefill,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+
+    B, S, steps = 8, 128, 64
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+               "dense_decode": decode_attention}
+
+    def run():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        toks = generate(params, prompt, cfg, steps)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0, {
+            k: fn.launches for k, fn in kernels.items()}
+
+    os.environ.pop(ENV_DECODE_KERNEL, None)
+    plain_toks, plain_wall, plain_launches = run()
+    os.environ[ENV_DECODE_KERNEL] = "1"
+    try:
+        toks, wall, launches = run()
+        # The per-layer check: the first decode step again, by hand, with
+        # the default dispatch wrapped.
+        cases = []
+
+        def checked(q, k, v, causal=True, q_offset=None, **kw):
+            out = attention.flash_attention(q, k, v, causal=causal,
+                                            q_offset=q_offset, **kw)
+            if q_offset is not None:
+                ref = attention.reference_attention(q, k, v, q_offset=q_offset)
+                mag = attention.reference_attention(
+                    q.float(), k.float(), v.abs().float(), q_offset=q_offset)
+                cases.append(check("generate layer", out, ref, mag))
+            return out
+
+        caches, last, pos = prefill(  # the cache length generate() pads to
+            params, torch.as_tensor(prompt, device="cuda"), cfg,
+            -(-(S + steps) // CUDA_PAD) * CUDA_PAD)
+        before = decode_attention.launches
+        _decode_scan(params, caches, last, pos, cfg, 1, attn_fn=checked)
+        checked_launches = decode_attention.launches - before
+    finally:
+        del os.environ[ENV_DECODE_KERNEL]
+    want = {"flash_fwd": cfg.n_layers, "paged_decode": 0,
+            "dense_decode": cfg.n_layers * (steps - 1)}
+    emit("generate", B=B, prompt=S, steps=steps, cache="bf16",
+         wall_s=round(wall, 4), tok_s=round(B * steps / wall, 2),
+         launches=launches, wall_without_opt_in_s=round(plain_wall, 4),
+         launches_without_opt_in=plain_launches,
+         token_match_vs_without_opt_in=float((toks == plain_toks).float().mean()),
+         layers_checked=len(cases),
+         layer_max_err_over_bound=max(c["max_err_over_bound"] for c in cases))
+    if launches != want:
+        raise AssertionError(f"generate launches {launches}, want {want}")
+    if plain_launches["dense_decode"] or not plain_launches["paged_decode"]:
+        raise AssertionError(f"without the opt-in: {plain_launches}")
+    if len(cases) != cfg.n_layers or checked_launches != cfg.n_layers:
+        raise AssertionError(f"generate crosscheck: {len(cases)} checks, "
+                             f"{checked_launches} launches")
+    if toks.shape != (B, steps) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("generate: bad tokens")
+    return {k: v for k, v in launches.items() if v}
 
 
 def train_flops_per_step(cfg, B: int, S: int) -> float:
@@ -745,20 +1142,40 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in argv  # adds profiled decode rounds and a train step
+    seconds = {}
+
+    def timed_phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
     phase_device()
-    phase_build()
-    checks = phase_checks()
-    unported_bounds()
-    launches = {"serve": phase_serve(profile=profile)}
-    launches["train"] = phase_train(profile=profile)
-    train_crosscheck()
+    timed_phase("build", phase_build)
+    checks = timed_phase("check", phase_checks)
+    extra = checks.pop("paged_decode_extra")
+    params, cfg = timed_phase("serve_setup", gemma_setup)
+    launches = {"serve": timed_phase("serve", phase_serve, params, cfg,
+                                     profile=profile)}
+    launches["paged"] = timed_phase("paged", phase_paged, params, cfg,
+                                    profile=profile)
+    launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    launches["train"] = timed_phase("train", phase_train, profile=profile)
+    timed_phase("train_crosscheck", train_crosscheck)
+    emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
     src = f"{PKG}/csrc"
     jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"
     meta = {
         "flash_fwd": dict(route="cuda", source=f"{src}/flash_fwd.cu",
                           replaces=f"{jax_flash}:70"),
         "paged_decode": dict(route="cuda", source=f"{src}/paged_decode.cu",
-                             replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213"),
+                             replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213",
+                             extra=extra),
+        "dense_decode": dict(route="cuda", source=f"{src}/dense_decode.cu",
+                             replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:74"),
         "flash_bwd_dq": dict(route="cuda", source=f"{src}/flash_bwd.cu",
                              replaces=f"{jax_flash}:219"),
         "flash_bwd_dkv": dict(route="cuda", source=f"{src}/flash_bwd.cu",

@@ -15,3 +15,13 @@ DEFAULT_KV_QUANT = "int8"
 # Unknown values degrade to the automatic choice (the kernel on CUDA, the
 # plain version on the CPU); an explicit decode_attn= argument wins.
 ENV_DECODE_ATTN = "KATA_TPU_DECODE_ATTN"
+
+# Opt-in for the lock-step dense decode kernel in generate(): "1" turns it
+# on (ops.attention.decode_eligible); anything else leaves generate on the
+# paged kernel over the slotted re-view.
+ENV_DECODE_KERNEL = "KATA_TPU_DECODE_KERNEL"
+
+# Paged KV pool size in tokens for GenerationServer; 0 or unset means the
+# slotted arena. A malformed value degrades to slotted; an explicit
+# kv_pool_tokens= argument wins.
+ENV_KV_POOL_TOKENS = "KATA_TPU_KV_POOL_TOKENS"

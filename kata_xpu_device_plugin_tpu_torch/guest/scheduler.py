@@ -15,11 +15,17 @@ from collections import deque
 POLICY_FIFO = "fifo_batch"
 
 
-def fifo_batch(queue: deque, n_free: int, buckets: tuple) -> dict[int, list]:
+def fifo_batch(queue: deque, n_free: int, buckets: tuple,
+               reserve=None) -> dict[int, list]:
     """Pop the FIFO prefix of ``queue`` that fits ``n_free`` slots and group
-    it by padded length (insertion-ordered: groups stay FIFO)."""
+    it by padded length (insertion-ordered: groups stay FIFO). ``reserve``
+    (the paged pool's block reservation) is asked for each request before
+    it is popped; the first one it refuses stays at the head of the queue
+    and ends the pass, so nothing admits past it."""
     groups: dict[int, list] = {}
     while queue and n_free > 0:
+        if reserve is not None and not reserve(queue[0]):
+            break
         req = queue.popleft()
         n = len(req.prompt)
         bucket = next((k for k in buckets if k >= n), None)

@@ -1,22 +1,32 @@
 """Continuous-batching generation server (counterpart of
 ``GenerationServer`` in ``kata_xpu_device_plugin_tpu/guest/serving.py``).
 
-This slice ports the server's default mode: one slotted KV arena
-``[L, max_batch, max_len, KV, D]`` (int8 by default), greedy decoding in
-lock-step rounds of ``chunk`` steps, and batched admission through
-``prefill_batch``. On CUDA every prefill runs the flash kernel and every
-decode step the paged decode kernel over a zero-copy pool view of the
-arena (:func:`..ops.attention.make_decode_attn_fn`); the plain versions
-run there only when the caller asks for ``decode_attn="reference"``, and
-anything the kernels cannot take raises. On the CPU the wrappers run
-their plain versions. Greedy outputs per request equal the JAX server's
-on the same weights.
+Two arena models are ported, both with greedy decoding in lock-step rounds
+of ``chunk`` steps and batched admission through ``prefill_batch``:
 
-Arguments of the JAX server that select modes this slice does not port
-(the paged pool, tensor parallelism, speculative decoding, ring caches,
-the prefix cache, sampling, chunked scheduling, multi-step and persistent
-decode, crash recovery, and the overlapped round loop) raise
-``NotImplementedError`` when set.
+- **slotted** (the default): one KV arena ``[L, max_batch, max_len, KV,
+  D]`` (int8 by default); a request owns a whole slot.
+- **paged** (``kv_pool_tokens``): one block pool
+  (:class:`.kv_arena.KVPool`) shared by every lane through per-lane block
+  tables. Admission reserves blocks for the padded prompt, tables grow one
+  dispatch window ahead of decode, and under pool pressure the youngest
+  lane is preempted: its written rows spill to the host and re-land
+  verbatim when the pool drains, so greedy outputs do not change.
+
+On CUDA every prefill runs the flash kernel and every decode step the paged
+decode kernel: over the pool through the lanes' real block tables, or over
+a zero-copy pool view of the slotted arena
+(:func:`..ops.attention.make_decode_attn_fn`). The plain versions run there
+only when the caller asks for ``decode_attn="reference"``, and anything the
+kernels cannot take raises. On the CPU the wrappers run their plain
+versions. Greedy outputs per request equal the JAX server's on the same
+weights.
+
+Arguments of the JAX server that select modes not ported yet (tensor
+parallelism, speculative decoding, ring caches, the prefix cache, the host
+KV tier, the block-sharded pool layout, sampling, chunked scheduling,
+multi-step and persistent decode, crash recovery, and the overlapped round
+loop) raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -30,7 +40,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..constants import DEFAULT_KV_QUANT, ENV_DECODE_ATTN, ENV_KV_QUANT
+from ..constants import (
+    DEFAULT_KV_QUANT,
+    ENV_DECODE_ATTN,
+    ENV_KV_POOL_TOKENS,
+    ENV_KV_QUANT,
+)
 from ..models.transformer import (
     DecoderConfig,
     _decode_scan,
@@ -41,6 +56,15 @@ from ..models.transformer import (
 from ..obs.metrics import Rolling
 from ..ops import attention
 from ..ops.quant import QTensor
+from .kv_arena import (
+    RESERVED_BLOCKS,
+    SCRATCH_BLOCK,
+    KVPool,
+    pool_gather_rows,
+    pool_scatter_rows,
+    pool_write_batch,
+    pool_write_seq,
+)
 from .scheduler import fifo_batch
 
 BACKEND_PAGED = attention.BACKEND_PAGED
@@ -83,6 +107,16 @@ class _Request:
     out: list = field(default_factory=list)
 
 
+@dataclass
+class _Preempted:
+    """A request spilled under pool pressure: its written KV rows on the
+    host (leaves ``[L, ceil(pos/bs)*bs, ...]``), and where decode resumes."""
+    req: _Request
+    kv: Any
+    pos: int
+    last: int
+
+
 def _write_slots(arena, batch_caches, slots: torch.Tensor) -> None:
     """Copy the N rows of one admission prefill (leaves ``[L, N, S, ...]``)
     into arena slots ``slots`` at positions ``0 .. S-1``, in place. Rows
@@ -96,20 +130,24 @@ def _write_slots(arena, batch_caches, slots: torch.Tensor) -> None:
 
 
 def _serve_decode(params, arena, tok, pos, cfg, steps: int,
-                  decode_kernel_fn=None):
+                  decode_kernel_fn=None, block_tables=None, block_size: int = 0,
+                  paged_len: int = 0):
     """One fixed-``steps`` ragged decode chunk over the arena (in place),
     through ``decode_kernel_fn``, or the plain attention when it is None.
-    Returns ``(tokens [B, steps], last [B], pos [B])`` on the device."""
+    With ``block_tables`` the arena is the block pool and each lane decodes
+    through its table. Returns ``(tokens [B, steps], last [B], pos [B])``
+    on the device."""
     toks, _caches, last, pos = _decode_scan(
         params, arena, tok, pos, cfg, steps,
         attn_fn=attention.reference_attention, return_state=True,
-        decode_kernel_fn=decode_kernel_fn,
+        decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
+        block_size=block_size, paged_len=paged_len,
     )
     return toks, last, pos
 
 
 class GenerationServer:
-    """Slot-based continuous batching over one decode arena.
+    """Continuous batching over one decode arena, slotted or paged.
 
     >>> srv = GenerationServer(params, cfg, max_batch=4, max_len=512)
     >>> rid = srv.submit(prompt_tokens, max_new_tokens=64)
@@ -122,7 +160,15 @@ class GenerationServer:
     chooses the kernel on CUDA and the plain attention on the CPU. A
     kernel that cannot serve the config raises. ``device`` defaults to
     CUDA and must hold ``params``; there every prompt is padded to one of
-    ``prefill_buckets``, which must all be flash-kernel lengths."""
+    ``prefill_buckets``, which must all be flash-kernel lengths.
+
+    ``kv_pool_tokens`` (argument, else ``KATA_TPU_KV_POOL_TOKENS``) turns
+    on the paged pool of that many tokens in blocks of ``kv_block_size``:
+    ``max_batch`` becomes the number of decode lanes, and the pool, not the
+    lane count, bounds the KV memory. The drained pool must hold one
+    ``max_len`` request. An explicit value the server cannot run raises; a
+    malformed or unusable environment value leaves the server slotted. On
+    CUDA the block size must be a KV tile the paged kernel takes."""
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -130,7 +176,9 @@ class GenerationServer:
                  kv_quant: Optional[bool] = None, prefill_buckets: tuple = (),
                  overlap: bool = False, decode_attn: Optional[str] = None,
                  device=None,
-                 kv_pool_tokens: Optional[int] = None, tp: Optional[int] = None,
+                 kv_pool_tokens: Optional[int] = None, kv_block_size: int = 16,
+                 kv_host_tokens: Optional[int] = None,
+                 kv_layout: Optional[str] = None, tp: Optional[int] = None,
                  speculative_k: int = 0, ring_kv: bool = False,
                  prefix_cache_tokens: Optional[int] = None,
                  sched_policy: Optional[str] = None,
@@ -138,7 +186,9 @@ class GenerationServer:
                  persistent: Optional[bool] = None,
                  checkpoint_rounds: Optional[int] = None):
         unported = {
-            "kv_pool_tokens (paged pool, ROADMAP Queue 1 item 4)": kv_pool_tokens,
+            "kv_host_tokens (host KV tier, ROADMAP Queue 1 item 4)": kv_host_tokens,
+            "kv_layout='blocks' (ROADMAP Queue 1 item 10)": (
+                kv_layout not in (None, "heads")),
             "tp (tensor parallelism, ROADMAP Queue 1 item 10)": (tp or 1) > 1,
             "speculative_k (ROADMAP Queue 1 item 11)": speculative_k,
             "ring_kv (ROADMAP Queue 1 item 11)": ring_kv,
@@ -172,14 +222,36 @@ class GenerationServer:
         self.eos_id, self.chunk = eos_id, chunk
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.kv_quant = resolve_kv_quant(kv_quant)
-        self.arena = init_kv_caches(cfg, max_batch, max_len, device=self.device,
-                                    quantized=self.kv_quant)
+        self.kv_block = int(kv_block_size)
+        self.kv_pool: Optional[KVPool] = None
+        self.paged = self._resolve_paged(kv_pool_tokens)
+        if self.paged:
+            self.arena = None  # the pool is the arena: no slot grid
+            self.kv_pool = KVPool(cfg, self._pool_tokens, self.kv_block,
+                                  kv_quant=self.kv_quant, device=self.device)
+            self._nb_max = -(-max_len // self.kv_block)
+            self._lane_blocks: list[list[int]] = [[] for _ in range(max_batch)]
+            # SCRATCH filler: a lane with no live request (or a finished
+            # lane overrunning) writes into the scratch block, never into
+            # another lane's KV.
+            self._bt_host = np.full((max_batch, self._nb_max), SCRATCH_BLOCK,
+                                    np.int32)
+            self._plans: dict[int, list[int]] = {}
+        else:
+            self.arena = init_kv_caches(cfg, max_batch, max_len,
+                                        device=self.device,
+                                        quantized=self.kv_quant)
+        self._preempted: deque[_Preempted] = deque()
+        self._preemptions = 0
+        self._lanes_peak = 0
+        self._occupancy_peak = 0.0
         self._decode_attn, self._decode_attn_reason = (
             self._resolve_decode_attn(decode_attn))
         self._decode_kernel = None
         if self._decode_attn == BACKEND_PAGED:
             self._decode_kernel = attention.make_decode_attn_fn(
-                cfg, arena_len=max_len, device=self.device)
+                cfg, paged=self.paged, block_size=self.kv_block,
+                paged_len=max_len, arena_len=max_len, device=self.device)
         # Host-side slot state: the request in each slot, its next cache
         # write position, and its last token.
         self._slot_req: list[Optional[_Request]] = [None] * max_batch
@@ -195,6 +267,43 @@ class GenerationServer:
         self._batch_prefills = 0
         self._ttft = Rolling()
         self._tok_lat = Rolling()
+
+    # ----- arena model -----------------------------------------------------
+
+    def _resolve_paged(self, kv_pool_tokens: Optional[int]) -> bool:
+        """Whether this server runs paged: explicit ``kv_pool_tokens`` >
+        ``KATA_TPU_KV_POOL_TOKENS`` > slotted. A malformed environment
+        value, or one this server cannot run, degrades to slotted; an
+        explicit one it cannot run raises."""
+        explicit = kv_pool_tokens is not None
+        if not explicit:
+            try:
+                kv_pool_tokens = int(os.environ.get(ENV_KV_POOL_TOKENS, "") or 0)
+            except ValueError:
+                kv_pool_tokens = 0
+        self._pool_tokens = int(kv_pool_tokens)
+        if self._pool_tokens <= 0:
+            return False
+        reason = self._pool_conflict(self._pool_tokens)
+        if reason is None:
+            return True
+        if explicit:
+            raise ValueError(f"kv_pool_tokens={kv_pool_tokens} is incompatible "
+                             f"with this server ({reason})")
+        return False
+
+    def _pool_conflict(self, pool_tokens: int) -> Optional[str]:
+        """Why this server cannot run paged, or None. (The JAX server's other
+        conflicts, ring caches, speculation and an injected prefix store,
+        are modes that raise before this is asked.)"""
+        if self.kv_block < 1:
+            return f"bad_block_size:{self.kv_block}"
+        usable = pool_tokens // self.kv_block - RESERVED_BLOCKS
+        if usable < -(-self.max_len // self.kv_block):
+            # Progress guarantee: the drained pool must hold one full-length
+            # request, or the oldest request could wait forever.
+            return f"pool_too_small:{pool_tokens}"
+        return None
 
     # ----- decode backend --------------------------------------------------
 
@@ -249,7 +358,12 @@ class GenerationServer:
         return dict(self._failures)
 
     def stats(self) -> dict:
-        """Cumulative serving counters; keys keep the JAX server's names."""
+        """Cumulative serving counters; keys keep the JAX server's names.
+        The paged-pool keys are always present (zeros when slotted).
+        ``lanes_busy_peak`` and ``kv_pool_occupancy_peak`` are this
+        package's own: the most lanes that decoded in one round and the
+        fullest the pool was at a dispatch."""
+        pool = self.kv_pool
         return {
             "rounds": self._rounds,
             "prefills": self._prefills,
@@ -259,11 +373,19 @@ class GenerationServer:
             "decode_token_s": self._tok_lat.summary(),
             "arena_bytes": sum(
                 t.numel() * t.element_size()
-                for c in self.arena
+                for c in (pool.arena if pool else self.arena)
                 for t in (c if isinstance(c, QTensor) else (c,))),
             "decode_backend": self._decode_attn,
             "decode_backend_reason": self._decode_attn_reason,
             "kv_quant": "int8" if self.kv_quant else "bf16",
+            "kv_pool_occupancy": pool.occupancy() if pool else 0.0,
+            "kv_blocks_in_use": pool.blocks_in_use if pool else 0,
+            "kv_blocks_total": pool.blocks_total if pool else 0,
+            "kv_pool_tokens": pool.capacity_tokens if pool else 0,
+            "preemptions": self._preemptions,
+            "preempted_waiting": len(self._preempted),
+            "lanes_busy_peak": self._lanes_peak,
+            "kv_pool_occupancy_peak": self._occupancy_peak,
         }
 
     # ----- admission -------------------------------------------------------
@@ -271,12 +393,26 @@ class GenerationServer:
     def _admit(self) -> None:
         """Refill free slots from the queue, FIFO, one ``prefill_batch`` per
         padded-length group. Loops because a request can finish during its
-        own prefill (eos or a 1-token budget) and free its slot again."""
-        while self._queue:
+        own prefill (eos or a 1-token budget) and free its slot again.
+        Paged: preempted requests are older than anything queued and resume
+        first; a cold admission reserves its blocks before its prefill, and
+        the first request the pool cannot hold stays at the head of the
+        queue and ends the pass."""
+        while self._queue or self._preempted:
             free = [b for b in range(self.max_batch) if self._slot_req[b] is None]
             if not free:
                 return
-            groups = fifo_batch(self._queue, len(free), self.prefill_buckets)
+            if self._preempted and (
+                    not self._queue
+                    or self._preempted[0].req.rid < self._queue[0].rid):
+                if not self._resume_one(free[0]):
+                    return  # strict FIFO: nothing admits past it
+                continue
+            groups = fifo_batch(
+                self._queue, len(free), self.prefill_buckets,
+                reserve=self._reserve_lane_blocks if self.paged else None)
+            if not groups:
+                return
             it = iter(free)
             for pad_len, reqs in groups.items():
                 self._fill_slots_batched([next(it) for _ in reqs], reqs, pad_len)
@@ -296,8 +432,13 @@ class GenerationServer:
         )
         firsts = torch.argmax(last_logits, dim=-1).cpu().numpy()
         t_first = time.perf_counter()  # the transfer above fenced the forward
-        _write_slots(self.arena, caches,
-                     torch.as_tensor(slots, dtype=torch.long, device=self.device))
+        if not self.paged:
+            _write_slots(self.arena, caches, torch.as_tensor(
+                slots, dtype=torch.long, device=self.device))
+        elif n == 1:
+            self._paged_commit(slots[0], reqs[0], caches, 0)
+        else:
+            self._paged_commit_batch(slots, reqs, caches)
         if n >= 2:
             self._batch_prefills += 1
         for i, (b, req) in enumerate(zip(slots, reqs)):
@@ -326,25 +467,174 @@ class GenerationServer:
             self._results[req.rid] = np.asarray(req.out[: req.max_new_tokens],
                                                 np.int32)
             self._slot_req[b] = None
+            if self.paged:
+                # The table resets to SCRATCH, so what this lane still
+                # writes in the round lands in the scratch block.
+                self._free_lane(b)
+
+    # ----- paged pool scheduling -------------------------------------------
+
+    def _set_lane_table(self, b: int, table: list) -> None:
+        """The one writer of a lane's block table. Entries past the
+        allocation stay SCRATCH; positions <= pos always sit inside the
+        allocation by construction."""
+        self._lane_blocks[b] = list(table)
+        self._bt_host[b, : len(table)] = table
+        self._bt_host[b, len(table):] = SCRATCH_BLOCK
+
+    def _free_lane(self, b: int) -> None:
+        self.kv_pool.unref(self._lane_blocks[b])
+        self._set_lane_table(b, [])
+
+    def _reserve_lane_blocks(self, req: _Request) -> bool:
+        """Reserve the blocks ``req``'s admission scatter needs, those of
+        its bucket-padded rows, BEFORE its prefill forward runs: a failed
+        reservation must leave the request queued, not waste a forward. The
+        plan waits in ``_plans`` until the fill path commits it."""
+        n = len(req.prompt)
+        rows = next((k for k in self.prefill_buckets if k >= n), None) or n
+        blocks = self.kv_pool.try_alloc(-(-rows // self.kv_block))
+        if blocks is None:
+            return False
+        self._plans[req.rid] = blocks
+        return True
+
+    def _table_tensor(self, tables) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(tables, np.int32)).to(self.device)
+
+    def _paged_commit(self, b: int, req: _Request, caches, row: int) -> None:
+        """Land one admission's cache row in its reserved blocks and install
+        the lane table."""
+        table = self._plans.pop(req.rid)
+        pool_write_seq(self.kv_pool.arena, caches, row,
+                       self._table_tensor(table), self.kv_block)
+        self._set_lane_table(b, table)
+
+    def _paged_commit_batch(self, slots: list[int], reqs: list, caches) -> None:
+        """Batched :meth:`_paged_commit`: one scatter per leaf for a whole
+        same-bucket admission group. Tables are padded with SCRATCH to the
+        widest plan; pad entries collide only on SCRATCH, which nothing
+        reads, and never touch the ZERO block."""
+        plans = [self._plans.pop(req.rid) for req in reqs]
+        width = max(len(p) for p in plans)
+        tables = np.full((len(plans), width), SCRATCH_BLOCK, np.int32)
+        for i, plan in enumerate(plans):
+            tables[i, : len(plan)] = plan
+        pool_write_batch(self.kv_pool.arena, caches,
+                         self._table_tensor(tables), self.kv_block)
+        for b, plan in zip(slots, plans):
+            self._set_lane_table(b, plan)
+
+    def _preempt_lane(self, b: int) -> None:
+        """Preempt the request in lane ``b`` under pool pressure: gather its
+        written KV rows out of the pool, copy them to the host, release its
+        blocks and put it on the wait list. Only the blocks that hold
+        written rows (``ceil(pos / bs)``) are spilled: there is no compiled
+        executable whose shape a full-width table would keep fixed. Greedy
+        output is unchanged: :meth:`_resume_one` re-lands the rows verbatim
+        and decode resumes at the same ``pos`` with the same ``last``."""
+        req = self._slot_req[b]
+        pos = int(self._pos[b])
+        written = self._lane_blocks[b][: -(-pos // self.kv_block)]
+        rows = pool_gather_rows(self.kv_pool.arena, self._table_tensor(written),
+                                self.kv_block)
+        spilled = tuple(
+            QTensor(*(t.cpu() for t in c)) if isinstance(c, QTensor) else c.cpu()
+            for c in rows)
+        self._free_lane(b)
+        # Kept sorted by rid: a pass preempts youngest first while older
+        # requests may already wait, and resume order must be submit order.
+        self._preempted = deque(sorted(
+            [*self._preempted,
+             _Preempted(req=req, kv=spilled, pos=pos, last=int(self._last[b]))],
+            key=lambda p: p.req.rid))
+        self._slot_req[b] = None
+        self._preemptions += 1
+
+    def _resume_one(self, b: int) -> bool:
+        """Re-admit the OLDEST preempted request into lane ``b``: fresh
+        blocks for its spilled rows, the rows re-landed as they were (int8
+        payload and scale alike), decode resuming where the spill cut it.
+        False when the pool still cannot hold it: the caller waits."""
+        pre = self._preempted[0]
+        blocks = self.kv_pool.try_alloc(-(-pre.pos // self.kv_block))
+        if blocks is None:
+            return False
+        rows = tuple(
+            QTensor(*(t.to(self.device) for t in c)) if isinstance(c, QTensor)
+            else c.to(self.device) for c in pre.kv)
+        pool_scatter_rows(self.kv_pool.arena, rows, self._table_tensor(blocks),
+                          self.kv_block)
+        self._set_lane_table(b, blocks)
+        self._slot_req[b] = pre.req
+        self._pos[b] = pre.pos
+        self._last[b] = pre.last
+        self._preempted.popleft()
+        return True
+
+    def _ensure_blocks(self) -> None:
+        """Grow every live lane's table to cover the next dispatch window
+        (``chunk`` positions past ``pos``), OLDEST request first. When the
+        pool is exhausted the YOUNGEST live lane is preempted until the
+        older ones fit; the head of the line always makes progress because
+        the drained pool holds one full-length request. Growth is capped by
+        the request's own ``prompt + max_new_tokens`` and the table width:
+        writes past a finished request's budget aim at SCRATCH, so no block
+        is spent on dead rows. (Rounds are lock-step here, so a lane
+        preempted now is in no chunk already in flight; the overlapped loop
+        will need the JAX server's fresh-row override.)"""
+        if not self.paged:
+            return
+        bs = self.kv_block
+        lanes = sorted((b for b in range(self.max_batch)
+                        if self._slot_req[b] is not None),
+                       key=lambda b: self._slot_req[b].rid)
+        for b in lanes:
+            req = self._slot_req[b]
+            if req is None:
+                continue  # preempted while an older lane grew
+            cap = -(-(len(req.prompt) + req.max_new_tokens) // bs)
+            need = min(-(-(int(self._pos[b]) + self.chunk) // bs), cap,
+                       self._nb_max)
+            while len(self._lane_blocks[b]) < need and self._slot_req[b] is req:
+                got = self.kv_pool.try_alloc(need - len(self._lane_blocks[b]))
+                if got is not None:
+                    self._set_lane_table(b, self._lane_blocks[b] + got)
+                    break
+                self._preempt_lane(max(
+                    (v for v in range(self.max_batch)
+                     if self._slot_req[v] is not None),
+                    key=lambda v: self._slot_req[v].rid))
 
     # ----- the round loop --------------------------------------------------
 
     def step(self) -> bool:
-        """One lock-step round: refill free slots, then one decode chunk of
-        ``chunk`` steps for every lane, fenced by the token transfer. Lanes
-        past their budget decode on harmlessly (their writes clamp inside
-        their own slot) and their extra tokens are trimmed. Returns False
-        when queue and slots are empty."""
+        """One lock-step round: refill free slots, (paged) grow the lanes'
+        tables or preempt, then one decode chunk of ``chunk`` steps for
+        every lane, fenced by the token transfer. Lanes past their budget
+        decode on harmlessly (their writes clamp inside their own slot, or
+        land in the scratch block) and their extra tokens are trimmed.
+        Returns False when queue, wait list and slots are empty."""
         self._admit()
+        self._ensure_blocks()
         active = [b for b in range(self.max_batch) if self._slot_req[b] is not None]
         if not active:
-            return bool(self._queue)
+            return bool(self._queue) or bool(self._preempted)
+        self._lanes_peak = max(self._lanes_peak, len(active))
+        paged_kw = {}
+        if self.paged:
+            self._occupancy_peak = max(self._occupancy_peak,
+                                       self.kv_pool.occupancy())
+            # The tables ride each dispatch as a fresh device copy of a
+            # snapshot: later host-side edits cannot reach a round in flight.
+            paged_kw = dict(block_tables=self._table_tensor(self._bt_host.copy()),
+                            block_size=self.kv_block, paged_len=self.max_len)
         t0 = time.perf_counter()
         toks, last, pos = _serve_decode(
-            self.params, self.arena,
+            self.params, self.kv_pool.arena if self.paged else self.arena,
             torch.from_numpy(self._last).to(self.device),
             torch.from_numpy(self._pos).to(self.device), self.cfg, self.chunk,
-            decode_kernel_fn=self._decode_kernel,
+            decode_kernel_fn=self._decode_kernel, **paged_kw,
         )
         toks = toks.cpu().numpy()  # the chunk boundary: device → host fence
         self._tok_lat.observe((time.perf_counter() - t0) / self.chunk)

@@ -11,9 +11,9 @@ the functional JAX version returns fresh arrays; writing in place saves a
 copy of the cache per step. The functions that return caches return the
 same tensors they were given.
 
-Families' extra flags that this slice does not port (qkv bias, qk-norm,
-post-norms, window and rope cycles, MoE, ring and paged caches, sampling)
-raise ``NotImplementedError``.
+Families' extra flags that are not ported yet (qkv bias, qk-norm,
+post-norms, window and rope cycles, MoE, ring caches, sampling) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -262,16 +262,26 @@ def _unbind(leaf) -> list:
     return list(leaf.unbind(0))
 
 
-def _cache_write_full(cache, x: torch.Tensor, offset: int) -> None:
+def _cache_write_full(cache, x: torch.Tensor, offset) -> None:
     """Write fresh k/v ``x [B, S, KV, D]`` at sequence ``offset``, quantizing
-    on the way into an int8 cache."""
+    on the way into an int8 cache. ``offset`` is an int or a 0-dim tensor;
+    a tensor stays on its device (an index copy, no host sync)."""
     S = x.shape[1]
+    if torch.is_tensor(offset):
+        idx = offset.long().reshape(1) + torch.arange(S, device=x.device)
+
+        def put(dst, src):
+            dst.index_copy_(1, idx, src.to(dst.dtype))
+    else:
+        def put(dst, src):
+            dst[:, offset:offset + S] = src.to(dst.dtype)
+
     if isinstance(cache, QTensor):
         qt = quantize_kv(x)
-        cache.q[:, offset:offset + S] = qt.q
-        cache.scale[:, offset:offset + S] = qt.scale
+        put(cache.q, qt.q)
+        put(cache.scale, qt.scale)
     else:
-        cache[:, offset:offset + S] = x.to(cache.dtype)
+        put(cache, x)
 
 
 def _cache_write_rows(cache, x: torch.Tensor, idx: torch.Tensor) -> None:
@@ -291,14 +301,65 @@ def _cache_write_rows(cache, x: torch.Tensor, idx: torch.Tensor) -> None:
         cache[rows, cols] = x.to(cache.dtype)
 
 
+# Reserved physical blocks of the paged pool, the layout contract with
+# guest.kv_arena.KVPool. Block 0 is ZERO: never written, so unmapped view
+# entries read the zeros a fresh dense arena would hold. Block 1 is SCRATCH:
+# the block-table filler, absorbing writes that must not land anywhere real
+# (dead lanes, overruns); reads remap it to ZERO, so its contents never
+# surface.
+PAGED_ZERO_BLOCK = 0
+PAGED_SCRATCH_BLOCK = 1
+
+
+def _paged_write_token(cache, x: torch.Tensor, phys: torch.Tensor) -> None:
+    """Paged decode write, in place: row b's one fresh k/v vector lands at
+    PHYSICAL pool row ``phys[b]``. ``cache`` is a pool slice ``[1, NT, KV,
+    D]`` (or int8 QTensor); x ``[B, 1, KV, D]``. Live lanes map distinct
+    rows; lanes with no live request all aim at the scratch block, which is
+    never read, so the order of their duplicate writes does not matter."""
+    if isinstance(cache, QTensor):
+        qt = quantize_kv(x)
+        cache.q[0, phys] = qt.q[:, 0]
+        cache.scale[0, phys] = qt.scale[:, 0]
+    else:
+        cache[0, phys] = x[:, 0].to(cache.dtype)
+
+
+def _paged_write_span(cache, x: torch.Tensor, phys: torch.Tensor) -> None:
+    """Multi-token sibling of :func:`_paged_write_token`: row b's S fresh
+    vectors land at pool rows ``phys[b, j]``. x ``[B, S, KV, D]``."""
+    if isinstance(cache, QTensor):
+        qt = quantize_kv(x)
+        cache.q[0, phys] = qt.q
+        cache.scale[0, phys] = qt.scale
+    else:
+        cache[0, phys] = x.to(cache.dtype)
+
+
+def _paged_view(cache, idx: torch.Tensor):
+    """Gather each row's block-table view out of the pool: ``cache [1, NT,
+    ...]`` and physical row indices ``idx [B, Lm]`` give ``[B, Lm, ...]``,
+    the dense operand the slotted arena presents to attention."""
+    if isinstance(cache, QTensor):
+        return QTensor(cache.q[0][idx], cache.scale[0][idx])
+    return cache[0][idx]
+
+
 def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
            positions: torch.Tensor, kv_cache=None, cache_offset=None,
-           prefill: bool = False, decode_kernel_fn=None) -> torch.Tensor:
+           prefill: bool = False, decode_kernel_fn=None, block_tables=None,
+           view_tables=None, block_size: int = 0,
+           paged_len: int = 0) -> torch.Tensor:
     """One decoder block, x ``[B, S, d]``. With a cache: ``prefill=True``
     writes the fresh k/v at 0 and attends over them alone (self-attention,
-    flash-kernel eligible); otherwise ``cache_offset`` is a ``[B]`` tensor
-    of per-lane positions (ragged decode), and a single-token step goes
-    through ``decode_kernel_fn`` when the server built one."""
+    flash-kernel eligible). With ``block_tables`` the cache pair is this
+    layer's ``[1, NT, KV, D]`` slice of the shared block pool and
+    ``cache_offset [B]`` the lanes' positions: writes go through the raw
+    table, reads through ``view_tables`` (SCRATCH remapped to ZERO).
+    Otherwise a ``[B]`` ``cache_offset`` is ragged decode over a slotted
+    cache (a single-token step goes through ``decode_kernel_fn`` when the
+    server built one), and a scalar one (an int or a 0-dim tensor) is
+    lock-step decode: every row writes and attends at the same position."""
     B, S, _ = x.shape
     akw = {}
     if cfg.sliding_window:
@@ -326,7 +387,48 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
         _cache_write_full(ck, k, 0)
         _cache_write_full(cv, v, 0)
         attn_out = attn_fn(q, k, v, causal=True, q_offset=None, **akw)
-    elif kv_cache is not None:
+    elif kv_cache is not None and block_tables is not None:
+        # Paged ragged decode. A block index past the table (a finished
+        # lane overrunning its budget, a dead lane's stale position) clamps
+        # to the last entry, whose filler is SCRATCH.
+        ck, cv = kv_cache
+        bs = block_size
+        off = cache_offset.long()
+        rows = torch.arange(B, device=x.device)
+        last_blk = block_tables.shape[1] - 1
+        if S == 1:
+            blk = torch.clamp(off // bs, max=last_blk)
+            phys = block_tables[rows, blk].long() * bs + off % bs  # [B]
+            _paged_write_token(ck, k, phys)
+            _paged_write_token(cv, v, phys)
+        else:
+            span = off[:, None] + torch.arange(S, device=x.device)[None, :]
+            blk = torch.clamp(span // bs, max=last_blk)
+            phys = block_tables[rows[:, None], blk].long() * bs + span % bs
+            _paged_write_span(ck, k, phys)
+            _paged_write_span(cv, v, phys)
+        if decode_kernel_fn is not None and (
+                S == 1 or getattr(decode_kernel_fn, "multi_query", False)):
+            # The paged kernel walks each lane's table in place. A span
+            # passes its LAST row's position and all-real query lengths.
+            if S == 1:
+                attn_out = decode_kernel_fn(q, ck, cv, view_tables,
+                                            cache_offset)
+            else:
+                attn_out = decode_kernel_fn(
+                    q, ck, cv, view_tables, cache_offset + (S - 1),
+                    torch.full((B,), S, dtype=torch.int32, device=x.device))
+        else:
+            view_idx = (
+                (view_tables.long() * bs)[:, :, None]
+                + torch.arange(bs, device=x.device)[None, None, :]
+            ).reshape(B, -1)[:, :paged_len]
+            attn_out = attn_fn(
+                q, dequantize_kv(_paged_view(ck, view_idx), x.dtype),
+                dequantize_kv(_paged_view(cv, view_idx), x.dtype),
+                causal=True, q_offset=cache_offset, **akw)
+    elif (kv_cache is not None and torch.is_tensor(cache_offset)
+          and cache_offset.ndim == 1):
         ck, cv = kv_cache
         _cache_write_rows(ck, k, cache_offset)
         _cache_write_rows(cv, v, cache_offset)
@@ -336,6 +438,16 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
             attn_out = attn_fn(q, dequantize_kv(ck, x.dtype),
                                dequantize_kv(cv, x.dtype), causal=True,
                                q_offset=cache_offset, **akw)
+    elif kv_cache is not None:
+        # Lock-step decode: one position for every row. On CUDA the default
+        # attn_fn sends a bf16 cache to the dense decode kernel when
+        # ops.attention.decode_eligible allows it.
+        ck, cv = kv_cache
+        _cache_write_full(ck, k, cache_offset)
+        _cache_write_full(cv, v, cache_offset)
+        attn_out = attn_fn(q, dequantize_kv(ck, x.dtype),
+                           dequantize_kv(cv, x.dtype), causal=True,
+                           q_offset=cache_offset, **akw)
     else:
         attn_out = attn_fn(q, k, v, causal=True, q_offset=None, **akw)
 
@@ -352,7 +464,9 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn], positions, kv_caches, cache_offset,
-            prefill: bool, decode_kernel_fn, remat: bool = False) -> torch.Tensor:
+            prefill: bool, decode_kernel_fn, remat: bool = False,
+            block_tables=None, block_size: int = 0,
+            paged_len: int = 0) -> torch.Tensor:
     """The decoder stack up to (not including) the final norm. ``remat``
     (training, no caches) checkpoints each layer: its activations are
     recomputed in the backward instead of kept."""
@@ -366,6 +480,12 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     x = embed(params, tokens, cfg)
+    view_tables = None
+    if block_tables is not None:
+        if block_size < 1 or paged_len < 1:
+            raise ValueError("block_tables need block_size and paged_len")
+        view_tables = torch.where(block_tables == PAGED_SCRATCH_BLOCK,
+                                  PAGED_ZERO_BLOCK, block_tables)
     layers = {k: _unbind(v) for k, v in params["layers"].items()}
     for i in range(cfg.n_layers):
         layer = {k: v[i] for k, v in layers.items()}
@@ -377,23 +497,32 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         if kv_caches is not None:
             cache = (_index(kv_caches[0], i), _index(kv_caches[1], i))
         x = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
-                   prefill=prefill, decode_kernel_fn=decode_kernel_fn)
+                   prefill=prefill, decode_kernel_fn=decode_kernel_fn,
+                   block_tables=block_tables, view_tables=view_tables,
+                   block_size=block_size, paged_len=paged_len)
     return x
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn] = None, positions=None, kv_caches=None,
             cache_offset=None, prefill: bool = False, decode_kernel_fn=None,
-            remat: bool = False):
+            remat: bool = False, block_tables=None, block_size: int = 0,
+            paged_len: int = 0):
     """tokens ``[B, S]`` → fp32 logits ``[B, S, vocab]``; with ``kv_caches``
-    also returns the caches (written in place). ``attn_fn`` defaults to
+    also returns the caches (written in place). ``block_tables [B, NB]``
+    (with ``block_size`` and ``paged_len``) switches the cache branch to
+    paged decode: ``kv_caches`` is the shared block pool
+    (``guest.kv_arena.KVPool.arena``, leaves ``[L, 1, NT, ...]``) and each
+    row reads and writes through its table. ``attn_fn`` defaults to
     :func:`..ops.attention.flash_attention`: the plain version on the CPU,
     the flash kernels (or an error) on CUDA, where a decode step needs
     ``decode_kernel_fn`` or an explicit plain ``attn_fn``. ``remat=True``
     wraps each layer in ``torch.utils.checkpoint`` (the JAX package's
     ``jax.checkpoint``); it applies only without caches."""
     x = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
-                cache_offset, prefill, decode_kernel_fn, remat)
+                cache_offset, prefill, decode_kernel_fn, remat,
+                block_tables=block_tables, block_size=block_size,
+                paged_len=paged_len)
     logits = unembed(params, x, cfg)
     return (logits, kv_caches) if kv_caches is not None else logits
 
@@ -493,25 +622,32 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
                  cfg: DecoderConfig, steps: int,
                  attn_fn: Optional[AttnFn] = None, return_state: bool = False,
                  decode_kernel_fn=None, eos_id: Optional[int] = None,
-                 budget: Optional[torch.Tensor] = None):
+                 budget: Optional[torch.Tensor] = None, block_tables=None,
+                 block_size: int = 0, paged_len: int = 0):
     """Greedy decode of ``steps`` tokens after ``tok [B]`` (a Python loop in
-    place of ``lax.scan``). ``pos`` is a scalar or a ``[B]`` tensor of
-    per-lane positions; a scalar is broadcast, which writes and masks at
-    the same places as the JAX lock-step branch. ``budget [B]`` arms the
-    freeze mask: a lane that has emitted its budget (or ``eos_id``) pins
-    its token and position, so later steps rewrite the same k/v. Returns
-    ``[B, steps]`` tokens, with ``return_state`` also
-    ``(caches, last_token, pos)``."""
+    place of ``lax.scan``). ``pos`` is a ``[B]`` tensor of per-lane
+    positions (ragged decode; with ``block_tables`` over the paged pool) or
+    a scalar (an int or a 0-dim tensor): lock-step decode, every row at the
+    same position, which stays a device scalar through the loop.
+    ``budget [B]`` (ragged only) arms the freeze mask: a lane that has
+    emitted its budget (or ``eos_id``) pins its token and position, so
+    later steps rewrite the same k/v. Returns ``[B, steps]`` tokens, with
+    ``return_state`` also ``(caches, last_token, pos)``."""
     B = tok.shape[0]
     dev = tok.device
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B).clone()
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    ragged = pos.ndim == 1
+    if budget is not None and not ragged:
+        raise ValueError("budget masking is per lane: it needs a [B] pos")
     rem = None if budget is None else budget.to(device=dev, dtype=torch.int32)
     outs = []
     for _ in range(steps):
-        logits, caches = forward(params, tok[:, None], cfg, attn_fn=attn_fn,
-                                 positions=pos[:, None], kv_caches=caches,
-                                 cache_offset=pos,
-                                 decode_kernel_fn=decode_kernel_fn)
+        logits, caches = forward(
+            params, tok[:, None], cfg, attn_fn=attn_fn,
+            positions=pos[:, None] if ragged else pos.expand(B, 1),
+            kv_caches=caches, cache_offset=pos,
+            decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
+            block_size=block_size, paged_len=paged_len)
         nxt = greedy_token(logits[:, -1, :])
         if rem is not None:
             alive = rem > 0
@@ -537,11 +673,13 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     Returns ``[B, steps]`` int32 tokens on ``device`` (CUDA unless the
     caller says otherwise; the params must already live there).
 
-    On CUDA with the default ``attn_fn`` both kernels run: the prompt is
+    On CUDA with the default ``attn_fn`` the kernels run: the prompt is
     right-padded to a multiple of :data:`CUDA_PAD` (a flash-kernel
     length; the pad rows' k/v are overwritten by decode before they are
     attended to) and the caches are allocated to a multiple of it, so
-    every decode step takes the paged decode kernel over them. Outputs
+    every decode step takes the paged decode kernel over them, or, under
+    ``KATA_TPU_DECODE_KERNEL=1``, the lock-step dense decode kernel (one
+    device-scalar position for the whole batch; bf16 caches only). Outputs
     are those of the unpadded run. An explicit ``attn_fn`` runs
     everywhere, kernels or not."""
     if temperature:
@@ -556,20 +694,30 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     max_len = max_len or S + steps
     if S + steps > max_len:
         raise ValueError(f"prompt_len={S} + steps={steps} overruns max_len={max_len}")
-    decode_kernel_fn, true_len = None, None
+    decode_kernel_fn, true_len, lockstep = None, None, False
     if device.type == "cuda" and attn_fn is None:
-        from ..ops.attention import make_decode_attn_fn
+        from ..ops.attention import decode_eligible, make_decode_attn_fn
 
         pad = -(-S // CUDA_PAD) * CUDA_PAD
         max_len = -(-max(max_len, pad) // CUDA_PAD) * CUDA_PAD
         prompt = F.pad(prompt, (0, pad - S))
         true_len = S
-        decode_kernel_fn = make_decode_attn_fn(cfg, arena_len=max_len,
-                                               device=device)
+        lockstep = (not cfg.sliding_window and not cfg.attn_logits_softcap
+                    and decode_eligible(1, max_len, cfg.head_dim, True, 0,
+                                        on_cuda=True))
+        if lockstep and kv_quantized:
+            raise ValueError(
+                "the dense decode kernel reads a bf16 cache in place: "
+                "KATA_TPU_DECODE_KERNEL=1 does not combine with kv_quantized")
+        if not lockstep:
+            decode_kernel_fn = make_decode_attn_fn(cfg, arena_len=max_len,
+                                                   device=device)
     caches, last, pos = prefill(params, prompt, cfg, max_len, attn_fn=attn_fn,
                                 kv_quantized=kv_quantized, true_len=true_len)
     if steps == 0:
         return torch.zeros((B, 0), dtype=torch.int32, device=device)
+    if not lockstep:
+        pos = torch.full((B,), pos, dtype=torch.int32, device=device)
     rest = _decode_scan(params, caches, last, pos, cfg, steps - 1, attn_fn,
                         decode_kernel_fn=decode_kernel_fn)
     return torch.cat([last[:, None], rest], dim=1)

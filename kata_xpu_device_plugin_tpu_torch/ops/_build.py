@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the repository root, loaded with ``ctypes``.
 No PyTorch header is included, so a build takes seconds. The library name
-carries a hash of its source, so an edited kernel is rebuilt and a stale
-one is never loaded. Importing this module needs neither nvcc nor CUDA; a
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited kernel is rebuilt and a stale one is never loaded. Importing this module needs neither nvcc nor CUDA; a
 failed build raises with nvcc's output — there is no fallback.
 """
 from __future__ import annotations
@@ -39,8 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

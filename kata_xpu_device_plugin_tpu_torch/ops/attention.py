@@ -9,8 +9,11 @@ position of q's first token when attending into a longer KV prefix.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+
+from ..constants import ENV_DECODE_KERNEL
 
 NEG_INF = -1e30
 
@@ -80,6 +83,22 @@ def flash_eligible(sq: int, sk: int, d: int, q_offset=None,
     return on_cuda and q_offset is None and sq >= 128 and supports(sq, sk, d)
 
 
+def decode_eligible(sq: int, sk: int, d: int, causal: bool, q_offset,
+                    on_cuda: bool = False) -> bool:
+    """Whether a decode-into-cache call takes the lock-step dense kernel:
+    only under ``KATA_TPU_DECODE_KERNEL=1`` (it is off by default, as in
+    the JAX package), on a CUDA tensor, causal, with ONE scalar offset
+    shared by the batch, at a ``supports_decode`` shape."""
+    from .decode_attn import supports_decode
+
+    if os.environ.get(ENV_DECODE_KERNEL, "") != "1":
+        return False
+    scalar = q_offset is not None and (
+        q_offset.ndim == 0 if torch.is_tensor(q_offset)
+        else isinstance(q_offset, int))
+    return causal and scalar and on_cuda and supports_decode(sq, sk, d)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -90,19 +109,32 @@ def flash_attention(
     logits_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Dispatch: the plain version for CPU tensors (PyTorch's autograd
-    differentiates it); on CUDA the flash kernels or an error. On the card
-    it takes only what the kernels take — self-attention (no ``q_offset``)
-    at a ``pick_block`` length — so a caller that wants the plain version
-    there passes :func:`reference_attention` as its ``attn_fn``. With grad
-    mode on it goes through :class:`.flash.FlashAttention`, whose backward
-    is the two backward kernels."""
+    differentiates it); on CUDA the kernels or an error. On the card it
+    takes only what the kernels take: self-attention (no ``q_offset``) at a
+    ``pick_block`` length goes to the flash kernels, and a single token at
+    a scalar offset into a dense cache goes to the lock-step dense decode
+    kernel when :func:`decode_eligible` says so. A caller that wants the
+    plain version there passes :func:`reference_attention` as its
+    ``attn_fn``. With grad mode on, self-attention goes through
+    :class:`.flash.FlashAttention`, whose backward is the two backward
+    kernels."""
     if not q.is_cuda:
         return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                    window=window, logits_softcap=logits_softcap)
     if q_offset is not None:
+        if (window == 0 and logits_softcap == 0.0 and decode_eligible(
+                q.shape[1], k.shape[1], q.shape[3], causal, q_offset, True)):
+            from .decode_attn import decode_attention
+
+            if not torch.is_tensor(q_offset):
+                q_offset = torch.tensor(q_offset, dtype=torch.int32,
+                                        device=q.device)
+            return decode_attention(q, k, v, q_offset)
         raise ValueError(
-            "flash attention on CUDA takes prefill self-attention only; decode "
-            "into a cache goes through the paged decode kernel"
+            "flash attention on CUDA takes prefill self-attention, or one "
+            f"token at a scalar offset under {ENV_DECODE_KERNEL}=1 (the dense "
+            "decode kernel); ragged decode into a cache goes through the "
+            "paged decode kernel"
         )
     from .flash import FlashAttention, flash_forward
 
@@ -154,13 +186,22 @@ def dense_decode_tile(arena_len: int) -> int:
     return 0
 
 
-def make_decode_attn_fn(cfg, *, arena_len: int, device=None):
+def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
+                        paged_len: int = 0, arena_len: int = 0, device=None):
     """Build the serving decode-attention callable
-    ``fn(q, ck, cv, tables, pos) -> [B, 1, H, D]`` the transformer's ragged
-    decode branch dispatches through, for the slotted arena of ``arena_len``
-    positions (the JAX function's unsharded ``paged=False`` form; the paged
-    pool is not ported yet): the arena re-views as a pool with synthetic
-    identity tables, and ``tables`` is ignored. Raises on configs the
+    ``fn(q, ck, cv, tables, pos, q_lens=None) -> [B, SQ, H, D]`` the
+    transformer's ragged decode branches dispatch through (the JAX
+    function's unsharded form).
+
+    ``paged=True``: ``ck``/``cv`` are the layer's ``[1, NT, KV, D]`` pool
+    slice (bf16 or int8 QTensor) and ``tables`` the lanes' view tables
+    (SCRATCH already remapped to ZERO); the kernel's KV tile is the pool's
+    ``block_size`` and the view ends at ``paged_len``. ``paged=False``: the
+    slotted arena of ``arena_len`` positions re-views without a copy as a
+    pool with synthetic identity tables, and ``tables`` is ignored.
+
+    The returned function carries ``multi_query = True``: it takes spans of
+    ``SQ > 1`` tokens with per-lane ``q_lens``. Raises on configs the
     kernel cannot model (sliding windows, the attention-logit softcap, an
     arena length no tile divides) and, for a CUDA ``device``, on shapes
     the kernel does not take."""
@@ -176,34 +217,42 @@ def make_decode_attn_fn(cfg, *, arena_len: int, device=None):
             "the paged decode kernel does not model the attention-logit "
             "softcap — capped configs need decode_attn='reference'"
         )
-    bs, plen = dense_decode_tile(int(arena_len)), int(arena_len)
-    if bs == 0:
-        raise ValueError(f"no KV tile divides the arena length {plen}")
+    if paged:
+        bs, plen = int(block_size), int(paged_len)
+        if bs < 1 or plen < 1:
+            raise ValueError(f"a paged decode function needs block_size and "
+                             f"paged_len, got {bs} and {plen}")
+    else:
+        bs, plen = dense_decode_tile(int(arena_len)), int(arena_len)
+        if bs == 0:
+            raise ValueError(f"no KV tile divides the arena length {plen}")
     if device is not None and torch.device(device).type == "cuda":
         check_kernel_shapes(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, bs)
     nb_row = plen // bs
     table_cache: dict = {}
 
-    def pool_form(q, ck, cv, tables, pos):
-        del tables
-        B = q.shape[0]
-        key = (B, q.device)
-        if key not in table_cache:
-            table_cache[key] = (
-                torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
-                * nb_row
-                + torch.arange(nb_row, dtype=torch.int32, device=q.device)
-            )
+    def pool_form(q, ck, cv, tables, pos, q_lens=None):
+        if not paged:
+            B = q.shape[0]
+            key = (B, q.device)
+            if key not in table_cache:
+                table_cache[key] = (
+                    torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+                    * nb_row
+                    + torch.arange(nb_row, dtype=torch.int32, device=q.device)
+                )
+            tables = table_cache[key]
 
-        def reshape(a):
-            return a.reshape((1, B * plen) + tuple(a.shape[2:]))
+            def reshape(a):
+                return a.reshape((1, B * plen) + tuple(a.shape[2:]))
 
-        if isinstance(ck, tuple):
-            ck, cv = type(ck)(*map(reshape, ck)), type(cv)(*map(reshape, cv))
-        else:
-            ck, cv = reshape(ck), reshape(cv)
+            if isinstance(ck, tuple):
+                ck, cv = type(ck)(*map(reshape, ck)), type(cv)(*map(reshape, cv))
+            else:
+                ck, cv = reshape(ck), reshape(cv)
         return paged_decode_attention(
-            q, ck, cv, table_cache[key], pos, block_size=bs, paged_len=plen,
+            q, ck, cv, tables, pos, q_lens, block_size=bs, paged_len=plen,
         )
 
+    pool_form.multi_query = True
     return pool_form

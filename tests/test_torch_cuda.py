@@ -250,3 +250,188 @@ def test_cuda_server_refuses_what_the_kernels_do_not_take(cuda_device):
     assert GenerationServer(params, replace(cfg, sliding_window=64), max_len=256,
                             prefill_buckets=(128,), decode_attn="reference"
                             ).stats()["decode_backend"] == "reference"
+
+
+def _paged_pool(rng, dev, B, NB, bs, KV, D, int8, pos):
+    """A pool with permuted, non-contiguous tables whose entries past each
+    lane's frontier are unmapped (the ZERO block, as the transformer's view
+    tables hold them); block 0 is all zeros."""
+    NT = (2 + B * NB) * bs
+    k = _randn(rng, (1, NT, KV, D), dev)
+    v = _randn(rng, (1, NT, KV, D), dev)
+    k[0, :bs] = 0.0
+    v[0, :bs] = 0.0
+    tables = rng.permutation(B * NB).reshape(B, NB).astype(np.int32) + 2
+    for b, p in enumerate(pos):
+        tables[b, min(int(p), NB * bs - 1) // bs + 1:] = 0
+    if int8:
+        k, v = quant.quantize_kv(k), quant.quantize_kv(v)
+    return k, v, torch.from_numpy(tables).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("SQ", [4, 8])
+def test_paged_decode_multi_query_matches_plain(cuda_device, int8, bs, SQ):
+    """Spans of SQ rows with ragged query lengths (``q_len = 1`` lanes beside
+    a full-width one) through real tables: real rows within the derived
+    bound of the plain version and bit-equal to a single-query launch at
+    the row's own position; padding rows finite and within max|V|."""
+    rng = np.random.default_rng(bs + SQ + int8)
+    B, H, KV, D, NB = 4, 8, 1, 256, 4
+    pos_l = [SQ - 1, 2 * bs, NB * bs - 1, 10_000]  # the last lane is dead
+    q_lens_l = [SQ, 1, SQ // 2, 1]
+    k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+    q = _randn(rng, (B, SQ, H, D), cuda_device)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+    q_lens = torch.tensor(q_lens_l, dtype=torch.int32, device=cuda_device)
+    kw = dict(block_size=bs, paged_len=NB * bs)
+    before = decode_attn.paged_decode_attention.launches
+    out = decode_attn.paged_decode_attention(q, k, v, tables, pos, q_lens, **kw)
+    torch.cuda.synchronize()
+    assert decode_attn.paged_decode_attention.launches == before + 1
+    ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, q_lens, **kw)
+    v_abs = (quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs())
+    mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables, pos,
+                                             q_lens, **kw)
+    real = (torch.arange(SQ, device=cuda_device)[None, :]
+            >= SQ - q_lens[:, None])
+    real[3] = False  # the dead lane's rows are garbage on both sides
+    res = attention.kernel_tolerance(out[real], ref[real], mag[real])
+    assert res["ok"], res
+    v_max = float(quant.dequantize_kv(v, torch.bfloat16).float().abs().max())
+    assert torch.isfinite(out.float()).all()
+    assert float(out.float().abs().max()) <= v_max
+    for j in range(SQ):
+        one = decode_attn.paged_decode_attention(
+            q[:, j:j + 1].contiguous(), k, v, tables, pos - (SQ - 1) + j, **kw)
+        rows = real[:, j]
+        assert torch.equal(out[rows, j], one[rows, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 256), (32, 8, 128), (4, 4, 64)])
+@pytest.mark.parametrize("pos", [0, 127, 128, 300, 511])
+def test_dense_decode_kernel_matches_plain(cuda_device, H, KV, D, pos):
+    rng = np.random.default_rng(H + D + pos)
+    B, S = 3, 512
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    k = _randn(rng, (B, S, KV, D), cuda_device)
+    v = _randn(rng, (B, S, KV, D), cuda_device)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    before = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, k, v, p)
+    ref = decode_attn.decode_attention_reference(q, k, v, p)
+    mag = decode_attn.decode_attention_reference(q.float(), k.float(),
+                                                 v.abs().float(), p)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == before + 1
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_dense_decode_refuses_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros(2, 1, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(2, 256, 2, 128, device=cuda_device, dtype=torch.bfloat16)
+    p = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        decode_attn.decode_attention(q, k[:, :200].contiguous(),
+                                     k[:, :200].contiguous(), p)
+    with pytest.raises(TypeError, match="bf16"):
+        decode_attn.decode_attention(q, k.float(), k.float(), p)
+    with pytest.raises(ValueError, match="on the\\s+device"):
+        decode_attn.decode_attention(q, k, k, p.cpu())
+    with pytest.raises(ValueError, match="query rows"):
+        decode_attn.paged_decode_attention(
+            torch.zeros(1, 0, 8, 128, device=cuda_device, dtype=torch.bfloat16),
+            k.reshape(1, 512, 2, 128), k.reshape(1, 512, 2, 128),
+            torch.zeros(1, 4, dtype=torch.int32, device=cuda_device),
+            torch.zeros(1, dtype=torch.int32, device=cuda_device),
+            block_size=128, paged_len=512)
+
+
+@pytest.mark.cuda
+def test_generate_lockstep_runs_the_dense_kernel(cuda_device, monkeypatch):
+    """Under KATA_TPU_DECODE_KERNEL=1 generate() decodes in lock-step through
+    the dense kernel (one launch a layer a step, none of the paged kernel);
+    without it, through the paged kernel and never the dense one. An int8
+    cache with the opt-in raises."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=3, device=cuda_device, dtype=torch.bfloat16)
+    prompt = np.random.default_rng(4).integers(0, 512, (2, 50))
+    monkeypatch.delenv("KATA_TPU_DECODE_KERNEL", raising=False)
+    n0 = decode_attn.decode_attention.launches
+    want = transformer.generate(params, prompt, cfg, 6)
+    assert decode_attn.decode_attention.launches == n0
+    monkeypatch.setenv("KATA_TPU_DECODE_KERNEL", "1")
+    p0 = decode_attn.paged_decode_attention.launches
+    got = transformer.generate(params, prompt, cfg, 6)
+    assert decode_attn.decode_attention.launches - n0 == 5 * cfg.n_layers
+    assert decode_attn.paged_decode_attention.launches == p0
+    assert got.shape == (2, 6) and ((got >= 0) & (got < 512)).all()
+    assert float((got == want).float().mean()) >= 0.5  # near-ties may differ
+    with pytest.raises(ValueError, match="kv_quantized"):
+        transformer.generate(params, prompt, cfg, 6, kv_quantized=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [True, False], ids=["int8-kv", "bf16-kv"])
+def test_paged_server_on_the_card(cuda_device, kv_quant):
+    """A two-layer model at Gemma-2B head widths over a pool small enough to
+    preempt: every request returns its budget, every decode step goes
+    through the paged kernel, the pool ends empty, and a block size the
+    kernel does not take raises at construction."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=6, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_quant=kv_quant)
+    with pytest.raises(ValueError, match="KV tile"):
+        GenerationServer(params, cfg, kv_pool_tokens=2048, kv_block_size=12, **kw)
+    srv = GenerationServer(params, cfg, kv_pool_tokens=768, kv_block_size=16, **kw)
+    rng = np.random.default_rng(1)
+    lens = rng.integers(100, 129, 8)  # one bucket: growth must find blocks
+    budgets = rng.integers(40, 81, 8)
+    rids = [srv.submit(rng.integers(0, 512, n), int(b))
+            for n, b in zip(lens, budgets)]
+    d0 = decode_attn.paged_decode_attention.launches
+    out = srv.run()
+    stats = srv.stats()
+    assert [len(out[r]) for r in rids] == [int(b) for b in budgets]
+    assert stats["preemptions"] >= 1
+    assert stats["kv_blocks_in_use"] == 0 and stats["preempted_waiting"] == 0
+    assert (decode_attn.paged_decode_attention.launches - d0
+            == stats["rounds"] * 4 * cfg.n_layers)
+
+
+@pytest.mark.cuda
+def test_paged_server_equals_slotted_at_the_same_tile(cuda_device):
+    """A paged server with the slotted server's lane count and KV tile (128)
+    and a pool that never presses does the slotted server's arithmetic, only
+    through scattered block tables: greedy tokens are equal bit for bit."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_quant=True)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n) for n in rng.integers(20, 250, 10)]
+    budgets = [int(b) for b in rng.integers(8, 60, 10)]
+
+    def serve(**extra):
+        srv = GenerationServer(params, cfg, **kw, **extra)
+        rids = [srv.submit(p, b) for p, b in zip(prompts, budgets)]
+        out = srv.run()
+        return [out[r] for r in rids], srv.stats()
+
+    want, _ = serve()
+    got, stats = serve(kv_pool_tokens=4 * 512 + 256, kv_block_size=128)
+    assert stats["preemptions"] == 0 and stats["kv_blocks_total"] == 16
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

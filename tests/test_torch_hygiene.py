@@ -85,7 +85,35 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
                         lambda p: "nvcc" not in str(p) and real_exists(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_fwd")
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
+    assert _build.sources() == ["dense_decode", "flash_bwd", "flash_fwd",
+                                "paged_decode"]
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes when a header it includes changes, so
+    a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    (csrc / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._target("k")
+    (csrc / "shared.cuh").write_text("// v2\n")
+    assert _build._target("k") != before
+    assert (PORT / "csrc" / "decode_split.cuh").exists()
+
+
+def test_every_cuda_source_is_named_in_chip_smoke():
+    """Each ``csrc/*.cu`` is the ``source`` of a kernel in ``chip_smoke.py``'s
+    kernels line (read as text: the script needs a card to run)."""
+    text = (REPO / "chip_smoke.py").read_text()
+    for src in sorted((PORT / "csrc").glob("*.cu")):
+        assert f'source=f"{{src}}/{src.name}"' in text, src.name
+
+
+def test_new_port_modules_are_under_the_import_guard():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    assert {"guest/kv_arena.py", "guest/serving.py", "ops/decode_attn.py"} <= names
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
@@ -98,6 +126,10 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GenerationServer(params, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationServer(params, cfg, kv_pool_tokens=1024, kv_block_size=16)
+    assert GenerationServer(params, cfg, kv_pool_tokens=1024, kv_block_size=16,
+                            device="cpu").paged
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(params, [[1, 2, 3]], cfg, 2)
     assert generate(params, [[1, 2, 3]], cfg, 2, device="cpu").shape == (1, 2)

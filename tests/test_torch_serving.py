@@ -125,7 +125,8 @@ def test_kv_quant_resolution(monkeypatch):
 
 
 @pytest.mark.parametrize("kwarg", [
-    dict(kv_pool_tokens=256), dict(tp=2), dict(speculative_k=2),
+    dict(kv_host_tokens=64), dict(kv_layout="blocks"), dict(tp=2),
+    dict(speculative_k=2),
     dict(ring_kv=True), dict(prefix_cache_tokens=64), dict(temperature=0.7),
     dict(sched_policy="slo_chunked"), dict(decode_steps=2),
     dict(persistent=True), dict(checkpoint_rounds=4), dict(overlap=True),

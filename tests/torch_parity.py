@@ -9,12 +9,14 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from kata_xpu_device_plugin_tpu.models import gemma as jgemma
 from kata_xpu_device_plugin_tpu.models import llama as jllama
 from kata_xpu_device_plugin_tpu.models import transformer as jt
 from kata_xpu_device_plugin_tpu.ops import quant as jquant
 from kata_xpu_device_plugin_tpu_torch.models import bridge
+from kata_xpu_device_plugin_tpu_torch.ops import quant as tquant
 
 
 def gemma_tiny(**overrides):
@@ -47,3 +49,26 @@ def build_pair(jcfg, seed: int = 0, fused: bool = False,
     tparams = bridge.params_from_numpy(
         jax.tree.map(np.asarray, params), tcfg, "cpu")
     return params, tparams, tcfg
+
+
+def pool_from_jax(arena):
+    """A JAX KV cache or pool pytree (``(k, v)``, arrays or int8 QTensors)
+    as the port's leaves on the CPU, copied through numpy, so that pool ops
+    and paged forwards of the two packages can be compared row for row."""
+    def leaf(c):
+        if isinstance(c, jquant.QTensor):
+            return tquant.QTensor(torch.from_numpy(np.array(c.q)),
+                                  torch.from_numpy(np.array(c.scale)))
+        return torch.from_numpy(np.array(c))
+
+    return tuple(leaf(c) for c in arena)
+
+
+def pool_to_numpy(arena) -> list:
+    """The leaves of either package's cache pair as numpy arrays, in the
+    order k payload, [k scale,] v payload[, v scale]."""
+    out = []
+    for c in arena:
+        for t in (c if isinstance(c, tuple) else (c,)):
+            out.append(t.numpy() if hasattr(t, "numpy") else np.asarray(t))
+    return out
