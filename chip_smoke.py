@@ -18,8 +18,12 @@ Phases, each printing one JSON line:
    lane, at Gemma-2B and Llama-3-8B head shapes, single-query and as spans
    of 4 and 8 rows with ragged query lengths (real rows within the bound
    and bit-equal to a single-query launch at the row's position, padding
-   rows finite and within max|V|); the dense decode kernel at five shared
-   positions;
+   rows finite and within max|V|), also at tile 1024, whose chunks the
+   split pass walks in pieces; the dense decode kernel at five shared
+   positions; a second launch of each decode kernel on the same inputs
+   must give the same bits; each decode kernel is also timed at a working
+   set past the 50 MB L2 (paged int8, 64 lanes at position 4095, tile 16;
+   dense bf16, 32 rows at position 4095), against its byte bound;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
    both kernels reset just before and read just after; then two requests
@@ -102,6 +106,34 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device time of ``fn`` per call: ``iters`` calls captured in one CUDA
+    graph, replayed between two CUDA events. A decode call takes less
+    device time than its Python wrapper takes on the host, so back-to-back
+    eager calls (``time_ms``) would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def check(name: str, out, ref, mag) -> dict:
     """Hold a kernel's output against the plain version's on the same
     inputs; ``mag`` is the plain version applied to |v|."""
@@ -137,6 +169,20 @@ def phase_device() -> str:
     return smi
 
 
+def spilling_functions(log: str) -> dict:
+    """ptxas -v output to ``{function: bytes of spill stores}``, for the
+    functions that spill."""
+    spills, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif "spill stores" in ln and fn is not None:
+            n = int(ln.split("bytes spill stores")[0].split(",")[-1])
+            if n:
+                spills[fn] = n
+    return spills
+
+
 def phase_build() -> None:
     from kata_xpu_device_plugin_tpu_torch.ops import _build
 
@@ -148,7 +194,8 @@ def phase_build() -> None:
         for n, log in _build.build_log.items()
     }
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         sources=_build.sources(), ptxas=regs)
+         sources=_build.sources(), ptxas=regs,
+         spills={n: spilling_functions(log) for n, log in _build.build_log.items()})
 
 
 def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
@@ -189,6 +236,15 @@ def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
     return res
 
 
+def relaunch_equal(name: str, out, again) -> None:
+    """The split-K decode kernels merge in a fixed order with no atomics: a
+    second launch on the same inputs must give the same bits."""
+    import torch
+
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: a second launch gave other bits")
+
+
 def decode_bound(keys: float, B, SQ, H, KV, D, nb, quantized, flops) -> dict:
     """The least time the card could take for a paged decode call that must
     read ``keys`` K rows and as many V rows once (payload and, for int8,
@@ -200,14 +256,15 @@ def decode_bound(keys: float, B, SQ, H, KV, D, nb, quantized, flops) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False,
-                dead=False):
+def paged_inputs(B, H, KV, D, bs, quantized, max_len=2048, dead=False,
+                 full=False):
+    """A paged decode call's inputs on the card: a pool whose block 0 is the
+    ZERO block, permuted tables whose entries past each lane's position are
+    unmapped, random positions (every lane at the view's last if ``full``;
+    the last lane dead, past its table, if ``dead``). Returns ``(q, k, v,
+    tables, pos, kw)``."""
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
-        paged_decode_attention,
-        paged_decode_reference,
-    )
     from kata_xpu_device_plugin_tpu_torch.ops.quant import quantize_kv
 
     g = torch.Generator(device="cuda").manual_seed(bs + B + int(quantized))
@@ -220,6 +277,8 @@ def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False,
     pv[0, :bs] = 0.0  # block 0 is the ZERO block
     pos = torch.randint(0, max_len, (B,), generator=g, device="cuda",
                         dtype=torch.int32)
+    if full:  # every lane at the view's last position
+        pos.fill_(max_len - 1)
     if dead:
         pos[-1] = 10_000  # a dead lane's stale position, past its table
     perm = torch.randperm(B * nb, generator=g, device="cuda").to(torch.int32) + 2
@@ -227,14 +286,32 @@ def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False,
     live = torch.arange(nb, device="cuda")[None, :] <= (pos // bs)[:, None]
     tables = torch.where(live, tables, torch.zeros_like(tables))  # unmapped: ZERO
     k, v = (quantize_kv(pk), quantize_kv(pv)) if quantized else (pk, pv)
-    kw = dict(block_size=bs, paged_len=max_len)
+    return q, k, v, tables, pos, dict(block_size=bs, paged_len=max_len)
+
+
+def decode_case(name, B, H, KV, D, bs, quantized, max_len=2048, timed=False,
+                dead=False, full=False):
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        paged_decode_attention,
+        paged_decode_reference,
+    )
+
+    q, k, v, tables, pos, kw = paged_inputs(B, H, KV, D, bs, quantized, max_len,
+                                            dead, full)
+    nb = max_len // bs
     out = paged_decode_attention(q, k, v, tables, pos, **kw)
     ref = paged_decode_reference(q, k, v, tables, pos, **kw)
     mag = paged_decode_reference(q.float(), k, v_abs(v), tables, pos, **kw)
     torch.cuda.synchronize()
     res = check(name, out, ref, mag)
+    del ref, mag
+    relaunch_equal(name, out, paged_decode_attention(q, k, v, tables, pos, **kw))
     if timed:
-        res["ms"] = time_ms(lambda: paged_decode_attention(q, k, v, tables, pos, **kw), 20)
+        call = lambda: paged_decode_attention(q, k, v, tables, pos, **kw)  # noqa: E731
+        res["ms"] = graph_ms(call, 20)
+        res["call_ms"] = time_ms(call, 20)
         res["plain_ms"] = time_ms(
             lambda: paged_decode_reference(q, k, v, tables, pos, **kw), 5, 1)
         res["library_ms"] = None  # no single PyTorch call computes it
@@ -302,8 +379,10 @@ def decode_mq_case(name, B, H, KV, D, bs, quantized, SQ, max_len=2048,
                                  "query launch at its position")
     res["rows_bit_equal_single_query"] = int(real.sum())
     if timed:
-        res["ms"] = time_ms(lambda: paged_decode_attention(
-            q, k, v, tables, pos, q_lens, **kw), 20)
+        call = lambda: paged_decode_attention(  # noqa: E731
+            q, k, v, tables, pos, q_lens, **kw)
+        res["ms"] = graph_ms(call, 20)
+        res["call_ms"] = time_ms(call, 20)
         res["plain_ms"] = time_ms(lambda: paged_decode_reference(
             q, k, v, tables, pos, q_lens, **kw), 5, 1)
         res["library_ms"] = None
@@ -320,16 +399,10 @@ def decode_mq_case(name, B, H, KV, D, bs, quantized, SQ, max_len=2048,
     return res
 
 
-def dense_case(name, B, S, H, KV, D, pos, timed=False):
-    """The lock-step dense kernel: one token per row into a dense bf16 cache
-    read in place, one device-scalar position for the whole batch."""
+def dense_inputs(B, S, H, KV, D, pos):
+    """A dense decode call's inputs on the card: one query token a row, a
+    dense bf16 cache ``[B, S, KV, D]``, a device-scalar position."""
     import torch
-    import torch.nn.functional as F
-
-    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
-        decode_attention,
-        decode_attention_reference,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(S + H + D + pos)
 
@@ -337,19 +410,42 @@ def dense_case(name, B, S, H, KV, D, pos, timed=False):
         return torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
 
     q, k, v = rnd(B, 1, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D)
-    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def sdpa_call(q, k, v, pos: int):
+    """``scaled_dot_product_attention`` over ``k[:, :pos+1]``: the library
+    call that computes what the dense kernel does (timed, never used)."""
+    import torch.nn.functional as F
+
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+
+def dense_case(name, B, S, H, KV, D, pos, timed=False):
+    """The lock-step dense kernel: one token per row into a dense bf16 cache
+    read in place, one device-scalar position for the whole batch."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        decode_attention_reference,
+    )
+
+    q, k, v, p = dense_inputs(B, S, H, KV, D, pos)
     out = decode_attention(q, k, v, p)
     ref = decode_attention_reference(q, k, v, p)
     mag = decode_attention_reference(q.float(), k.float(), v.abs().float(), p)
     torch.cuda.synchronize()
     res = check(name, out, ref, mag)
+    del ref, mag
+    relaunch_equal(name, out, decode_attention(q, k, v, p))
     if timed:
-        res["ms"] = time_ms(lambda: decode_attention(q, k, v, p), 20)
+        res["ms"] = graph_ms(lambda: decode_attention(q, k, v, p), 20)
+        res["call_ms"] = time_ms(lambda: decode_attention(q, k, v, p), 20)
         res["plain_ms"] = time_ms(lambda: decode_attention_reference(q, k, v, p), 5, 1)
-        qt = q.transpose(1, 2)
-        kt, vt = (t[:, :pos + 1].transpose(1, 2) for t in (k, v))
-        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True), 20)
+        res["library_ms"] = graph_ms(sdpa_call(q, k, v, pos), 20)
         nbytes = 2 * 2.0 * B * (pos + 1) * KV * D + 2 * 2.0 * B * H * D + 4
         flops = 4.0 * B * H * D * (pos + 1)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -449,6 +545,16 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
     return row
 
 
+def bandwidth_fields(prefix: str, res: dict) -> dict:
+    """Move a timed case's times out of its check result (the kernels
+    line's timed case stays the main path's shape), with its share of the
+    bound."""
+    out = {f"{prefix}_{f}": res.pop(f) for f in (
+        "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    out[f"{prefix}_share_of_bound"] = out[f"{prefix}_bound_ms"] / out[f"{prefix}_ms"]
+    return out
+
+
 def phase_checks() -> dict:
     results = {"flash_fwd": [], "paged_decode": [], "dense_decode": [],
                "flash_bwd_dq": [], "flash_bwd_dkv": []}
@@ -479,7 +585,8 @@ def phase_checks() -> dict:
                                 bs, quantized, dead=True, timed=timed)
                 if timed:
                     tiles[f"bs{bs}_ms"] = c.pop("ms")
-                    for f in ("plain_ms", "library_ms", "bound_ms", "bound_by"):
+                    for f in ("call_ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by"):
                         tiles[f"bs{bs}_{f}"] = c.pop(f)
                 d.append(c)
                 for SQ in (4, 8):
@@ -488,10 +595,23 @@ def phase_checks() -> dict:
                                        timed=timed and SQ == 8 and bs == 16)
                     if "ms" in c:
                         tiles.update({f"sq8_bs16_{f}": c.pop(f) for f in (
-                            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                            "ms", "call_ms", "plain_ms", "library_ms",
+                            "bound_ms", "bound_by")})
                     d.append(c)
+    # Tiles of more keys than the split pass holds logits for at once: the
+    # chunk is walked in pieces.
+    for quantized in (True, False):
+        kind = "int8" if quantized else "bf16"
+        d.append(decode_mq_case(f"gemma2b {kind} bs1024 SQ4", 8, 8, 1, 256,
+                                1024, quantized, 4, max_len=4096))
+    # The bandwidth case: a working set past the L2 (~136 MB of int8 KV).
+    c = decode_case("gemma2b int8 bs16 B64 pos4095", 64, 8, 1, 256, 16, True,
+                    max_len=4096, timed=True, full=True)
+    tiles.update(bandwidth_fields("bw_b64_pos4095", c))
+    d.append(c)
     emit("paged_decode_tiles", shape="B=8 H=8 KV=1 D=256 int8, max_len 2048, "
-         "ragged pos, one dead lane", **tiles)
+         "ragged pos, one dead lane; bw_: B=64, max_len 4096, every lane at "
+         "4095, tile 16", **tiles)
     results["paged_decode_extra"] = tiles
     n = results["dense_decode"]
     for pos in (0, 127, 128, 1000, 2047):
@@ -500,6 +620,13 @@ def phase_checks() -> dict:
     for pos in (5, 2047):
         n.append(dense_case(f"llama3-8b B8 S2048 pos{pos}", 8, 2048, 32, 8, 128,
                             pos))
+    c = dense_case("gemma2b B32 S4096 pos4095", 32, 4096, 8, 1, 256, 4095,
+                   timed=True)
+    dense = bandwidth_fields("bw_b32_pos4095", c)
+    n.append(c)
+    emit("dense_decode_bandwidth", shape="B=32 S=4096 H=8 KV=1 D=256 bf16, "
+         "pos 4095", **dense)
+    results["dense_decode_extra"] = dense
     bwd = [  # llama3-8b widths unless the case says otherwise
         bwd_case("llama3-8b train B2 S2048", 2, 2048, 32, 8, 128, timed=True),
         bwd_case("llama3-8b B1 S128", 1, 128, 32, 8, 128),
@@ -1155,6 +1282,7 @@ def main(argv: list[str]) -> int:
     timed_phase("build", phase_build)
     checks = timed_phase("check", phase_checks)
     extra = checks.pop("paged_decode_extra")
+    dense_extra = checks.pop("dense_decode_extra")
     params, cfg = timed_phase("serve_setup", gemma_setup)
     launches = {"serve": timed_phase("serve", phase_serve, params, cfg,
                                      profile=profile)}
@@ -1175,7 +1303,8 @@ def main(argv: list[str]) -> int:
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213",
                              extra=extra),
         "dense_decode": dict(route="cuda", source=f"{src}/dense_decode.cu",
-                             replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:74"),
+                             replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:74",
+                             extra=dense_extra),
         "flash_bwd_dq": dict(route="cuda", source=f"{src}/flash_bwd.cu",
                              replaces=f"{jax_flash}:219"),
         "flash_bwd_dkv": dict(route="cuda", source=f"{src}/flash_bwd.cu",
@@ -1190,7 +1319,8 @@ def main(argv: list[str]) -> int:
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_err_over_bound": max(c["max_err_over_bound"] for c in cases),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "ms": timed["ms"], "call_ms": timed.get("call_ms"),
+            "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "timed_case": timed["case"],
         })

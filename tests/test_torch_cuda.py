@@ -435,3 +435,145 @@ def test_paged_server_equals_slotted_at_the_same_tile(cuda_device):
     assert stats["preemptions"] == 0 and stats["kv_blocks_total"] == 16
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged-int8", "paged-bf16-span", "dense"])
+def test_decode_kernels_are_bit_deterministic(cuda_device, kernel):
+    """The split-K passes merge a row's chunks in a fixed order with no
+    atomics: two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(21)
+    if kernel == "dense":
+        q = _randn(rng, (8, 1, 8, 256), cuda_device)
+        k = _randn(rng, (8, 2048, 1, 256), cuda_device)
+        v = _randn(rng, (8, 2048, 1, 256), cuda_device)
+        p = torch.tensor(2047, dtype=torch.int32, device=cuda_device)
+        outs = [decode_attn.decode_attention(q, k, v, p) for _ in range(2)]
+    else:
+        SQ, bs, NB = (4, 16, 64) if kernel.endswith("span") else (1, 16, 128)
+        pos_l = [SQ + 5, 700, NB * bs - 1, 10_000]
+        k, v, tables = _paged_pool(rng, cuda_device, 4, NB, bs, 1, 256,
+                                   kernel == "paged-int8", pos_l)
+        q = _randn(rng, (4, SQ, 8, 256), cuda_device)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+        q_lens = torch.tensor([SQ, 1, SQ, SQ], dtype=torch.int32, device=cuda_device)
+        outs = [decode_attn.paged_decode_attention(
+            q, k, v, tables, pos, q_lens, block_size=bs, paged_len=NB * bs)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [1024, 2048])
+def test_paged_decode_tile_past_one_piece_matches_plain(cuda_device, int8, bs):
+    """A tile of more keys than the split pass holds logits for at once
+    (``PIECE`` in decode_split.cuh) is walked in pieces with the online
+    rescale: real rows stay within the derived bound and equal, bit for bit,
+    single-query launches at their positions."""
+    rng = np.random.default_rng(bs + int8)
+    B, H, KV, D, NB, SQ = 4, 8, 1, 256, 4, 4
+    pos_l = [SQ + 2, bs + 700, NB * bs - 1, 10_000]  # the last lane is dead
+    k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+    q = _randn(rng, (B, SQ, H, D), cuda_device)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+    q_lens = torch.tensor([SQ, 1, SQ, 1], dtype=torch.int32, device=cuda_device)
+    kw = dict(block_size=bs, paged_len=NB * bs)
+    out = decode_attn.paged_decode_attention(q, k, v, tables, pos, q_lens, **kw)
+    ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, q_lens, **kw)
+    v_abs = (quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs())
+    mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables, pos,
+                                             q_lens, **kw)
+    torch.cuda.synchronize()
+    real = (torch.arange(SQ, device=cuda_device)[None, :]
+            >= SQ - q_lens[:, None])
+    real[3] = False
+    res = attention.kernel_tolerance(out[real], ref[real], mag[real])
+    assert res["ok"], res
+    for j in range(SQ):
+        one = decode_attn.paged_decode_attention(
+            q[:, j:j + 1].contiguous(), k, v, tables, pos - (SQ - 1) + j, **kw)
+        rows = real[:, j]
+        assert torch.equal(out[rows, j], one[rows, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_decode_kernels_at_a_working_set_past_l2(cuda_device, kernel):
+    """The two bandwidth cases ``chip_smoke.py`` times, within the derived
+    bound: paged int8 at Gemma-2B heads over 64 lanes at position 4095
+    (tile 16, permuted tables, ~136 MB of KV) and dense bf16 over 32 rows
+    at position 4095 (~134 MB)."""
+    rng = np.random.default_rng(5)
+    if kernel == "dense":
+        B, S = 32, 4096
+        q = _randn(rng, (B, 1, 8, 256), cuda_device)
+        k = _randn(rng, (B, S, 1, 256), cuda_device)
+        v = _randn(rng, (B, S, 1, 256), cuda_device)
+        p = torch.tensor(S - 1, dtype=torch.int32, device=cuda_device)
+        out = decode_attn.decode_attention(q, k, v, p)
+        ref = decode_attn.decode_attention_reference(q, k, v, p)
+        mag = decode_attn.decode_attention_reference(q.float(), k.float(),
+                                                     v.abs().float(), p)
+    else:
+        B, bs, NB = 64, 16, 256
+        pos_l = [NB * bs - 1] * B
+        k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, 1, 256, True,
+                                   pos_l)
+        q = _randn(rng, (B, 1, 8, 256), cuda_device)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+        kw = dict(block_size=bs, paged_len=NB * bs)
+        out = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+        ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+        mag = decode_attn.paged_decode_reference(
+            q.float(), k, quant.QTensor(v.q.abs(), v.scale), tables, pos, **kw)
+    torch.cuda.synchronize()
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_decode_kernels_take_any_order_of_shapes(cuda_device, kernel):
+    """Every instantiation of one head size shares its combine kernel: a
+    long view, then a short view through another instantiation (bf16 after
+    int8, or another group size), then the long view again all launch and
+    stay within the derived bound. D = 64 with G = 2 is used by no other
+    card test, so the second instantiation launches here first."""
+    rng = np.random.default_rng(31)
+    D = 64
+    if kernel == "dense":
+        def call(H, KV, S):
+            q = _randn(rng, (2, 1, H, D), cuda_device)
+            k = _randn(rng, (2, S, KV, D), cuda_device)
+            v = _randn(rng, (2, S, KV, D), cuda_device)
+            p = torch.tensor(S - 1, dtype=torch.int32, device=cuda_device)
+            out = decode_attn.decode_attention(q, k, v, p)
+            ref = decode_attn.decode_attention_reference(q, k, v, p)
+            mag = decode_attn.decode_attention_reference(q.float(), k.float(),
+                                                         v.abs().float(), p)
+            return out, ref, mag
+
+        steps = [(8, 1, 4096), (4, 2, 256), (8, 1, 4096)]
+    else:
+        def call(int8, NB):
+            bs, pos_l = 16, [NB * 16 - 1, NB * 8]
+            k, v, tables = _paged_pool(rng, cuda_device, 2, NB, bs, 2, D, int8,
+                                       pos_l)
+            q = _randn(rng, (2, 1, 4, D), cuda_device)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+            kw = dict(block_size=bs, paged_len=NB * bs)
+            v_abs = quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs()
+            out = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+            ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+            mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables,
+                                                     pos, **kw)
+            return out, ref, mag
+
+        steps = [(True, 256), (False, 16), (True, 256)]
+    for args in steps:
+        out, ref, mag = call(*args)
+        torch.cuda.synchronize()
+        res = attention.kernel_tolerance(out, ref, mag)
+        assert res["ok"], (args, res)
