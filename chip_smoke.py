@@ -23,7 +23,11 @@ Phases, each printing one JSON line:
    positions; a second launch of each decode kernel on the same inputs
    must give the same bits; each decode kernel is also timed at a working
    set past the 50 MB L2 (paged int8, 64 lanes at position 4095, tile 16;
-   dense bf16, 32 rows at position 4095), against its byte bound;
+   dense bf16, 32 rows at position 4095), against its byte bound; the
+   flash backward kernels at head_dim 64, 128 and 256 (the Llama-3-8B and
+   Gemma-2B train shapes timed, beside the ``delta`` reduction and the SDPA
+   backward), both with ``delta`` given and with the dq kernel forming it
+   (``flash_backward``), and a second launch of each giving the same bits;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
    both kernels reset just before and read just after; then two requests
@@ -53,11 +57,14 @@ Phases, each printing one JSON line:
    backward at 2 layers, B=1, through the kernels (each layer's forward
    and backward kernel call held against the plain version on its own
    inputs) and through ``reference_attention``; the loss difference and
-   the cosine of the whole gradient are printed.
+   the cosine of the whole gradient are printed;
+8. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
+   MQA, GeGLU, tied and scaled embeddings) with 6 of its 18 layers: 4 steps
+   (6 launches of each kernel a step), then its 2-layer crosscheck.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds a ``torch.profiler`` window over two decode rounds of a
-loaded server and one over a train step after the run. Any failed
+loaded server and one over a step of each train phase. Any failed
 phase raises: the script exits non-zero and prints no result. Without CUDA,
 or outside a checkout of the repository, it exits non-zero at once.
 """
@@ -237,8 +244,9 @@ def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
 
 
 def relaunch_equal(name: str, out, again) -> None:
-    """The split-K decode kernels merge in a fixed order with no atomics: a
-    second launch on the same inputs must give the same bits."""
+    """The decode kernels' split-K merge and the backward kernels' sums run
+    in a fixed order with no atomics: a second launch on the same inputs
+    must give the same bits."""
     import torch
 
     if not torch.equal(out, again):
@@ -482,7 +490,10 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
              timed=False):
     """The forward with its logsumexp, then the two backward kernels, on
     contiguous ``[B, S, heads, D]`` q/k/v and dout (the training layout:
-    q and k come out of rope, v out of its own projection)."""
+    q and k come out of rope, v out of its own projection): each wrapper
+    with the ``delta`` reduction given, and ``flash_backward``, whose dq
+    kernel forms delta itself; a second launch of each must give the same
+    bits (each element summed in a fixed order, no atomics)."""
     import torch
     import torch.nn.functional as F
 
@@ -503,20 +514,33 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
     delta = flash._delta(out, do)
     got = (flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
            *flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    fused = flash.flash_backward(q, k, v, out, lse, do, **kw)
     want = flash.flash_backward_reference(q, k, v, out, lse, do, **kw)
     mags = flash.backward_magnitudes(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     res = check_grads(name, got, want, mags)
+    res_fused = check_grads(f"{name} (delta in dq)", fused, want, mags)
     del want, mags
+    for gname, a, b in zip(("dq", "dk", "dv"), fused,
+                           flash.flash_backward(q, k, v, out, lse, do, **kw)):
+        relaunch_equal(f"{name} {gname}", a, b)
+    del fused
     row = {"dq": {"case": name, **res["dq"]},
            "dkv": {"case": name,
                    **{f: max(res["dk"][f], res["dv"][f]) for f in
                       ("max_abs_err", "mean_abs_err", "max_err_over_bound")},
                    "mean_bound": min(res["dk"]["mean_bound"],
                                      res["dv"]["mean_bound"])}}
+    for key, grads in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        row[key]["max_err_over_bound"] = max(
+            row[key]["max_err_over_bound"],
+            *(res_fused[g_]["max_err_over_bound"] for g_ in grads))
     if timed:
         ms_dq = time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw), 10)
         ms_dkv = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), 10)
+        ms_delta = time_ms(lambda: flash._delta(out, do), 10)
+        ms_backward = time_ms(lambda: flash.flash_backward(
+            q, k, v, out, lse, do, **kw), 10)
         plain = time_ms(lambda: flash.flash_backward_reference(
             q, k, v, out, lse, do, **kw), 3, 1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -536,12 +560,20 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
             row[key].update(ms=ms, plain_ms=plain, library_ms=library,
                             bound_ms=1e3 * max(t_ops, t_bytes),
                             bound_by="operations" if t_ops > t_bytes else "bytes")
+        # Like for like with the SDPA backward: the two kernels plus the
+        # delta reduction they are given, and flash_backward (delta formed
+        # in the dq kernel).
+        row["dq"].update(delta_ms=ms_delta, pair_with_delta_ms=ms_dq + ms_dkv + ms_delta,
+                         flash_backward_ms=ms_backward)
     timing = {f"{k_}_{f}": row[k_][f] for k_ in ("dq", "dkv") for f in
-              ("ms", "plain_ms", "library_ms", "bound_ms") if f in row[k_]}
+              ("ms", "plain_ms", "library_ms", "bound_ms", "delta_ms",
+               "pair_with_delta_ms", "flash_backward_ms") if f in row[k_]}
     emit("check", kernel="flash_bwd", B=B, S=S, H=H, KV=KV, D=D, causal=causal,
          window=window, softcap=softcap, lse_max_abs_err=lse_err,
          **{k_: {f: v_ for f, v_ in r.items() if f != "case"}
-            for k_, r in res.items()}, **timing)
+            for k_, r in res.items()},
+         delta_in_dq={k_: r["max_err_over_bound"] for k_, r in res_fused.items()},
+         relaunch_bit_equal=True, **timing)
     return row
 
 
@@ -636,9 +668,26 @@ def phase_checks() -> dict:
         bwd_case("window64+softcap50", 2, 256, 8, 2, 128, window=64,
                  softcap=50.0),
         bwd_case("D64", 2, 256, 8, 2, 64),
+        bwd_case("gemma-2b train B2 S2048", 2, 2048, 8, 1, 256, timed=True),
+        bwd_case("gemma-7b heads H16 KV16", 2, 256, 16, 16, 256),
+        bwd_case("D256 non-causal", 1, 160, 4, 2, 256, causal=False),
+        bwd_case("D256 window96+softcap30", 1, 320, 4, 1, 256, window=96,
+                 softcap=30.0),
     ]
+    # The kernels line's timed case stays the Llama train shape; the Gemma-2B
+    # train shape's times go beside it.
+    gemma = {}
+    for key in ("dq", "dkv"):
+        r = bwd[7][key]
+        gemma.update({f"gemma2b_{key}_{f}": r.pop(f) for f in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "delta_ms",
+            "pair_with_delta_ms", "flash_backward_ms") if f in r})
+    emit("flash_bwd_gemma2b", shape="B=2 S=2048 H=8 KV=1 D=256, causal", **gemma)
     results["flash_bwd_dq"] = [r["dq"] for r in bwd]
     results["flash_bwd_dkv"] = [r["dkv"] for r in bwd]
+    results["flash_bwd_extra"] = {
+        **{f"llama3_8b_{f}": bwd[0]["dq"][f] for f in (
+            "delta_ms", "pair_with_delta_ms", "flash_backward_ms")}, **gemma}
     return results
 
 
@@ -1117,15 +1166,21 @@ def train_flops_per_step(cfg, B: int, S: int) -> float:
     return 6.0 * matmul_params * B * S + attn
 
 
-def phase_train(seed: int = 0, n_layers: int = 8, steps: int = 6,
-                profile: bool = False) -> dict:
-    """``fit`` at Llama-3-8B widths with ``n_layers`` of 32 layers on one
-    batch of B=2 windows of 2048 tokens, seen every step. ``profile`` adds
-    one more step under the profiler."""
+TRAIN_MODELS = {  # model -> (layers of the published depth, why cut)
+    "llama3_8b": (32, "one card's memory"),
+    "gemma_2b": (18, "the phase's share of the run's time"),
+}
+
+
+def phase_train(model: str = "llama3_8b", n_layers: int = 8, steps: int = 6,
+                seed: int = 0, profile: bool = False, phase: str = "train") -> dict:
+    """``fit`` at ``model``'s published widths with ``n_layers`` of its
+    layers on one batch of B=2 windows of 2048 tokens, seen every step.
+    ``profile`` adds one more step under the profiler."""
     import numpy as np
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.models import llama3_8b
+    from kata_xpu_device_plugin_tpu_torch import models
     from kata_xpu_device_plugin_tpu_torch.ops import flash
     from kata_xpu_device_plugin_tpu_torch.parallel import (
         TokenBatchLoader,
@@ -1135,7 +1190,7 @@ def phase_train(seed: int = 0, n_layers: int = 8, steps: int = 6,
     )
     from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
 
-    cfg = llama3_8b(n_layers=n_layers)
+    cfg = getattr(models, model)(n_layers=n_layers)
     B, seq_len = 2, 2047
     stream = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, B * (seq_len + 1)).astype(np.int32)
@@ -1161,31 +1216,33 @@ def phase_train(seed: int = 0, n_layers: int = 8, steps: int = 6,
     n_params = sum(t.numel() for t in leaves(state["params"]))
     if profile:
         batch = next(loader)
-        profiled(f"train step {steps + 1}, B={B}, S={seq_len + 1}",
+        profiled(f"{model} train step {steps + 1}, B={B}, S={seq_len + 1}",
                  lambda: step(state, batch))
     del state
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     p50 = float(np.median(step_s))
     tokens = B * (seq_len + 1)
     flops = train_flops_per_step(cfg, B, seq_len + 1)
-    emit("train", model="llama3_8b", n_layers=n_layers,
-         reduced="n_layers=8 (from 32; one card's memory)", params=n_params,
-         B=B, S=seq_len + 1, steps=steps, losses=losses,
+    full, why = TRAIN_MODELS[model]
+    emit(phase, model=model, n_layers=n_layers,
+         reduced=f"n_layers={n_layers} (from {full}; {why})", params=n_params,
+         B=B, S=seq_len + 1, head_dim=cfg.head_dim, steps=steps, losses=losses,
          first_step_s=stamps[0] - t0, step_s=step_s, step_p50_s=p50,
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
          mfu=flops / p50 / PEAK_BF16_FLOPS, peak_mem_bytes=peak,
          device_mem_bytes=torch.cuda.get_device_properties(0).total_memory,
          launches=launches)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train loss not finite and falling: {losses}")
+        raise AssertionError(f"{phase} loss not finite and falling: {losses}")
     want = steps * n_layers
     if any(n != want for n in launches.values()):
-        raise AssertionError(f"train launches {launches}, want {want} each")
+        raise AssertionError(f"{phase} launches {launches}, want {want} each")
     return launches
 
 
-def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
-    """One ``next_token_loss`` backward at Llama-3-8B widths with
+def train_crosscheck(model: str = "llama3_8b", seed: int = 1, n_layers: int = 2,
+                     phase: str = "train_crosscheck") -> dict:
+    """One ``next_token_loss`` backward at ``model``'s widths with
     ``n_layers`` layers, B=1, S=2048, through the kernels and through
     ``reference_attention``, from the same fp32 weights and tokens. On the
     kernel path each layer's forward (with lse) and backward kernel call is
@@ -1195,7 +1252,8 @@ def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
     import numpy as np
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.models import init_params, llama3_8b
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import init_params
     from kata_xpu_device_plugin_tpu_torch.models.transformer import next_token_loss
     from kata_xpu_device_plugin_tpu_torch.ops import flash
     from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
@@ -1227,7 +1285,7 @@ def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
         assert causal and q_offset is None and not kw
         return Checked.apply(q, k, v)
 
-    cfg = llama3_8b(n_layers=n_layers)
+    cfg = getattr(models, model)(n_layers=n_layers)
     params = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, 2048))).cuda()
@@ -1240,7 +1298,8 @@ def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
     dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(gk, gp))
     nk = math.sqrt(sum(float(a.double().square().sum()) for a in gk))
     np_ = math.sqrt(sum(float(b.double().square().sum()) for b in gp))
-    row = {"n_layers": n_layers, "B": 1, "S": 2048, "loss_kernel": lk,
+    row = {"model": model, "n_layers": n_layers, "B": 1, "S": 2048,
+           "head_dim": cfg.head_dim, "loss_kernel": lk,
            "loss_plain": lp, "loss_diff": lk - lp, "grad_cosine": dot / (nk * np_),
            "layers_checked_fwd": len(checks["fwd"]),
            "layers_checked_bwd": len(checks["bwd"]),
@@ -1248,11 +1307,11 @@ def train_crosscheck(seed: int = 1, n_layers: int = 2) -> dict:
            "lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks["fwd"]),
            "bwd_max_err_over_bound": max(c[g]["max_err_over_bound"]
                                          for c in checks["bwd"] for g in c)}
-    emit("train_crosscheck", **row)
+    emit(phase, **row)
     if row["layers_checked_fwd"] != n_layers or row["layers_checked_bwd"] != n_layers:
-        raise AssertionError(f"train crosscheck checked {row}")
+        raise AssertionError(f"{phase} checked {row}")
     if not (math.isfinite(lk) and math.isfinite(row["grad_cosine"])):
-        raise AssertionError(f"train crosscheck not finite: {row}")
+        raise AssertionError(f"{phase} not finite: {row}")
     return row
 
 
@@ -1283,6 +1342,7 @@ def main(argv: list[str]) -> int:
     checks = timed_phase("check", phase_checks)
     extra = checks.pop("paged_decode_extra")
     dense_extra = checks.pop("dense_decode_extra")
+    bwd_extra = checks.pop("flash_bwd_extra")
     params, cfg = timed_phase("serve_setup", gemma_setup)
     launches = {"serve": timed_phase("serve", phase_serve, params, cfg,
                                      profile=profile)}
@@ -1293,6 +1353,12 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     launches["train"] = timed_phase("train", phase_train, profile=profile)
     timed_phase("train_crosscheck", train_crosscheck)
+    torch.cuda.empty_cache()
+    launches["train_gemma"] = timed_phase(
+        "train_gemma", phase_train, model="gemma_2b", n_layers=6, steps=4,
+        profile=profile, phase="train_gemma")
+    timed_phase("train_gemma_crosscheck", train_crosscheck, model="gemma_2b",
+                phase="train_gemma_crosscheck")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
     src = f"{PKG}/csrc"
     jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"
@@ -1306,7 +1372,7 @@ def main(argv: list[str]) -> int:
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:74",
                              extra=dense_extra),
         "flash_bwd_dq": dict(route="cuda", source=f"{src}/flash_bwd.cu",
-                             replaces=f"{jax_flash}:219"),
+                             replaces=f"{jax_flash}:219", extra=bwd_extra),
         "flash_bwd_dkv": dict(route="cuda", source=f"{src}/flash_bwd.cu",
                               replaces=f"{jax_flash}:283"),
     }

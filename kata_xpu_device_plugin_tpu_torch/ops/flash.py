@@ -4,12 +4,14 @@ their gates, their plain versions and the autograd function that joins
 them (counterpart of ``kata_xpu_device_plugin_tpu/ops/flash.py``).
 
 Eligibility (:func:`pick_block`, :func:`supports`) is decided exactly as
-in the JAX package; the kernels pick their own tiles (64-row blocks, 32-row
-inner tiles), since the TPU's 1024-row blocks do not fit a Hopper SM. The
-plain versions are :func:`flash_reference` and
-:func:`flash_backward_reference`, taken only for CPU tensors. Nonzero
-offsets and the logsumexp cotangent of the ring API are not ported yet,
-nor the backward at head_dim 256.
+in the JAX package; the kernels pick their own tiles (the forward 64-row
+blocks over 32-key tiles, the backward 64-row blocks over 32- or 64-row
+tiles, :func:`bwd_tiles`), since the TPU's 1024-row blocks do not fit a
+Hopper SM. :func:`bwd_schedule` models which
+tiles each backward block visits, in order. The plain versions are
+:func:`flash_reference` and :func:`flash_backward_reference`, taken only
+for CPU tensors. Nonzero offsets and the logsumexp cotangent of the ring
+API are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from .attention import NEG_INF, reference_attention
 
 DEFAULT_BLOCK = 1024
 KERNEL_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def pick_block(seq_len: int, requested: int) -> Optional[int]:
@@ -45,6 +47,87 @@ def supports(sq: int, sk: int, d: int) -> bool:
     )
 
 
+BWD_TILE = 64  # q rows of a dq block, keys of a dk/dv block (flash_bwd.cu)
+
+
+def bwd_tiles(D: int) -> tuple:
+    """``(dq keys, dk/dv q rows)`` of a ring stage at head_dim ``D``
+    (``Cfg<D>::DQ_BK`` and ``Cfg<D>::KV_BQ`` in ``flash_bwd.cu``)."""
+    return (32 if D == 256 else 64), (64 if D == 64 else 32)
+
+
+DKV_MIN_BLOCKS = 512  # dk/dv blocks to aim for before splitting the heads
+
+
+def dkv_splits(B: int, Sk: int, H: int, KV: int, D: int) -> int:
+    """Head groups of a dk/dv launch: the smallest divisor of the GQA
+    group ``H / KV`` that gives at least ``DKV_MIN_BLOCKS`` blocks (else
+    the whole group, one head a block). With more than one, each block sums
+    its group's fp32 partial and a combine pass adds the groups up in
+    order, so a grid of few KV heads and rows (MQA) still fills the card
+    and its heaviest key tile is split. Fixed by the shapes alone, so a
+    relaunch sums in the same order."""
+    G = H // KV
+    blocks = KV * B * -(-Sk // BWD_TILE) * (2 if D == 256 else 1)
+    return next((d for d in range(1, G + 1)
+                 if G % d == 0 and blocks * d >= DKV_MIN_BLOCKS), G)
+
+
+def bwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
+                 causal: bool = True, window: int = 0, B: int = 1) -> dict:
+    """The backward kernels' tile schedule for one batch row of a launch of
+    ``B`` rows, as ``csrc/flash_bwd.cu`` runs it: ``{"dq": blocks, "dkv":
+    blocks}``, each list in launch order. A block is a dict with ``grads``
+    (the gradients it sums), the rows it owns (``head`` and ``q0`` for dq;
+    ``kv_head``, ``k0`` and its head group ``split`` for dk/dv) and
+    ``visits``, the ``(q0, k0, q head)`` tiles in the order it adds them
+    up: dq tiles are ``BWD_TILE`` q rows by ``bwd_tiles(D)[0]`` keys, dk/dv
+    tiles ``bwd_tiles(D)[1]`` q rows by ``BWD_TILE`` keys. dq: one block
+    per (q tile, q head), the q tiles with the longest key range first and
+    the heads of one KV head side by side; dk/dv: one block per (key tile,
+    head group of :func:`dkv_splits`, KV head), lowest key tile first,
+    visiting head-major the q tiles that can see the tile; at D = 256 two
+    blocks each, one for dv, one for dk. Head groups' partials are summed
+    in ``split`` order."""
+    T = BWD_TILE
+    NK, NQ = bwd_tiles(D)
+    G = H // KV
+    nq, nk = -(-Sq // T), -(-Sk // T)
+    dq = []
+    for z in range(nq):
+        q0 = (nq - 1 - z) * T
+        k_begin, k_end = 0, Sk
+        if causal:
+            k_end = min(Sk, q0 + T)
+            if window > 0 and q0 - window + 1 > 0:
+                k_begin = (q0 - window + 1) // NK * NK
+        for h in range(H):
+            dq.append({"grads": ("dq",), "head": h, "q0": q0, "visits": [
+                (q0, k0, h) for k0 in range(k_begin, k_end, NK)]})
+    dkv = []
+    nsplit = dkv_splits(B, Sk, H, KV, D)
+    Gs = G // nsplit
+    modes = (("dv",), ("dk",)) if D == 256 else (("dk", "dv"),)
+    for kt in range(nk):
+        k0 = kt * T
+        q_begin, q_end = 0, Sq
+        if causal:
+            q_begin = k0 // NQ * NQ
+            if window > 0:
+                q_end = min(Sq, k0 + T - 1 + window)
+        n_qt = max(0, -(-(q_end - q_begin) // NQ))
+        for split in range(nsplit):
+            for grads in modes:
+                for kvh in range(KV):
+                    h0 = kvh * G + split * Gs
+                    dkv.append({
+                        "grads": grads, "kv_head": kvh, "k0": k0,
+                        "split": split, "visits": [
+                            (q_begin + (i % n_qt) * NQ, k0, h0 + i // n_qt)
+                            for i in range(Gs * n_qt)]})
+    return {"dq": dq, "dkv": dkv}
+
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -63,8 +146,11 @@ def _fwd_lib():
                [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _P])
 
 
-def _bwd_lib(name: str, n_out: int):
-    return _fn("flash_bwd", name, [_P] * (6 + n_out) + [_I] * 6
+def _bwd_lib(name: str):
+    """dq: 8 pointers (the last ``out``), 6 ints; dk/dv: 9 pointers (the
+    last the partials' scratch), 7 ints (the last the head groups)."""
+    n_ptr, n_int = (8, 6) if name == "flash_bwd_dq_bf16" else (9, 7)
+    return _fn("flash_bwd", name, [_P] * n_ptr + [_I] * n_int
                + [ctypes.POINTER(_L), _I, _I, _F, _F, _P])
 
 
@@ -75,6 +161,12 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
           and t.data_ptr() % 16 == 0)
     return t if ok else t.contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """lse and delta rows are read in 16-byte copies: a contiguous tensor
+    whose base is not 16-byte aligned (an offset view) is copied."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(q, k, v, causal, window):
@@ -295,16 +387,12 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_forward.launches = 0
 
 
-def _bwd_args(q, k, v, dout, lse, delta, causal, window):
+def _bwd_args(q, k, v, dout, lse, delta, causal, window, out=None):
     """Checks and the shared leading arguments of both backward kernels;
-    returns ``(shape, operands, strides)``, strides kept alive by the
-    caller for the launch."""
+    returns ``(shape, operands, strides)``, strides (of q, k, v, dout and
+    ``out``, zeros without it) kept alive by the caller for the launch."""
     B, Sq, H, D, Sk, KV = _check(q, k, v, causal, window)
     _check_cuda(q, k, v, dout)
-    if D == 256:
-        raise NotImplementedError(
-            "the flash backward kernels take head_dim 64 and 128; 256 is not "
-            "ported yet (ROADMAP Queue 2 item 3)")
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash backward head_dim {D} not in {BWD_HEAD_DIMS}")
     if dout.shape != q.shape or lse.shape != (B, H, Sq) or delta.shape != (B, H, Sq):
@@ -312,34 +400,52 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, window):
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("lse and delta are fp32")
     ops = [_kernel_operand(t) for t in (q, k, v, dout)]
-    ops += [lse.contiguous(), delta.contiguous()]
-    strides = (_L * 12)(*(s for t in ops[:4] for s in t.stride()[:3]))
+    ops += [_aligned(lse.contiguous()), _aligned(delta.contiguous())]
+    tail = (0, 0, 0) if out is None else out.stride()[:3]
+    strides = (_L * 15)(*(s for t in ops[:4] for s in t.stride()[:3]), *tail)
     return (B, Sq, H, D, Sk, KV), ops, strides
 
 
-def _launch_tail(shape, strides, causal, window, softcap, q):
+def _launch_tail(shape, strides, causal, window, softcap, q, *extra):
     B, Sq, H, D, Sk, KV = shape
-    return (B, Sq, Sk, H, KV, D, strides, int(causal), int(window),
+    return (B, Sq, Sk, H, KV, D, *extra, strides, int(causal), int(window),
             float(softcap), 1.0 / float(D) ** 0.5, _stream(q))
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
-                 window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """dq ``[B, Sq, H, D]`` from the logsumexp and ``delta`` (fp32
-    ``[B, H, Sq]``). On a CUDA tensor it launches the dq kernel (bf16, D 64
-    or 128) or raises; on a CPU tensor it runs the plain version."""
-    if not q.is_cuda:
-        return _backward_plain(q, k, v, dout, lse, delta, causal, window,
-                               softcap)[0]
-    shape, ops, strides = _bwd_args(q, k, v, dout, lse, delta, causal, window)
+
+def _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out=None):
+    """The dq kernel; with ``out`` (the forward's output) it forms
+    ``delta`` itself and writes it into ``delta``."""
+    if out is not None:
+        _check_cuda(out)
+        if out.shape != q.shape:
+            raise ValueError("out must match q")
+        out = _kernel_operand(out)
+    shape, ops, strides = _bwd_args(q, k, v, dout, lse, delta, causal, window,
+                                    out)
+    if out is not None and ops[5] is not delta:
+        raise ValueError("delta to write must be a contiguous, aligned fp32 "
+                         "[B, H, Sq]")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _bwd_lib("flash_bwd_dq_bf16", 1)(
+    err = _bwd_lib("flash_bwd_dq_bf16")(
         *(t.data_ptr() for t in ops), dq.data_ptr(),
+        None if out is None else out.data_ptr(),
         *_launch_tail(shape, strides, causal, window, softcap, q))
     if err:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
     flash_bwd_dq.launches += 1
     return dq
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
+                 window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """dq ``[B, Sq, H, D]`` from the logsumexp and ``delta`` (fp32
+    ``[B, H, Sq]``). On a CUDA tensor it launches the dq kernel (bf16, D
+    64, 128 or 256) or raises; on a CPU tensor it runs the plain version."""
+    if not q.is_cuda:
+        return _backward_plain(q, k, v, dout, lse, delta, causal, window,
+                               softcap)[0]
+    return _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap)
 
 
 flash_bwd_dq.launches = 0
@@ -348,17 +454,22 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
                   window: int = 0, softcap: float = 0.0):
     """``(dk, dv)``, each ``[B, Sk, KV, D]`` and summed over the q heads of
-    each KV head. On a CUDA tensor it launches the dk/dv kernel (bf16, D 64
-    or 128) or raises; on a CPU tensor it runs the plain version."""
+    each KV head. On a CUDA tensor it launches the dk/dv kernel (bf16, D 64,
+    128 or 256) or raises; on a CPU tensor it runs the plain version."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, dout, lse, delta, causal, window,
                                softcap)[1:]
     shape, ops, strides = _bwd_args(q, k, v, dout, lse, delta, causal, window)
+    B, Sq, H, D, Sk, KV = shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    err = _bwd_lib("flash_bwd_dkv_bf16", 2)(
+    nsplit = dkv_splits(B, Sk, H, KV, D)
+    part = (torch.empty((2, nsplit) + tuple(k.shape), dtype=torch.float32,
+                        device=k.device) if nsplit > 1 else None)
+    err = _bwd_lib("flash_bwd_dkv_bf16")(
         *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
-        *_launch_tail(shape, strides, causal, window, softcap, q))
+        None if part is None else part.data_ptr(),
+        *_launch_tail(shape, strides, causal, window, softcap, q, nsplit))
     if err:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
     flash_bwd_dkv.launches += 1
@@ -372,13 +483,15 @@ def flash_backward(q, k, v, out, lse, dout, causal: bool = True,
                    window: int = 0, softcap: float = 0.0):
     """``(dq, dk, dv)`` of self-attention from the forward's output and
     logsumexp: on CUDA the two backward kernels (or an error), on the CPU
-    the plain version. ``delta`` is a torch reduction, as it is XLA-side in
-    the JAX package."""
-    delta = _delta(out, dout)
+    the plain version. ``delta = rowsum(dout * out)`` is an XLA-side
+    reduction in the JAX package; on CUDA the dq kernel forms it from
+    ``out`` (in fp32, as :func:`_delta` does) and hands it to dk/dv."""
     if not q.is_cuda:
-        return _backward_plain(q, k, v, dout, lse, delta, causal, window,
-                               softcap)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, window, softcap)
+        return _backward_plain(q, k, v, dout, lse, _delta(out, dout), causal,
+                               window, softcap)
+    B, Sq, H, _ = q.shape
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, window, softcap)
     return dq, dk, dv
 

@@ -95,7 +95,8 @@ def _qkv_do(rng, dev, B, S, H, KV, D):
 
 BWD_CASES = [  # (H, KV, D, causal, window, softcap)
     (8, 2, 128, True, 0, 0.0), (4, 1, 64, True, 64, 30.0),
-    (4, 4, 64, False, 0, 0.0),
+    (4, 4, 64, False, 0, 0.0), (8, 1, 256, True, 0, 0.0),
+    (4, 2, 256, True, 96, 30.0), (4, 4, 256, False, 0, 0.0),
 ]
 
 
@@ -206,10 +207,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q32 = torch.zeros(1, 128, 4, 64, device=cuda_device)
     with pytest.raises(TypeError, match="bf16"):
         flash.flash_forward(q32, q32, q32)
-    q256 = torch.zeros(1, 128, 4, 256, device=cuda_device, dtype=torch.bfloat16)
-    out, lse = flash.flash_forward(q256, q256, q256, return_lse=True)
-    with pytest.raises(NotImplementedError, match="256"):
-        flash.flash_backward(q256, q256, q256, out, lse, out)
+    q96 = torch.zeros(1, 128, 4, 96, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_bwd_dq(q96, q96, q96, q96, lse, lse)
 
 
 @pytest.mark.cuda
@@ -462,6 +463,49 @@ def test_decode_kernels_are_bit_deterministic(cuda_device, kernel):
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,causal,window,softcap", BWD_CASES)
+def test_flash_backward_kernels_are_bit_deterministic(cuda_device, H, KV, D,
+                                                      causal, window, softcap):
+    """Each dq, dk and dv element is summed by the one block that owns it,
+    in a fixed order, with no atomics: relaunches give the same bits. S=320
+    leaves a part tile at the end."""
+    q, k, v, do = _qkv_do(np.random.default_rng(D + 31), cuda_device, 2, 320,
+                          H, KV, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash.flash_forward(q, k, v, return_lse=True, **kw)
+    runs = [flash.flash_backward(q, k, v, out, lse, do, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gemma_flag_train_step_runs_the_flash_kernels(cuda_device):
+    """One AdamW step of a two-layer model with Gemma-2B's training flags
+    (MQA, head_dim 256, GeGLU, scaled and tied embeddings) on the card:
+    each layer runs the forward kernel and each backward kernel once; the
+    loss is finite and the tied embedding moves."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.parallel import make_train_step
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512, d_model=512,
+                  d_ff=1024)
+    init_state, step = make_train_step(cfg)
+    state = init_state(0)
+    before = state["params"]["embed"].clone()
+    toks = np.random.default_rng(1).integers(0, 512, (2, 256))
+    kernels = (flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
+    counts = [f.launches for f in kernels]
+    state, loss = step(state, toks)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(kernels, counts)] == [2, 2, 2]
+    assert torch.isfinite(loss) and state["step"] == 1
+    assert not torch.equal(state["params"]["embed"], before)
 
 
 @pytest.mark.cuda

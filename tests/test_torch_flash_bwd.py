@@ -111,6 +111,37 @@ def test_autograd_matches_jax_grad_through_pallas(H, KV, causal, window,
                                        err_msg=f"{how} d{name}", **TOL)
 
 
+@pytest.mark.parametrize("H,KV,causal,window,softcap", [
+    (2, 1, True, 0, 0.0), (2, 2, True, 48, 4.0), (2, 1, False, 0, 0.0),
+], ids=["mqa-causal", "mha-window-softcap", "mqa-full"])
+def test_plain_backward_matches_jax_interpret_at_head_dim_256(H, KV, causal,
+                                                              window, softcap):
+    """Head_dim 256 (the Gemma widths the card's kernels now train at):
+    the port's plain backward against ``_bwd_call`` and
+    ``_group_kv_grads`` in interpret mode, at S = 128 (one 128-row JAX
+    block, two 64-row tiles of the card's kernels)."""
+    S2, D2, blk = 128, 256, 128
+    rng = np.random.default_rng(5)
+    q, do = (rng.standard_normal((1, S2, H, D2), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, S2, KV, D2), np.float32) for _ in range(2))
+    scale = 1.0 / D2 ** 0.5
+    out_t, lse = jflash._fwd_call(
+        _t(q), _t(k), _t(v), causal, blk, blk, H // KV, True, scale,
+        need_lse=True, window=window, softcap=softcap)
+    dq, dk_h, dv_h = jflash._bwd_call(
+        _t(q), _t(k), _t(v), out_t, lse, _t(do), causal, blk, blk, H // KV,
+        True, scale, window=window, softcap=softcap)
+    dk, dv = jflash._group_kv_grads(dk_h, dv_h, KV, H // KV)
+    out = torch.from_numpy(np.array(out_t.transpose(0, 2, 1, 3)))
+    got = tflash.flash_backward(
+        *(torch.from_numpy(a) for a in (q, k, v)), out,
+        torch.from_numpy(np.asarray(lse)[..., 0].copy()), torch.from_numpy(do),
+        causal, window, softcap)
+    for name, a, b in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b.transpose(0, 2, 1, 3)),
+                                   err_msg=name, **TOL)
+
+
 def test_backward_magnitudes_cover_the_single_key_row():
     """Row 0 of a causal mask attends to key 0 alone, so its exact dq is 0
     and each side's value is the fp32 rounding of ``dp - delta``; the

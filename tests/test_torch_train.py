@@ -19,7 +19,7 @@ from kata_xpu_device_plugin_tpu_torch.models import transformer as tt
 from kata_xpu_device_plugin_tpu_torch.ops import quant
 from kata_xpu_device_plugin_tpu_torch.parallel import sharding as tsh
 
-from .torch_parity import build_pair
+from .torch_parity import CONFIGS, build_pair
 
 # The loss and gradient tolerances of the JAX package's own flash-vs-
 # reference training test (tests/test_ops.py): the same fp32 model, with
@@ -61,8 +61,8 @@ def _flat_torch(tree, prefix=""):
     return out
 
 
-def _setup(seed=0):
-    jcfg = jllama.llama3_train_test(dtype=jnp.float32)
+def _setup(seed=0, config="llama3_test"):
+    jcfg = CONFIGS[config]()
     jp, tp, tcfg = build_pair(jcfg, seed=seed)
     return jcfg, jp, tp, tcfg
 
@@ -79,9 +79,19 @@ def test_bridge_carries_the_training_layout():
         np.testing.assert_array_equal(flat_t[k], a)
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
-def test_next_token_loss_and_grads_match_jax(remat):
-    jcfg, jp, tp, tcfg = _setup(seed=1)
+@pytest.mark.parametrize("config,remat", [
+    ("llama3_test", False), ("llama3_test", True),
+    ("gemma_tiny", False), ("gemma_tiny", True),
+], ids=["plain", "remat", "gemma-plain", "gemma-remat"])
+def test_next_token_loss_and_grads_match_jax(config, remat):
+    """Llama's training config, and a tiny one with Gemma's training flags
+    (MQA, GeGLU, embeddings scaled by sqrt(d_model) and tied to the
+    unembedding): loss and every gradient against ``jax.value_and_grad``."""
+    jcfg, jp, tp, tcfg = _setup(seed=1, config=config)
+    if config == "gemma_tiny":
+        assert tcfg.tie_embeddings and tcfg.scale_embeddings
+        assert tcfg.activation == "geglu" and tcfg.n_kv_heads == 1
+        assert "unembed" not in tp
     toks = _tokens(2, (2, 17), jcfg.vocab_size)
     lj, gj = jax.value_and_grad(
         lambda p: jt.next_token_loss(p, jnp.asarray(toks), jcfg, remat=remat))(jp)
