@@ -9,25 +9,32 @@ Phases, each printing one JSON line:
 
 1. device — the card (``nvidia-smi`` name and power limit) and CUDA version;
 2. build  — compile every kernel under ``kata_xpu_device_plugin_tpu_torch/csrc``;
-3. check  — each kernel against its plain PyTorch version on the card, bf16,
-   at the main paths' shapes and layouts, within the per-element and mean
-   bounds of ``ops.attention.kernel_tolerance`` (for the backward kernels
-   with the magnitudes ``ops.flash.backward_magnitudes`` derives); the
-   forward's logsumexp in fp32. The paged decode kernel walks permuted,
-   non-contiguous tables with unmapped entries, ragged positions and a dead
-   lane, at Gemma-2B and Llama-3-8B head shapes, single-query and as spans
-   of 4 and 8 rows with ragged query lengths (real rows within the bound
-   and bit-equal to a single-query launch at the row's position, padding
-   rows finite and within max|V|), also at tile 1024, whose chunks the
-   split pass walks in pieces; the dense decode kernel at five shared
-   positions; a second launch of each decode kernel on the same inputs
-   must give the same bits; each decode kernel is also timed at a working
-   set past the 50 MB L2 (paged int8, 64 lanes at position 4095, tile 16;
-   dense bf16, 32 rows at position 4095), against its byte bound; the
-   flash backward kernels at head_dim 64, 128 and 256 (the Llama-3-8B and
-   Gemma-2B train shapes timed, beside the ``delta`` reduction and the SDPA
-   backward), both with ``delta`` given and with the dq kernel forming it
-   (``flash_backward``), and a second launch of each giving the same bits;
+3. check  — each kernel against its plain PyTorch version on the card,
+   bf16, at the main paths' shapes and layouts, within the per-element and
+   mean bounds of ``ops.attention.kernel_tolerance`` (for the backward
+   kernels with the magnitudes ``ops.flash.backward_magnitudes`` derives);
+   the forward's logsumexp in fp32. The flash forward at the serving
+   prefill shapes, and where its tiles meet the masks and the sequence's
+   end (full attention, D=64, window 96 with softcap 30, S=160 and 320, B=1
+   S=128, GQA 4) with and without the lse, a second launch of each giving
+   the same bits; timed by CUDA-graph replay beside SDPA's forward at the
+   Gemma-2B prefill shape (the kernels line) and, with the lse, at the two
+   training shapes (the ``flash_fwd_train`` line). The paged decode kernel
+   walks permuted, non-contiguous tables with unmapped entries, ragged
+   positions and a dead lane, at Gemma-2B and Llama-3-8B head shapes,
+   single-query and as spans of 4 and 8 rows with ragged query lengths
+   (real rows within the bound and bit-equal to a single-query launch at
+   the row's position, padding rows finite and within max|V|), also at tile
+   1024, whose chunks the split pass walks in pieces; the dense decode
+   kernel at five shared positions; a second launch of each decode kernel
+   on the same inputs must give the same bits; each decode kernel is also
+   timed at a working set past the 50 MB L2 (paged int8, 64 lanes at
+   position 4095, tile 16; dense bf16, 32 rows at position 4095), against
+   its byte bound; the flash backward kernels at head_dim 64, 128 and 256
+   (the Llama-3-8B and Gemma-2B train shapes timed, beside the ``delta``
+   reduction and the SDPA backward), both with ``delta`` given and with the
+   dq kernel forming it (``flash_backward``), and a second launch of each
+   giving the same bits;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
    both kernels reset just before and read just after; then two requests
@@ -205,14 +212,33 @@ def phase_build() -> None:
          spills={n: spilling_functions(log) for n, log in _build.build_log.items()})
 
 
-def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
+def flash_fwd_bound(B, S, H, KV, D, causal=True, lse=False) -> dict:
+    """The least time the card could take for the forward: two D-long
+    products a live (q row, key) pair over the bf16 peak, or q, k and v
+    read once and the output (and the lse) written once over the memory
+    rate, the larger."""
+    pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+    t_ops = 4.0 * D * pairs / PEAK_BF16_FLOPS
+    nbytes = 2.0 * B * S * D * (2 * H + 2 * KV) + (4.0 * B * H * S if lse else 0.0)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def flash_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
+               lse=False, timed=False):
     """q/k/v are slices of one fused ``[B, S, (H + 2 KV) D]`` projection,
-    the strided layout the transformer's fused ``wqkv`` hands the kernel."""
+    the strided layout the transformer's fused ``wqkv`` hands the kernel.
+    The kernel without the lse is held against the plain version; with
+    ``lse`` the instantiation that writes it too, its lse within LSE_TOL. A
+    second launch of each must give the same bits. ``timed``: the kernel
+    (with the lse when ``lse``) and SDPA by CUDA-graph replay, the eager
+    call beside them."""
     import torch
     import torch.nn.functional as F
 
     from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
-    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward, flash_reference
 
     g = torch.Generator(device="cuda").manual_seed(B * S + H + D)
     qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=g, device="cuda",
@@ -220,26 +246,38 @@ def flash_case(name, B, S, H, KV, D, window=0, softcap=0.0, timed=False):
     q = qkv[..., : H * D].reshape(B, S, H, D)
     k = qkv[..., H * D: (H + KV) * D].reshape(B, S, KV, D)
     v = qkv[..., (H + KV) * D:].reshape(B, S, KV, D)
-    kw = dict(window=window, logits_softcap=softcap)
-    out = flash_forward(q, k, v, window=window, softcap=softcap)
-    ref = reference_attention(q, k, v, **kw)
-    mag = reference_attention(q.float(), k.float(), v.abs().float(), **kw)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    rkw = dict(causal=causal, window=window, logits_softcap=softcap)
+    out = flash_forward(q, k, v, **kw)
+    ref = reference_attention(q, k, v, **rkw)
+    mag = reference_attention(q.float(), k.float(), v.abs().float(), **rkw)
     torch.cuda.synchronize()
     res = check(name, out, ref, mag)
-    del mag
+    relaunch_equal(name, out, flash_forward(q, k, v, **kw))
+    if lse:
+        out_l, lse_k = flash_forward(q, k, v, return_lse=True, **kw)
+        _, ref_lse = flash_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        res_l = check(f"{name} (lse)", out_l, ref, mag)
+        for f in ("max_abs_err", "max_err_over_bound"):
+            res[f] = max(res[f], res_l[f])
+        res["lse_max_abs_err"] = check_lse(name, lse_k, ref_lse)
+        again = flash_forward(q, k, v, return_lse=True, **kw)
+        relaunch_equal(f"{name} (lse)", out_l, again[0])
+        relaunch_equal(f"{name} lse", lse_k, again[1])
+    del ref, mag
     if timed:
-        res["ms"] = time_ms(lambda: flash_forward(q, k, v), 10)
-        res["plain_ms"] = time_ms(lambda: reference_attention(q, k, v), 3, 1)
+        call = lambda: flash_forward(q, k, v, return_lse=lse, **kw)  # noqa: E731
+        res["ms"] = graph_ms(call, 20)
+        res["call_ms"] = time_ms(call, 20)
+        plain = flash_reference if lse else reference_attention
+        res["plain_ms"] = time_ms(lambda: plain(q, k, v), 3, 1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-        flops = 4.0 * B * H * D * S * (S + 1) / 2
-        nbytes = 2.0 * B * S * D * (2 * H + 2 * KV)
-        res["bound_ms"] = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-        res["bound_by"] = ("operations" if flops / PEAK_BF16_FLOPS
-                           > nbytes / PEAK_HBM_BYTES else "bytes")
-    emit("check", kernel="flash_fwd", B=B, S=S, H=H, KV=KV, D=D,
-         window=window, softcap=softcap, **res)
+        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        res.update(flash_fwd_bound(B, S, H, KV, D, causal, lse))
+    emit("check", kernel="flash_fwd", B=B, S=S, H=H, KV=KV, D=D, causal=causal,
+         window=window, softcap=softcap, lse=lse, relaunch_bit_equal=True, **res)
     return res
 
 
@@ -600,6 +638,30 @@ def phase_checks() -> dict:
     f.append(flash_case("llama3-8b B2 S2048", 2, 2048, 32, 8, 128))
     f.append(flash_case("window+softcap", 2, 256, 4, 2, 128, window=64,
                         softcap=50.0))
+    # Where the forward's tiles meet the masks and the sequence's end, each
+    # also through the instantiation that writes the lse.
+    for args, kw in (
+            (("non-causal", 2, 256, 8, 2, 128), dict(causal=False)),
+            (("D64", 2, 256, 8, 2, 64), {}),
+            (("D256 window96+softcap30", 1, 320, 4, 1, 256),
+             dict(window=96, softcap=30.0)),
+            (("S160 part tile", 2, 160, 8, 2, 128), {}),
+            (("S320 part tile MQA", 1, 320, 8, 1, 256), {}),
+            (("B1 S128 lse", 1, 128, 8, 1, 256), {}),
+            (("GQA4", 2, 256, 16, 4, 128), {})):
+        f.append(flash_case(*args, lse=True, **kw))
+    # The training shapes, timed with the lse; the kernels line's timed case
+    # stays the prefill shape, these go beside it.
+    train = {}
+    for model, shape in (("llama3_8b", (2, 2048, 32, 8, 128)),
+                         ("gemma2b", (2, 2048, 8, 1, 256))):
+        c = flash_case(f"{model} train B2 S2048", *shape, lse=True, timed=True)
+        train.update({f"{model}_{k_}": c.pop(k_) for k_ in (
+            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        f.append(c)
+    emit("flash_fwd_train", shape="B=2 S=2048, causal, with the lse: llama3_8b "
+         "H=32 KV=8 D=128, gemma2b H=8 KV=1 D=256", **train)
+    results["flash_fwd_extra"] = train
     d = results["paged_decode"]
     d.append(decode_case("gemma2b int8 bs128", 8, 8, 1, 256, 128, True, timed=True))
     d.append(decode_case("gemma2b bf16 bs128", 8, 8, 1, 256, 128, False))
@@ -1343,6 +1405,7 @@ def main(argv: list[str]) -> int:
     extra = checks.pop("paged_decode_extra")
     dense_extra = checks.pop("dense_decode_extra")
     bwd_extra = checks.pop("flash_bwd_extra")
+    fwd_extra = checks.pop("flash_fwd_extra")
     params, cfg = timed_phase("serve_setup", gemma_setup)
     launches = {"serve": timed_phase("serve", phase_serve, params, cfg,
                                      profile=profile)}
@@ -1364,7 +1427,7 @@ def main(argv: list[str]) -> int:
     jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"
     meta = {
         "flash_fwd": dict(route="cuda", source=f"{src}/flash_fwd.cu",
-                          replaces=f"{jax_flash}:70"),
+                          replaces=f"{jax_flash}:70", extra=fwd_extra),
         "paged_decode": dict(route="cuda", source=f"{src}/paged_decode.cu",
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213",
                              extra=extra),

@@ -4,11 +4,12 @@ their gates, their plain versions and the autograd function that joins
 them (counterpart of ``kata_xpu_device_plugin_tpu/ops/flash.py``).
 
 Eligibility (:func:`pick_block`, :func:`supports`) is decided exactly as
-in the JAX package; the kernels pick their own tiles (the forward 64-row
-blocks over 32-key tiles, the backward 64-row blocks over 32- or 64-row
-tiles, :func:`bwd_tiles`), since the TPU's 1024-row blocks do not fit a
-Hopper SM. :func:`bwd_schedule` models which
-tiles each backward block visits, in order. The plain versions are
+in the JAX package; the kernels pick their own tiles (the forward 128-row
+blocks of two 64-row warpgroups over 64- or 128-key tiles,
+:func:`fwd_tiles`; the backward 64-row blocks over 32- or 64-row tiles,
+:func:`bwd_tiles`), since the TPU's 1024-row blocks do not fit a Hopper
+SM. :func:`fwd_schedule` and :func:`bwd_schedule` model which tiles each
+block visits, in order. The plain versions are
 :func:`flash_reference` and :func:`flash_backward_reference`, taken only
 for CPU tensors. Nonzero offsets and the logsumexp cotangent of the ring
 API are not ported yet.
@@ -45,6 +46,72 @@ def supports(sq: int, sk: int, d: int) -> bool:
         and pick_block(sq, DEFAULT_BLOCK) is not None
         and pick_block(sk, DEFAULT_BLOCK) is not None
     )
+
+
+FWD_WG_ROWS = 64  # q rows of a forward warpgroup (flash_fwd.cu WG_ROWS)
+FWD_WARPGROUPS = 2  # consumer warpgroups of a forward block (NWG)
+
+
+def fwd_tiles(D: int) -> tuple:
+    """``(q rows of a block, keys of a ring stage, ring stages)`` of the
+    forward kernel at head_dim ``D`` (``BQ``, ``Cfg<D>::BK`` and
+    ``Cfg<D>::STAGES`` in ``flash_fwd.cu``): fixed by the head width alone.
+    At D = 256 a stage holds 64 keys, since O takes 128 registers a thread
+    there."""
+    return (FWD_WARPGROUPS * FWD_WG_ROWS, 64 if D == 256 else 128,
+            4 if D == 64 else 2)
+
+
+def fwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
+                 causal: bool = True, window: int = 0, B: int = 1) -> list:
+    """The forward kernel's tile schedule, as ``csrc/flash_fwd.cu`` runs
+    it: its blocks in launch order, the q tiles with the longest causal key
+    range first, then the batch rows, then the q heads (those of one KV
+    head side by side). A block is a dict with ``row``, ``head``,
+    ``kv_head``, ``q0``, ``loads`` (the ``(k0, rows)`` key tiles its ring fills, in order, with
+    the rows read from k and v: a tile past the sequence's end is
+    zero-filled, and the last tile ends at the last row's causal frontier
+    when ``Sq == Sk``) and ``visits``, the ``(qw, k0, masked)``
+    warpgroup tiles whose products run (``FWD_WG_ROWS`` q rows from ``qw``
+    by a stage's keys from ``k0``) in loop order, each warpgroup's keys
+    ascending. A warpgroup skips a tile with no live pair and rows past
+    ``Sq``; ``masked`` says that the tile applies the mask, which holds
+    exactly when one of its pairs (rows below ``Sq``) is masked."""
+    BQ, NK, _ = fwd_tiles(D)
+    W = FWD_WG_ROWS
+
+    def key_range(q0, n):
+        lo, hi = 0, Sk
+        if causal:
+            hi = min(Sk, Sq, q0 + n)
+            if window > 0:
+                lo = max(0, q0 - window + 1)
+        return lo, hi
+
+    def tile_live(qw, k0):
+        ok = k0 + NK <= Sk
+        if causal:
+            ok = ok and k0 + NK - 1 <= qw
+            if window > 0:
+                ok = ok and k0 > min(qw + W, Sq) - 1 - window
+        return ok
+
+    nq = -(-Sq // BQ)
+    blocks = []
+    for z in range(nq):
+        q0 = (nq - 1 - z) * BQ
+        lo, hi = key_range(q0, BQ)
+        k0s = range(lo // NK * NK, hi, NK)
+        spans = [(qw, *key_range(qw, W)) for qw in range(q0, q0 + BQ, W)
+                 if qw < Sq]
+        visits = [(qw, k0, not tile_live(qw, k0)) for k0 in k0s
+                  for qw, wlo, whi in spans if k0 < whi and k0 + NK > wlo]
+        loads = [(k0, min(NK, Sk - k0)) for k0 in k0s]
+        for b in range(B):
+            for h in range(H):
+                blocks.append({"row": b, "head": h, "kv_head": h // (H // KV),
+                               "q0": q0, "loads": loads, "visits": visits})
+    return blocks
 
 
 BWD_TILE = 64  # q rows of a dq block, keys of a dk/dv block (flash_bwd.cu)

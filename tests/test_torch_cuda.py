@@ -123,6 +123,48 @@ def test_flash_lse_matches_plain(cuda_device, H, KV, D, causal, window, softcap)
     assert res["ok"], res
 
 
+FWD_EDGE_CASES = [  # (B, S, H, KV, D, causal, window, softcap)
+    (2, 256, 8, 2, 128, False, 0, 0.0),   # full attention
+    (2, 256, 8, 2, 64, True, 0, 0.0),     # D = 64
+    (1, 320, 4, 1, 256, True, 96, 30.0),  # a window edge inside the tiles, cap
+    (2, 160, 8, 2, 128, True, 0, 0.0),    # S = 160: a part q tile and key tile
+    (1, 320, 8, 1, 256, True, 0, 0.0),    # S = 320, MQA
+    (1, 128, 8, 1, 256, True, 0, 0.0),    # B = 1, S = 128: one q tile a head
+    (2, 256, 16, 4, 128, True, 0, 0.0),   # GQA 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,softcap", FWD_EDGE_CASES)
+def test_flash_forward_tile_edges_match_plain(cuda_device, B, S, H, KV, D,
+                                              causal, window, softcap):
+    """Where the forward's tiles meet the masks and the sequence's end: both
+    instantiations (without and with the lse) within kernel_tolerance of
+    the plain version, the lse within its fp32 bound, on q/k/v sliced from
+    one fused projection; a second launch of each gives the same bits."""
+    q, k, v, _ = _qkv_do(np.random.default_rng(S + D + H), cuda_device, B, S,
+                         H, KV, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash.flash_forward.launches
+    runs = [(flash.flash_forward(q, k, v, **kw),
+             *flash.flash_forward(q, k, v, return_lse=True, **kw))
+            for _ in range(2)]
+    ref, ref_lse = flash.flash_reference(q, k, v, **kw)
+    mag = attention.reference_attention(q.float(), k.float(), v.abs().float(),
+                                        causal=causal, window=window,
+                                        logits_softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash.flash_forward.launches == before + 4
+    out, out_lse, lse = runs[0]
+    for o in (out, out_lse):
+        assert o.shape == (B, S, H, D) and o.dtype == torch.bfloat16
+        res = attention.kernel_tolerance(o, ref, mag)
+        assert res["ok"], res
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,KV,D,causal,window,softcap", BWD_CASES)
 def test_flash_backward_kernels_match_plain(cuda_device, H, KV, D, causal,
