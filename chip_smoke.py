@@ -36,20 +36,34 @@ Phases, each printing one JSON line:
    dq kernel forming it (``flash_backward``), and a second launch of each
    giving the same bits;
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
-   ``GenerationServer`` (int8 KV, chunk 8): 16 requests; launch counts of
-   both kernels reset just before and read just after; then two requests
-   through the kernel path and the plain path: every layer's kernel call
-   held against the plain version on its own inputs, and the logits held
-   against the plain path's (``crosscheck``);
+   the default ``GenerationServer`` (overlapped rounds, int8 KV, chunk 8,
+   each decode chunk after the first one CUDA graph replay): 16 requests;
+   launch counts of both kernels reset just before and read just after,
+   and for every server run: the paged kernel's launches equal rounds x
+   chunk x decode_steps x layers, counted through the replays, one
+   capture, and every round after the warm-up chunk a replay. Beside it
+   the lock-step server (``overlap=False``) on the same requests: tok/s,
+   TTFT, ITL, rounds and the token-match fraction (printed; the two loops
+   may group admissions differently, and bf16 GEMMs at another batch round
+   differently). Then ``graph_check``: one chunk by capture and replay
+   against the same chunk run eagerly on a clone of the arena, tokens,
+   ``last``, ``pos`` and every arena byte bit-equal, with the capture's
+   seconds and its graph pool's bytes. Then two requests through the
+   kernel path and the plain path: every layer's kernel call held against
+   the plain version on its own inputs, and the logits held against the
+   plain path's (``crosscheck``);
 5. paged  — the same model served over a paged block pool:
    ``GenerationServer(max_batch=16, kv_pool_tokens=8000, kv_block_size=16)``,
-   32 requests; every decode step walks the lanes' real block tables with
-   the paged kernel; the pool comes under pressure, so lanes are preempted,
-   spilled and resumed. Asserted: every budget returned, at least one
-   preemption, an empty pool at the end, more than 8 lanes at once. Then
-   one round of a loaded paged server with every layer's kernel call held
-   against the plain version on its own inputs (``paged_crosscheck``), and
-   the slotted server on the same requests for the token-match fraction;
+   32 requests, overlapped; every decode step walks the lanes' real block
+   tables with the paged kernel; the pool comes under pressure, so lanes
+   are preempted, spilled and resumed. Asserted: every budget returned, at
+   least one preemption, an empty pool at the end, more than 8 lanes at
+   once. Beside it the lock-step paged server and the paged server at
+   ``decode_steps=4`` on the same requests, and ``graph_check`` over the
+   pool. Then one round of a loaded paged server with every layer's kernel
+   call held against the plain version on its own inputs
+   (``paged_crosscheck``), and the slotted server on the same requests for
+   the token-match fraction;
 6. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
    cache, under ``KATA_TPU_DECODE_KERNEL=1``: 18 x 63 launches of the dense
    decode kernel, each layer of the first decode step held against the
@@ -70,8 +84,10 @@ Phases, each printing one JSON line:
    (6 launches of each kernel a step), then its 2-layer crosscheck.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
-``--profile`` adds a ``torch.profiler`` window over two decode rounds of a
-loaded server and one over a step of each train phase. Any failed
+``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
+server (slotted and paged, overlapped and lock-step; at least 48 steps,
+all graph replays), each printing the card's idle share, and one over a step
+of each train phase. Any failed
 phase raises: the script exits non-zero and prints no result. Without CUDA,
 or outside a checkout of the repository, it exits non-zero at once.
 """
@@ -757,7 +773,7 @@ KERNEL_CLASSES = ("paged_decode", "dense_decode", "flash_fwd", "flash_bwd_dq",
                   "flash_bwd_dkv")
 
 
-def profiled(window: str, fn) -> None:
+def profiled(window: str, fn, **fields) -> None:
     """Run ``fn`` under ``torch.profiler`` and print where its device time
     goes: summed per class (this repository's kernels, cuBLAS GEMMs,
     everything else) and per kernel name, against the host wall."""
@@ -785,7 +801,7 @@ def profiled(window: str, fn) -> None:
         classes[cls] += dev_us(e) / 1e3
     busy = sum(classes.values())
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit("profile", window=window,
+    emit("profile", window=window, **fields,
          wall_ms=round(wall * 1e3, 3), device_busy_ms=round(busy, 3),
          device_idle_share=round(1 - busy / (wall * 1e3), 4),
          by_class_ms={k: round(v, 3) for k, v in classes.items()},
@@ -793,25 +809,43 @@ def profiled(window: str, fn) -> None:
                "count": e.count} for e in top])
 
 
-def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> None:
-    """Where a decode round's device time goes: ``lanes`` requests admitted,
-    then two lock-step rounds (16 decode steps) under the profiler."""
+def window_rounds(steps: int) -> int:
+    """Rounds of a profiled decode window: at least 48 decode steps and
+    two rounds, so that one round's host jitter weighs little."""
+    return max(2, -(-48 // steps))
+
+
+def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> dict:
+    """Where a decode round's device time goes: ``lanes`` requests (prompts
+    of 500-1000 tokens) admitted and two rounds run (the warm-up chunk,
+    then the capture and the first replay), then :func:`window_rounds`
+    more under the profiler, all graph replays. Budgets outlast the
+    window."""
     from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
 
     srv = GenerationServer(params, cfg, **kw)
+    steps = srv.stats()["decode_steps"] * kw["chunk"]
+    n_rounds = window_rounds(steps)
     for n in rng.integers(500, 1001, lanes):
-        srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
-    srv.step()  # admission of every request the server holds, plus one round
+        srv.submit(rng.integers(0, cfg.vocab_size, n), (n_rounds + 3) * steps)
+    srv.step()  # admission of every request the server holds, and a chunk
+    srv.step()
     busy = srv.stats()["lanes_busy_peak"]
 
     def rounds():
-        srv.step()
-        srv.step()
+        for _ in range(n_rounds):
+            srv.step()
 
     arena = (f"paged pool, tile {kw['kv_block_size']}" if "kv_pool_tokens" in kw
              else "slotted arena")
-    profiled(f"2 decode rounds (16 steps), {arena}, {busy} of "
-             f"{kw['max_batch']} lanes busy, pos 500-1100", rounds)
+    loop = "overlapped" if srv.overlap else "lock-step"
+    fields = dict(loop=loop, decode_steps=srv.stats()["decode_steps"],
+                  lanes=busy, rounds=n_rounds)
+    profiled(f"{n_rounds} {loop} decode rounds ({n_rounds * steps} steps), "
+             f"{arena}, {busy} of {kw['max_batch']} lanes busy, prompts "
+             "500-1000", rounds, **fields)
+    del srv
+    return fields
 
 
 def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
@@ -934,11 +968,34 @@ def gemma_setup(seed: int = 0):
     return params, cfg
 
 
+# Counters of stats() that run_requests reports for its timed run alone.
+RUN_COUNTERS = ("rounds", "prefills", "prefill_batches", "tokens_emitted",
+                "preemptions", "decode_graph_replays")
+
+
+def warm_server(srv) -> dict:
+    """One short request through ``srv`` before it is timed, long enough
+    for two dispatches: the server's eager warm-up chunk and its capture
+    are one-time costs of a server (``decode_graph`` prints the capture's),
+    not part of what its users wait for in a run. The latency summaries
+    start afresh after it. Returns the stats after it."""
+    import numpy as np
+
+    from kata_xpu_device_plugin_tpu_torch.obs.metrics import Rolling
+
+    steps = srv.stats()["decode_steps"] * srv.chunk
+    srv.submit(np.arange(1, 101, dtype=np.int32), steps + 2)
+    srv.run()
+    srv._ttft, srv._tok_lat = Rolling(), Rolling()
+    return srv.stats()
+
+
 def run_requests(srv, prompts, budgets):
-    """Submit every request, reset the serving kernels' launch counts, drain
-    the server, read the counts. Returns the outputs in submit order, the
-    wall time, the launches and the server's stats; every request must
-    return its budget of in-vocabulary tokens."""
+    """Warm the server (:func:`warm_server`), submit every request, reset
+    the serving kernels' launch counts, drain the server, read the counts.
+    Returns the outputs in submit order, the wall time, the launches and
+    the server's stats, with :data:`RUN_COUNTERS` counted over this run
+    alone; every request must return its budget of in-vocabulary tokens."""
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
@@ -949,6 +1006,7 @@ def run_requests(srv, prompts, budgets):
 
     kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
                "dense_decode": decode_attention}
+    base = warm_server(srv)
     rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -959,6 +1017,8 @@ def run_requests(srv, prompts, budgets):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    life = srv.stats()
+    stats = {**life, **{k: life[k] - base[k] for k in RUN_COUNTERS}}
     outs = [results[rid] for rid in rids]
     for rid, out, b in zip(rids, outs, budgets):
         if len(out) != int(b):
@@ -968,7 +1028,16 @@ def run_requests(srv, prompts, budgets):
     if set(launches) != {"flash_fwd", "paged_decode"}:
         raise AssertionError(f"serving must launch the flash and the paged "
                              f"kernel and no other: {launches}")
-    return outs, wall, launches, srv.stats()
+    rounds, steps = stats["rounds"], stats["decode_steps"] * srv.chunk
+    if launches["paged_decode"] != rounds * steps * srv.cfg.n_layers:
+        raise AssertionError(f"a decode step left the paged kernel: {launches}, "
+                             f"{rounds} rounds of {steps} steps")
+    if (life["decode_graph_captures"] != 1
+            or life["decode_graph_replays"] != life["rounds"] - 1
+            or stats["decode_graph_replays"] != rounds):
+        raise AssertionError(f"every chunk after the warm-up must be a graph "
+                             f"replay: {life}")
+    return outs, wall, launches, stats
 
 
 def serve_row(stats, wall, budgets, lens, launches) -> dict:
@@ -984,41 +1053,131 @@ def serve_row(stats, wall, budgets, lens, launches) -> dict:
         itl_p99_s=stats["decode_token_s"]["p99"],
         rounds=stats["rounds"], prefills=stats["prefills"],
         prefill_batches=stats["prefill_batches"],
+        decode_steps=stats["decode_steps"],
+        decode_graph={k: stats[f"decode_graph_{k}"] for k in (
+            "captures", "replays", "capture_s", "pool_bytes")},
         arena_bytes=stats["arena_bytes"],
         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
 
 
+SIDE_KEYS = ("tok_s", "wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+             "itl_p99_s", "rounds", "prefill_batches", "decode_steps",
+             "decode_graph", "launches")
+
+
+def _bits(t):
+    """A tensor's bytes as integers, so that equality is bit equality."""
+    import torch
+
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def graph_check(params, cfg, kw, seed: int = 0) -> dict:
+    """One decode chunk by CUDA graph against the same chunk run eagerly:
+    a server with ``kw`` admits 8 requests and decodes its warm-up chunk
+    (lock-step), then the second chunk is run eagerly on a clone of the
+    arena and through the server's graph (its capture, then its first
+    replay) on the live arena, from the same inputs. Tokens, ``last``,
+    ``pos`` and every byte of the arena must be equal."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import QTensor
+
+    srv = GenerationServer(params, cfg, **{**kw, "overlap": False})
+    rng = np.random.default_rng(seed)
+    for n in rng.integers(64, 1001, 8):
+        srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
+    srv.step()
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena if srv.paged else srv.arena
+    leaves = [t for c in arena for t in (c if isinstance(c, QTensor) else (c,))]
+    clone = [t.clone() for t in leaves]
+    it = iter(clone)
+    eager_arena = tuple(type(c)(*(next(it) for _ in c)) if isinstance(c, QTensor)
+                        else next(it) for c in arena)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to("cuda")
+
+    extra = {}
+    if srv._decode_steps > 1:
+        extra["budget"] = dev(srv._decode_budget())
+    if srv.paged:
+        extra["block_tables"] = dev(srv._bt_host)
+    exe = srv._decode
+    tok, pos = dev(srv._last), dev(srv._pos)
+    t0 = time.perf_counter()
+    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, **extra, **exe._kw)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    got = exe(tok, pos, **extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe(tok, pos, **extra)  # a second replay, timed (it rewrites the same rows)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    outs_equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    # The second replay rewrote the rows the first wrote, with equal values.
+    arena_equal = all(torch.equal(_bits(a), _bits(c)) for a, c in zip(leaves, clone))
+    row = dict(arena="paged" if srv.paged else "slotted",
+               kv_quant=srv.stats()["kv_quant"], steps=exe.steps,
+               lanes=sum(r is not None for r in srv._slot_req),
+               outputs_bit_equal=outs_equal, arena_bit_equal=arena_equal,
+               arena_bytes_compared=sum(t.numel() * t.element_size() for t in leaves),
+               captures=exe.captures, replays=exe.replays,
+               capture_s=round(exe.capture_s, 4), graph_pool_bytes=exe.pool_bytes,
+               eager_chunk_s=round(eager_s, 6), replay_chunk_s=round(replay_s, 6))
+    emit("graph_check", **row)
+    if not (outs_equal and arena_equal) or (exe.captures, exe.replays) != (1, 2):
+        raise AssertionError(f"graph replay differs from the eager chunk: {row}")
+    return row
+
+
 def phase_serve(params, cfg, seed: int = 0, profile: bool = False) -> dict:
     import numpy as np
+    import torch
 
     from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
     from kata_xpu_device_plugin_tpu_torch.ops import attention
 
     kw = dict(max_batch=8, **SERVE_KW)
     rng = np.random.default_rng(seed)
-
-    # Warm-up on a throwaway server: first cuBLAS and allocator calls.
-    warm = GenerationServer(params, cfg, **kw)
-    warm.submit(rng.integers(0, cfg.vocab_size, 100), 8)
-    warm.run()
-    del warm
+    rng.integers(0, cfg.vocab_size, 100)  # skipped: the requests stay those PERF.md records
 
     lens = rng.integers(64, 1001, 16)
     budgets = rng.integers(64, 129, 16)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    mem0 = torch.cuda.memory_allocated()
     srv = GenerationServer(params, cfg, **kw)
-    _, wall, launches, stats = run_requests(srv, prompts, budgets)
-    if stats["decode_backend"] != attention.BACKEND_PAGED or stats["kv_quant"] != "int8":
+    outs, wall, launches, stats = run_requests(srv, prompts, budgets)
+    if (stats["decode_backend"] != attention.BACKEND_PAGED
+            or stats["kv_quant"] != "int8" or not srv.overlap):
         raise AssertionError(f"unexpected server mode: {stats}")
-    emit("serve", **serve_row(stats, wall, budgets, lens, launches))
+    row = serve_row(stats, wall, budgets, lens, launches)
     del srv
+    lock = GenerationServer(params, cfg, overlap=False, **kw)
+    outs_l, wall_l, launches_l, stats_l = run_requests(lock, prompts, budgets)
+    del lock
+    # The arenas and the graphs' pools go with their servers.
+    torch.cuda.synchronize()
+    emit("serve", loop="overlapped", **row,
+         allocated_after_servers_freed_bytes=torch.cuda.memory_allocated() - mem0,
+         lockstep_same_requests={k: v for k, v in serve_row(
+             stats_l, wall_l, budgets, lens, launches_l).items() if k in SIDE_KEYS},
+         token_match_vs_lockstep=token_match(outs, outs_l, budgets))
+    graph_check(params, cfg, kw)
 
     rows = [crosscheck(params, cfg, prompts[i], kw["prefill_buckets"], kw["max_len"])
             for i in (0, 1)]
     for row in rows:
         assert_crosscheck(row, cfg.n_layers)
     if profile:
-        profile_rounds(params, cfg, kw, rng)
+        for overlap in (True, False):
+            profile_rounds(params, cfg, dict(kw, overlap=overlap), rng)
     return launches
 
 
@@ -1035,7 +1194,7 @@ def paged_crosscheck(params, cfg, prompts, budgets) -> dict:
     srv = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW)
     for p, b in zip(prompts, budgets):
         srv.submit(p, int(b))
-    kernel_fn, cases = srv._decode_kernel, []
+    kernel_fn, cases = srv._decode.decode_kernel_fn, []
     kw = dict(block_size=PAGED_KW["kv_block_size"], paged_len=SERVE_KW["max_len"])
 
     def checked(q, ck, cv, tables, pos, q_lens=None):
@@ -1046,8 +1205,8 @@ def paged_crosscheck(params, cfg, prompts, budgets) -> dict:
         cases.append(check("paged layer", out, ref, mag))
         return out
 
-    srv._decode_kernel = checked
-    srv.step()  # admission of the first lanes, then one round of 8 steps
+    srv._decode.decode_kernel_fn = checked
+    srv.step()  # admission of the first lanes, then the eager warm-up chunk
     torch.cuda.synchronize()
     want = cfg.n_layers * SERVE_KW["chunk"]
     stats = srv.stats()
@@ -1069,11 +1228,13 @@ def token_match(outs, other, budgets) -> dict:
 
 
 def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
-    """32 requests over the paged pool, then over the slotted arena for the
+    """32 requests over the paged pool (the default, overlapped loop), then
+    the same requests through the lock-step paged server and the paged
+    server at ``decode_steps=4``, then over the slotted arena for the
     token-match fraction (printed, not asserted: the two servers batch
     differently, cuBLAS may pick another kernel per batch size, the tiles
     differ, and random weights turn one differing rounding into another
-    continuation). A third run puts the fraction in proportion: a paged
+    continuation). A last run puts the fraction in proportion: a paged
     server with the slotted server's lane count and KV tile (8 lanes, tile
     128, a pool that never presses) does the slotted server's arithmetic
     through scattered tables."""
@@ -1093,6 +1254,18 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
         "preemptions", "preempted_waiting", "kv_blocks_in_use", "kv_blocks_total",
         "kv_pool_tokens", "kv_pool_occupancy_peak", "lanes_busy_peak")})
     del srv
+    sides = {}
+    for name, extra in (("lockstep", dict(overlap=False)),
+                        ("decode_steps_4", dict(decode_steps=4))):
+        side = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW, **extra)
+        outs_x, wall_x, launches_x, stats_x = run_requests(side, prompts, budgets)
+        del side
+        sides[name] = {
+            **{k: v for k, v in serve_row(stats_x, wall_x, budgets, lens,
+                                          launches_x).items() if k in SIDE_KEYS},
+            "preemptions": stats_x["preemptions"],
+            "token_match_vs_default": token_match(outs_x, outs, budgets)}
+    graph_check(params, cfg, dict(**PAGED_KW, **SERVE_KW))
     slotted = GenerationServer(params, cfg, max_batch=8, **SERVE_KW)
     outs_s, wall_s, launches_s, stats_s = run_requests(slotted, prompts, budgets)
     slotted_row = serve_row(stats_s, wall_s, budgets, lens, launches_s)
@@ -1102,8 +1275,9 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
     twin = GenerationServer(params, cfg, **twin_kw, **SERVE_KW)
     outs_t, wall_t, _, stats_t = run_requests(twin, prompts, budgets)
     del twin
-    emit("paged", config=PAGED_KW, **row,
+    emit("paged", config=PAGED_KW, loop="overlapped", **row,
          token_match_vs_slotted=token_match(outs, outs_s, budgets),
+         **{f"{k}_same_requests": v for k, v in sides.items()},
          slotted_same_requests={k: slotted_row[k] for k in (
              "tok_s", "wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
              "itl_p99_s", "rounds", "arena_bytes", "launches")},
@@ -1121,12 +1295,11 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
     if stats["lanes_busy_peak"] <= 8:
         raise AssertionError(f"peak lanes {stats['lanes_busy_peak']}: no more "
                              "than the slotted grid")
-    if launches["paged_decode"] != stats["rounds"] * SERVE_KW["chunk"] * cfg.n_layers:
-        raise AssertionError(f"a decode step left the paged kernel: {launches}, "
-                             f"{stats['rounds']} rounds")
     paged_crosscheck(params, cfg, prompts[:12], budgets[:12])
     if profile:
-        profile_rounds(params, cfg, dict(**PAGED_KW, **SERVE_KW), rng, lanes=16)
+        for overlap in (True, False):
+            profile_rounds(params, cfg, dict(**PAGED_KW, **SERVE_KW, overlap=overlap),
+                           rng, lanes=16)
     return launches
 
 

@@ -25,3 +25,9 @@ ENV_DECODE_KERNEL = "KATA_TPU_DECODE_KERNEL"
 # slotted arena. A malformed value degrades to slotted; an explicit
 # kv_pool_tokens= argument wins.
 ENV_KV_POOL_TOKENS = "KATA_TPU_KV_POOL_TOKENS"
+
+# Multi-step decode for GenerationServer: K chunks of ``chunk`` steps per
+# host dispatch, with lanes frozen on the device at their budget or eos. A
+# malformed or < 1 value degrades to K = 1; an explicit decode_steps=
+# argument wins, and one < 1 raises.
+ENV_DECODE_STEPS = "KATA_TPU_DECODE_STEPS"

@@ -1,8 +1,9 @@
 """Continuous-batching generation server (counterpart of
 ``GenerationServer`` in ``kata_xpu_device_plugin_tpu/guest/serving.py``).
 
-Two arena models are ported, both with greedy decoding in lock-step rounds
-of ``chunk`` steps and batched admission through ``prefill_batch``:
+Two arena models are ported, both with greedy decoding in dispatches of
+``chunk × decode_steps`` steps and batched admission through
+``prefill_batch``:
 
 - **slotted** (the default): one KV arena ``[L, max_batch, max_len, KV,
   D]`` (int8 by default); a request owns a whole slot.
@@ -13,20 +14,39 @@ of ``chunk`` steps and batched admission through ``prefill_batch``:
   lane is preempted: its written rows spill to the host and re-land
   verbatim when the pool drains, so greedy outputs do not change.
 
+Two round loops, as in the JAX server:
+
+- **overlapped** (``overlap=True``, the default): the next chunk is
+  dispatched from the in-flight chunk's ``last``/``pos`` on the device,
+  with the rows admission refilled since merged in from the host, and only
+  then is the in-flight chunk retired through its
+  :class:`..obs.trace.DeviceFence`; finish detection and admission run
+  while the card computes. Tokens the in-flight chunk decoded for a lane
+  that finished, or was preempted, meanwhile are dropped at retire.
+- **lock-step** (``overlap=False``): admit, dispatch, wait for the tokens.
+
+``decode_steps=K`` (argument, else ``KATA_TPU_DECODE_STEPS``) makes one
+dispatch ``chunk × K`` steps, with every lane frozen on the device once it
+has its budget or emits ``eos_id``. Greedy outputs do not depend on the
+loop or on K.
+
 On CUDA every prefill runs the flash kernel and every decode step the paged
 decode kernel: over the pool through the lanes' real block tables, or over
 a zero-copy pool view of the slotted arena
-(:func:`..ops.attention.make_decode_attn_fn`). The plain versions run there
-only when the caller asks for ``decode_attn="reference"``, and anything the
-kernels cannot take raises. On the CPU the wrappers run their plain
-versions. Greedy outputs per request equal the JAX server's on the same
-weights.
+(:func:`..ops.attention.make_decode_attn_fn`); each decode chunk after the
+first is one CUDA graph replay (:class:`.decode_graph.DecodeGraph`). The
+plain versions run there only when the caller asks for
+``decode_attn="reference"``, and anything the kernels cannot take raises.
+On the CPU the wrappers run their plain versions and chunks run eagerly.
+Greedy outputs per request equal the JAX server's on the same weights, as
+do the round and admission counts under the same ``overlap`` and
+``decode_steps``.
 
 Arguments of the JAX server that select modes not ported yet (tensor
 parallelism, speculative decoding, ring caches, the prefix cache, the host
 KV tier, the block-sharded pool layout, sampling, chunked scheduling,
-multi-step and persistent decode, crash recovery, and the overlapped round
-loop) raise ``NotImplementedError`` when set.
+persistent decode and crash recovery) raise ``NotImplementedError`` when
+set.
 """
 from __future__ import annotations
 
@@ -43,19 +63,21 @@ from .. import resolve_device
 from ..constants import (
     DEFAULT_KV_QUANT,
     ENV_DECODE_ATTN,
+    ENV_DECODE_STEPS,
     ENV_KV_POOL_TOKENS,
     ENV_KV_QUANT,
 )
 from ..models.transformer import (
     DecoderConfig,
-    _decode_scan,
     check_supported,
     init_kv_caches,
     prefill_batch,
 )
 from ..obs.metrics import Rolling
+from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
+from .decode_graph import DecodeGraph
 from .kv_arena import (
     RESERVED_BLOCKS,
     SCRATCH_BLOCK,
@@ -98,6 +120,22 @@ def resolve_kv_quant(kv_quant) -> bool:
     return raw == "int8"
 
 
+def resolve_decode_steps(decode_steps: Optional[int]) -> int:
+    """K, the decode chunks one dispatch runs: explicit argument >
+    ``KATA_TPU_DECODE_STEPS`` > 1. An explicit value < 1 raises; a
+    malformed or < 1 env value degrades to 1."""
+    if decode_steps is not None:
+        if int(decode_steps) < 1:
+            raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
+        return int(decode_steps)
+    raw = os.environ.get(ENV_DECODE_STEPS, "")
+    try:
+        k = int(raw) if raw else 1
+    except ValueError:
+        return 1
+    return max(k, 1)
+
+
 @dataclass
 class _Request:
     rid: int
@@ -117,6 +155,29 @@ class _Preempted:
     last: int
 
 
+@dataclass
+class _Inflight:
+    """The dispatched, not yet retired decode chunk of the overlapped loop.
+    ``last``/``pos`` are its outputs on the device, which the next chunk
+    starts from; ``fence`` is their copy to the host, with the tokens.
+    ``slots`` pins the (lane, request) pairs at dispatch: a lane refilled
+    or preempted while the chunk was in flight fails the identity check at
+    retire, and its tokens are dropped."""
+    fence: DeviceFence
+    last: torch.Tensor
+    pos: torch.Tensor
+    slots: list
+    t_dispatch: float
+
+
+def _merge_rows(dev_vals: torch.Tensor, host_vals: torch.Tensor,
+                fresh: torch.Tensor) -> torch.Tensor:
+    """The overlapped dispatch's input: the in-flight chunk's rows on the
+    device, with the rows the host refilled since the last dispatch
+    (``fresh``) taken from the host."""
+    return torch.where(fresh, host_vals, dev_vals)
+
+
 def _write_slots(arena, batch_caches, slots: torch.Tensor) -> None:
     """Copy the N rows of one admission prefill (leaves ``[L, N, S, ...]``)
     into arena slots ``slots`` at positions ``0 .. S-1``, in place. Rows
@@ -127,23 +188,6 @@ def _write_slots(arena, batch_caches, slots: torch.Tensor) -> None:
         pairs = zip(a, c) if isinstance(a, QTensor) else ((a, c),)
         for dst, src in pairs:
             dst[:, slots, : src.shape[2]] = src
-
-
-def _serve_decode(params, arena, tok, pos, cfg, steps: int,
-                  decode_kernel_fn=None, block_tables=None, block_size: int = 0,
-                  paged_len: int = 0):
-    """One fixed-``steps`` ragged decode chunk over the arena (in place),
-    through ``decode_kernel_fn``, or the plain attention when it is None.
-    With ``block_tables`` the arena is the block pool and each lane decodes
-    through its table. Returns ``(tokens [B, steps], last [B], pos [B])``
-    on the device."""
-    toks, _caches, last, pos = _decode_scan(
-        params, arena, tok, pos, cfg, steps,
-        attn_fn=attention.reference_attention, return_state=True,
-        decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
-        block_size=block_size, paged_len=paged_len,
-    )
-    return toks, last, pos
 
 
 class GenerationServer:
@@ -168,13 +212,19 @@ class GenerationServer:
     lane count, bounds the KV memory. The drained pool must hold one
     ``max_len`` request. An explicit value the server cannot run raises; a
     malformed or unusable environment value leaves the server slotted. On
-    CUDA the block size must be a KV tile the paged kernel takes."""
+    CUDA the block size must be a KV tile the paged kernel takes.
+
+    ``overlap`` picks the round loop (pipelined by default, as in the JAX
+    server) and ``decode_steps`` the chunks a dispatch runs (module doc).
+    :meth:`request_drain` and :meth:`drain` stop admission: started work,
+    preempted spills included, runs to its end, and what never started
+    fails into :meth:`failures`."""
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
                  chunk: int = 8, temperature: float = 0.0,
                  kv_quant: Optional[bool] = None, prefill_buckets: tuple = (),
-                 overlap: bool = False, decode_attn: Optional[str] = None,
+                 overlap: bool = True, decode_attn: Optional[str] = None,
                  device=None,
                  kv_pool_tokens: Optional[int] = None, kv_block_size: int = 16,
                  kv_host_tokens: Optional[int] = None,
@@ -196,10 +246,8 @@ class GenerationServer:
             "temperature > 0 (sampling, ROADMAP Queue 1 item 11)": temperature,
             "sched_policy='slo_chunked' (ROADMAP Queue 1 item 8)": (
                 sched_policy not in (None, "fifo_batch")),
-            "decode_steps > 1 (ROADMAP Queue 1 item 7)": (decode_steps or 1) > 1,
-            "persistent (ROADMAP Queue 1 item 7)": persistent,
+            "persistent (ROADMAP Queue 1 item 7b)": persistent,
             "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9)": checkpoint_rounds,
-            "overlap=True (overlapped rounds, ROADMAP Queue 1 item 5)": overlap,
         }
         for what, value in unported.items():
             if value:
@@ -220,6 +268,11 @@ class GenerationServer:
         self.params, self.cfg = params, cfg
         self.max_batch, self.max_len = max_batch, max_len
         self.eos_id, self.chunk = eos_id, chunk
+        self.overlap = bool(overlap)
+        self._decode_steps = resolve_decode_steps(decode_steps)
+        # Steps of one dispatch: ITL, the budget gate and the paged
+        # lookahead key off this, never off ``chunk`` alone.
+        self._dispatch_steps = chunk * self._decode_steps
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.kv_block = int(kv_block_size)
@@ -247,11 +300,19 @@ class GenerationServer:
         self._occupancy_peak = 0.0
         self._decode_attn, self._decode_attn_reason = (
             self._resolve_decode_attn(decode_attn))
-        self._decode_kernel = None
+        decode_kernel = None
         if self._decode_attn == BACKEND_PAGED:
-            self._decode_kernel = attention.make_decode_attn_fn(
+            decode_kernel = attention.make_decode_attn_fn(
                 cfg, paged=self.paged, block_size=self.kv_block,
                 paged_len=max_len, arena_len=max_len, device=self.device)
+        self._decode = DecodeGraph(
+            params, self.kv_pool.arena if self.paged else self.arena, cfg,
+            batch=max_batch, steps=self._dispatch_steps, device=self.device,
+            decode_kernel_fn=decode_kernel,
+            table_width=self._nb_max if self.paged else 0,
+            block_size=self.kv_block if self.paged else 0,
+            paged_len=max_len if self.paged else 0,
+            budget=self._decode_steps > 1, eos_id=eos_id)
         # Host-side slot state: the request in each slot, its next cache
         # write position, and its last token.
         self._slot_req: list[Optional[_Request]] = [None] * max_batch
@@ -267,6 +328,14 @@ class GenerationServer:
         self._batch_prefills = 0
         self._ttft = Rolling()
         self._tok_lat = Rolling()
+        # The overlapped loop: the chunk in flight, the lanes refilled since
+        # the last dispatch, and the retire clock ITL is read from.
+        self._inflight: Optional[_Inflight] = None
+        self._fresh_rows: set[int] = set()
+        self._t_last_retire = 0.0
+        self._draining = False
+        self._drain_reason = ""
+        self._drain_done = False
 
     # ----- arena model -----------------------------------------------------
 
@@ -327,6 +396,10 @@ class GenerationServer:
     # ----- public API ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 64) -> int:
+        if self._draining:
+            raise RuntimeError(
+                f"server is draining ({self._drain_reason or 'requested'}): "
+                "not accepting new requests")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
@@ -353,19 +426,39 @@ class GenerationServer:
         return out
 
     def failures(self) -> dict[int, str]:
-        """Per-request terminal failures. Without crash recovery (not ported)
-        an error propagates out of :meth:`run`, so this stays empty."""
+        """Per-request terminal failures, ``{rid: error}``: the requests a
+        drain failed before they started (or a preempted one the drained
+        pool could not re-admit). Without crash recovery (not ported) an
+        error propagates out of :meth:`run`."""
         return dict(self._failures)
+
+    def request_drain(self, reason: str = "api") -> None:
+        """Stop admitting queued work (idempotent): lanes in flight and
+        preempted requests run to their end, then the queue fails into
+        :meth:`failures`; :meth:`submit` refuses from now on."""
+        if self._draining:
+            return
+        self._drain_reason = reason
+        self._draining = True
+
+    def drain(self, reason: str = "api") -> dict[int, np.ndarray]:
+        """:meth:`request_drain`, then :meth:`run`: the completed results;
+        everything that never started is in :meth:`failures`."""
+        self.request_drain(reason)
+        return self.run()
 
     def stats(self) -> dict:
         """Cumulative serving counters; keys keep the JAX server's names.
         The paged-pool keys are always present (zeros when slotted).
         ``lanes_busy_peak`` and ``kv_pool_occupancy_peak`` are this
         package's own: the most lanes that decoded in one round and the
-        fullest the pool was at a dispatch."""
-        pool = self.kv_pool
+        fullest the pool was at a dispatch; so are the ``decode_graph_*``
+        keys: captures and replays of the decode chunk (both 0 on the CPU),
+        the capture's seconds and its graph pool's bytes."""
+        pool, exe = self.kv_pool, self._decode
         return {
             "rounds": self._rounds,
+            "decode_steps": self._decode_steps,
             "prefills": self._prefills,
             "prefill_batches": self._batch_prefills,
             "tokens_emitted": self._emitted,
@@ -386,6 +479,12 @@ class GenerationServer:
             "preempted_waiting": len(self._preempted),
             "lanes_busy_peak": self._lanes_peak,
             "kv_pool_occupancy_peak": self._occupancy_peak,
+            "failed_requests": len(self._failures),
+            "draining": self._draining,
+            "decode_graph_captures": exe.captures,
+            "decode_graph_replays": exe.replays,
+            "decode_graph_capture_s": round(exe.capture_s, 6),
+            "decode_graph_pool_bytes": exe.pool_bytes,
         }
 
     # ----- admission -------------------------------------------------------
@@ -405,9 +504,19 @@ class GenerationServer:
             if self._preempted and (
                     not self._queue
                     or self._preempted[0].req.rid < self._queue[0].rid):
-                if not self._resume_one(free[0]):
-                    return  # strict FIFO: nothing admits past it
-                continue
+                if self._resume_one(free[0]):
+                    continue
+                if self._draining and len(free) == self.max_batch:
+                    # Every lane is free and the pool still cannot hold
+                    # the spill: it never can, so the drain fails it.
+                    pre = self._preempted.popleft()
+                    self._failures[pre.req.rid] = (
+                        f"drained mid-flight ({self._drain_reason}): "
+                        "cannot re-admit")
+                    continue
+                return  # strict FIFO: nothing admits past it
+            if self._draining:
+                return  # queued work never started: _finish_drain fails it
             groups = fifo_batch(
                 self._queue, len(free), self.prefill_buckets,
                 reserve=self._reserve_lane_blocks if self.paged else None)
@@ -454,6 +563,7 @@ class GenerationServer:
         self._slot_req[b] = req
         self._pos[b] = pos
         self._last[b] = first
+        self._fresh_rows.add(b)  # overlap: override the in-flight row
         self._maybe_finish(b, [first])
 
     def _maybe_finish(self, b: int, new_tokens: list) -> None:
@@ -532,7 +642,11 @@ class GenerationServer:
         written rows (``ceil(pos / bs)``) are spilled: there is no compiled
         executable whose shape a full-width table would keep fixed. Greedy
         output is unchanged: :meth:`_resume_one` re-lands the rows verbatim
-        and decode resumes at the same ``pos`` with the same ``last``."""
+        and decode resumes at the same ``pos`` with the same ``last``. Under
+        overlap those are the host's, one chunk behind the device: the
+        in-flight chunk's tokens for this lane are dropped at retire, and
+        what it still writes into the freed blocks lands, in stream order,
+        before anything their next owner writes."""
         req = self._slot_req[b]
         pos = int(self._pos[b])
         written = self._lane_blocks[b][: -(-pos // self.kv_block)]
@@ -569,23 +683,25 @@ class GenerationServer:
         self._slot_req[b] = pre.req
         self._pos[b] = pre.pos
         self._last[b] = pre.last
+        self._fresh_rows.add(b)  # overlap: override the in-flight row
         self._preempted.popleft()
         return True
 
     def _ensure_blocks(self) -> None:
-        """Grow every live lane's table to cover the next dispatch window
-        (``chunk`` positions past ``pos``), OLDEST request first. When the
+        """Grow every live lane's table to cover the next dispatch window,
+        OLDEST request first: ``chunk × decode_steps`` positions past the
+        host's ``pos``, twice that under overlap, whose host ``pos`` lags
+        the device by the chunk in flight. When the
         pool is exhausted the YOUNGEST live lane is preempted until the
         older ones fit; the head of the line always makes progress because
         the drained pool holds one full-length request. Growth is capped by
         the request's own ``prompt + max_new_tokens`` and the table width:
         writes past a finished request's budget aim at SCRATCH, so no block
-        is spent on dead rows. (Rounds are lock-step here, so a lane
-        preempted now is in no chunk already in flight; the overlapped loop
-        will need the JAX server's fresh-row override.)"""
+        is spent on dead rows."""
         if not self.paged:
             return
         bs = self.kv_block
+        lookahead = self._dispatch_steps * (2 if self.overlap else 1)
         lanes = sorted((b for b in range(self.max_batch)
                         if self._slot_req[b] is not None),
                        key=lambda b: self._slot_req[b].rid)
@@ -594,7 +710,7 @@ class GenerationServer:
             if req is None:
                 continue  # preempted while an older lane grew
             cap = -(-(len(req.prompt) + req.max_new_tokens) // bs)
-            need = min(-(-(int(self._pos[b]) + self.chunk) // bs), cap,
+            need = min(-(-(int(self._pos[b]) + lookahead) // bs), cap,
                        self._nb_max)
             while len(self._lane_blocks[b]) < need and self._slot_req[b] is req:
                 got = self.kv_pool.try_alloc(need - len(self._lane_blocks[b]))
@@ -609,49 +725,196 @@ class GenerationServer:
     # ----- the round loop --------------------------------------------------
 
     def step(self) -> bool:
-        """One lock-step round: refill free slots, (paged) grow the lanes'
-        tables or preempt, then one decode chunk of ``chunk`` steps for
-        every lane, fenced by the token transfer. Lanes past their budget
-        decode on harmlessly (their writes clamp inside their own slot, or
-        land in the scratch block) and their extra tokens are trimmed.
-        Returns False when queue, wait list and slots are empty."""
+        """One round of the server's loop: :meth:`_step_overlapped` by
+        default, :meth:`_step_lockstep` with ``overlap=False``. A requested
+        drain finishes here once nothing is in flight. Returns False when
+        the queue, the wait list, the lanes and the pipeline are empty."""
+        alive = self._step_overlapped() if self.overlap else self._step_lockstep()
+        if self._draining and not self._drain_done and self._drain_idle():
+            self._finish_drain()
+            alive = False
+        return alive
+
+    def _drain_idle(self) -> bool:
+        """Nothing in flight: no chunk, no busy lane, no preempted spill
+        (spills are started work; the next admission resumes them)."""
+        return (self._inflight is None and not self._preempted
+                and all(r is None for r in self._slot_req))
+
+    def _finish_drain(self) -> None:
+        """Fail everything that never started, with the JAX server's
+        messages. Every submitted request is now in the results or in
+        :meth:`failures`."""
+        while self._preempted:
+            pre = self._preempted.popleft()
+            self._failures[pre.req.rid] = (
+                f"drained mid-flight ({self._drain_reason})")
+        while self._queue:
+            req = self._queue.popleft()
+            self._failures[req.rid] = (
+                f"drained before start ({self._drain_reason})")
+        self._drain_done = True
+
+    def _decode_budget(self) -> Optional[np.ndarray]:
+        """Per-lane upper bounds on the tokens still to come, which arm the
+        freeze mask at ``decode_steps > 1`` (None at K = 1: the plain
+        chunk). From the host's retired counts: under overlap they exceed
+        the truth by at most the chunk in flight, so a lane freezes late
+        (tokens trimmed), never early. Empty lanes get 0."""
+        if self._decode_steps <= 1:
+            return None
+        budget = np.zeros(self.max_batch, np.int32)
+        for b, req in enumerate(self._slot_req):
+            if req is not None:
+                budget[b] = max(0, req.max_new_tokens - len(req.out))
+        return budget
+
+    def _host_tensor(self, arr, dtype=torch.int32) -> torch.Tensor:
+        """A snapshot of host array ``arr`` for one dispatch, pinned on
+        CUDA: its copy to the card runs asynchronously, and later edits of
+        ``arr`` cannot reach it."""
+        t = torch.empty(np.shape(arr), dtype=dtype,
+                        pin_memory=self.device.type == "cuda")
+        t.numpy()[...] = arr
+        return t
+
+    def _to_device(self, arr, dtype=torch.int32) -> torch.Tensor:
+        return self._host_tensor(arr, dtype).to(self.device, non_blocking=True)
+
+    def _dispatch_decode(self, tok, pos):
+        """Dispatch one chunk of ``chunk × decode_steps`` steps for every
+        lane from ``tok``/``pos`` (device tensors, or host snapshots),
+        with the budget mask and (paged) a snapshot of the block tables.
+        Lanes past their budget decode on harmlessly: their writes clamp
+        inside their own slot or land in the scratch block, and their
+        extra tokens are trimmed. Returns ``(toks, last, pos)`` on the
+        device, not yet waited for."""
+        budget = self._decode_budget()
+        kw = {}
+        if budget is not None:
+            kw["budget"] = self._host_tensor(budget)
+        if self.paged:
+            self._occupancy_peak = max(self._occupancy_peak,
+                                       self.kv_pool.occupancy())
+            kw["block_tables"] = self._host_tensor(self._bt_host)
+        return self._decode(tok, pos, **kw)
+
+    def _step_lockstep(self) -> bool:
+        """Refill free lanes, (paged) grow the lanes' tables or preempt,
+        then one chunk for every lane, fenced by its token transfer."""
         self._admit()
         self._ensure_blocks()
+        self._fresh_rows.clear()  # lock-step dispatch reads host rows
         active = [b for b in range(self.max_batch) if self._slot_req[b] is not None]
         if not active:
             return bool(self._queue) or bool(self._preempted)
         self._lanes_peak = max(self._lanes_peak, len(active))
-        paged_kw = {}
-        if self.paged:
-            self._occupancy_peak = max(self._occupancy_peak,
-                                       self.kv_pool.occupancy())
-            # The tables ride each dispatch as a fresh device copy of a
-            # snapshot: later host-side edits cannot reach a round in flight.
-            paged_kw = dict(block_tables=self._table_tensor(self._bt_host.copy()),
-                            block_size=self.kv_block, paged_len=self.max_len)
         t0 = time.perf_counter()
-        toks, last, pos = _serve_decode(
-            self.params, self.kv_pool.arena if self.paged else self.arena,
-            torch.from_numpy(self._last).to(self.device),
-            torch.from_numpy(self._pos).to(self.device), self.cfg, self.chunk,
-            decode_kernel_fn=self._decode_kernel, **paged_kw,
-        )
-        toks = toks.cpu().numpy()  # the chunk boundary: device → host fence
-        self._tok_lat.observe((time.perf_counter() - t0) / self.chunk)
-        self._last = last.cpu().numpy().astype(np.int32)
-        self._pos = pos.cpu().numpy().astype(np.int32)
+        toks, last, pos = self._dispatch_decode(self._host_tensor(self._last),
+                                                self._host_tensor(self._pos))
+        host = DeviceFence(toks=toks, last=last, pos=pos).wait()
+        self._tok_lat.observe((time.perf_counter() - t0) / self._dispatch_steps)
+        self._last, self._pos = host["last"], host["pos"]
         self._rounds += 1
         for b in active:
-            new = toks[b].tolist()
+            new = host["toks"][b].tolist()
             self._slot_req[b].out.extend(new)
             self._emitted += len(new)
             self._maybe_finish(b, new)
         return True
 
+    def _step_overlapped(self) -> bool:
+        """One pipelined round: dispatch the NEXT chunk first, from the
+        in-flight chunk's ``last``/``pos`` on the device with refilled rows
+        merged in, and only then retire the in-flight chunk, so that finish
+        detection and admission run while the card computes. A chunk
+        dispatched before its predecessor's tokens were read may decode
+        rows of requests that turn out to have finished: retire drops those
+        tokens (wasted work on a dead row, never a wrong token)."""
+        prev, self._inflight = self._inflight, None
+        if prev is None:
+            self._admit()  # pipeline empty: admission feeds this dispatch
+        busy = any(r is not None for r in self._slot_req)
+        if busy and (prev is None or self._any_survives(prev)):
+            self._ensure_blocks()  # paged: before the tables are copied
+            if prev is None:
+                last = self._host_tensor(self._last)
+                pos = self._host_tensor(self._pos)
+            elif self._fresh_rows:
+                mask = np.zeros(self.max_batch, np.bool_)
+                mask[list(self._fresh_rows)] = True
+                fresh = self._to_device(mask, torch.bool)
+                last = _merge_rows(prev.last, self._to_device(self._last), fresh)
+                pos = _merge_rows(prev.pos, self._to_device(self._pos), fresh)
+            else:
+                last, pos = prev.last, prev.pos
+            self._fresh_rows.clear()
+            self._dispatch_chunk(last, pos)
+        if prev is not None:
+            self._retire(prev)  # host work overlaps the dispatched chunk
+        return (self._inflight is not None or bool(self._queue)
+                or bool(self._preempted)
+                or any(r is not None for r in self._slot_req))
+
+    def _any_survives(self, prev: _Inflight) -> bool:
+        """Whether any lane is certain to still be decoding once the
+        in-flight chunk lands: a lane at ``len(out) + steps >=
+        max_new_tokens`` is certain to finish (eos only finishes it
+        earlier). When none survives, the next chunk would be wholly dead
+        (budgets aligned to chunk edges would waste half the card), so the
+        pipeline drains and the next round dispatches from host state."""
+        prev_req = dict(prev.slots)
+        for b, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            if prev_req.get(b) is not req:
+                return True  # refilled since dispatch: untouched budget
+            if len(req.out) + self._dispatch_steps < req.max_new_tokens:
+                return True
+        return False
+
+    def _dispatch_chunk(self, last, pos) -> None:
+        """Dispatch one chunk without waiting: a :class:`DeviceFence`
+        starts its outputs' copy to the host behind it, before the next
+        chunk can overwrite them."""
+        active = [(b, req) for b, req in enumerate(self._slot_req)
+                  if req is not None]
+        self._lanes_peak = max(self._lanes_peak, len(active))
+        toks, new_last, new_pos = self._dispatch_decode(last, pos)
+        self._inflight = _Inflight(
+            fence=DeviceFence(toks=toks, last=new_last, pos=new_pos),
+            last=new_last, pos=new_pos, slots=active,
+            t_dispatch=time.perf_counter())
+
+    def _retire(self, fl: _Inflight) -> None:
+        """Land one in-flight chunk: wait for its copy, hand its tokens to
+        the requests that still own their lanes, then refill freed lanes
+        (their rows join the next dispatch through ``_fresh_rows``). ITL is
+        the retire-to-retire cadence over the dispatch's steps, anchored at
+        this chunk's dispatch when the pipeline was empty."""
+        host = fl.fence.wait()
+        now = time.perf_counter()
+        round_s = now - max(fl.t_dispatch, self._t_last_retire)
+        self._t_last_retire = now
+        self._tok_lat.observe(round_s / self._dispatch_steps)
+        self._rounds += 1
+        for b, req in fl.slots:
+            if self._slot_req[b] is not req:
+                continue  # finished, refilled or preempted meanwhile
+            self._last[b] = host["last"][b]
+            self._pos[b] = host["pos"][b]
+            new = host["toks"][b].tolist()
+            req.out.extend(new)
+            self._emitted += len(new)
+            self._maybe_finish(b, new)
+        self._admit()
+
 
 def serve_batch(params: Any, cfg: DecoderConfig, prompts: list,
                 max_new_tokens: int = 64, **server_kwargs) -> list[np.ndarray]:
-    """Continuous-batch a list of ragged prompts; tokens in input order."""
+    """Continuous-batch a list of ragged prompts through a
+    :class:`GenerationServer` built with ``server_kwargs`` (the overlapped
+    loop unless they say ``overlap=False``); tokens in input order."""
     srv = GenerationServer(params, cfg, **server_kwargs)
     rids = [srv.submit(p, max_new_tokens) for p in prompts]
     results = srv.run()

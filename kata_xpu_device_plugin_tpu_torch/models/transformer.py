@@ -193,7 +193,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     Llama-3.1 per-band frequency rescale."""
     d = x.shape[-1]
     exps = torch.arange(0, d // 2, dtype=torch.float32, device=x.device) * (2.0 / d)
-    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+    # torch.full, not torch.tensor: a host-to-device copy synchronizes, and
+    # the serving decode chunk is captured in a CUDA graph.
+    inv_freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device),
                          -exps)
     if llama3_scaling:
         factor, low_f, high_f, old_len = (float(v) for v in llama3_scaling)
@@ -226,8 +228,8 @@ def embed(params: Params, tokens: torch.Tensor, cfg: DecoderConfig) -> torch.Ten
     dtype first (bf16 45.25 at d_model 2048)."""
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.scale_embeddings:
-        s = torch.tensor(float(np.sqrt(np.float32(cfg.d_model))),
-                         dtype=torch.float32, device=x.device).to(cfg.dtype)
+        s = torch.full((), float(np.sqrt(np.float32(cfg.d_model))),
+                       dtype=torch.float32, device=x.device).to(cfg.dtype)
         x = x * s
     return x
 

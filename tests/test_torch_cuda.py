@@ -663,3 +663,132 @@ def test_decode_kernels_take_any_order_of_shapes(cuda_device, kernel):
         torch.cuda.synchronize()
         res = attention.kernel_tolerance(out, ref, mag)
         assert res["ok"], (args, res)
+
+
+def _bits(t):
+    """A tensor's bytes as integers, so that equality is bit equality."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _leaves(arena):
+    return [t for c in arena
+            for t in (c if isinstance(c, quant.QTensor) else (c,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_paged", "reference"])
+@pytest.mark.parametrize("decode_steps", [1, 2], ids=["K1", "K2"])
+@pytest.mark.parametrize("kv_quant", [True, False], ids=["int8-kv", "bf16-kv"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_decode_graph_replay_is_bit_equal_to_eager(cuda_device, paged, kv_quant,
+                                                   decode_steps, backend):
+    """The server's second decode chunk (capture, then the first replay)
+    against the same chunk run eagerly on a clone of the arena from the
+    same inputs: tokens, last, pos and every arena byte equal; the paged
+    kernel's launches are counted once per replayed layer step (none with
+    the plain decode attention, which the graph captures as well)."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_quant=kv_quant, overlap=False, decode_steps=decode_steps,
+              decode_attn=backend)
+    if paged:
+        kw.update(kv_pool_tokens=4096, kv_block_size=16)
+    srv = GenerationServer(params, cfg, **kw)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 40)
+    srv.step()  # admission, then the warm-up chunk
+    exe = srv._decode
+    assert (exe.captures, exe.replays) == (0, 0)
+    per_chunk = exe.steps * cfg.n_layers if backend == "cuda_paged" else 0
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena if paged else srv.arena
+    clone = [t.clone() for t in _leaves(arena)]
+    eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2]) for i in range(2)
+                        ) if kv_quant else tuple(clone)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    extra = {}
+    if decode_steps > 1:
+        extra["budget"] = dev(srv._decode_budget())
+    if paged:
+        extra["block_tables"] = dev(srv._bt_host)
+    tok, pos = dev(srv._last), dev(srv._pos)
+    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, **extra, **exe._kw)
+    d0 = decode_attn.paged_decode_attention.launches
+    got = exe(tok, pos, **extra)
+    torch.cuda.synchronize()
+    assert (exe.captures, exe.replays) == (1, 1)
+    assert exe.capture_s > 0 and exe.pool_bytes > 0
+    assert decode_attn.paged_decode_attention.launches - d0 == per_chunk
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(_leaves(arena), clone):
+        assert torch.equal(_bits(a), _bits(c))
+    # The rest of the run (which decodes the compared chunk again from the
+    # host's state): every chunk a replay, counted.
+    d0 = decode_attn.paged_decode_attention.launches
+    rounds = srv.stats()["rounds"]
+    srv.run()
+    stats = srv.stats()
+    assert stats["decode_graph_replays"] == 1 + stats["rounds"] - rounds
+    assert (decode_attn.paged_decode_attention.launches - d0
+            == (stats["rounds"] - rounds) * per_chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_steps", [1, 4], ids=["K1", "K4"])
+def test_overlapped_server_replays_every_chunk_after_the_first(cuda_device,
+                                                              decode_steps):
+    """The default server (overlapped rounds) over a pool that preempts:
+    every budget returned, the pool empty at the end, one capture, every
+    chunk after the warm-up a replay, and the paged kernel's launches
+    counted through the replays."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    srv = GenerationServer(params, cfg, max_batch=6, max_len=512,
+                           prefill_buckets=(128, 256), chunk=4,
+                           kv_pool_tokens=768, kv_block_size=16,
+                           decode_steps=decode_steps)
+    rng = np.random.default_rng(1)
+    budgets = [int(b) for b in rng.integers(40, 81, 8)]
+    rids = [srv.submit(rng.integers(0, 512, n), b)
+            for n, b in zip(rng.integers(100, 129, 8), budgets)]
+    d0 = decode_attn.paged_decode_attention.launches
+    out = srv.run()
+    stats = srv.stats()
+    assert srv.overlap and stats["decode_steps"] == decode_steps
+    assert [len(out[r]) for r in rids] == budgets
+    assert stats["preemptions"] >= 1 and stats["kv_blocks_in_use"] == 0
+    assert stats["decode_graph_captures"] == 1
+    assert stats["decode_graph_replays"] == stats["rounds"] - 1
+    assert (decode_attn.paged_decode_attention.launches - d0
+            == stats["rounds"] * 4 * decode_steps * cfg.n_layers)
+
+
+@pytest.mark.cuda
+def test_fences_keep_their_own_pinned_buffers(cuda_device):
+    """A fence's copy lands in pinned buffers of its own: a tensor changed
+    and fenced again after the first fence leaves the first fence's values
+    as they were when it was made, read or unread."""
+    from kata_xpu_device_plugin_tpu_torch.obs.trace import DeviceFence
+
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda_device)
+    first = DeviceFence(x=x)
+    x.add_(7)
+    second = DeviceFence(x=x)
+    x.add_(7)
+    assert all(b.is_pinned() for b in (first._bufs["x"], second._bufs["x"]))
+    want = np.arange(1 << 20, dtype=np.int32)
+    np.testing.assert_array_equal(second.wait()["x"], want + 7)
+    np.testing.assert_array_equal(first.wait()["x"], want)

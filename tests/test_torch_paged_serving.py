@@ -143,7 +143,8 @@ def test_stats_carry_the_paged_keys_in_both_modes(models):
                                      device="cpu", **KW).stats()
     assert PAGED_KEYS <= set(slotted_stats)
     assert all(not slotted_stats[k] for k in PAGED_KEYS)
-    srv = GenerationServer(tp, tcfg, max_batch=2, kv_quant=True,
+    # Lock-step, so that one step() retires its round.
+    srv = GenerationServer(tp, tcfg, max_batch=2, kv_quant=True, overlap=False,
                            kv_pool_tokens=96, kv_block_size=4, device="cpu", **KW)
     srv.submit(np.arange(1, 10, dtype=np.int32), 3)
     srv.step()
