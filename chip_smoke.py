@@ -30,7 +30,12 @@ Phases, each printing one JSON line:
    on the same inputs must give the same bits; each decode kernel is also
    timed at a working set past the 50 MB L2 (paged int8, 64 lanes at
    position 4095, tile 16; dense bf16, 32 rows at position 4095), against
-   its byte bound; the flash backward kernels at head_dim 64, 128 and 256
+   its byte bound; both decode kernels at Qwen2-7B's heads (28 over 4, a
+   GQA group of 7; paged int8 and bf16, tiles 16 and 128, a dead lane,
+   single-query and spans of 4; dense at positions 5 and 2047), timed; the
+   flash forward at the families' windowed prefill shapes (Gemma-2-2B:
+   S=6144, window 4096, softcap 50; Gemma-3-4B: S=2048, window 1024),
+   timed; the flash backward kernels at head_dim 64, 128 and 256
    (the Llama-3-8B and Gemma-2B train shapes timed, beside the ``delta``
    reduction and the SDPA backward), both with ``delta`` given and with the
    dq kernel forming it (``flash_backward``), and a second launch of each
@@ -69,7 +74,21 @@ Phases, each printing one JSON line:
    decode kernel, each layer of the first decode step held against the
    plain version, and the token-match fraction against the run without
    the opt-in (which launches the dense kernel no time);
-7. train  — Llama-3-8B at its published widths with 8 of its 32 layers
+7. families — Gemma-2-2B (26 layers, max_len 8192, four prompts of
+   4200-6000 tokens), Qwen2-7B (28 layers), Gemma-3-4B (6 of 34 layers,
+   its cycles cut with it) and Mistral-7B (4 of 32 layers, max_len 8192,
+   four long prompts) at their published widths, random bf16 weights, each
+   through the default server over a paged pool (16 lanes, tile 16): 16
+   greedy requests (Qwen2 decodes through the paged kernel at its group of
+   7, counted; the windowed families with the plain attention by the JAX
+   rule, reason printed), the same requests sampled (temperature 0.7,
+   top-k 50, top-p 0.9, seed 0) by two servers that must give equal tokens,
+   ``graph_check`` on a sampled chunk, and a prefill crosscheck (each
+   layer's flash call against the plain version; logits within the serving
+   bound or twice the run's noise floor); then ``generate()`` at Qwen2-7B
+   widths with 4 layers under ``KATA_TPU_DECODE_KERNEL=1``
+   (``generate_qwen2``, dense kernel at group 7);
+8. train  — Llama-3-8B at its published widths with 8 of its 32 layers
    (one card's memory), random fp32 parameters from seed 0, bf16 compute:
    ``make_train_step`` and ``fit`` for 6 AdamW steps on one repeated
    batch (B=2, S=2048); launch counts reset just before and read just
@@ -79,7 +98,7 @@ Phases, each printing one JSON line:
    and backward kernel call held against the plain version on its own
    inputs) and through ``reference_attention``; the loss difference and
    the cosine of the whole gradient are printed;
-8. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
+9. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
    MQA, GeGLU, tied and scaled embeddings) with 6 of its 18 layers: 4 steps
    (6 launches of each kernel a step), then its 2-layer crosscheck.
 
@@ -87,7 +106,8 @@ Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
 server (slotted and paged, overlapped and lock-step; at least 48 steps,
 all graph replays), each printing the card's idle share, and one over a step
-of each train phase. Any failed
+of each train phase (and, in the families phase, a window of each
+family's decode rounds). Any failed
 phase raises: the script exits non-zero and prints no result. Without CUDA,
 or outside a checkout of the repository, it exits non-zero at once.
 """
@@ -99,6 +119,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "kata_xpu_device_plugin_tpu_torch"
@@ -114,6 +135,14 @@ PEAK_HBM_BYTES = 3.35e12
 # 0.55, first decode step 0.21-0.25; PERF.md), not derived: the random
 # weights carry each layer's rounding difference on through 18 layers.
 LOGIT_BOUND = {"prefill": 0.75, "decode": 0.35}
+# The families run deeper (up to 28 layers), and random weights carry a
+# rounding difference on through every layer: there, two equally valid bf16
+# attentions (``plain_fp32_p`` against the plain version) already differ by
+# 1-3x the logit RMS. A family's kernel path is held to the serving bound
+# above or, past it, to this multiple of that noise floor measured in the
+# same run on the same request (readings on an H100, PR 8: kernel against
+# plain 0.85-1.10 x the noise floor for Gemma-2B and the four families).
+NOISE_FACTOR = 2.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -228,12 +257,22 @@ def phase_build() -> None:
          spills={n: spilling_functions(log) for n, log in _build.build_log.items()})
 
 
-def flash_fwd_bound(B, S, H, KV, D, causal=True, lse=False) -> dict:
+def live_pairs(S: int, causal: bool = True, window: int = 0) -> float:
+    """(q row, key) pairs one head attends: all, the causal triangle, or
+    the causal band of ``window`` keys."""
+    if not causal:
+        return float(S * S)
+    if window and window < S:
+        return window * (window + 1) / 2 + (S - window) * window
+    return S * (S + 1) / 2
+
+
+def flash_fwd_bound(B, S, H, KV, D, causal=True, lse=False, window=0) -> dict:
     """The least time the card could take for the forward: two D-long
     products a live (q row, key) pair over the bf16 peak, or q, k and v
     read once and the output (and the lse) written once over the memory
     rate, the larger."""
-    pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+    pairs = B * H * live_pairs(S, causal, window)
     t_ops = 4.0 * D * pairs / PEAK_BF16_FLOPS
     nbytes = 2.0 * B * S * D * (2 * H + 2 * KV) + (4.0 * B * H * S if lse else 0.0)
     t_bytes = nbytes / PEAK_HBM_BYTES
@@ -286,12 +325,23 @@ def flash_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
         call = lambda: flash_forward(q, k, v, return_lse=lse, **kw)  # noqa: E731
         res["ms"] = graph_ms(call, 20)
         res["call_ms"] = time_ms(call, 20)
-        plain = flash_reference if lse else reference_attention
-        res["plain_ms"] = time_ms(lambda: plain(q, k, v), 3, 1)
+        if lse:
+            res["plain_ms"] = time_ms(lambda: flash_reference(q, k, v, **kw), 3, 1)
+        else:
+            res["plain_ms"] = time_ms(lambda: reference_attention(q, k, v, **rkw),
+                                      3, 1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
-        res.update(flash_fwd_bound(B, S, H, KV, D, causal, lse))
+        if softcap:
+            res["library_ms"] = None  # no PyTorch call caps the logits
+        elif window:  # SDPA with the band as a mask computes the same
+            i = torch.arange(S, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True), 20)
+        else:
+            res["library_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        res.update(flash_fwd_bound(B, S, H, KV, D, causal, lse, window))
     emit("check", kernel="flash_fwd", B=B, S=S, H=H, KV=KV, D=D, causal=causal,
          window=window, softcap=softcap, lse=lse, relaunch_bit_equal=True, **res)
     return res
@@ -677,6 +727,18 @@ def phase_checks() -> dict:
         f.append(c)
     emit("flash_fwd_train", shape="B=2 S=2048, causal, with the lse: llama3_8b "
          "H=32 KV=8 D=128, gemma2b H=8 KV=1 D=256", **train)
+    # The families' prefill shapes: Gemma-2-2B's local layers (window 4096,
+    # softcap 50) at S = 6144, where the window's lower edge skips tiles,
+    # and Gemma-3-4B's (window 1024) at S = 2048; timed beside the plain
+    # version and, without the cap, SDPA over the band.
+    for prefix, args, kw in (
+            ("gemma2_2b", ("gemma2-2b B1 S6144 window4096 softcap50", 1, 6144,
+                           8, 4, 256), dict(window=4096, softcap=50.0)),
+            ("gemma3_4b", ("gemma3-4b B1 S2048 window1024", 1, 2048, 8, 4, 256),
+             dict(window=1024))):
+        c = flash_case(*args, timed=True, **kw)
+        train.update(bandwidth_fields(prefix, c))
+        f.append(c)
     results["flash_fwd_extra"] = train
     d = results["paged_decode"]
     d.append(decode_case("gemma2b int8 bs128", 8, 8, 1, 256, 128, True, timed=True))
@@ -719,9 +781,22 @@ def phase_checks() -> dict:
                     max_len=4096, timed=True, full=True)
     tiles.update(bandwidth_fields("bw_b64_pos4095", c))
     d.append(c)
+    # Qwen2-7B's heads: 28 query heads over 4 KV heads, a group of 7.
+    for bs in (16, 128):
+        for quantized in (True, False):
+            kind = "int8" if quantized else "bf16"
+            timed = quantized and bs == 16
+            c = decode_case(f"qwen2-7b {kind} bs{bs} dead lane", 8, 28, 4, 128,
+                            bs, quantized, dead=True, timed=timed)
+            if timed:
+                tiles.update(bandwidth_fields("qwen2_g7_bs16", c))
+            d.append(c)
+            d.append(decode_mq_case(f"qwen2-7b {kind} bs{bs} SQ4", 8, 28, 4,
+                                    128, bs, quantized, 4))
     emit("paged_decode_tiles", shape="B=8 H=8 KV=1 D=256 int8, max_len 2048, "
          "ragged pos, one dead lane; bw_: B=64, max_len 4096, every lane at "
-         "4095, tile 16", **tiles)
+         "4095, tile 16; qwen2_g7_: B=8 H=28 KV=4 D=128 int8, tile 16",
+         **tiles)
     results["paged_decode_extra"] = tiles
     n = results["dense_decode"]
     for pos in (0, 127, 128, 1000, 2047):
@@ -734,8 +809,13 @@ def phase_checks() -> dict:
                    timed=True)
     dense = bandwidth_fields("bw_b32_pos4095", c)
     n.append(c)
+    n.append(dense_case("qwen2-7b B8 S2048 pos5", 8, 2048, 28, 4, 128, 5))
+    c = dense_case("qwen2-7b B8 S2048 pos2047", 8, 2048, 28, 4, 128, 2047,
+                   timed=True)
+    dense.update(bandwidth_fields("qwen2_g7", c))
+    n.append(c)
     emit("dense_decode_bandwidth", shape="B=32 S=4096 H=8 KV=1 D=256 bf16, "
-         "pos 4095", **dense)
+         "pos 4095; qwen2_g7_: B=8 S=2048 H=28 KV=4 D=128, pos 2047", **dense)
     results["dense_decode_extra"] = dense
     bwd = [  # llama3-8b widths unless the case says otherwise
         bwd_case("llama3-8b train B2 S2048", 2, 2048, 32, 8, 128, timed=True),
@@ -815,7 +895,7 @@ def window_rounds(steps: int) -> int:
     return max(2, -(-48 // steps))
 
 
-def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> dict:
+def profile_rounds(params, cfg, kw, rng, lanes: int = 8, model: str = "gemma_2b") -> dict:
     """Where a decode round's device time goes: ``lanes`` requests (prompts
     of 500-1000 tokens) admitted and two rounds run (the warm-up chunk,
     then the capture and the first replay), then :func:`window_rounds`
@@ -839,8 +919,9 @@ def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> dict:
     arena = (f"paged pool, tile {kw['kv_block_size']}" if "kv_pool_tokens" in kw
              else "slotted arena")
     loop = "overlapped" if srv.overlap else "lock-step"
-    fields = dict(loop=loop, decode_steps=srv.stats()["decode_steps"],
-                  lanes=busy, rounds=n_rounds)
+    fields = dict(model=model, loop=loop,
+                  decode_steps=srv.stats()["decode_steps"], lanes=busy,
+                  rounds=n_rounds)
     profiled(f"{n_rounds} {loop} decode rounds ({n_rounds * steps} steps), "
              f"{arena}, {busy} of {kw['max_batch']} lanes busy, prompts "
              "500-1000", rounds, **fields)
@@ -848,7 +929,8 @@ def profile_rounds(params, cfg, kw, rng, lanes: int = 8) -> dict:
     return fields
 
 
-def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
+def crosscheck(params, cfg, prompt, buckets, max_len: int,
+               decode: bool = True) -> dict:
     """One request through the kernel path and the plain path.
 
     Inside the model, each layer's kernel call (prefill, then the first
@@ -859,7 +941,9 @@ def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
     against the plain path's, within LOGIT_BOUND x the plain logits' RMS;
     both decode steps start from the kernel path's caches, so the decode
     comparison sees only the decode attention. Greedy agreement over 16
-    more steps is printed, not asserted: random weights make near-ties."""
+    more steps is printed, not asserted: random weights make near-ties.
+    ``decode=False`` (a config whose decode runs the plain attention on
+    both paths) checks the prefill alone."""
     import numpy as np
     import torch
 
@@ -872,7 +956,8 @@ def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
     from kata_xpu_device_plugin_tpu_torch.ops.quant import dequantize_kv
 
     ref = attention.reference_attention
-    kernel_fn = attention.make_decode_attn_fn(cfg, arena_len=max_len, device="cuda")
+    kernel_fn = (attention.make_decode_attn_fn(cfg, arena_len=max_len,
+                                               device="cuda") if decode else None)
     layer_checks = {"prefill": [], "decode": []}
 
     def checked_flash(q, k, v, **kw):
@@ -899,35 +984,80 @@ def crosscheck(params, cfg, prompt, buckets, max_len: int) -> dict:
                                 kv_quantized=True)
     _, lp, _ = prefill_batch(params, toks, cfg, max_len, tl, attn_fn=ref,
                              kv_quantized=True)
+    _, la, _ = prefill_batch(params, toks, cfg, max_len, tl, attn_fn=plain_fp32_p,
+                             kv_quantized=True)
+    row = {"prompt_len": n, "logit_bound_x_rms": LOGIT_BOUND}
+    compared = [("prefill", lk, lp, la)]
+    if not decode:
+        _compare(row, compared, layer_checks)
+        emit("crosscheck", **row)
+        return row
     first = torch.argmax(lk, -1).to(torch.int32)
 
-    def step(caches, fn):
-        logits, _ = forward(params, first[:, None], cfg, attn_fn=ref,
+    def step(caches, fn, attn_fn=ref):
+        logits, _ = forward(params, first[:, None], cfg, attn_fn=attn_fn,
                             positions=pos[:, None], kv_caches=caches,
                             cache_offset=pos, decode_kernel_fn=fn)
         return logits[:, -1]
 
     cd = tuple(type(c)(*(t.clone() for t in c)) for c in ck)
+    ca = tuple(type(c)(*(t.clone() for t in c)) for c in ck)
     dk, dp = step(ck, checked_decode), step(cd, None)
+    da = step(ca, None, plain_fp32_p)
     nxt = torch.argmax(dk, -1).to(torch.int32)
     gk = _decode_scan(params, ck, nxt, pos + 1, cfg, 16, attn_fn=ref,
                       decode_kernel_fn=kernel_fn)
     gp = _decode_scan(params, cd, nxt, pos + 1, cfg, 16, attn_fn=ref)
-    row = {"prompt_len": n, "logit_bound_x_rms": LOGIT_BOUND}
-    for what, got, want in (("prefill", lk, lp), ("decode", dk, dp)):
+    _compare(row, compared + [("decode", dk, dp, da)], layer_checks)
+    row["greedy_agreement_16"] = float((gk == gp).float().mean())
+    emit("crosscheck", **row)
+    return row
+
+
+def plain_fp32_p(q, k, v, **kw):
+    """The plain attention with its probabilities kept in fp32 (the plain
+    version rounds them to bf16 before the P.V product): an equally valid
+    bf16 attention, whose distance from the plain path's logits is the
+    noise floor that the model's depth makes of rounding alone."""
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+
+    return reference_attention(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+
+
+def _compare(row: dict, compared, layer_checks) -> None:
+    for what, got, want, alt in compared:
         cases = layer_checks[what]
         row[f"{what}_layers_checked"] = len(cases)
         row[f"{what}_layer_max_err_over_bound"] = max(
             c["max_err_over_bound"] for c in cases)
         row[f"{what}_logit_err"] = float((got - want).abs().max())
         row[f"{what}_logit_rms"] = float(want.square().mean().sqrt())
-    row["greedy_agreement_16"] = float((gk == gp).float().mean())
-    emit("crosscheck", **row)
-    return row
+        row[f"{what}_noise_err"] = float((alt - want).abs().max())
+
+
+def assert_family_crosscheck(row: dict, n_layers: int) -> None:
+    """Every layer's kernel call checked (within ``kernel_tolerance``, by
+    :func:`check`), and the logits within the serving bound or within
+    :data:`NOISE_FACTOR` x the run's noise floor; which held is recorded."""
+    for what in ("prefill", "decode"):
+        if f"{what}_layers_checked" not in row:
+            continue
+        if row[f"{what}_layers_checked"] != n_layers:
+            raise AssertionError(f"{what}: {row[f'{what}_layers_checked']} layer "
+                                 f"checks, want {n_layers}")
+        err, rms = row[f"{what}_logit_err"], row[f"{what}_logit_rms"]
+        noise = row[f"{what}_noise_err"]
+        row[f"{what}_within_serving_bound"] = err <= LOGIT_BOUND[what] * rms
+        row[f"{what}_err_over_noise"] = err / noise if noise else math.inf
+        if not math.isfinite(err) or not (row[f"{what}_within_serving_bound"]
+                                          or err <= NOISE_FACTOR * noise):
+            raise AssertionError(f"{what} logits: kernel vs plain {row}")
 
 
 def assert_crosscheck(row: dict, n_layers: int) -> None:
     for what in ("prefill", "decode"):
+        if f"{what}_layers_checked" not in row:
+            continue  # a prefill-only crosscheck
         if row[f"{what}_layers_checked"] != n_layers:
             raise AssertionError(f"{what}: {row[f'{what}_layers_checked']} layer "
                                  f"checks, want {n_layers}")
@@ -995,7 +1125,9 @@ def run_requests(srv, prompts, budgets):
     the serving kernels' launch counts, drain the server, read the counts.
     Returns the outputs in submit order, the wall time, the launches and
     the server's stats, with :data:`RUN_COUNTERS` counted over this run
-    alone; every request must return its budget of in-vocabulary tokens."""
+    alone; every request must return its budget of in-vocabulary tokens.
+    A server whose decode runs the plain attention (by its config's rule)
+    must launch the flash kernel and no decode kernel."""
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
@@ -1025,11 +1157,13 @@ def run_requests(srv, prompts, budgets):
             raise AssertionError(f"request {rid}: {len(out)} tokens, budget {b}")
         if not ((out >= 0) & (out < srv.cfg.vocab_size)).all():
             raise AssertionError(f"request {rid}: token out of vocabulary")
-    if set(launches) != {"flash_fwd", "paged_decode"}:
-        raise AssertionError(f"serving must launch the flash and the paged "
-                             f"kernel and no other: {launches}")
+    kernel = stats["decode_backend"] == "cuda_paged"
+    want = {"flash_fwd", "paged_decode"} if kernel else {"flash_fwd"}
+    if set(launches) != want:
+        raise AssertionError(f"serving ({stats['decode_backend']} decode) must "
+                             f"launch {sorted(want)} and no other: {launches}")
     rounds, steps = stats["rounds"], stats["decode_steps"] * srv.chunk
-    if launches["paged_decode"] != rounds * steps * srv.cfg.n_layers:
+    if kernel and launches["paged_decode"] != rounds * steps * srv.cfg.n_layers:
         raise AssertionError(f"a decode step left the paged kernel: {launches}, "
                              f"{rounds} rounds of {steps} steps")
     if (life["decode_graph_captures"] != 1
@@ -1078,12 +1212,16 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
     (lock-step), then the second chunk is run eagerly on a clone of the
     arena and through the server's graph (its capture, then its first
     replay) on the live arena, from the same inputs. Tokens, ``last``,
-    ``pos`` and every byte of the arena must be equal."""
+    ``pos`` and every byte of the arena must be equal. A sampling server's
+    generator is set back (``get_state``/``set_state``) to its state before
+    the eager chunk ahead of each replay, so the replay draws the same
+    numbers; one more replay without that must draw fresh ones."""
     import numpy as np
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
     from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+    from kata_xpu_device_plugin_tpu_torch.guest.kv_arena import SCRATCH_BLOCK
     from kata_xpu_device_plugin_tpu_torch.ops.quant import QTensor
 
     srv = GenerationServer(params, cfg, **{**kw, "overlap": False})
@@ -1109,21 +1247,50 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
         extra["block_tables"] = dev(srv._bt_host)
     exe = srv._decode
     tok, pos = dev(srv._last), dev(srv._pos)
+    gen = srv.generator if srv._do_sample else None
+    state = gen.get_state() if gen is not None else None
+
+    def restore():
+        if gen is not None:
+            gen.set_state(state)
+
     t0 = time.perf_counter()
     want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
                         exe.decode_kernel_fn, **extra, **exe._kw)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
+    restore()
     got = exe(tok, pos, **extra)
     torch.cuda.synchronize()
+    first = [t.clone() for t in got]
+    restore()
     t0 = time.perf_counter()
     exe(tok, pos, **extra)  # a second replay, timed (it rewrites the same rows)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    outs_equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    outs_equal = all(torch.equal(g, w) for g, w in zip(first, want)) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
     # The second replay rewrote the rows the first wrote, with equal values.
+    # A paged server's dead lanes all write the scratch block, which nothing
+    # reads: greedy, they write equal values there; sampled, each draws its
+    # own tokens, so which of the duplicate writes lands is not fixed. A
+    # sampled paged check holds every byte but the scratch block's.
+    scratch = None
+    if gen is not None and srv.paged:
+        bs = srv.kv_block
+        scratch = slice(SCRATCH_BLOCK * bs, (SCRATCH_BLOCK + 1) * bs)
+        scratch_equal = all(torch.equal(_bits(a[:, :, scratch]),
+                                        _bits(c[:, :, scratch]))
+                            for a, c in zip(leaves, clone))
+        for a, c in zip(leaves, clone):
+            c[:, :, scratch] = a[:, :, scratch]
     arena_equal = all(torch.equal(_bits(a), _bits(c)) for a, c in zip(leaves, clone))
+    fresh = None
+    if gen is not None:  # no restore: the generator has moved on
+        fresh = not torch.equal(exe(tok, pos, **extra)[0], first[0])
     row = dict(arena="paged" if srv.paged else "slotted",
+               sampled=gen is not None, fresh_draws_without_restore=fresh,
+               scratch_block_bit_equal=None if scratch is None else scratch_equal,
                kv_quant=srv.stats()["kv_quant"], steps=exe.steps,
                lanes=sum(r is not None for r in srv._slot_req),
                outputs_bit_equal=outs_equal, arena_bit_equal=arena_equal,
@@ -1132,7 +1299,9 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
                capture_s=round(exe.capture_s, 4), graph_pool_bytes=exe.pool_bytes,
                eager_chunk_s=round(eager_s, 6), replay_chunk_s=round(replay_s, 6))
     emit("graph_check", **row)
-    if not (outs_equal and arena_equal) or (exe.captures, exe.replays) != (1, 2):
+    replays = 3 if gen is not None else 2
+    if (not (outs_equal and arena_equal) or fresh is False
+            or (exe.captures, exe.replays) != (1, replays)):
         raise AssertionError(f"graph replay differs from the eager chunk: {row}")
     return row
 
@@ -1303,7 +1472,127 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
     return launches
 
 
-def phase_generate(params, cfg, seed: int = 0) -> dict:
+# The families served at their published widths (random bf16 weights from
+# seed 0, fused) by the default server over a paged pool: model -> the cut
+# of its depth (with the window and rope cycles cut with it), max_len, and
+# how many of its 16 prompts are long (4200-6000 tokens; the rest 64-1000).
+LONG_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 6144, 8192)
+FAMILIES = {
+    "gemma2_2b": dict(layers=None, max_len=8192, long=4),
+    "qwen2_7b": dict(layers=None, max_len=2048, long=0),
+    "gemma3_4b": dict(layers=6, max_len=2048, long=0),
+    "mistral_7b": dict(layers=4, max_len=8192, long=4),
+}
+SAMPLE_KW = dict(temperature=0.7, top_k=50, top_p=0.9, seed=0)
+
+
+def family_config(name: str, layers):
+    """The family's published config, its depth cut to ``layers`` with its
+    per-layer cycles cut to their first ``layers`` entries."""
+    from kata_xpu_device_plugin_tpu_torch import models
+
+    cfg = getattr(models, name)()
+    if layers is None:
+        return cfg, f"none: all {cfg.n_layers} layers"
+    cut = {"n_layers": layers}
+    for f in ("attn_windows", "rope_theta_cycle", "rope_linear_cycle"):
+        if getattr(cfg, f):
+            cut[f] = getattr(cfg, f)[:layers]
+    return (replace(cfg, **cut),
+            f"n_layers={layers} (from {cfg.n_layers}; the phase's share of the "
+            "run's time), window and rope cycles cut to their first entries")
+
+
+def phase_families(seed: int = 0, profile: bool = False) -> dict:
+    """Each family of :data:`FAMILIES` through the default server (overlapped,
+    K = 1, graphed, int8 KV, paged: 16 lanes, tile 16): 16 greedy requests
+    (tok/s, TTFT, ITL, the decode backend and its reason, captures and
+    replays, launches); the same requests sampled (``SAMPLE_KW``) by two
+    servers of one seed, whose tokens must be equal; ``graph_check`` on a
+    sampled chunk; the served prefill (and, where the decode kernel runs,
+    the first decode step) of a request held against the plain path.
+    Qwen2-7B decodes through the paged kernel at its group of 7; the
+    windowed families decode with the plain attention by the JAX rule.
+    Every family runs before any failure is raised. ``profile`` adds a
+    profiled window of decode rounds of each (16 lanes busy)."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        init_params,
+    )
+
+    launches, failures = {}, []
+    for name, spec in FAMILIES.items():
+        cfg, reduced = family_config(name, spec["layers"])
+        t0 = time.perf_counter()
+        params = fuse_decoder_params(
+            init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        max_len = spec["max_len"]
+        buckets = tuple(b for b in LONG_BUCKETS if b <= min(max_len, 8192)
+                        and (spec["long"] or b <= 1024))
+        kw = dict(max_batch=16, max_len=max_len, prefill_buckets=buckets,
+                  chunk=8, kv_pool_tokens=16 * max_len + 32, kv_block_size=16)
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(64, 1001, 16)
+        lens[: spec["long"]] = rng.integers(4200, 6001, spec["long"])
+        budgets = rng.integers(64, 129, 16)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+        windowed = any(w > 0 for w in cfg.window_cycle)
+        want = ("reference", "sliding_window") if windowed else ("cuda_paged", "")
+        srv = GenerationServer(params, cfg, **kw)
+        outs, wall, fam_launches, stats = run_requests(srv, prompts, budgets)
+        del srv
+        got = (stats["decode_backend"], stats["decode_backend_reason"])
+        if got != want or stats["kv_quant"] != "int8":
+            failures.append(f"{name}: decode backend {got}, want {want}")
+        row = serve_row(stats, wall, budgets, lens, fam_launches)
+        launches[name] = fam_launches
+        sampled = []
+        for _ in range(2):
+            side = GenerationServer(params, cfg, **kw, **SAMPLE_KW)
+            outs_s, wall_s, _, stats_s = run_requests(side, prompts, budgets)
+            sampled.append((outs_s, wall_s, stats_s))
+            del side
+        repeat = token_match(sampled[0][0], sampled[1][0], budgets)
+        if repeat["requests_identical"] != len(budgets):
+            failures.append(f"{name}: sampled runs of one seed differ {repeat}")
+        gc_row = graph_check(params, cfg, dict(kw, **SAMPLE_KW), seed=seed)
+        long_i = 0 if spec["long"] else int(np.argmax(lens))
+        cc = crosscheck(params, cfg, prompts[long_i], buckets, max_len,
+                        decode=not windowed)
+        try:
+            assert_family_crosscheck(cc, cfg.n_layers)
+        except AssertionError as e:
+            failures.append(f"{name}: {e}")
+        emit("family", model=name, reduced=reduced, max_len=max_len,
+             config=dict(kw), init_s=round(init_s, 3),
+             prompt_lens=lens.tolist(), **row,
+             decode_backend=got[0], decode_backend_reason=got[1],
+             sampled=dict(SAMPLE_KW, tok_s=round(int(sum(budgets))
+                                                  / sampled[0][1], 2),
+                          itl_p50_s=sampled[0][2]["decode_token_s"]["p50"],
+                          repeat=repeat,
+                          token_match_vs_greedy=token_match(
+                              sampled[0][0], outs, budgets)),
+             graph_check_sampled=gc_row["outputs_bit_equal"]
+             and gc_row["arena_bit_equal"],
+             crosscheck={k: v for k, v in cc.items() if k != "logit_bound_x_rms"})
+        if profile:
+            profile_rounds(params, cfg, kw, rng, lanes=16, model=name)
+        del params
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("families: " + "; ".join(failures))
+    return launches
+
+
+def phase_generate(params, cfg, seed: int = 0, phase: str = "generate") -> dict:
     """``generate()`` under ``KATA_TPU_DECODE_KERNEL=1``: lock-step decode
     through the dense kernel, counted; then each layer's kernel call of the
     first decode step held against the plain version on the model's own q,
@@ -1370,7 +1659,8 @@ def phase_generate(params, cfg, seed: int = 0) -> dict:
         del os.environ[ENV_DECODE_KERNEL]
     want = {"flash_fwd": cfg.n_layers, "paged_decode": 0,
             "dense_decode": cfg.n_layers * (steps - 1)}
-    emit("generate", B=B, prompt=S, steps=steps, cache="bf16",
+    emit(phase, layers=cfg.n_layers, H=cfg.n_heads, KV=cfg.n_kv_heads,
+         D=cfg.head_dim, B=B, prompt=S, steps=steps, cache="bf16",
          wall_s=round(wall, 4), tok_s=round(B * steps / wall, 2),
          launches=launches, wall_without_opt_in_s=round(plain_wall, 4),
          launches_without_opt_in=plain_launches,
@@ -1387,6 +1677,26 @@ def phase_generate(params, cfg, seed: int = 0) -> dict:
     if toks.shape != (B, steps) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         raise AssertionError("generate: bad tokens")
     return {k: v for k, v in launches.items() if v}
+
+
+def phase_generate_qwen2(seed: int = 0) -> dict:
+    """:func:`phase_generate` at Qwen2-7B's published widths with 4 of its
+    28 layers: the dense decode kernel (and, without the opt-in, the paged
+    kernel over the slotted re-view) at the group of 7."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        init_params,
+        qwen2_7b,
+    )
+
+    cfg = qwen2_7b(n_layers=4)
+    params = fuse_decoder_params(
+        init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16))
+    out = phase_generate(params, cfg, seed, phase="generate_qwen2")
+    del params
+    return out
 
 
 def train_flops_per_step(cfg, B: int, S: int) -> float:
@@ -1586,6 +1896,12 @@ def main(argv: list[str]) -> int:
                                     profile=profile)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     del params
+    torch.cuda.empty_cache()
+    for name, n in timed_phase("families", phase_families,
+                               profile=profile).items():
+        launches[f"family_{name}"] = n
+    launches["generate_qwen2"] = timed_phase("generate_qwen2",
+                                             phase_generate_qwen2)
     torch.cuda.empty_cache()
     launches["train"] = timed_phase("train", phase_train, profile=profile)
     timed_phase("train_crosscheck", train_crosscheck)

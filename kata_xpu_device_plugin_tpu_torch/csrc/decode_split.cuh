@@ -12,8 +12,8 @@
 // `decode_chunks`, passed in by the wrapper), and the chunks run in parallel:
 //
 // 1. Split pass, grid (n_chunks, B*KV, SQ), 128 threads. A block takes one
-//    chunk of one lane for all G = H/KV query heads of one KV head and one
-//    query row. Query row j of SQ sits at absolute position pos - (SQ-1) + j
+//    chunk of one lane for all G = H/KV query heads (any G from 1 to 8) of
+//    one KV head and one query row. Query row j of SQ sits at absolute position pos - (SQ-1) + j
 //    (right-aligned; pos is the LAST row's position) and rows j < SQ - q_len
 //    are padding. A block whose chunk starts past its row's last key exits
 //    at once. It visits the chunk's tiles up to the one holding that key
@@ -256,7 +256,7 @@ __device__ __forceinline__ uint32_t v_pair(const unsigned char* st, int r,
 
 template <int D, int G, bool QUANT, bool DENSE>
 __device__ __forceinline__ void split_pass(const Params& p) {
-  static_assert(G <= 8, "the G heads are the M rows of one m16 tile");
+  static_assert(G >= 1 && G <= 8, "the G heads are the M rows of one m16 tile");
   using S = Stage<D, QUANT>;
   constexpr int NS = S::NS;
   extern __shared__ __align__(16) unsigned char smem[];

@@ -38,18 +38,24 @@ __global__ void __launch_bounds__(D) dense_decode_combine_kernel(const Params p)
   decode_split::combine_pass<D, true>(p);
 }
 
+template <int D, int G>
+int launch(const Params& p, cudaStream_t s) {
+  return decode_split::launch_passes<D, G, false>(
+      dense_decode_split_kernel<D, G>, dense_decode_combine_kernel<D>, p, s);
+}
+
+// Every group G = H / KV from 1 to 8, as for the paged kernel.
 template <int D>
 int launch_g(const Params& p, int G, cudaStream_t s) {
-  using decode_split::launch_passes;
   switch (G) {
-    case 1: return launch_passes<D, 1, false>(dense_decode_split_kernel<D, 1>,
-                                              dense_decode_combine_kernel<D>, p, s);
-    case 2: return launch_passes<D, 2, false>(dense_decode_split_kernel<D, 2>,
-                                              dense_decode_combine_kernel<D>, p, s);
-    case 4: return launch_passes<D, 4, false>(dense_decode_split_kernel<D, 4>,
-                                              dense_decode_combine_kernel<D>, p, s);
-    case 8: return launch_passes<D, 8, false>(dense_decode_split_kernel<D, 8>,
-                                              dense_decode_combine_kernel<D>, p, s);
+    case 1: return launch<D, 1>(p, s);
+    case 2: return launch<D, 2>(p, s);
+    case 3: return launch<D, 3>(p, s);
+    case 4: return launch<D, 4>(p, s);
+    case 5: return launch<D, 5>(p, s);
+    case 6: return launch<D, 6>(p, s);
+    case 7: return launch<D, 7>(p, s);
+    case 8: return launch<D, 8>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -54,12 +54,18 @@ int launch(const Params& p, int quantized, cudaStream_t s) {
                    paged_decode_combine_kernel<D>, p, s);
 }
 
+// Every group G = H / KV from 1 to 8 (the G heads are the M rows of one
+// m16 tile, so nothing in the passes asks for a power of two).
 template <int D>
 int launch_g(const Params& p, int G, int quantized, cudaStream_t s) {
   switch (G) {
     case 1: return launch<D, 1>(p, quantized, s);
     case 2: return launch<D, 2>(p, quantized, s);
+    case 3: return launch<D, 3>(p, quantized, s);
     case 4: return launch<D, 4>(p, quantized, s);
+    case 5: return launch<D, 5>(p, quantized, s);
+    case 6: return launch<D, 6>(p, quantized, s);
+    case 7: return launch<D, 7>(p, quantized, s);
     case 8: return launch<D, 8>(p, quantized, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,8 +9,10 @@ issues more slowly than the card runs them. Replaying a captured graph
 issues the whole chunk in one call.
 
 A :class:`DecodeGraph` serves one static signature of one server: the
-chunk's step count, slotted or paged, the budget mask armed or not, and
-``eos_id``. Its static inputs are ``tok [B]``, ``pos [B]``, ``budget
+chunk's step count, slotted or paged, the budget mask armed or not,
+``eos_id``, and greedy or sampled (:class:`Sampling`: ``top_k``,
+``top_p``, the server's generator, and the temperature as a static device
+scalar). Its static inputs are ``tok [B]``, ``pos [B]``, ``budget
 [B]`` (armed only) and ``block_tables [B, NB]`` (paged only); every call
 copies the caller's values into them on the current stream, so the
 copies are ordered behind whatever the stream already holds. Its static
@@ -28,6 +30,11 @@ before it dispatches the next chunk.
 
 The graph freezes the addresses of the parameters and of the arena (or
 pool): both must only ever be written in place while the graph lives. A
+sampled chunk's generator is registered with the graph before capture, so
+each replay draws from the generator's offset at that moment and moves it
+on, as the same chunk run eagerly would: two replays draw fresh numbers,
+and restoring the generator's state (``get_state``/``set_state``) before a
+replay repeats an eager chunk's draws. A
 capture that fails raises; nothing drops back to eager launches. The
 kernels' launch counters count at capture and not at replay, so the
 graph takes back what the capture counted and adds it on every replay.
@@ -37,7 +44,7 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,20 +52,36 @@ from ..models.transformer import _decode_scan
 from ..ops import attention
 
 
+class Sampling(NamedTuple):
+    """A sampled chunk's draw: from ``generator`` at ``temperature`` (a
+    0-dim fp32 tensor on the device), cut to ``top_k`` and ``top_p``."""
+    generator: torch.Generator
+    temperature: torch.Tensor
+    top_k: int = 0
+    top_p: float = 0.0
+
+
 def serve_decode(params, arena, tok, pos, cfg, steps: int,
                  decode_kernel_fn=None, block_tables=None, block_size: int = 0,
-                 paged_len: int = 0, budget=None, eos_id: Optional[int] = None):
+                 paged_len: int = 0, budget=None, eos_id: Optional[int] = None,
+                 sampling: Optional[Sampling] = None):
     """One fixed-``steps`` ragged decode chunk over the arena (in place),
     through ``decode_kernel_fn``, or the plain attention when it is None.
     With ``block_tables`` the arena is the block pool and each lane decodes
     through its table. ``budget [B]`` (with ``eos_id``) arms the freeze
-    mask. Returns ``(tokens [B, steps], last [B], pos [B])``."""
+    mask. Greedy, or sampled with ``sampling``. Returns ``(tokens [B,
+    steps], last [B], pos [B])``."""
+    skw = {}
+    if sampling is not None:
+        skw = dict(do_sample=True, generator=sampling.generator,
+                   temperature=sampling.temperature, top_k=sampling.top_k,
+                   top_p=sampling.top_p)
     toks, _caches, last, pos = _decode_scan(
         params, arena, tok, pos, cfg, steps,
         attn_fn=attention.reference_attention, return_state=True,
         decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
         block_size=block_size, paged_len=paged_len, budget=budget,
-        eos_id=eos_id,
+        eos_id=eos_id, **skw,
     )
     return toks, last, pos
 
@@ -77,7 +100,8 @@ class DecodeGraph:
     def __init__(self, params, arena, cfg, *, batch: int, steps: int, device,
                  decode_kernel_fn=None, table_width: int = 0,
                  block_size: int = 0, paged_len: int = 0,
-                 budget: bool = False, eos_id: Optional[int] = None):
+                 budget: bool = False, eos_id: Optional[int] = None,
+                 sampling: Optional[Sampling] = None):
         self.params, self.arena, self.cfg = params, arena, cfg
         self.steps = steps
         self.device = torch.device(device)
@@ -85,7 +109,7 @@ class DecodeGraph:
         # them (a checked kernel call) runs in both.
         self.decode_kernel_fn = decode_kernel_fn
         self._kw = dict(block_size=block_size, paged_len=paged_len,
-                        eos_id=eos_id if budget else None)
+                        eos_id=eos_id if budget else None, sampling=sampling)
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -155,6 +179,9 @@ class DecodeGraph:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
+        sampling = self._kw["sampling"]
+        if sampling is not None:
+            graph.register_generator_state(sampling.generator)
         with torch.cuda.graph(graph, stream=self._stream):
             out = self._run(**self._in)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved

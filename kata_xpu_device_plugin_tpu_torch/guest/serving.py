@@ -1,9 +1,10 @@
 """Continuous-batching generation server (counterpart of
 ``GenerationServer`` in ``kata_xpu_device_plugin_tpu/guest/serving.py``).
 
-Two arena models are ported, both with greedy decoding in dispatches of
-``chunk × decode_steps`` steps and batched admission through
-``prefill_batch``:
+Two arena models are ported, both decoding greedily or by sampling
+(``temperature``, ``top_k``, ``top_p`` from a generator seeded with
+``seed``) in dispatches of ``chunk × decode_steps`` steps, with batched
+admission through ``prefill_batch``:
 
 - **slotted** (the default): one KV arena ``[L, max_batch, max_len, KV,
   D]`` (int8 by default); a request owns a whole slot.
@@ -34,19 +35,21 @@ On CUDA every prefill runs the flash kernel and every decode step the paged
 decode kernel: over the pool through the lanes' real block tables, or over
 a zero-copy pool view of the slotted arena
 (:func:`..ops.attention.make_decode_attn_fn`); each decode chunk after the
-first is one CUDA graph replay (:class:`.decode_graph.DecodeGraph`). The
-plain versions run there only when the caller asks for
+first is one CUDA graph replay (:class:`.decode_graph.DecodeGraph`), its
+random draws included. As in the JAX server, a config with a sliding
+window or an attention-logit softcap, masks the kernel does not model,
+decodes with the plain attention and says why in ``stats()``; otherwise
+the plain versions run on the card only when the caller asks for
 ``decode_attn="reference"``, and anything the kernels cannot take raises.
 On the CPU the wrappers run their plain versions and chunks run eagerly.
 Greedy outputs per request equal the JAX server's on the same weights, as
 do the round and admission counts under the same ``overlap`` and
-``decode_steps``.
+``decode_steps``; sampled outputs repeat under one seed.
 
 Arguments of the JAX server that select modes not ported yet (tensor
 parallelism, speculative decoding, ring caches, the prefix cache, the host
-KV tier, the block-sharded pool layout, sampling, chunked scheduling,
-persistent decode and crash recovery) raise ``NotImplementedError`` when
-set.
+KV tier, the block-sharded pool layout, chunked scheduling, persistent
+decode and crash recovery) raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -69,6 +72,8 @@ from ..constants import (
 )
 from ..models.transformer import (
     DecoderConfig,
+    _next_token,
+    _sampling_args,
     check_supported,
     init_kv_caches,
     prefill_batch,
@@ -77,7 +82,7 @@ from ..obs.metrics import Rolling
 from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
-from .decode_graph import DecodeGraph
+from .decode_graph import DecodeGraph, Sampling
 from .kv_arena import (
     RESERVED_BLOCKS,
     SCRATCH_BLOCK,
@@ -197,12 +202,18 @@ class GenerationServer:
     >>> rid = srv.submit(prompt_tokens, max_new_tokens=64)
     >>> results = srv.run()          # {rid: np.ndarray of generated tokens}
 
+    ``temperature > 0`` samples every token (with ``top_k``/``top_p``,
+    :func:`..models.transformer.sample_token`) from :attr:`generator`, a
+    ``torch.Generator`` on the server's device seeded with ``seed``.
     ``kv_quant=None`` resolves int8 KV unless ``KATA_TPU_KV_QUANT=bf16``.
     ``decode_attn`` picks the decode attention: ``"cuda_paged"`` (the
     kernel; its plain version on the CPU) or ``"reference"`` (the plain
     attention over the arena); None reads ``KATA_TPU_DECODE_ATTN``, then
-    chooses the kernel on CUDA and the plain attention on the CPU. A
-    kernel that cannot serve the config raises. ``device`` defaults to
+    chooses the kernel on CUDA and the plain attention on the CPU, and the
+    plain attention wherever the config has a sliding window or an
+    attention-logit softcap (JAX's rule). An explicit ``"cuda_paged"``
+    the config rules out, or a kernel that cannot take the config's
+    shapes, raises. ``device`` defaults to
     CUDA and must hold ``params``; there every prompt is padded to one of
     ``prefill_buckets``, which must all be flash-kernel lengths.
 
@@ -222,7 +233,8 @@ class GenerationServer:
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
-                 chunk: int = 8, temperature: float = 0.0,
+                 chunk: int = 8, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0,
                  kv_quant: Optional[bool] = None, prefill_buckets: tuple = (),
                  overlap: bool = True, decode_attn: Optional[str] = None,
                  device=None,
@@ -243,7 +255,6 @@ class GenerationServer:
             "speculative_k (ROADMAP Queue 1 item 11)": speculative_k,
             "ring_kv (ROADMAP Queue 1 item 11)": ring_kv,
             "prefix_cache_tokens (ROADMAP Queue 1 item 8)": prefix_cache_tokens,
-            "temperature > 0 (sampling, ROADMAP Queue 1 item 11)": temperature,
             "sched_policy='slo_chunked' (ROADMAP Queue 1 item 8)": (
                 sched_policy not in (None, "fifo_batch")),
             "persistent (ROADMAP Queue 1 item 7b)": persistent,
@@ -268,6 +279,18 @@ class GenerationServer:
         self.params, self.cfg = params, cfg
         self.max_batch, self.max_len = max_batch, max_len
         self.eos_id, self.chunk = eos_id, chunk
+        self.top_k, self.top_p = top_k, top_p
+        # Every draw of the server, at admission and inside the decode
+        # chunks, comes from this generator, in the order the host issues
+        # them: one seed gives the same tokens run after run.
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        self._do_sample = _sampling_args(temperature, top_k, self.generator,
+                                         top_p)
+        # Device-resident temperature, made once: no per-dispatch upload.
+        self._temp_dev = (torch.full((), float(temperature), dtype=torch.float32,
+                                     device=self.device)
+                          if self._do_sample else None)
         self.overlap = bool(overlap)
         self._decode_steps = resolve_decode_steps(decode_steps)
         # Steps of one dispatch: ITL, the budget gate and the paged
@@ -312,7 +335,9 @@ class GenerationServer:
             table_width=self._nb_max if self.paged else 0,
             block_size=self.kv_block if self.paged else 0,
             paged_len=max_len if self.paged else 0,
-            budget=self._decode_steps > 1, eos_id=eos_id)
+            budget=self._decode_steps > 1, eos_id=eos_id,
+            sampling=Sampling(self.generator, self._temp_dev, top_k, top_p)
+            if self._do_sample else None)
         # Host-side slot state: the request in each slot, its next cache
         # write position, and its last token.
         self._slot_req: list[Optional[_Request]] = [None] * max_batch
@@ -377,16 +402,31 @@ class GenerationServer:
     # ----- decode backend --------------------------------------------------
 
     def _resolve_decode_attn(self, choice: Optional[str]):
-        """``(backend, reason)``: explicit argument > env > automatic (the
-        kernel on CUDA, the plain attention on the CPU). A malformed env
-        value is ignored; the plain attention runs on the card only when
-        asked for."""
+        """``(backend, reason)``: explicit argument > env > automatic. The
+        config decides first, as in the JAX server: one the kernel cannot
+        model decodes with the plain attention, and the reason says why;
+        an explicit ``"cuda_paged"`` for it raises, an env one degrades.
+        Otherwise the automatic pick is the kernel on CUDA and the plain
+        attention on the CPU. A malformed env value is ignored; the plain
+        attention runs on the card otherwise only when asked for."""
+        explicit = choice is not None
         if choice is None:
             raw = os.environ.get(ENV_DECODE_ATTN, "").strip()
             choice = raw if raw in attention.DECODE_ATTN_BACKENDS else None
         elif choice not in attention.DECODE_ATTN_BACKENDS:
             raise ValueError(f"unknown decode_attn {choice!r} "
                              f"(have {attention.DECODE_ATTN_BACKENDS})")
+        if choice == BACKEND_REFERENCE:
+            return choice, "forced"
+        # The JAX server's other reasons, ring caches and speculation, are
+        # modes that raise before this is asked.
+        conflict = attention.decode_kernel_conflict(self.cfg)
+        if conflict is not None:
+            if explicit:
+                raise ValueError(
+                    f"decode_attn={BACKEND_PAGED!r} is incompatible with this "
+                    f"server ({conflict})")
+            return BACKEND_REFERENCE, conflict
         if choice is not None:
             return choice, "forced"
         if self.device.type != "cuda":
@@ -539,7 +579,8 @@ class GenerationServer:
             self.params, torch.from_numpy(prompts).to(self.device), self.cfg,
             pad_len, torch.from_numpy(true_lens), kv_quantized=self.kv_quant,
         )
-        firsts = torch.argmax(last_logits, dim=-1).cpu().numpy()
+        firsts = _next_token(last_logits, self.generator, self._do_sample,
+                             self._temp_dev, self.top_k, self.top_p).cpu().numpy()
         t_first = time.perf_counter()  # the transfer above fenced the forward
         if not self.paged:
             _write_slots(self.arena, caches, torch.as_tensor(

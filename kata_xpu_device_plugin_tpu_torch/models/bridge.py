@@ -2,8 +2,10 @@
 
 The caller turns the JAX parameter tree into numpy
 (``jax.tree.map(np.asarray, params)``); this module never imports JAX. Both
-layouts are accepted (separate ``wq/wk/wv``/``w_gate``/``w_up`` or fused
-``wqkv``/``w_gateup``), and int8 leaves are recognised by duck typing: any
+layouts are accepted (separate ``wq/wk/wv``/``w_gate``/``w_up``/``bq/bk/bv``
+or fused ``wqkv``/``w_gateup``/``bqkv``), with the leaves the config's
+flags add (post-sublayer norms, qkv biases, QK-norms), and int8 leaves are
+recognised by duck typing: any
 object with ``.q`` and ``.scale`` becomes a :class:`..ops.quant.QTensor`.
 Matrices keep the JAX layout ``[L, d_in, d_out]``; nothing is transposed.
 """
@@ -62,6 +64,12 @@ def params_from_numpy(tree: dict, cfg: DecoderConfig, device) -> dict:
     fused = "wqkv" in layers
     need = (("wqkv", "w_gateup") if fused else ("wq", "wk", "wv", "w_gate", "w_up"))
     need += ("attn_norm", "wo", "mlp_norm", "w_down")
+    if cfg.post_norms:
+        need += ("post_attn_norm", "post_mlp_norm")
+    if cfg.qkv_bias:
+        need += ("bqkv",) if fused else ("bq", "bk", "bv")
+    if cfg.qk_norm:
+        need += ("q_norm", "k_norm")
     missing = [k for k in need if k not in layers]
     if missing:
         raise ValueError(f"parameter tree lacks layer weights {missing}")

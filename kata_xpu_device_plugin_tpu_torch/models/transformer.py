@@ -11,9 +11,11 @@ the functional JAX version returns fresh arrays; writing in place saves a
 copy of the cache per step. The functions that return caches return the
 same tensors they were given.
 
-Families' extra flags that are not ported yet (qkv bias, qk-norm,
-post-norms, window and rope cycles, MoE, ring caches, sampling) raise
-``NotImplementedError``.
+Every dense family of the JAX package is modelled: qkv biases (Qwen2),
+per-head QK-norm and rope cycles (Gemma-3), post-sublayer norms and window
+cycles (Gemma-2), sliding windows (Mistral). MoE raises
+``NotImplementedError``. Greedy decoding and sampling (temperature, top-k,
+top-p) draw from an explicit ``torch.Generator`` on the device.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..ops.attention import NEG_INF
 from ..ops.quant import (
     QTensor,
     dequantize_kv,
@@ -82,29 +85,43 @@ class DecoderConfig:
 
     @property
     def window_cycle(self) -> tuple:
+        """The per-layer window cycle (length 1 when uniform)."""
         return self.attn_windows or (self.sliding_window,)
 
+    def layer_window(self, i: int) -> int:
+        """Attention window of layer ``i`` (0 = global)."""
+        cycle = self.window_cycle
+        return cycle[i % len(cycle)]
 
-_UNPORTED_FLAGS = (
-    ("attn_windows", "per-layer window cycles"),
-    ("post_norms", "post-sublayer norms"),
-    ("qkv_bias", "qkv biases"),
-    ("qk_norm", "qk-norm"),
-    ("rope_theta_cycle", "rope cycles"),
-    ("rope_linear_cycle", "rope cycles"),
-    ("moe_num_experts", "MoE"),
-)
+    def layer_rope(self, i: int) -> tuple[float, float]:
+        """Rope ``(theta, linear divisor)`` of layer ``i``: the cycle
+        position's entries where ``rope_theta_cycle``/``rope_linear_cycle``
+        are set (Gemma-3's local and global layers), else the uniform
+        ``rope_theta`` and 1."""
+        p = i % len(self.window_cycle)
+        theta = self.rope_theta_cycle[p] if self.rope_theta_cycle else self.rope_theta
+        linear = self.rope_linear_cycle[p] if self.rope_linear_cycle else 1.0
+        return float(theta), float(linear)
 
 
 def check_supported(cfg: DecoderConfig) -> None:
-    """Raise on a config flag this slice of the port does not model."""
-    for name, what in _UNPORTED_FLAGS:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"{what} ({name}) are not ported yet (ROADMAP Queue 1)"
-            )
+    """Raise on a config the port does not model (MoE, ROADMAP Queue 1 item
+    11b) or one the JAX package refuses: a depth the window cycle does not
+    divide, a rope cycle of another length than the window cycle."""
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            "MoE (moe_num_experts) is not ported yet (ROADMAP Queue 1 item 11b)")
     if cfg.activation not in ("geglu", "swiglu"):
         raise ValueError(f"unknown activation {cfg.activation!r}")
+    P = len(cfg.window_cycle)
+    if cfg.n_layers % P:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by the "
+                         f"attn_windows cycle {cfg.attn_windows}")
+    for name in ("rope_theta_cycle", "rope_linear_cycle"):
+        c = getattr(cfg, name)
+        if c and len(c) != P:
+            raise ValueError(f"{name} {c!r} must have one entry per "
+                             f"attn_windows cycle position ({P})")
 
 
 def tiny_test_config(**overrides) -> DecoderConfig:
@@ -121,8 +138,9 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
                 dtype=torch.float32) -> Params:
     """Stacked-layer parameters with the JAX package's distributions:
     matrices normal / sqrt(fan_in), norm scales at ones (``rms_norm``
-    multiplies by 1 + scale, so a fresh model scales by 2). Drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the target device."""
+    multiplies by 1 + scale, so a fresh model scales by 2), qkv biases at
+    zeros. Drawn from a ``torch.Generator`` seeded with ``seed`` on the
+    target device."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -134,6 +152,9 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
 
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
 
     L, d = cfg.n_layers, cfg.d_model
     layers = {
@@ -147,6 +168,16 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
         "w_up": dense((L, d, cfg.d_ff), d),
         "w_down": dense((L, cfg.d_ff, d), cfg.d_ff),
     }
+    if cfg.post_norms:
+        layers["post_attn_norm"] = ones(L, d)
+        layers["post_mlp_norm"] = ones(L, d)
+    if cfg.qkv_bias:
+        layers["bq"] = zeros(L, cfg.q_dim)
+        layers["bk"] = zeros(L, cfg.kv_dim)
+        layers["bv"] = zeros(L, cfg.kv_dim)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, cfg.head_dim)
+        layers["k_norm"] = ones(L, cfg.head_dim)
     params = {
         "embed": dense((cfg.vocab_size, d), d),
         "layers": layers,
@@ -160,16 +191,19 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
 def fuse_decoder_params(params: Params) -> Params:
     """Inference layout: ``wqkv [L, d, q+2kv]`` and ``w_gateup [L, d, 2f]``
     replace the separate projections (one matmul each instead of three and
-    two). The separate tensors are dropped from the result."""
+    two), and ``bqkv [L, q+2kv]`` the qkv biases. The separate tensors are
+    dropped from the result."""
     layers = params["layers"]
     if "wqkv" in layers:
         return params
     if any(isinstance(v, QTensor) for v in layers.values()):
         raise ValueError("fuse before quantizing: fusing concatenates raw matrices")
     fused = {k: v for k, v in layers.items()
-             if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+             if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
     fused["wqkv"] = torch.cat([layers["wq"], layers["wk"], layers["wv"]], dim=2)
     fused["w_gateup"] = torch.cat([layers["w_gate"], layers["w_up"]], dim=2)
+    if "bq" in layers:
+        fused["bqkv"] = torch.cat([layers["bq"], layers["bk"], layers["bv"]], dim=1)
     out = dict(params)
     out["layers"] = fused
     return out
@@ -186,17 +220,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-         llama3_scaling: tuple = ()) -> torch.Tensor:
+         llama3_scaling: tuple = (), linear_factor: float = 1.0) -> torch.Tensor:
     """Rotary embedding in fp32 on the half-split layout. x ``[B, S, H, D]``,
     positions ``[B, S]``. ``llama3_scaling`` = (factor, low_freq_factor,
     high_freq_factor, original_max_position_embeddings) applies the
-    Llama-3.1 per-band frequency rescale."""
+    Llama-3.1 per-band frequency rescale; ``linear_factor`` > 1 divides
+    every angular frequency (Gemma-3's global layers)."""
     d = x.shape[-1]
     exps = torch.arange(0, d // 2, dtype=torch.float32, device=x.device) * (2.0 / d)
     # torch.full, not torch.tensor: a host-to-device copy synchronizes, and
     # the serving decode chunk is captured in a CUDA graph.
     inv_freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device),
                          -exps)
+    if linear_factor != 1.0:
+        inv_freq = inv_freq / linear_factor
     if llama3_scaling:
         factor, low_f, high_f, old_len = (float(v) for v in llama3_scaling)
         wavelen = 2.0 * np.pi / inv_freq
@@ -347,12 +384,17 @@ def _paged_view(cache, idx: torch.Tensor):
     return cache[0][idx]
 
 
+def _bias(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return x + b.to(x.dtype)
+
+
 def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
            positions: torch.Tensor, kv_cache=None, cache_offset=None,
            prefill: bool = False, decode_kernel_fn=None, block_tables=None,
            view_tables=None, block_size: int = 0,
-           paged_len: int = 0) -> torch.Tensor:
-    """One decoder block, x ``[B, S, d]``. With a cache: ``prefill=True``
+           paged_len: int = 0, index: int = 0) -> torch.Tensor:
+    """Decoder block ``index`` (its window and rope come from the config's
+    cycles), x ``[B, S, d]``. With a cache: ``prefill=True``
     writes the fresh k/v at 0 and attends over them alone (self-attention,
     flash-kernel eligible). With ``block_tables`` the cache pair is this
     layer's ``[1, NT, KV, D]`` slice of the shared block pool and
@@ -364,13 +406,16 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
     lock-step decode: every row writes and attends at the same position."""
     B, S, _ = x.shape
     akw = {}
-    if cfg.sliding_window:
-        akw["window"] = cfg.sliding_window
+    window = cfg.layer_window(index)
+    if window:
+        akw["window"] = window
     if cfg.attn_logits_softcap:
         akw["logits_softcap"] = cfg.attn_logits_softcap
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     if "wqkv" in layer:
         qkv = weight_matmul(h, layer["wqkv"])
+        if "bqkv" in layer:
+            qkv = _bias(qkv, layer["bqkv"])
         q = qkv[..., : cfg.q_dim]
         k = qkv[..., cfg.q_dim: cfg.q_dim + cfg.kv_dim]
         v = qkv[..., cfg.q_dim + cfg.kv_dim:]
@@ -378,11 +423,18 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
         q = weight_matmul(h, layer["wq"])
         k = weight_matmul(h, layer["wk"])
         v = weight_matmul(h, layer["wv"])
+        if "bq" in layer:
+            q, k, v = (_bias(t, layer[b]) for t, b in
+                       ((q, "bq"), (k, "bk"), (v, "bv")))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
+    if "q_norm" in layer:  # per-head QK-norm over head_dim, before rope
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    theta, linear = cfg.layer_rope(index)
+    q = rope(q, positions, theta, cfg.rope_llama3_scaling, linear)
+    k = rope(k, positions, theta, cfg.rope_llama3_scaling, linear)
 
     if kv_cache is not None and prefill:
         ck, cv = kv_cache
@@ -453,7 +505,10 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
     else:
         attn_out = attn_fn(q, k, v, causal=True, q_offset=None, **akw)
 
-    x = x + weight_matmul(attn_out.reshape(B, S, cfg.q_dim), layer["wo"])
+    attn_proj = weight_matmul(attn_out.reshape(B, S, cfg.q_dim), layer["wo"])
+    if "post_attn_norm" in layer:  # Gemma-2/3: the sublayer's output normed too
+        attn_proj = rms_norm(attn_proj, layer["post_attn_norm"], cfg.norm_eps)
+    x = x + attn_proj
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     if "w_gateup" in layer:
         gu = weight_matmul(h, layer["w_gateup"])
@@ -461,7 +516,10 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
     else:
         act = (_gate_act(weight_matmul(h, layer["w_gate"]), cfg.activation)
                * weight_matmul(h, layer["w_up"]))
-    return x + weight_matmul(act, layer["w_down"])
+    mlp_out = weight_matmul(act, layer["w_down"])
+    if "post_mlp_norm" in layer:
+        mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps)
+    return x + mlp_out
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
@@ -493,7 +551,8 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         layer = {k: v[i] for k, v in layers.items()}
         if remat and kv_caches is None:
             x = torch.utils.checkpoint.checkpoint(
-                _layer, cfg, attn_fn, x, layer, positions, use_reentrant=False)
+                _layer, cfg, attn_fn, x, layer, positions, index=i,
+                use_reentrant=False)
             continue
         cache = None
         if kv_caches is not None:
@@ -501,7 +560,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         x = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
                    prefill=prefill, decode_kernel_fn=decode_kernel_fn,
                    block_tables=block_tables, view_tables=view_tables,
-                   block_size=block_size, paged_len=paged_len)
+                   block_size=block_size, paged_len=paged_len, index=i)
     return x
 
 
@@ -557,6 +616,67 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample_token(logits: torch.Tensor, generator: torch.Generator,
+                 temperature, top_k: int, top_p: float = 0.0) -> torch.Tensor:
+    """Temperature sampling from ``[B, vocab]`` fp32 logits, optionally cut
+    to the ``top_k`` most likely tokens and then to the smallest nucleus
+    whose probability mass reaches ``top_p`` (the argmax token is always
+    kept). ``temperature`` is a float or a 0-dim tensor on the logits'
+    device. The draw is the JAX package's: the argmax of the filtered
+    logits plus Gumbel noise ``-log(-log(u))``, ``u`` uniform in
+    ``[tiny, 1)`` from ``generator``. It runs on the device with no host
+    sync, so a CUDA graph can capture it (with ``generator`` registered on
+    the graph)."""
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, NEG_INF)
+    if 0.0 < top_p < 1.0:  # 1.0 keeps everything: skip the vocabulary sort
+        # Descending order as JAX forms it (a stable ascending sort,
+        # flipped), so ties at the nucleus edge fall the same way.
+        order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+        srt = torch.gather(logits, -1, order)
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # Keep the tokens whose mass BEFORE them is < top_p: the smallest
+        # prefix reaching top_p, never empty. Scattering the sorted mask
+        # back keeps EXACTLY that prefix; a threshold on the logit would
+        # also keep tokens tied with the edge.
+        keep = torch.zeros_like(cum, dtype=torch.bool).scatter_(
+            -1, order, (cum - probs) < top_p)
+        logits = logits.masked_fill(~keep, NEG_INF)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def _next_token(logits, generator, do_sample: bool, temperature, top_k: int,
+                top_p: float = 0.0) -> torch.Tensor:
+    """The one sample-or-greedy dispatch of prefill, decode and generate."""
+    return (sample_token(logits, generator, temperature, top_k, top_p)
+            if do_sample else greedy_token(logits))
+
+
+def _sampling_args(temperature, top_k: int, generator,
+                   top_p: float = 0.0) -> bool:
+    """Whether to sample, with the JAX package's checks: sampling needs an
+    explicit generator, top-k and top-p need a temperature, top-p lies in
+    [0, 1]."""
+    do_sample = not (isinstance(temperature, (int, float)) and temperature == 0.0)
+    if do_sample and generator is None:
+        raise ValueError(
+            "temperature > 0 requires an explicit torch.Generator — a silent "
+            "default would return the identical 'sample' on every call")
+    if not do_sample and (top_k > 0 or top_p > 0.0):
+        raise ValueError(
+            "top_k/top_p sampling requires temperature > 0 (greedy decoding "
+            "would silently ignore them)")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    return do_sample
 
 
 def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int, *,
@@ -625,9 +745,13 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
                  attn_fn: Optional[AttnFn] = None, return_state: bool = False,
                  decode_kernel_fn=None, eos_id: Optional[int] = None,
                  budget: Optional[torch.Tensor] = None, block_tables=None,
-                 block_size: int = 0, paged_len: int = 0):
-    """Greedy decode of ``steps`` tokens after ``tok [B]`` (a Python loop in
-    place of ``lax.scan``). ``pos`` is a ``[B]`` tensor of per-lane
+                 block_size: int = 0, paged_len: int = 0,
+                 do_sample: bool = False, top_k: int = 0, temperature=None,
+                 generator: Optional[torch.Generator] = None,
+                 top_p: float = 0.0):
+    """Decode of ``steps`` tokens after ``tok [B]`` (a Python loop in place
+    of ``lax.scan``), greedy, or sampled from ``generator`` with
+    ``do_sample`` (:func:`sample_token`). ``pos`` is a ``[B]`` tensor of per-lane
     positions (ragged decode; with ``block_tables`` over the paged pool) or
     a scalar (an int or a 0-dim tensor): lock-step decode, every row at the
     same position, which stays a device scalar through the loop.
@@ -650,7 +774,8 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
             kv_caches=caches, cache_offset=pos,
             decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
             block_size=block_size, paged_len=paged_len)
-        nxt = greedy_token(logits[:, -1, :])
+        nxt = _next_token(logits[:, -1, :], generator, do_sample, temperature,
+                          top_k, top_p)
         if rem is not None:
             alive = rem > 0
             nxt = torch.where(alive, nxt, tok)
@@ -670,10 +795,14 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
 def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
              max_len: int = 0, attn_fn: Optional[AttnFn] = None,
              kv_quantized: bool = False, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 0.0,
+             generator: Optional[torch.Generator] = None,
              device=None) -> torch.Tensor:
-    """Greedy generation: :func:`prefill` then :func:`_decode_scan`.
-    Returns ``[B, steps]`` int32 tokens on ``device`` (CUDA unless the
-    caller says otherwise; the params must already live there).
+    """Generation: :func:`prefill` then :func:`_decode_scan`, greedy by
+    default; ``temperature``/``top_k``/``top_p`` sample instead, from
+    ``generator`` (a ``torch.Generator`` on ``device``; sampling without one
+    raises). Returns ``[B, steps]`` int32 tokens on ``device`` (CUDA unless
+    the caller says otherwise; the params must already live there).
 
     On CUDA with the default ``attn_fn`` the kernels run: the prompt is
     right-padded to a multiple of :data:`CUDA_PAD` (a flash-kernel
@@ -681,11 +810,12 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     attended to) and the caches are allocated to a multiple of it, so
     every decode step takes the paged decode kernel over them, or, under
     ``KATA_TPU_DECODE_KERNEL=1``, the lock-step dense decode kernel (one
-    device-scalar position for the whole batch; bf16 caches only). Outputs
-    are those of the unpadded run. An explicit ``attn_fn`` runs
-    everywhere, kernels or not."""
-    if temperature:
-        raise NotImplementedError("sampling is not ported yet (ROADMAP Queue 1)")
+    device-scalar position for the whole batch; bf16 caches only). A
+    config with a sliding window or an attention-logit softcap decodes
+    with the plain attention, which models both (the decode kernels do
+    not: the JAX package's rule). Outputs are those of the unpadded run.
+    An explicit ``attn_fn`` runs everywhere, kernels or not."""
+    do_sample = _sampling_args(temperature, top_k, generator, top_p)
     device = resolve_device(device)
     if params["embed"].device != device:
         raise ValueError(
@@ -697,29 +827,46 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     if S + steps > max_len:
         raise ValueError(f"prompt_len={S} + steps={steps} overruns max_len={max_len}")
     decode_kernel_fn, true_len, lockstep = None, None, False
+    decode_attn_fn = attn_fn
     if device.type == "cuda" and attn_fn is None:
-        from ..ops.attention import decode_eligible, make_decode_attn_fn
+        from ..ops.attention import (
+            decode_eligible,
+            decode_kernel_conflict,
+            make_decode_attn_fn,
+            reference_attention,
+        )
 
         pad = -(-S // CUDA_PAD) * CUDA_PAD
         max_len = -(-max(max_len, pad) // CUDA_PAD) * CUDA_PAD
         prompt = F.pad(prompt, (0, pad - S))
         true_len = S
-        lockstep = (not cfg.sliding_window and not cfg.attn_logits_softcap
-                    and decode_eligible(1, max_len, cfg.head_dim, True, 0,
-                                        on_cuda=True))
+        masked = decode_kernel_conflict(cfg) is not None
+        lockstep = not masked and decode_eligible(1, max_len, cfg.head_dim, True,
+                                                  0, on_cuda=True)
         if lockstep and kv_quantized:
             raise ValueError(
                 "the dense decode kernel reads a bf16 cache in place: "
                 "KATA_TPU_DECODE_KERNEL=1 does not combine with kv_quantized")
-        if not lockstep:
+        if masked:
+            decode_attn_fn = reference_attention
+        elif not lockstep:
             decode_kernel_fn = make_decode_attn_fn(cfg, arena_len=max_len,
                                                    device=device)
-    caches, last, pos = prefill(params, prompt, cfg, max_len, attn_fn=attn_fn,
-                                kv_quantized=kv_quantized, true_len=true_len)
+    temp = None
+    if do_sample:
+        temp = torch.full((), float(temperature), dtype=torch.float32,
+                          device=device)
+    caches, last_logits, pos = prefill(params, prompt, cfg, max_len,
+                                       attn_fn=attn_fn, return_logits=True,
+                                       kv_quantized=kv_quantized,
+                                       true_len=true_len)
+    last = _next_token(last_logits, generator, do_sample, temp, top_k, top_p)
     if steps == 0:
         return torch.zeros((B, 0), dtype=torch.int32, device=device)
     if not lockstep:
         pos = torch.full((B,), pos, dtype=torch.int32, device=device)
-    rest = _decode_scan(params, caches, last, pos, cfg, steps - 1, attn_fn,
-                        decode_kernel_fn=decode_kernel_fn)
+    rest = _decode_scan(params, caches, last, pos, cfg, steps - 1,
+                        decode_attn_fn, decode_kernel_fn=decode_kernel_fn,
+                        do_sample=do_sample, top_k=top_k, temperature=temp,
+                        generator=generator, top_p=top_p)
     return torch.cat([last[:, None], rest], dim=1)

@@ -186,6 +186,17 @@ def dense_decode_tile(arena_len: int) -> int:
     return 0
 
 
+def decode_kernel_conflict(cfg):
+    """Why the decode kernels cannot model ``cfg``, or None: a sliding
+    window or the attention-logit softcap, masks the JAX kernels do not
+    model either (the JAX server's reasons, by its names)."""
+    if any(w > 0 for w in cfg.window_cycle):
+        return "sliding_window"
+    if cfg.attn_logits_softcap:
+        return "logits_softcap"
+    return None
+
+
 def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
                         paged_len: int = 0, arena_len: int = 0, device=None):
     """Build the serving decode-attention callable
@@ -207,16 +218,11 @@ def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
     the kernel does not take."""
     from .decode_attn import check_kernel_shapes, paged_decode_attention
 
-    if any(w > 0 for w in cfg.window_cycle):
+    conflict = decode_kernel_conflict(cfg)
+    if conflict is not None:
         raise ValueError(
-            "the paged decode kernel has no sliding-window mask — windowed "
-            "configs need decode_attn='reference'"
-        )
-    if cfg.attn_logits_softcap:
-        raise ValueError(
-            "the paged decode kernel does not model the attention-logit "
-            "softcap — capped configs need decode_attn='reference'"
-        )
+            f"the paged decode kernel does not model this config "
+            f"({conflict}): it decodes with the plain attention")
     if paged:
         bs, plen = int(block_size), int(paged_len)
         if bs < 1 or plen < 1:

@@ -33,7 +33,8 @@ from .attention import NEG_INF, reference_attention
 from .quant import QTensor, dequantize_kv
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
-KERNEL_GROUPS = (1, 2, 4, 8)
+# Query heads per KV head: the G heads are the M rows of one m16 tile.
+KERNEL_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
 # The query row is the split pass's z and the combine pass's y dimension.
 KERNEL_MAX_SQ = 65535
 DENSE_BLOCK_K = 128
@@ -71,6 +72,18 @@ def check_kernel_shapes(d: int, group: int, block_size: int) -> None:
             f"group {group} (need {KERNEL_GROUPS}), KV tile {block_size} "
             "(need a positive multiple of 8)"
         )
+
+
+def check_dense_shapes(sq: int, sk: int, d: int, group: int) -> None:
+    """The gate of the dense CUDA kernel: raise unless it takes ``sq``
+    query tokens, a cache of ``sk`` positions, head_dim ``d`` and ``group``
+    query heads per KV head."""
+    if (not supports_decode(sq, sk, d) or d not in KERNEL_HEAD_DIMS
+            or group not in KERNEL_GROUPS):
+        raise ValueError(
+            f"dense decode kernel: one query token (got {sq}), cache length a "
+            f"multiple of {DENSE_BLOCK_K} (got {sk}), head_dim {d} (need "
+            f"{KERNEL_HEAD_DIMS}), group {group} (need {KERNEL_GROUPS})")
 
 
 def _grid_k(tables: torch.Tensor, block_size: int, paged_len: int) -> int:
@@ -346,12 +359,7 @@ def decode_attention(q, k, v, pos) -> torch.Tensor:
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("dense decode kernel takes bf16 queries and a bf16 "
                         f"cache, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if (not supports_decode(Sq, S, D) or D not in KERNEL_HEAD_DIMS
-            or H // KV not in KERNEL_GROUPS):
-        raise ValueError(
-            f"dense decode kernel: one query token (got {Sq}), cache length a "
-            f"multiple of {DENSE_BLOCK_K} (got {S}), head_dim {D} (need "
-            f"{KERNEL_HEAD_DIMS}), group {H // KV} (need {KERNEL_GROUPS})")
+    check_dense_shapes(Sq, S, D, H // KV)
     if not torch.is_tensor(pos) or pos.numel() != 1 or not pos.is_cuda:
         raise ValueError("dense decode kernel reads its position on the "
                          "device: pass a 0-dim or [1] CUDA tensor")

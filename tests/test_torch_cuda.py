@@ -284,15 +284,23 @@ def test_cuda_server_refuses_what_the_kernels_do_not_take(cuda_device):
     params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="prefill_buckets"):
         GenerationServer(params, cfg, max_len=256)
-    with pytest.raises(ValueError, match="sliding-window"):
+    with pytest.raises(ValueError, match="sliding_window"):
         GenerationServer(params, replace(cfg, sliding_window=64), max_len=256,
-                         prefill_buckets=(128,))
+                         prefill_buckets=(128,), decode_attn="cuda_paged")
     srv = GenerationServer(params, cfg, max_len=512, prefill_buckets=(128,))
     with pytest.raises(ValueError, match="largest prefill bucket"):
         srv.submit(np.zeros(200, np.int32), 4)
     assert GenerationServer(params, replace(cfg, sliding_window=64), max_len=256,
                             prefill_buckets=(128,), decode_attn="reference"
                             ).stats()["decode_backend"] == "reference"
+    # By default a window (or the attention softcap) rules the kernel out,
+    # as in the JAX server: the plain attention, with the reason.
+    for flag, reason in ((dict(sliding_window=64), "sliding_window"),
+                         (dict(attn_logits_softcap=50.0), "logits_softcap")):
+        stats = GenerationServer(params, replace(cfg, **flag), max_len=256,
+                                 prefill_buckets=(128,)).stats()
+        assert (stats["decode_backend"], stats["decode_backend_reason"]) == (
+            "reference", reason)
 
 
 def _paged_pool(rng, dev, B, NB, bs, KV, D, int8, pos):
@@ -792,3 +800,147 @@ def test_fences_keep_their_own_pinned_buffers(cuda_device):
     want = np.arange(1 << 20, dtype=np.int32)
     np.testing.assert_array_equal(second.wait()["x"], want + 7)
     np.testing.assert_array_equal(first.wait()["x"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", range(1, 9))
+@pytest.mark.parametrize("kernel", ["paged-int8", "paged-bf16", "dense"])
+def test_decode_kernels_take_every_group(cuda_device, kernel, group):
+    """Every GQA group 1-8 (Qwen2-7B's is 7) within the derived bound of
+    the plain version, and a second launch gives the same bits."""
+    rng = np.random.default_rng(group)
+    B, KV, D, bs, NB = 3, 2, 128, 16, 8
+    H = group * KV
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    if kernel == "dense":
+        k = _randn(rng, (B, NB * bs, KV, D), cuda_device)
+        v = _randn(rng, (B, NB * bs, KV, D), cuda_device)
+        p = torch.tensor(NB * bs - 30, dtype=torch.int32, device=cuda_device)
+        run = lambda: decode_attn.decode_attention(q, k, v, p)  # noqa: E731
+        ref = decode_attn.decode_attention_reference(q, k, v, p)
+        mag = decode_attn.decode_attention_reference(
+            q.float(), k.float(), v.abs().float(), p)
+    else:
+        int8 = kernel == "paged-int8"
+        pos_l = [0, 3 * bs - 1, NB * bs - 1]
+        k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+        kw = dict(block_size=bs, paged_len=NB * bs)
+        run = lambda: decode_attn.paged_decode_attention(  # noqa: E731
+            q, k, v, tables, pos, **kw)
+        ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+        v_abs = quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs()
+        mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables,
+                                                 pos, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+    assert torch.equal(out, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_sampled_decode_graph_replays_the_eager_draws(cuda_device, paged):
+    """A sampled chunk by capture and replay against the same chunk eager,
+    from the same generator state (restored with get_state/set_state):
+    tokens, last, pos and every arena byte equal. A replay without the
+    restore draws fresh numbers."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    # Every lane live: no dead lane writes the scratch block (whose
+    # duplicate writes land in no fixed order once lanes sample). This
+    # narrow random model's next-token distribution is nearly one-hot at
+    # temperature 1 (a draw would repeat itself), so it samples hot.
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              overlap=False, temperature=1000.0, top_k=100, top_p=0.99,
+              seed=7)
+    if paged:
+        kw.update(kv_pool_tokens=4096, kv_block_size=16)
+    srv = GenerationServer(params, cfg, **kw)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 40)
+    srv.step()
+    srv._ensure_blocks()
+    exe = srv._decode
+    arena = srv.kv_pool.arena if paged else srv.arena
+    clone = [t.clone() for t in _leaves(arena)]
+    eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2]) for i in range(2))
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    extra = {"block_tables": dev(srv._bt_host)} if paged else {}
+    tok, pos = dev(srv._last), dev(srv._pos)
+    state = srv.generator.get_state()
+    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, **extra, **exe._kw)
+    srv.generator.set_state(state)
+    got = [t.clone() for t in exe(tok, pos, **extra)]
+    torch.cuda.synchronize()
+    assert (exe.captures, exe.replays) == (1, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(_leaves(arena), clone):
+        assert torch.equal(_bits(a), _bits(c))
+    again = exe(tok, pos, **extra)
+    assert not torch.equal(again[0], got[0])
+
+
+@pytest.mark.cuda
+def test_family_flags_serve_on_the_card(cuda_device):
+    """Narrow Qwen2 (group 7, biases) through the paged kernel, and Gemma-2
+    and Gemma-3 flags (window cycles, post-norms, QK-norm, rope cycles,
+    softcaps) on the plain decode path by the config's rule, sampled and
+    greedy: every budget returned in vocabulary, and a sampled run repeats
+    under its seed."""
+    from kata_xpu_device_plugin_tpu_torch import models
+
+    cfgs = {
+        "qwen2": models.qwen2_7b(n_layers=2, vocab_size=512, d_model=896,
+                                 d_ff=1024, n_heads=7, n_kv_heads=1),
+        "gemma2": models.gemma2_2b(n_layers=2, vocab_size=512, d_model=512,
+                                   d_ff=1024, attn_windows=(96, 0)),
+        "gemma3": models.gemma3_4b(n_layers=6, vocab_size=512, d_model=512,
+                                   d_ff=1024, attn_windows=(96,) * 5 + (0,),
+                                   rope_theta_cycle=(1e4,) * 5 + (1e6,),
+                                   rope_linear_cycle=(1.0,) * 5 + (8.0,)),
+    }
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n) for n in (100, 130, 200, 60)]
+    for name, cfg in cfgs.items():
+        params = transformer.fuse_decoder_params(init_params(
+            cfg, seed=0, device=cuda_device, dtype=torch.bfloat16))
+        kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256),
+                  kv_pool_tokens=4096, kv_block_size=16)
+        runs = []
+        for sample in ({}, dict(temperature=0.7, top_k=50, top_p=0.9, seed=0),
+                       dict(temperature=0.7, top_k=50, top_p=0.9, seed=0)):
+            srv = GenerationServer(params, cfg, **kw, **sample)
+            rids = [srv.submit(p, 40) for p in prompts]
+            out = srv.run()
+            runs.append([out[r] for r in rids])
+            stats = srv.stats()
+            want = ("cuda_paged", "") if name == "qwen2" else (
+                "reference", "sliding_window")
+            assert (stats["decode_backend"], stats["decode_backend_reason"]) == want
+            assert stats["decode_graph_replays"] == stats["rounds"] - 1
+        for run in runs:
+            assert all(len(t) == 40 and ((t >= 0) & (t < 512)).all() for t in run)
+        assert all(np.array_equal(a, b) for a, b in zip(runs[1], runs[2]))
+        # generate(): the windowed configs decode with the plain attention
+        # (no decode kernel launch); sampled runs repeat under one seed.
+        prompt = rng.integers(0, 512, (2, 150))
+        p0 = decode_attn.paged_decode_attention.launches
+        toks = [transformer.generate(
+            params, prompt, cfg, 12, temperature=0.7, top_k=50,
+            generator=torch.Generator(device=cuda_device).manual_seed(3))
+            for _ in range(2)]
+        assert torch.equal(toks[0], toks[1]) and toks[0].shape == (2, 12)
+        launched = decode_attn.paged_decode_attention.launches - p0
+        assert launched == (22 * cfg.n_layers if name == "qwen2" else 0)

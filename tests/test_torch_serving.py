@@ -127,11 +127,14 @@ def test_kv_quant_resolution(monkeypatch):
 @pytest.mark.parametrize("kwarg", [
     dict(kv_host_tokens=64), dict(kv_layout="blocks"), dict(tp=2),
     dict(speculative_k=2),
-    dict(ring_kv=True), dict(prefix_cache_tokens=64), dict(temperature=0.7),
+    dict(ring_kv=True), dict(prefix_cache_tokens=64),
+    dict(temperature=0.7, persistent=True),
     dict(sched_policy="slo_chunked"),
     dict(persistent=True), dict(checkpoint_rounds=4),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_modes_raise(models, kwarg):
+    """Sampling is ported; sampled persistent decode still raises, as
+    persistent decode does (the JAX server refuses that pairing too)."""
     _, _, tp, tcfg = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
         GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)

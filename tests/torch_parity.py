@@ -13,6 +13,8 @@ import torch
 
 from kata_xpu_device_plugin_tpu.models import gemma as jgemma
 from kata_xpu_device_plugin_tpu.models import llama as jllama
+from kata_xpu_device_plugin_tpu.models import mistral as jmistral
+from kata_xpu_device_plugin_tpu.models import qwen2 as jqwen2
 from kata_xpu_device_plugin_tpu.models import transformer as jt
 from kata_xpu_device_plugin_tpu.ops import quant as jquant
 from kata_xpu_device_plugin_tpu_torch.models import bridge
@@ -35,12 +37,44 @@ CONFIGS = {
 }
 
 
+# The dense families beyond Gemma-1 and Llama-3, at their test widths.
+FAMILIES = {
+    "qwen2": lambda: jqwen2.qwen2_test_config(dtype=jnp.float32),
+    "mistral": lambda: jmistral.mistral_test_config(dtype=jnp.float32),
+    "gemma2": lambda: jgemma.gemma2_test_config(dtype=jnp.float32),
+    "gemma3": lambda: jgemma.gemma3_test_config(dtype=jnp.float32),
+}
+
+# Leaves that init_params makes constant (biases 0, norm scales 1, which
+# rms_norm reads as 1 + scale): a missing term would not show on them.
+PERTURBED = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
+             "q_norm", "k_norm", "bq", "bk", "bv")
+
+
+def perturb(params, seed: int, scale: float = 0.3):
+    """The JAX params with every leaf of :data:`PERTURBED` and the final
+    norm moved by ``scale`` x a standard normal drawn with numpy from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def moved(a):
+        return a + jnp.asarray(scale * rng.standard_normal(a.shape), a.dtype)
+
+    layers = {k: moved(v) if k in PERTURBED else v
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers,
+            "final_norm": moved(params["final_norm"])}
+
+
 def build_pair(jcfg, seed: int = 0, fused: bool = False,
-               quantized: bool = False):
+               quantized: bool = False, perturbed: bool = False):
     """``(jax_params, torch_params, torch_cfg)`` for one JAX config: the
-    JAX params initialised from ``seed`` (optionally fused, then int8
+    JAX params initialised from ``seed`` (optionally with the biases and
+    norms moved off their constants by :func:`perturb`, fused, then int8
     quantized), and the port's copy on the CPU through the bridge."""
     params = jt.init_params(jax.random.PRNGKey(seed), jcfg)
+    if perturbed:
+        params = perturb(params, seed)
     if fused:
         params = jt.fuse_decoder_params(params)
     if quantized:
