@@ -69,12 +69,34 @@ Phases, each printing one JSON line:
    call held against the plain version on its own inputs
    (``paged_crosscheck``), and the slotted server on the same requests for
    the token-match fraction;
-6. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
+6. persistent — the serve phase's 16 requests (slotted) and the paged
+   phase's 32 (paged) through ``persistent=True`` servers (a round decodes
+   until its cap of 256 steps, a lane's eos or budget, or a lane's window
+   edge; one graph replay a step, the exit flag read from pinned memory),
+   each beside the lock-step server on the same requests. Asserted: equal
+   tokens; the exits partition the rounds; the tokens the rounds delivered
+   are the tokens emitted past each first; paged kernel launches = steps
+   executed x layers, counted through replays; fewer than ``sub_steps``
+   steps a round past its exit. Printed: tok/s, ITL, rounds, steps
+   delivered a round, exits, preemptions, steps past exits. Then
+   ``persistent_graph_check`` for both arenas: a round by replay against
+   the same round eager on a clone of the arena, every byte, with the
+   paged eager round's kernel calls held against the plain version;
+7. sched — the serve phase's config and requests through ``fifo_batch``
+   and ``slo_chunked`` (``itl_slo_ms=0``, ``prefill_chunk=128``) fused and
+   unfused, at the default deadline, and fused over a bf16 cache: tok/s,
+   TTFT, ITL, chunks, fused admissions, the token match against fifo and
+   the plain top-2 margin where they first part. Asserted: chunks ran and
+   fused ones rode decode dispatches; each chunked admission's first-token
+   logits within the serving bound of one read-back slice of the whole
+   prompt, and over the bf16 cache of the whole plain prefill; a whole
+   admission pass's flash calls within ``kernel_tolerance``;
+8. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
    cache, under ``KATA_TPU_DECODE_KERNEL=1``: 18 x 63 launches of the dense
    decode kernel, each layer of the first decode step held against the
    plain version, and the token-match fraction against the run without
    the opt-in (which launches the dense kernel no time);
-7. families — Gemma-2-2B (26 layers, max_len 8192, four prompts of
+9. families — Gemma-2-2B (26 layers, max_len 8192, four prompts of
    4200-6000 tokens), Qwen2-7B (28 layers), Gemma-3-4B (6 of 34 layers,
    its cycles cut with it) and Mistral-7B (4 of 32 layers, max_len 8192,
    four long prompts) at their published widths, random bf16 weights, each
@@ -88,7 +110,7 @@ Phases, each printing one JSON line:
    bound or twice the run's noise floor); then ``generate()`` at Qwen2-7B
    widths with 4 layers under ``KATA_TPU_DECODE_KERNEL=1``
    (``generate_qwen2``, dense kernel at group 7);
-8. train  — Llama-3-8B at its published widths with 8 of its 32 layers
+10. train — Llama-3-8B at its published widths with 8 of its 32 layers
    (one card's memory), random fp32 parameters from seed 0, bf16 compute:
    ``make_train_step`` and ``fit`` for 6 AdamW steps on one repeated
    batch (B=2, S=2048); launch counts reset just before and read just
@@ -98,7 +120,7 @@ Phases, each printing one JSON line:
    and backward kernel call held against the plain version on its own
    inputs) and through ``reference_attention``; the loss difference and
    the cosine of the whole gradient are printed;
-9. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
+11. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
    MQA, GeGLU, tied and scaled embeddings) with 6 of its 18 layers: 4 steps
    (6 launches of each kernel a step), then its 2-layer crosscheck.
 
@@ -113,6 +135,7 @@ or outside a checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1472,6 +1495,452 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
     return launches
 
 
+# ----- persistent rounds and admission scheduling ----------------------------
+
+
+def phase_requests(n: int, vocab: int, seed: int = 0, skip: int = 0):
+    """The serving phases' requests: ``n`` prompts of 64-1000 tokens with
+    budgets of 64-128, from ``seed`` (``skip`` draws thrown away first, as
+    the serve phase does): the serve phase's with ``n=16, skip=100``, the
+    paged phase's with ``n=32``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if skip:
+        rng.integers(0, vocab, skip)
+    lens = rng.integers(64, 1001, n)
+    budgets = rng.integers(64, 129, n)
+    prompts = [rng.integers(0, vocab, k).astype(np.int32) for k in lens]
+    return prompts, budgets, lens
+
+
+# Counters of a persistent server that run_persistent reports for its
+# timed run alone.
+PERSISTENT_COUNTERS = ("rounds", "prefills", "tokens_emitted", "preemptions",
+                       "persistent_rounds", "delivered_steps_total",
+                       "delivered_lane_steps", "persistent_steps_executed",
+                       "persistent_graph_replays")
+
+
+def run_persistent(srv, prompts, budgets):
+    """:func:`run_requests` for a persistent server. Its warm-up is two
+    short requests of unequal budgets: the first round runs eagerly and
+    ends when the shorter one finishes, the second captures the round's
+    graph, so every round of the timed run is replays. Asserted: every
+    budget returned in vocabulary; the exits partition the rounds, every
+    round persistent; the tokens the rounds delivered to live lanes are
+    the tokens emitted past each request's first; the paged kernel's
+    launches are the steps executed x layers, counted through replays,
+    one replay a group of ``sub_steps``; fewer than ``sub_steps`` steps
+    a round ran past its exit."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.obs.metrics import Rolling
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+
+    kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+               "dense_decode": decode_attention}
+    for b in (4, 12):
+        srv.submit(np.arange(1, 101, dtype=np.int32), b)
+    srv.run()
+    srv._ttft, srv._tok_lat = Rolling(), Rolling()
+    base = srv.stats()
+    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    life = srv.stats()
+    st = {**life, **{k: life[k] - base[k] for k in PERSISTENT_COUNTERS}}
+    st["persistent_exits"] = {k: v - base["persistent_exits"][k]
+                              for k, v in life["persistent_exits"].items()}
+    outs = [results[r] for r in rids]
+    for rid, out, b in zip(rids, outs, budgets):
+        if len(out) != int(b) or not ((out >= 0) & (out < srv.cfg.vocab_size)).all():
+            raise AssertionError(f"request {rid}: {len(out)} tokens, budget {b}")
+    sub = st["sub_steps"] = srv._round.sub_steps
+    executed, rounds = st["persistent_steps_executed"], st["persistent_rounds"]
+    st["steps_past_exit"] = executed - st["delivered_steps_total"]
+    problems = []
+    if set(launches) != {"flash_fwd", "paged_decode"}:
+        problems.append(f"launches {launches}")
+    if launches.get("paged_decode") != executed * srv.cfg.n_layers:
+        problems.append(f"paged launches {launches} for {executed} steps")
+    if base["persistent_graph_captures"] != 1 or life["persistent_graph_captures"] != 1:
+        problems.append("not one capture, in the warm-up")
+    if st["persistent_graph_replays"] * sub != executed:
+        problems.append("a round of the timed run left the graph")
+    if sum(st["persistent_exits"].values()) != rounds or rounds != st["rounds"]:
+        problems.append(f"exits {st['persistent_exits']} over {rounds} rounds")
+    if st["tokens_emitted"] - st["prefills"] != st["delivered_lane_steps"]:
+        problems.append("delivered tokens are not the tokens emitted")
+    if not 0 <= st["steps_past_exit"] <= rounds * (sub - 1):
+        problems.append(f"{st['steps_past_exit']} steps past exits")
+    if problems:
+        raise AssertionError(f"persistent serving: {problems}: {st}")
+    return outs, wall, launches, st
+
+
+def checked_paged(kernel_fn, cases: list, block_size: int, paged_len: int):
+    """``kernel_fn`` (a server's paged decode function) with every call
+    held against the plain version on its own inputs, appended to
+    ``cases``. Eager only: a check reads its result on the host."""
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import paged_decode_reference
+
+    def checked(q, ck, cv, tables, pos, q_lens=None):
+        out = kernel_fn(q, ck, cv, tables, pos, q_lens)
+        if tables is None:  # the slotted arena through its pool view
+            return out
+        kw = dict(block_size=block_size, paged_len=paged_len)
+        ref = paged_decode_reference(q, ck, cv, tables, pos, q_lens, **kw)
+        mag = paged_decode_reference(q.float(), ck, v_abs(cv), tables, pos,
+                                     q_lens, **kw)
+        cases.append(check("persistent layer", out, ref, mag))
+        return out
+
+    return checked
+
+
+def persistent_graph_check(params, cfg, kw, seed: int = 0) -> dict:
+    """A persistent round by CUDA graph against the same round eager: a
+    persistent server admits 8 requests and runs its first round eagerly,
+    each layer's paged kernel call held against the plain version (paged
+    only; the slotted view's tables are synthetic); then the second round
+    runs eagerly (``_decode_while``) on a clone of the arena and through
+    the server's graph (its capture, then replays) on the live arena,
+    from the same inputs. Tokens, ``delivered``, ``tok``, ``pos`` and
+    every arena byte must be equal, and the graph's kernel launches the
+    steps it executed x layers."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import _decode_while
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import paged_decode_attention
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import QTensor
+
+    srv = GenerationServer(params, cfg, persistent=True, **kw)
+    rng = np.random.default_rng(seed)
+    # Round 1 ends when the first request finishes (19 steps), round 2
+    # when the second does (40 more); the rest outlast both.
+    for n, b in zip(rng.integers(64, 1001, 8), (20, 60) + (300,) * 6):
+        srv.submit(rng.integers(0, cfg.vocab_size, n), b)
+    rnd, cases = srv._round, []
+    kernel_fn = rnd.decode_kernel_fn
+    rnd.decode_kernel_fn = checked_paged(kernel_fn, cases, srv.kv_block,
+                                         srv.max_len)
+    srv.step()  # admission, then the first round, eager
+    rnd.decode_kernel_fn = kernel_fn
+    first, first_executed = srv.stats(), rnd.executed
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena if srv.paged else srv.arena
+    leaves = [t for c in arena for t in (c if isinstance(c, QTensor) else (c,))]
+    clone = [t.clone() for t in leaves]
+    it = iter(clone)
+    eager_arena = tuple(type(c)(*(next(it) for _ in c)) if isinstance(c, QTensor)
+                        else next(it) for c in arena)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to("cuda")
+
+    tok, pos, budget = dev(srv._last), dev(srv._pos), dev(srv._decode_budget())
+    window = dev(srv._persistent_window())
+    tables = dev(srv._bt_host) if srv.paged else None
+    t0 = time.perf_counter()
+    want = _decode_while(params, eager_arena, tok, pos, budget, window, cfg,
+                         rnd.cap, attn_fn=attention.reference_attention,
+                         block_tables=tables, decode_kernel_fn=kernel_fn,
+                         sub_steps=rnd.sub_steps, **rnd._kw)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    d0 = paged_decode_attention.launches
+    t0 = time.perf_counter()
+    out, g_tok, g_pos, delivered = rnd(tok, pos, budget, window, tables)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launched = paged_decode_attention.launches - d0
+    w_out, _, w_tok, w_pos, w_delivered = want
+    d = int(w_delivered)
+    outs_equal = (delivered == d and torch.equal(out[:, :d], w_out[:, :d])
+                  and torch.equal(g_tok, w_tok) and torch.equal(g_pos, w_pos))
+    arena_equal = all(torch.equal(_bits(a), _bits(c)) for a, c in zip(leaves, clone))
+    row = dict(arena="paged" if srv.paged else "slotted",
+               first_round_delivered=first["delivered_steps"],
+               first_round_executed=first_executed,
+               first_round_layer_checks=len(cases),
+               first_round_max_err_over_bound=max(
+                   (c["max_err_over_bound"] for c in cases), default=None),
+               delivered=d, executed=rnd.executed, sub_steps=rnd.sub_steps,
+               cap=rnd.cap, outputs_bit_equal=outs_equal,
+               arena_bit_equal=arena_equal,
+               arena_bytes_compared=sum(t.numel() * t.element_size() for t in leaves),
+               graph_launches=launched, captures=rnd.captures,
+               replays=rnd.replays, capture_s=round(rnd.capture_s, 4),
+               graph_pool_bytes=rnd.pool_bytes, eager_round_s=round(eager_s, 6),
+               graph_round_s=round(graph_s, 6))
+    emit("persistent_graph_check", **row)
+    want_checks = first_executed * cfg.n_layers if srv.paged else 0
+    if (not (outs_equal and arena_equal) or d < 1
+            or launched != rnd.executed * cfg.n_layers
+            or (rnd.captures, rnd.replays) != (1, rnd.executed // rnd.sub_steps)
+            or len(cases) != want_checks):
+        raise AssertionError(f"persistent round by graph differs from eager: {row}")
+    return row
+
+
+def phase_persistent(params, cfg, seed: int = 0) -> dict:
+    """Persistent rounds, slotted (the serve phase's 16 requests) and over
+    the paged pool (the paged phase's 32), each beside the lock-step
+    server on the same requests and config, whose tokens they must equal;
+    then :func:`persistent_graph_check` for both arenas."""
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+
+    launches = {}
+    for arena, kw, n, skip in (
+            ("slotted", dict(max_batch=8, **SERVE_KW), 16, 100),
+            ("paged", dict(**PAGED_KW, **SERVE_KW), 32, 0)):
+        prompts, budgets, lens = phase_requests(n, cfg.vocab_size, seed, skip)
+        srv = GenerationServer(params, cfg, persistent=True, **kw)
+        outs, wall, got, st = run_persistent(srv, prompts, budgets)
+        del srv
+        lock = GenerationServer(params, cfg, overlap=False, **kw)
+        outs_l, wall_l, launches_l, st_l = run_requests(lock, prompts, budgets)
+        del lock
+        match = token_match(outs, outs_l, budgets)
+        rounds = st["persistent_rounds"]
+        row = serve_row(st, wall, budgets, lens, got)
+        row.pop("decode_graph")
+        emit("persistent", arena=arena, config=kw, **row,
+             persistent_cap=st["persistent_cap"],
+             sub_steps=st["sub_steps"],
+             exits=st["persistent_exits"],
+             mean_delivered_per_round=round(st["delivered_steps_total"] / rounds, 3),
+             steps_executed=st["persistent_steps_executed"],
+             steps_past_exit=st["steps_past_exit"],
+             preemptions=st["preemptions"],
+             persistent_graph_replays=st["persistent_graph_replays"],
+             lockstep_same_requests={k: v for k, v in serve_row(
+                 st_l, wall_l, budgets, lens, launches_l).items() if k in SIDE_KEYS}
+             | {"preemptions": st_l["preemptions"]},
+             token_match_vs_lockstep=match)
+        if match["requests_identical"] != len(budgets):
+            raise AssertionError(f"persistent tokens differ from lock-step: {match}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        persistent_graph_check(params, cfg, kw, seed)
+    return launches
+
+
+@contextlib.contextmanager
+def checking_flash(cases: list):
+    """Within the block, every flash forward the model's prefill makes
+    (``ops.attention.flash_attention``) is held against the plain version
+    on its own inputs, appended to ``cases``."""
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    orig, ref = attention.flash_attention, attention.reference_attention
+
+    def checked(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        mag = ref(q.float(), k.float(), v.abs().float(), **kw)
+        cases.append(check("sched prefill layer", out, ref(q, k, v, **kw), mag))
+        return out
+
+    attention.flash_attention = checked
+    try:
+        yield cases
+    finally:
+        attention.flash_attention = orig
+
+
+def first_difference_margin(params, cfg, prompts, outs, other) -> dict:
+    """Where two servers' tokens first part: the request, the token's
+    index, and the top-2 margin of the plain path's logits there (the
+    prompt and the shared tokens before it through a plain prefill);
+    None when they never part."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import prefill
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    for i, (a, b) in enumerate(zip(outs, other)):
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        ctx = np.concatenate([prompts[i], a[:j]]).astype(np.int64)
+        toks = torch.from_numpy(ctx)[None].to("cuda")
+        _c, logits, _p = prefill(params, toks, cfg, len(ctx),
+                                 attn_fn=attention.reference_attention,
+                                 return_logits=True, kv_quantized=True)
+        top = torch.topk(logits[0], 2).values
+        return {"request": i, "index": j, "tokens": [int(a[j]), int(b[j])],
+                "plain_top2_margin": float(top[0] - top[1])}
+    return None
+
+
+def chunked_first_logits(params, cfg, firsts, quantized: bool) -> dict:
+    """Each chunked admission's first-token logits (``firsts``: prompt and
+    logits) against three whole prefills of its prompt on the plain path,
+    with the server's KV cache (int8 when ``quantized``, else bf16):
+    ``plain``, the plain prefill, which attends over the fresh bf16 k/v;
+    ``readback``, the prompt as one ``prefill_suffix`` slice from empty
+    caches, which attends over the cache read back, as every chunk does
+    (here and in the JAX package); ``fp32_p``, the plain prefill with fp32
+    probabilities, whose distance from ``plain`` is the noise floor
+    rounding alone makes at this depth. Errors are max |difference| over
+    the ``plain`` logits' RMS. Held within the serving bound: the chunks
+    against the one-slice read-back, and, with a bf16 cache (whose
+    read-back rows are the fresh k/v), against the plain prefill. An int8
+    cache's read-back rounds every k/v row, and that alone moves the
+    logits past the serving bound on these random weights
+    (``readback_vs_plain``, printed)."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        init_kv_caches,
+        prefill_batch,
+        prefill_suffix,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    bound = LOGIT_BOUND["prefill"]
+    rows = []
+    for prompt, got in firsts:
+        n = len(prompt)
+        pad = next(b for b in SERVE_KW["prefill_buckets"] if b >= n)
+        toks = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+        toks[0, :n] = torch.from_numpy(prompt)
+        tl = torch.tensor([n], dtype=torch.int32)
+        whole = {}
+        for name, fn in (("plain", attention.reference_attention),
+                         ("fp32_p", plain_fp32_p)):
+            whole[name] = prefill_batch(params, toks, cfg, SERVE_KW["max_len"],
+                                        tl, attn_fn=fn, kv_quantized=quantized)[1]
+        caches = init_kv_caches(cfg, 1, SERVE_KW["max_len"], device="cuda",
+                                quantized=quantized)
+        whole["readback"] = prefill_suffix(params, toks.long(), cfg, caches, 0,
+                                           return_logits=True, true_len=n)[1]
+        rms = float(whole["plain"].square().mean().sqrt())
+
+        def err(a, b):
+            return float((a - b).abs().max()) / rms
+
+        row = {"prompt_len": n, "vs_plain": err(got, whole["plain"]),
+               "vs_readback": err(got, whole["readback"]),
+               "readback_vs_plain": err(whole["readback"], whole["plain"]),
+               "noise_floor": err(whole["fp32_p"], whole["plain"])}
+        row["ok"] = (math.isfinite(row["vs_plain"]) and row["vs_readback"] <= bound
+                     and (quantized or row["vs_plain"] <= bound))
+        rows.append(row)
+    keys = ("vs_plain", "vs_readback", "readback_vs_plain", "noise_floor")
+    return {"kv": "int8" if quantized else "bf16", "compared": len(rows),
+            "bound_x_rms": bound,
+            **{f"max_{k}": max((r[k] for r in rows), default=None) for k in keys},
+            "min_noise_floor": min((r["noise_floor"] for r in rows), default=None),
+            "ok": bool(rows) and all(r["ok"] for r in rows), "per_admission": rows}
+
+
+def phase_sched(params, cfg, seed: int = 0) -> dict:
+    """Admission scheduling on the serve phase's config and 16 requests:
+    the ``fifo_batch`` server, then ``slo_chunked`` with ``itl_slo_ms=0``
+    (maximal chunking) and ``prefill_chunk=128``, fused and not, at the
+    default deadline, and fused over a bf16 cache. Each run is timed
+    (tok/s, TTFT, ITL) and its tokens matched against the fifo server's,
+    with the plain top-2 margin where they first part. Asserted: chunks ran, fused ones rode decode
+    dispatches; every chunked admission's first-token logits held
+    against whole plain prefills of its prompt
+    (:func:`chunked_first_logits`); every flash call of a whole admission
+    pass within ``kernel_tolerance`` of the plain version."""
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+
+    kw = dict(max_batch=8, **SERVE_KW)
+    prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed, skip=100)
+    fifo = GenerationServer(params, cfg, **kw)
+    outs_f, wall_f, launches_f, st_f = run_requests(fifo, prompts, budgets)
+    del fifo
+    chunked = dict(sched_policy="slo_chunked", itl_slo_ms=0.0, prefill_chunk=128)
+    runs = {"fused": dict(chunked, fused=True),
+            "unfused": dict(chunked, fused=False),
+            "default_slo": dict(sched_policy="slo_chunked"),
+            "fused_bf16_kv": dict(chunked, fused=True, kv_quant=False)}
+    launches, rows, firsts = dict(launches_f), {}, {True: [], False: []}
+    for name, extra in runs.items():
+        srv = GenerationServer(params, cfg, **kw, **extra)
+        logits_seen, landed = [], []
+        sample_first, commit = srv._sample_first, srv._commit_partial
+
+        def recording_sample(logits, sample_first=sample_first, seen=logits_seen):
+            seen.append(logits.float().clone())
+            return sample_first(logits)
+
+        def recording_commit(p, first, t, commit=commit, seen=logits_seen,
+                             landed=landed):
+            landed.append((p.req.prompt, seen[-1]))
+            return commit(p, first, t)
+
+        srv._sample_first, srv._commit_partial = recording_sample, recording_commit
+        outs, wall, got, st = run_requests(srv, prompts, budgets)
+        del srv
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if name != "default_slo":
+            firsts[st["kv_quant"] == "int8"] += landed
+        row = {k: v for k, v in serve_row(st, wall, budgets, lens, got).items()
+               if k in SIDE_KEYS}
+        row.update({k: st[k] for k in ("kv_quant", "sched_policy", "sched_chunks",
+                                       "sched_defers", "fused_admissions",
+                                       "slo_violations", "itl_slo_ms",
+                                       "prefill_chunk_tokens")})
+        row["chunked_admissions"] = len(landed)
+        row["token_match_vs_fifo"] = token_match(outs, outs_f, budgets)
+        row["first_difference"] = first_difference_margin(params, cfg, prompts,
+                                                          outs, outs_f)
+        rows[name] = row
+    firsts_rows = [chunked_first_logits(params, cfg, firsts[q], q)
+                   for q in (True, False)]
+    cases = []
+    srv = GenerationServer(params, cfg, **kw, **runs["fused"])
+    for p, b in zip(prompts[:8], budgets[:8]):
+        srv.submit(p, int(b))
+    with checking_flash(cases):
+        srv.step()  # the first admission pass: whole prefills, every layer checked
+    del srv
+    emit("sched", config=kw, requests=len(budgets),
+         fifo_batch={k: v for k, v in serve_row(
+             st_f, wall_f, budgets, lens, launches_f).items() if k in SIDE_KEYS},
+         **rows, chunked_first_logits=firsts_rows,
+         whole_admission_flash_checks=len(cases),
+         whole_admission_flash_max_err_over_bound=max(
+             (c["max_err_over_bound"] for c in cases), default=None))
+    problems = []
+    for name in ("fused", "unfused", "fused_bf16_kv"):
+        if rows[name]["sched_chunks"] < 1 or rows[name]["chunked_admissions"] < 1:
+            problems.append(f"{name}: no chunked admission")
+    if (rows["fused"]["fused_admissions"] < 1 or rows["unfused"]["fused_admissions"]
+            or rows["fused_bf16_kv"]["fused_admissions"] < 1):
+        problems.append("fused admissions")
+    for row in firsts_rows:
+        if not row["ok"]:
+            problems.append(f"chunked first-token logits {row}")
+    if len(cases) < cfg.n_layers:
+        problems.append(f"{len(cases)} flash checks")
+    if problems:
+        raise AssertionError(f"sched: {problems}")
+    return launches
+
+
 # The families served at their published widths (random bf16 weights from
 # seed 0, fused) by the default server over a paged pool: model -> the cut
 # of its depth (with the window and rope cycles cut with it), max_len, and
@@ -1894,6 +2363,9 @@ def main(argv: list[str]) -> int:
                                      profile=profile)}
     launches["paged"] = timed_phase("paged", phase_paged, params, cfg,
                                     profile=profile)
+    launches["persistent"] = timed_phase("persistent", phase_persistent,
+                                         params, cfg)
+    launches["sched"] = timed_phase("sched", phase_sched, params, cfg)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     del params
     torch.cuda.empty_cache()

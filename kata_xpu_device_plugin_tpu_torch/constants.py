@@ -31,3 +31,27 @@ ENV_KV_POOL_TOKENS = "KATA_TPU_KV_POOL_TOKENS"
 # malformed or < 1 value degrades to K = 1; an explicit decode_steps=
 # argument wins, and one < 1 raises.
 ENV_DECODE_STEPS = "KATA_TPU_DECODE_STEPS"
+
+# Admission policy for GenerationServer: "fifo_batch" (the default) or
+# "slo_chunked" (guest/scheduler.py). An unknown env value degrades to
+# fifo_batch; an explicit unknown sched_policy= raises.
+ENV_SCHED_POLICY = "KATA_TPU_SCHED_POLICY"
+
+# Prefill slice width of a chunked admission in tokens (slo_chunked). A
+# malformed or < 1 env value degrades to the default; an explicit
+# prefill_chunk= < 1 raises.
+ENV_PREFILL_CHUNK = "KATA_TPU_PREFILL_CHUNK"
+
+# Per-token inter-token-latency deadline in ms that slo_chunked steers
+# admission by. A malformed env value degrades to the default.
+ENV_ITL_SLO_MS = "KATA_TPU_ITL_SLO_MS"
+
+# Fused prefill+decode dispatch under slo_chunked: on by default, "0"
+# turns it off, anything but "0"/"1" degrades to the default; an explicit
+# fused=True without slo_chunked raises.
+ENV_FUSED = "KATA_TPU_FUSED"
+
+# Persistent decode rounds: "1" turns them on. Anything but "0"/"1"
+# degrades to off, as does a server that samples; an explicit
+# persistent=True on a sampling server raises.
+ENV_PERSISTENT = "KATA_TPU_PERSISTENT"

@@ -31,25 +31,37 @@ dispatch ``chunk × K`` steps, with every lane frozen on the device once it
 has its budget or emits ``eos_id``. Greedy outputs do not depend on the
 loop or on K.
 
-On CUDA every prefill runs the flash kernel and every decode step the paged
-decode kernel: over the pool through the lanes' real block tables, or over
-a zero-copy pool view of the slotted arena
+Admission scheduling (``guest/scheduler.py``): ``sched_policy=
+"slo_chunked"`` slices an admission into ``prefill_chunk``-token
+``prefill_suffix`` chunks while requests decode and the projected
+per-token latency of a whole prefill exceeds ``itl_slo_ms``; at most one
+chunk runs per decode dispatch, and with ``fused`` (on by default under
+``slo_chunked``) the chunk rides the decode dispatch itself. With
+``persistent=True`` (greedy only) each round decodes on the card until a
+cap, a lane's freeze, or a live lane's reserved window edge
+(:class:`.decode_graph.PersistentRound`), and rounds run lock-step.
+Neither changes greedy outputs.
+
+On CUDA every whole prefill runs the flash kernel and every decode step
+the paged decode kernel: over the pool through the lanes' real block
+tables, or over a zero-copy pool view of the slotted arena
 (:func:`..ops.attention.make_decode_attn_fn`); each decode chunk after the
 first is one CUDA graph replay (:class:`.decode_graph.DecodeGraph`), its
-random draws included. As in the JAX server, a config with a sliding
-window or an attention-logit softcap, masks the kernel does not model,
-decodes with the plain attention and says why in ``stats()``; otherwise
-the plain versions run on the card only when the caller asks for
+random draws included. A chunk slice reads the cache back, so by the JAX
+rule it takes the plain attention. As in the JAX server, a config with a
+sliding window or an attention-logit softcap, masks the kernel does not
+model, decodes with the plain attention and says why in ``stats()``;
+otherwise the plain versions run on the card only when the caller asks for
 ``decode_attn="reference"``, and anything the kernels cannot take raises.
 On the CPU the wrappers run their plain versions and chunks run eagerly.
 Greedy outputs per request equal the JAX server's on the same weights, as
-do the round and admission counts under the same ``overlap`` and
-``decode_steps``; sampled outputs repeat under one seed.
+do the round, admission, chunk and persistent-exit counts under the same
+settings; sampled outputs repeat under one seed.
 
 Arguments of the JAX server that select modes not ported yet (tensor
 parallelism, speculative decoding, ring caches, the prefix cache, the host
-KV tier, the block-sharded pool layout, chunked scheduling, persistent
-decode and crash recovery) raise ``NotImplementedError`` when set.
+KV tier, the block-sharded pool layout and crash recovery) raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -67,8 +79,13 @@ from ..constants import (
     DEFAULT_KV_QUANT,
     ENV_DECODE_ATTN,
     ENV_DECODE_STEPS,
+    ENV_FUSED,
+    ENV_ITL_SLO_MS,
     ENV_KV_POOL_TOKENS,
     ENV_KV_QUANT,
+    ENV_PERSISTENT,
+    ENV_PREFILL_CHUNK,
+    ENV_SCHED_POLICY,
 )
 from ..models.transformer import (
     DecoderConfig,
@@ -77,12 +94,13 @@ from ..models.transformer import (
     check_supported,
     init_kv_caches,
     prefill_batch,
+    prefill_suffix,
 )
 from ..obs.metrics import Rolling
 from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
-from .decode_graph import DecodeGraph, Sampling
+from .decode_graph import DecodeGraph, PersistentRound, Sampling
 from .kv_arena import (
     RESERVED_BLOCKS,
     SCRATCH_BLOCK,
@@ -92,10 +110,24 @@ from .kv_arena import (
     pool_write_batch,
     pool_write_seq,
 )
-from .scheduler import fifo_batch
+from .scheduler import (
+    DEFAULT_ITL_SLO_MS,
+    DEFAULT_PREFILL_CHUNK,
+    POLICIES,
+    POLICY_FIFO,
+    POLICY_SLO,
+    fifo_batch,
+    make_scheduler,
+)
 
 BACKEND_PAGED = attention.BACKEND_PAGED
 BACKEND_REFERENCE = attention.BACKEND_REFERENCE
+
+# Decode rounds one persistent round may span at most (the JAX server's
+# heartbeat cadence, whose default bounds the cap there too): the cap is
+# max(min(chunk × decode_steps × this, max_len), chunk × decode_steps).
+PERSISTENT_CAP_ROUNDS = 32
+PERSISTENT_EXITS = ("cap", "done", "window")
 
 
 def require_flash_buckets(buckets: tuple, head_dim: int) -> None:
@@ -112,6 +144,22 @@ def require_flash_buckets(buckets: tuple, head_dim: int) -> None:
         raise ValueError(
             f"prefill_buckets {bad} are not flash-kernel lengths at head_dim "
             f"{head_dim} (need a divisor >= 128 that is a multiple of 32)")
+
+
+def _env_int(name: str, default: int) -> int:
+    """An integer env knob; unset or malformed gives ``default``."""
+    raw = os.environ.get(name, "")
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def _env_flag(name: str) -> Optional[bool]:
+    """A ``"0"``/``"1"`` env knob: its value, or None when unset or
+    malformed (which degrades to the knob's default)."""
+    raw = os.environ.get(name, "").strip()
+    return {"0": False, "1": True}.get(raw)
 
 
 def resolve_kv_quant(kv_quant) -> bool:
@@ -133,12 +181,70 @@ def resolve_decode_steps(decode_steps: Optional[int]) -> int:
         if int(decode_steps) < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
         return int(decode_steps)
-    raw = os.environ.get(ENV_DECODE_STEPS, "")
-    try:
-        k = int(raw) if raw else 1
-    except ValueError:
-        return 1
-    return max(k, 1)
+    return max(_env_int(ENV_DECODE_STEPS, 1), 1)
+
+
+def resolve_sched(sched_policy: Optional[str], prefill_chunk: Optional[int],
+                  itl_slo_ms: Optional[float]) -> tuple[str, int, float]:
+    """``(policy, chunk tokens, slo ms)``, the JAX server's rules: an
+    explicit unknown policy or a ``prefill_chunk`` < 1 raises; an unknown
+    ``KATA_TPU_SCHED_POLICY`` degrades to ``fifo_batch``, a malformed or
+    < 1 ``KATA_TPU_PREFILL_CHUNK`` to 128 and a malformed
+    ``KATA_TPU_ITL_SLO_MS`` to 50."""
+    if sched_policy is None:
+        sched_policy = os.environ.get(ENV_SCHED_POLICY, "").strip() or POLICY_FIFO
+        if sched_policy not in POLICIES:
+            sched_policy = POLICY_FIFO
+    elif sched_policy not in POLICIES:
+        raise ValueError(
+            f"unknown sched_policy {sched_policy!r} (have {POLICIES})")
+    if prefill_chunk is not None:
+        if int(prefill_chunk) < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1 token, got {prefill_chunk}")
+        chunk_tokens = int(prefill_chunk)
+    else:
+        chunk_tokens = _env_int(ENV_PREFILL_CHUNK, DEFAULT_PREFILL_CHUNK)
+        if chunk_tokens < 1:
+            chunk_tokens = DEFAULT_PREFILL_CHUNK
+    if itl_slo_ms is not None:
+        slo_ms = float(itl_slo_ms)
+    else:
+        try:
+            slo_ms = float(os.environ.get(ENV_ITL_SLO_MS, "") or DEFAULT_ITL_SLO_MS)
+        except ValueError:
+            slo_ms = DEFAULT_ITL_SLO_MS
+    return sched_policy, chunk_tokens, slo_ms
+
+
+def resolve_fused(fused: Optional[bool], sched_policy: str) -> bool:
+    """Whether chunk slices ride decode dispatches: on under
+    ``slo_chunked`` unless ``KATA_TPU_FUSED=0`` (a malformed value
+    degrades to on), off otherwise; an explicit ``fused=True`` without
+    ``slo_chunked`` raises."""
+    if fused is not None:
+        if fused and sched_policy != POLICY_SLO:
+            raise ValueError(
+                "fused=True requires sched_policy='slo_chunked': only chunked "
+                "admission makes the slices a fused dispatch carries")
+        return bool(fused)
+    return sched_policy == POLICY_SLO and _env_flag(ENV_FUSED) is not False
+
+
+def resolve_persistent(persistent: Optional[bool], do_sample: bool) -> bool:
+    """Whether rounds are persistent: explicit argument >
+    ``KATA_TPU_PERSISTENT`` ("1" on; malformed degrades to off) > off. The
+    round is greedy only: on a sampling server an explicit
+    ``persistent=True`` raises and the env value degrades."""
+    explicit = persistent is not None
+    on = bool(persistent) if explicit else _env_flag(ENV_PERSISTENT) is True
+    if on and do_sample:
+        if explicit:
+            raise ValueError(
+                "persistent=True is incompatible with this server (sampling): "
+                "persistent rounds are greedy only")
+        return False
+    return on
 
 
 @dataclass
@@ -161,6 +267,32 @@ class _Preempted:
 
 
 @dataclass
+class _PartialPrefill:
+    """One chunked admission in progress: the queue head's prompt,
+    prefilled in ``prefill_chunk``-token slices between decode rounds into
+    its own ``[L, 1, max_len, ...]`` caches. It lands in a lane (arena
+    write, first token) only when the last slice has run, through the
+    same ``_finish_admission`` as every other admission. Head-of-line:
+    while it exists nothing else admits or resumes."""
+    req: _Request
+    caches: Any
+    offset: int     # prompt rows already prefilled
+    fused: int = 0  # chunks that rode a decode dispatch
+
+
+@dataclass
+class _FusedChunk:
+    """One admission slice that rode a decode dispatch (its partial's
+    ``offset`` advanced at dispatch, so an overlapped pipeline carries the
+    next slice in the next dispatch) and the slice's last-position logits
+    on the device. ``last``: the final slice, whose retire samples the
+    first token and lands the admission."""
+    partial: _PartialPrefill
+    last: bool
+    logits: torch.Tensor
+
+
+@dataclass
 class _Inflight:
     """The dispatched, not yet retired decode chunk of the overlapped loop.
     ``last``/``pos`` are its outputs on the device, which the next chunk
@@ -173,6 +305,7 @@ class _Inflight:
     pos: torch.Tensor
     slots: list
     t_dispatch: float
+    fused: Optional[_FusedChunk] = None  # an admission slice riding along
 
 
 def _merge_rows(dev_vals: torch.Tensor, host_vals: torch.Tensor,
@@ -227,6 +360,13 @@ class GenerationServer:
 
     ``overlap`` picks the round loop (pipelined by default, as in the JAX
     server) and ``decode_steps`` the chunks a dispatch runs (module doc).
+    ``sched_policy`` (else ``KATA_TPU_SCHED_POLICY``, else
+    ``"fifo_batch"``), ``prefill_chunk`` (``KATA_TPU_PREFILL_CHUNK``,
+    128), ``itl_slo_ms`` (``KATA_TPU_ITL_SLO_MS``, 50) and ``fused``
+    (``KATA_TPU_FUSED``, on under ``"slo_chunked"``) pick the admission
+    schedule; ``persistent`` (``KATA_TPU_PERSISTENT``, off) the persistent
+    rounds. Explicit values the server cannot take raise; env values
+    degrade to the defaults, as in the JAX server.
     :meth:`request_drain` and :meth:`drain` stop admission: started work,
     preempted spills included, runs to its end, and what never started
     fails into :meth:`failures`."""
@@ -244,6 +384,9 @@ class GenerationServer:
                  speculative_k: int = 0, ring_kv: bool = False,
                  prefix_cache_tokens: Optional[int] = None,
                  sched_policy: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None,
+                 itl_slo_ms: Optional[float] = None,
+                 fused: Optional[bool] = None,
                  decode_steps: Optional[int] = None,
                  persistent: Optional[bool] = None,
                  checkpoint_rounds: Optional[int] = None):
@@ -255,9 +398,6 @@ class GenerationServer:
             "speculative_k (ROADMAP Queue 1 item 11)": speculative_k,
             "ring_kv (ROADMAP Queue 1 item 11)": ring_kv,
             "prefix_cache_tokens (ROADMAP Queue 1 item 8)": prefix_cache_tokens,
-            "sched_policy='slo_chunked' (ROADMAP Queue 1 item 8)": (
-                sched_policy not in (None, "fifo_batch")),
-            "persistent (ROADMAP Queue 1 item 7b)": persistent,
             "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9)": checkpoint_rounds,
         }
         for what, value in unported.items():
@@ -296,6 +436,27 @@ class GenerationServer:
         # Steps of one dispatch: ITL, the budget gate and the paged
         # lookahead key off this, never off ``chunk`` alone.
         self._dispatch_steps = chunk * self._decode_steps
+        policy, chunk_tokens, slo_ms = resolve_sched(
+            sched_policy, prefill_chunk, itl_slo_ms)
+        self._fused_ok = resolve_fused(fused, policy)
+        self._sched = make_scheduler(
+            policy, chunk_tokens=chunk_tokens, slo_ms=slo_ms,
+            decode_steps=self._dispatch_steps, fused=self._fused_ok)
+        self._partial: Optional[_PartialPrefill] = None
+        self._fuse_pending = False
+        self._fused_ret: Optional[_FusedChunk] = None
+        self._fused_admissions = 0
+        self._persistent = resolve_persistent(persistent, self._do_sample)
+        # A persistent round's step cap, a static of its executable.
+        self._persistent_cap = max(
+            min(self._dispatch_steps * PERSISTENT_CAP_ROUNDS, max_len),
+            self._dispatch_steps) if self._persistent else 0
+        self._persistent_rounds = 0
+        self._last_delivered = 0
+        self._delivered_total = 0
+        self._delivered_lane_steps = 0
+        self._persistent_exits = dict.fromkeys(PERSISTENT_EXITS, 0)
+        self._persistent_fut: Optional[tuple] = None  # (delivered, window)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.kv_block = int(kv_block_size)
@@ -328,16 +489,22 @@ class GenerationServer:
             decode_kernel = attention.make_decode_attn_fn(
                 cfg, paged=self.paged, block_size=self.kv_block,
                 paged_len=max_len, arena_len=max_len, device=self.device)
+        arena = self.kv_pool.arena if self.paged else self.arena
+        paged_kw = dict(table_width=self._nb_max if self.paged else 0,
+                        block_size=self.kv_block if self.paged else 0,
+                        paged_len=max_len if self.paged else 0)
+        # Persistent servers arm the budget mask on every dispatch, the
+        # fixed-step chunk of a fused round included (as in JAX).
         self._decode = DecodeGraph(
-            params, self.kv_pool.arena if self.paged else self.arena, cfg,
-            batch=max_batch, steps=self._dispatch_steps, device=self.device,
-            decode_kernel_fn=decode_kernel,
-            table_width=self._nb_max if self.paged else 0,
-            block_size=self.kv_block if self.paged else 0,
-            paged_len=max_len if self.paged else 0,
-            budget=self._decode_steps > 1, eos_id=eos_id,
+            params, arena, cfg, batch=max_batch, steps=self._dispatch_steps,
+            device=self.device, decode_kernel_fn=decode_kernel,
+            budget=self._decode_steps > 1 or self._persistent, eos_id=eos_id,
             sampling=Sampling(self.generator, self._temp_dev, top_k, top_p)
-            if self._do_sample else None)
+            if self._do_sample else None, **paged_kw)
+        self._round = PersistentRound(
+            params, arena, cfg, batch=max_batch, cap=self._persistent_cap,
+            device=self.device, decode_kernel_fn=decode_kernel,
+            eos_id=eos_id, **paged_kw) if self._persistent else None
         # Host-side slot state: the request in each slot, its next cache
         # write position, and its last token.
         self._slot_req: list[Optional[_Request]] = [None] * max_batch
@@ -371,10 +538,7 @@ class GenerationServer:
         explicit one it cannot run raises."""
         explicit = kv_pool_tokens is not None
         if not explicit:
-            try:
-                kv_pool_tokens = int(os.environ.get(ENV_KV_POOL_TOKENS, "") or 0)
-            except ValueError:
-                kv_pool_tokens = 0
+            kv_pool_tokens = _env_int(ENV_KV_POOL_TOKENS, 0)
         self._pool_tokens = int(kv_pool_tokens)
         if self._pool_tokens <= 0:
             return False
@@ -494,8 +658,14 @@ class GenerationServer:
         package's own: the most lanes that decoded in one round and the
         fullest the pool was at a dispatch; so are the ``decode_graph_*``
         keys: captures and replays of the decode chunk (both 0 on the CPU),
-        the capture's seconds and its graph pool's bytes."""
-        pool, exe = self.kv_pool, self._decode
+        the capture's seconds and its graph pool's bytes; and the
+        ``delivered_lane_steps``, ``persistent_steps_executed`` and
+        ``persistent_graph_*`` keys: the tokens persistent rounds
+        delivered to live lanes, the steps they ran (delivered or past an
+        exit), and the captures and replays of their graph. The
+        scheduler's ``sched_*``, ``fused_*`` and persistent keys are the
+        JAX server's."""
+        pool, exe, rnd = self.kv_pool, self._decode, self._round
         return {
             "rounds": self._rounds,
             "decode_steps": self._decode_steps,
@@ -525,6 +695,19 @@ class GenerationServer:
             "decode_graph_replays": exe.replays,
             "decode_graph_capture_s": round(exe.capture_s, 6),
             "decode_graph_pool_bytes": exe.pool_bytes,
+            **self._sched.stats(),
+            "fused_enabled": int(self._fused_ok),
+            "fused_admissions": self._fused_admissions,
+            "persistent": int(self._persistent),
+            "persistent_cap": self._persistent_cap,
+            "persistent_rounds": self._persistent_rounds,
+            "delivered_steps": self._last_delivered,
+            "delivered_steps_total": self._delivered_total,
+            "persistent_exits": dict(self._persistent_exits),
+            "delivered_lane_steps": self._delivered_lane_steps,
+            "persistent_steps_executed": rnd.executed_total if rnd else 0,
+            "persistent_graph_captures": rnd.captures if rnd else 0,
+            "persistent_graph_replays": rnd.replays if rnd else 0,
         }
 
     # ----- admission -------------------------------------------------------
@@ -536,8 +719,19 @@ class GenerationServer:
         Paged: preempted requests are older than anything queued and resume
         first; a cold admission reserves its blocks before its prefill, and
         the first request the pool cannot hold stays at the head of the
-        queue and ends the pass."""
-        while self._queue or self._preempted:
+        queue and ends the pass. A chunked admission in progress goes
+        first of all (head-of-line), and the policy may start one instead
+        of a whole pass; at most one chunk runs per pass while it defers."""
+        pass_chunks = 0
+        while True:
+            if self._partial is not None:
+                # Started work: it advances through a drain too.
+                done, pass_chunks = self._advance_partial(pass_chunks)
+                if not done:
+                    return
+                continue
+            if not (self._queue or self._preempted):
+                return
             free = [b for b in range(self.max_batch) if self._slot_req[b] is None]
             if not free:
                 return
@@ -557,13 +751,23 @@ class GenerationServer:
                 return  # strict FIFO: nothing admits past it
             if self._draining:
                 return  # queued work never started: _finish_drain fails it
+            directive = self._sched.directive(
+                live_lanes=sum(r is not None for r in self._slot_req),
+                pending_tokens=self._cold_cost(self._queue[0]))
+            if not directive.admit:
+                if not self._start_partial():
+                    return  # paged reservation failed: head-of-line wait
+                continue  # the partial branch runs this pass's chunk
             groups = fifo_batch(
                 self._queue, len(free), self.prefill_buckets,
                 reserve=self._reserve_lane_blocks if self.paged else None)
             if not groups:
                 return
+            now = time.perf_counter()
             it = iter(free)
             for pad_len, reqs in groups.items():
+                for req in reqs:
+                    self._sched.note_queue_delay(now - req.t_submit)
                 self._fill_slots_batched([next(it) for _ in reqs], reqs, pad_len)
 
     def _fill_slots_batched(self, slots: list[int], reqs: list,
@@ -575,6 +779,7 @@ class GenerationServer:
         true_lens = np.array([len(r.prompt) for r in reqs], np.int32)
         for i, req in enumerate(reqs):
             prompts[i, : len(req.prompt)] = req.prompt
+        t0 = time.perf_counter()
         caches, last_logits, _pos = prefill_batch(
             self.params, torch.from_numpy(prompts).to(self.device), self.cfg,
             pad_len, torch.from_numpy(true_lens), kv_quantized=self.kv_quant,
@@ -582,6 +787,7 @@ class GenerationServer:
         firsts = _next_token(last_logits, self.generator, self._do_sample,
                              self._temp_dev, self.top_k, self.top_p).cpu().numpy()
         t_first = time.perf_counter()  # the transfer above fenced the forward
+        self._sched.note_prefill(n * pad_len, t_first - t0)
         if not self.paged:
             _write_slots(self.arena, caches, torch.as_tensor(
                 slots, dtype=torch.long, device=self.device))
@@ -606,6 +812,152 @@ class GenerationServer:
         self._last[b] = first
         self._fresh_rows.add(b)  # overlap: override the in-flight row
         self._maybe_finish(b, [first])
+
+    # ----- chunked admission -----------------------------------------------
+
+    def _cold_cost(self, req: _Request) -> int:
+        """The padded prefill tokens a whole admission of ``req`` runs: the
+        policy's projection input."""
+        n = len(req.prompt)
+        return next((k for k in self.prefill_buckets if k >= n), None) or n
+
+    def _start_partial(self) -> bool:
+        """Begin a chunked admission of the queue head: reserve its blocks
+        (paged) as a whole admission would, then park it as the partial
+        with fresh caches of its own; :meth:`_advance_partial` runs its
+        chunks. False when the pool cannot hold it: it stays queued."""
+        req = self._queue[0]
+        if self.paged and not self._reserve_lane_blocks(req):
+            return False
+        self._queue.popleft()
+        self._sched.note_queue_delay(time.perf_counter() - req.t_submit)
+        caches = init_kv_caches(self.cfg, 1, self.max_len, device=self.device,
+                                quantized=self.kv_quant)
+        self._partial = _PartialPrefill(req=req, caches=caches, offset=0)
+        return True
+
+    def _advance_partial(self, ran: int = 0) -> tuple[bool, int]:
+        """Advance the chunked admission. While the policy defers it runs
+        at most one chunk a pass (``ran`` counts the chunks this pass has
+        run already), or, fused, arms the next decode dispatch to carry
+        the chunk; once the policy admits it runs the rest. Returns
+        ``(landed in a lane, ran)``."""
+        self._fuse_pending = False  # decided afresh every pass
+        while True:
+            p = self._partial
+            remaining = len(p.req.prompt) - p.offset
+            if remaining <= 0:
+                return False, ran  # the final slice rides a dispatch in flight
+            live = sum(r is not None for r in self._slot_req)
+            d = self._sched.directive(live_lanes=live, pending_tokens=remaining,
+                                      partial=True)
+            if not d.admit:
+                if d.fused and self._fused_ok and live > 0:
+                    self._fuse_pending = True
+                    self._sched.defers += 1
+                    return False, ran
+                if ran:
+                    return False, ran  # one chunk per decode dispatch
+                self._sched.defers += 1
+            done = self._prefill_one_chunk(p)
+            ran += 1
+            if done:
+                return True, ran
+
+    def _slice_geometry(self, p: _PartialPrefill) -> tuple:
+        """The slice rule both chunk paths share: ``chunk_tokens`` wide,
+        right-padded, exact width where padding would pass ``max_len``.
+        Returns ``(suffix, take, width)``."""
+        n = len(p.req.prompt)
+        c = self._sched.chunk_tokens
+        take = min(c, n - p.offset)
+        width = c if p.offset + c <= self.max_len else take
+        suffix = np.zeros(width, np.int32)
+        suffix[:take] = p.req.prompt[p.offset:p.offset + take]
+        return suffix, take, width
+
+    def _run_slice(self, p: _PartialPrefill, suffix: np.ndarray, offset: int,
+                   take: int) -> torch.Tensor:
+        """One ``prefill_suffix`` slice into the partial's caches, in
+        place: the slice's last-position logits ``[1, vocab]``."""
+        tokens = self._host_tensor(suffix[None, :], torch.int64).to(
+            self.device, non_blocking=True)
+        _caches, logits, _pos = prefill_suffix(
+            self.params, tokens, self.cfg, p.caches, offset,
+            return_logits=True, true_len=take)
+        return logits
+
+    def _prefill_one_chunk(self, p: _PartialPrefill) -> bool:
+        """Run one slice of the chunked admission now, fenced (the pass's
+        budget is wall time); the final slice samples the first token and
+        lands the admission. True when it landed."""
+        suffix, take, width = self._slice_geometry(p)
+        last = p.offset + take >= len(p.req.prompt)
+        t0 = time.perf_counter()
+        logits = self._run_slice(p, suffix, p.offset, take)
+        first = None
+        if last:
+            first = int(self._sample_first(logits))
+        elif self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t_done = time.perf_counter()
+        p.offset += take
+        self._sched.chunks += 1
+        self._sched.note_prefill(width, t_done - t0)
+        if last:
+            self._commit_partial(p, first, t_done)
+        return last
+
+    def _sample_first(self, logits: torch.Tensor) -> int:
+        return int(_next_token(logits, self.generator, self._do_sample,
+                               self._temp_dev, self.top_k, self.top_p)[0])
+
+    def _commit_partial(self, p: _PartialPrefill, first: int,
+                        t_first: float) -> None:
+        """Land a finished chunked admission in a free lane (free by
+        construction: one was free when it started, and nothing fills
+        lanes while it is head-of-line), the same way for the inline and
+        the fused final slice."""
+        req = p.req
+        b = next(i for i in range(self.max_batch) if self._slot_req[i] is None)
+        if self.paged:
+            self._paged_commit(b, req, p.caches, 0)
+        else:
+            _write_slots(self.arena, p.caches, torch.as_tensor(
+                [b], dtype=torch.long, device=self.device))
+        self._partial = None
+        if p.fused:
+            self._fused_admissions += 1
+        self._finish_admission(b, req, first, len(req.prompt), t_first)
+
+    def _prepare_fused_chunk(self) -> Optional[tuple]:
+        """Take the pending slice for a fused dispatch, advancing the
+        partial's offset and counters at dispatch. Returns ``(suffix,
+        offset, take, is_last)``, or None when none is pending."""
+        if not (self._fuse_pending and self._fused_ok
+                and self._partial is not None):
+            self._fuse_pending = False
+            return None
+        self._fuse_pending = False
+        p = self._partial
+        n = len(p.req.prompt)
+        if p.offset >= n:
+            return None  # the final slice is already in flight
+        suffix, take, _width = self._slice_geometry(p)
+        offset = p.offset
+        p.offset += take
+        p.fused += 1
+        self._sched.chunks += 1
+        return suffix, offset, take, p.offset >= n
+
+    def _apply_fused(self, fc: Optional[_FusedChunk]) -> None:
+        """Land a slice that rode a decode dispatch, at its retire: only
+        the final slice has work left, sampling the first token from the
+        slice's logits and committing the admission."""
+        if fc is None or not fc.last or self._partial is not fc.partial:
+            return
+        first = self._sample_first(fc.logits)
+        self._commit_partial(fc.partial, first, time.perf_counter())
 
     def _maybe_finish(self, b: int, new_tokens: list) -> None:
         req = self._slot_req[b]
@@ -732,7 +1084,8 @@ class GenerationServer:
         """Grow every live lane's table to cover the next dispatch window,
         OLDEST request first: ``chunk × decode_steps`` positions past the
         host's ``pos``, twice that under overlap, whose host ``pos`` lags
-        the device by the chunk in flight. When the
+        the device by the chunk in flight; a persistent server's whole step
+        cap, since a round cannot ask the host for blocks midway. When the
         pool is exhausted the YOUNGEST live lane is preempted until the
         older ones fit; the head of the line always makes progress because
         the drained pool holds one full-length request. Growth is capped by
@@ -742,7 +1095,8 @@ class GenerationServer:
         if not self.paged:
             return
         bs = self.kv_block
-        lookahead = self._dispatch_steps * (2 if self.overlap else 1)
+        lookahead = (self._persistent_cap if self._persistent
+                     else self._dispatch_steps * (2 if self.overlap else 1))
         lanes = sorted((b for b in range(self.max_batch)
                         if self._slot_req[b] is not None),
                        key=lambda b: self._slot_req[b].rid)
@@ -770,16 +1124,21 @@ class GenerationServer:
         default, :meth:`_step_lockstep` with ``overlap=False``. A requested
         drain finishes here once nothing is in flight. Returns False when
         the queue, the wait list, the lanes and the pipeline are empty."""
-        alive = self._step_overlapped() if self.overlap else self._step_lockstep()
+        # Persistent rounds run lock-step: the host reads the delivered
+        # count at the fence before it can schedule the next round.
+        alive = (self._step_overlapped() if self.overlap and not self._persistent
+                 else self._step_lockstep())
         if self._draining and not self._drain_done and self._drain_idle():
             self._finish_drain()
             alive = False
         return alive
 
     def _drain_idle(self) -> bool:
-        """Nothing in flight: no chunk, no busy lane, no preempted spill
-        (spills are started work; the next admission resumes them)."""
+        """Nothing in flight: no chunk, no busy lane, no chunked admission,
+        no preempted spill (spills are started work; the next admission
+        resumes them)."""
         return (self._inflight is None and not self._preempted
+                and self._partial is None
                 and all(r is None for r in self._slot_req))
 
     def _finish_drain(self) -> None:
@@ -801,8 +1160,9 @@ class GenerationServer:
         freeze mask at ``decode_steps > 1`` (None at K = 1: the plain
         chunk). From the host's retired counts: under overlap they exceed
         the truth by at most the chunk in flight, so a lane freezes late
-        (tokens trimmed), never early. Empty lanes get 0."""
-        if self._decode_steps <= 1:
+        (tokens trimmed), never early. Empty lanes get 0. Persistent
+        servers always arm it: the round's exits read it."""
+        if self._decode_steps <= 1 and not self._persistent:
             return None
         budget = np.zeros(self.max_batch, np.int32)
         for b, req in enumerate(self._slot_req):
@@ -823,13 +1183,17 @@ class GenerationServer:
         return self._host_tensor(arr, dtype).to(self.device, non_blocking=True)
 
     def _dispatch_decode(self, tok, pos):
-        """Dispatch one chunk of ``chunk × decode_steps`` steps for every
-        lane from ``tok``/``pos`` (device tensors, or host snapshots),
-        with the budget mask and (paged) a snapshot of the block tables.
-        Lanes past their budget decode on harmlessly: their writes clamp
-        inside their own slot or land in the scratch block, and their
-        extra tokens are trimmed. Returns ``(toks, last, pos)`` on the
-        device, not yet waited for."""
+        """The one decode dispatch: one chunk of ``chunk × decode_steps``
+        steps for every lane from ``tok``/``pos`` (device tensors, or host
+        snapshots), with the budget mask and (paged) a snapshot of the
+        block tables; an admission slice rides along when one is pending
+        under the fused plan (its logits wait in ``_fused_ret``), and a
+        persistent server runs a persistent round otherwise (its delivered
+        count and windows wait in ``_persistent_fut``). Lanes past their
+        budget decode on harmlessly: their writes clamp inside their own
+        slot or land in the scratch block, and their extra tokens are
+        trimmed. Returns ``(toks, last, pos)`` on the device, not yet
+        waited for, except a persistent round's, which has finished."""
         budget = self._decode_budget()
         kw = {}
         if budget is not None:
@@ -838,23 +1202,59 @@ class GenerationServer:
             self._occupancy_peak = max(self._occupancy_peak,
                                        self.kv_pool.occupancy())
             kw["block_tables"] = self._host_tensor(self._bt_host)
+        fuse = self._prepare_fused_chunk()
+        if fuse is not None:
+            p = self._partial
+            suffix, offset, take, is_last = fuse
+            out, logits = self._decode.fused(
+                lambda: self._run_slice(p, suffix, offset, take), tok, pos, **kw)
+            self._fused_ret = _FusedChunk(partial=p, last=is_last, logits=logits)
+            return out
+        if self._persistent:
+            window = self._persistent_window()
+            toks, last, new_pos, delivered = self._round(
+                tok, pos, kw["budget"], self._host_tensor(window),
+                kw.get("block_tables"))
+            self._persistent_fut = (delivered, window)
+            return toks[:, :delivered], last, new_pos
         return self._decode(tok, pos, **kw)
+
+    def _persistent_window(self) -> np.ndarray:
+        """Each lane's write bound for a persistent round: the end of its
+        reserved blocks when paged, the arena's length when slotted."""
+        window = np.full(self.max_batch, self.max_len, np.int32)
+        if self.paged:
+            for b in range(self.max_batch):
+                if self._slot_req[b] is not None:
+                    window[b] = min(len(self._lane_blocks[b]) * self.kv_block,
+                                    self.max_len)
+        return window
 
     def _step_lockstep(self) -> bool:
         """Refill free lanes, (paged) grow the lanes' tables or preempt,
-        then one chunk for every lane, fenced by its token transfer."""
+        then one dispatch for every lane, fenced by its token transfer. A
+        persistent round is accounted by the steps it delivered, and its
+        exit attributed: ``cap`` when it delivered the cap, ``window``
+        when a lane still running sits at its window edge, else
+        ``done``."""
         self._admit()
         self._ensure_blocks()
         self._fresh_rows.clear()  # lock-step dispatch reads host rows
         active = [b for b in range(self.max_batch) if self._slot_req[b] is not None]
         if not active:
-            return bool(self._queue) or bool(self._preempted)
+            return (bool(self._queue) or bool(self._preempted)
+                    or self._partial is not None)
         self._lanes_peak = max(self._lanes_peak, len(active))
         t0 = time.perf_counter()
         toks, last, pos = self._dispatch_decode(self._host_tensor(self._last),
                                                 self._host_tensor(self._pos))
         host = DeviceFence(toks=toks, last=last, pos=pos).wait()
-        self._tok_lat.observe((time.perf_counter() - t0) / self._dispatch_steps)
+        dur = time.perf_counter() - t0
+        fut, self._persistent_fut = self._persistent_fut, None
+        delivered = None if fut is None else fut[0]
+        steps = self._dispatch_steps if delivered is None else delivered
+        self._tok_lat.observe(dur / max(steps, 1))
+        self._sched.note_round(dur, steps=max(steps, 1))
         self._last, self._pos = host["last"], host["pos"]
         self._rounds += 1
         for b in active:
@@ -862,6 +1262,23 @@ class GenerationServer:
             self._slot_req[b].out.extend(new)
             self._emitted += len(new)
             self._maybe_finish(b, new)
+        if fut is not None:
+            window = fut[1]
+            if delivered >= self._persistent_cap:
+                reason = "cap"
+            elif any(self._slot_req[b] is not None and self._pos[b] >= window[b]
+                     for b in active):
+                reason = "window"
+            else:
+                reason = "done"
+            self._persistent_rounds += 1
+            self._delivered_lane_steps += delivered * len(active)
+            self._last_delivered = delivered
+            self._delivered_total += delivered
+            self._persistent_exits[reason] += 1
+        # A slice that rode this dispatch lands after the decode tokens.
+        fc, self._fused_ret = self._fused_ret, None
+        self._apply_fused(fc)
         return True
 
     def _step_overlapped(self) -> bool:
@@ -894,7 +1311,7 @@ class GenerationServer:
         if prev is not None:
             self._retire(prev)  # host work overlaps the dispatched chunk
         return (self._inflight is not None or bool(self._queue)
-                or bool(self._preempted)
+                or bool(self._preempted) or self._partial is not None
                 or any(r is not None for r in self._slot_req))
 
     def _any_survives(self, prev: _Inflight) -> bool:
@@ -922,14 +1339,17 @@ class GenerationServer:
                   if req is not None]
         self._lanes_peak = max(self._lanes_peak, len(active))
         toks, new_last, new_pos = self._dispatch_decode(last, pos)
+        # A slice dispatched with the chunk rides its record to retire.
+        fc, self._fused_ret = self._fused_ret, None
         self._inflight = _Inflight(
             fence=DeviceFence(toks=toks, last=new_last, pos=new_pos),
             last=new_last, pos=new_pos, slots=active,
-            t_dispatch=time.perf_counter())
+            t_dispatch=time.perf_counter(), fused=fc)
 
     def _retire(self, fl: _Inflight) -> None:
         """Land one in-flight chunk: wait for its copy, hand its tokens to
-        the requests that still own their lanes, then refill freed lanes
+        the requests that still own their lanes, land an admission slice
+        that rode along, then refill freed lanes
         (their rows join the next dispatch through ``_fresh_rows``). ITL is
         the retire-to-retire cadence over the dispatch's steps, anchored at
         this chunk's dispatch when the pipeline was empty."""
@@ -938,6 +1358,9 @@ class GenerationServer:
         round_s = now - max(fl.t_dispatch, self._t_last_retire)
         self._t_last_retire = now
         self._tok_lat.observe(round_s / self._dispatch_steps)
+        # The retire cadence is the latency the policy steers by: an
+        # admission that took host time between retires shows here.
+        self._sched.note_round(round_s)
         self._rounds += 1
         for b, req in fl.slots:
             if self._slot_req[b] is not req:
@@ -948,6 +1371,9 @@ class GenerationServer:
             req.out.extend(new)
             self._emitted += len(new)
             self._maybe_finish(b, new)
+        # A slice that rode this chunk lands before the admission pass, so
+        # a finished chunked admission unblocks the queue head in it.
+        self._apply_fused(fl.fused)
         self._admit()
 
 

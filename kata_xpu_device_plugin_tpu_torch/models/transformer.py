@@ -740,6 +740,49 @@ def prefill_batch(params: Params, prompts: torch.Tensor, cfg: DecoderConfig,
     return caches, last, pos
 
 
+def prefill_suffix(params: Params, suffix: torch.Tensor, cfg: DecoderConfig,
+                   caches, offset, attn_fn: Optional[AttnFn] = None,
+                   return_logits: bool = False, true_len=None):
+    """Resume a prefill from caches that already hold rows ``[0, offset)``:
+    ``suffix [B, S]`` runs with rope positions ``offset + i`` and writes
+    its k/v at ``offset + i`` (in place), each token attending to the
+    resident rows and the causal part of the suffix, the window it saw in
+    one whole prefill. ``offset`` is an int or a 0-dim tensor. Returns
+    ``(caches, next_token_or_logits, pos)`` as :func:`prefill` does.
+
+    ``true_len`` (an int, a 0-dim tensor or a ``[B]`` tensor) marks a
+    right-padded suffix: logits are taken at suffix index ``true_len - 1``
+    and ``pos`` is ``offset + true_len``; the pad rows land at positions
+    decode overwrites before it reads them. Chainable: a call at ``offset
+    + true_len`` with the next slice of the prompt resumes where this one
+    stopped, and the slices together give one prefill's caches and logits
+    (the chunked admission of ``guest.scheduler``).
+
+    The span reads the cache back, so by the JAX rule (no flash kernel
+    once ``q_offset`` is set) the default ``attn_fn``,
+    :func:`..ops.attention.cache_attention`, takes the plain attention
+    over the dequantized cache on every device."""
+    if attn_fn is None:
+        from ..ops.attention import cache_attention
+
+        attn_fn = cache_attention
+    B, S = suffix.shape
+    dev = suffix.device
+    if torch.is_tensor(offset):
+        offset = offset.to(device=dev, dtype=torch.int32).reshape(())
+    span = torch.arange(S, dtype=torch.int32, device=dev) + offset
+    x = _hidden(params, suffix, cfg, attn_fn, span.expand(B, S), caches,
+                offset, False, None)
+    if true_len is None:
+        true_len = S
+    tl = torch.as_tensor(true_len, dtype=torch.int32, device=dev)
+    last = _last_logits(params, x, (tl - 1).expand(B), cfg)
+    if not return_logits:
+        last = greedy_token(last)
+    pos = offset + true_len
+    return caches, last, pos
+
+
 def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
                  cfg: DecoderConfig, steps: int,
                  attn_fn: Optional[AttnFn] = None, return_state: bool = False,
@@ -790,6 +833,109 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
     out = torch.stack(outs, dim=1) if outs else torch.zeros(
         (B, 0), dtype=torch.int32, device=dev)
     return (out, caches, tok, pos) if return_state else out
+
+
+# ----- persistent rounds ---------------------------------------------------
+
+
+def persistent_state(tok: torch.Tensor, pos: torch.Tensor, budget: torch.Tensor,
+                     window_end: torch.Tensor, max_steps: int) -> dict:
+    """The carry of a persistent round, fresh tensors on ``tok``'s device:
+    ``tok``/``pos``/``rem`` (the budget) per lane, ``alive0`` (the lanes
+    alive at entry), ``window`` (each lane's write bound), ``out [B,
+    max_steps]`` zeros, and the 0-dim ``delivered`` count and ``stop``
+    flag. :func:`_persistent_steps` updates every entry in place."""
+    dev = tok.device
+    B = tok.shape[0]
+
+    def i32(t):
+        return torch.as_tensor(t).to(device=dev, dtype=torch.int32).clone()
+
+    rem = i32(budget)
+    return {"tok": i32(tok), "pos": i32(pos), "rem": rem,
+            "alive0": rem > 0, "window": i32(window_end),
+            "out": torch.zeros((B, max_steps), dtype=torch.int32, device=dev),
+            "delivered": torch.zeros((), dtype=torch.int32, device=dev),
+            "stop": torch.zeros((), dtype=torch.bool, device=dev)}
+
+
+def _persistent_go(state: dict, max_steps: int) -> torch.Tensor:
+    """The loop condition of JAX's ``_decode_while``, a 0-dim bool on the
+    device: fewer than ``max_steps`` delivered, some lane alive, no lane
+    alive at entry frozen since (a freeze needs the host), and no live
+    lane's next write at or past its window."""
+    alive = state["rem"] > 0
+    return ((state["delivered"] < max_steps) & alive.any()
+            & (~state["alive0"] | alive).all()
+            & ~(alive & (state["pos"] >= state["window"])).any())
+
+
+def _persistent_steps(params: Params, caches, state: dict, cfg: DecoderConfig,
+                      steps: int, max_steps: int,
+                      attn_fn: Optional[AttnFn] = None, decode_kernel_fn=None,
+                      block_tables=None, block_size: int = 0,
+                      paged_len: int = 0, eos_id: Optional[int] = None) -> None:
+    """``steps`` greedy steps of a persistent round, in place on ``state``
+    (:func:`persistent_state`) and the caches, with no host sync, so a
+    CUDA graph can hold them. Each step first evaluates the loop condition
+    (:func:`_persistent_go`) on the device and folds it into the freeze
+    mask: while it holds, the step is :func:`_decode_scan`'s masked step
+    and is delivered (its tokens land in ``out[:, delivered]``); once it
+    fails, every lane is frozen, so the step rewrites each lane's k/v at
+    its pinned position with the value the lane's next real step writes
+    there, and changes nothing else. The condition never holds again
+    after it fails, so a caller may run steps past the loop's exit. Sets
+    ``state["stop"]`` to whether the condition fails after the last
+    step."""
+    tok, pos, rem, out = state["tok"], state["pos"], state["rem"], state["out"]
+    delivered = state["delivered"]
+    B = tok.shape[0]
+    for _ in range(steps):
+        go = _persistent_go(state, max_steps)
+        live = (rem > 0) & go
+        logits, caches = forward(
+            params, tok[:, None], cfg, attn_fn=attn_fn, positions=pos[:, None],
+            kv_caches=caches, cache_offset=pos,
+            decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
+            block_size=block_size, paged_len=paged_len)
+        nxt = torch.where(live, greedy_token(logits[:, -1, :]), tok)
+        new_rem = torch.where(live, rem - 1, rem)
+        if eos_id is not None:
+            new_rem = torch.where(live & (nxt == eos_id), 0, new_rem)
+        col = delivered.clamp(max=max_steps - 1).long().reshape(1, 1).expand(B, 1)
+        out.scatter_(1, col, torch.where(go, nxt, out.gather(1, col)[:, 0])[:, None])
+        pos.copy_(torch.where(live, pos + 1, pos))
+        rem.copy_(new_rem)
+        tok.copy_(nxt)
+        delivered.add_(go.to(torch.int32))
+    state["stop"].copy_(~_persistent_go(state, max_steps))
+
+
+def _decode_while(params: Params, caches, tok: torch.Tensor, pos: torch.Tensor,
+                  budget: torch.Tensor, window_end: torch.Tensor,
+                  cfg: DecoderConfig, max_steps: int,
+                  attn_fn: Optional[AttnFn] = None, block_tables=None,
+                  block_size: int = 0, paged_len: int = 0,
+                  decode_kernel_fn=None, eos_id: Optional[int] = None,
+                  sub_steps: int = 1):
+    """A persistent decode round (JAX ``_decode_while``): the masked greedy
+    step of :func:`_decode_scan`, run until one of three exits — ``cap``,
+    ``max_steps`` delivered; ``done``, a lane alive at entry froze on eos
+    or its ``budget``; ``window``, a live lane's next write would reach
+    its ``window_end``. Steps run ``sub_steps`` at a time
+    (:func:`_persistent_steps`) with the exit flag read on the host after
+    each group, so up to ``sub_steps - 1`` steps run past the exit as
+    no-ops. Each delivered step equals the fixed-step scan's. Returns
+    ``(out [B, max_steps], caches, tok, pos, delivered)``; ``out`` is
+    zero past ``delivered``."""
+    state = persistent_state(tok, pos, budget, window_end, max_steps)
+    state["stop"].copy_(~_persistent_go(state, max_steps))
+    while not bool(state["stop"]):
+        _persistent_steps(params, caches, state, cfg, sub_steps, max_steps,
+                          attn_fn=attn_fn, decode_kernel_fn=decode_kernel_fn,
+                          block_tables=block_tables, block_size=block_size,
+                          paged_len=paged_len, eos_id=eos_id)
+    return state["out"], caches, state["tok"], state["pos"], state["delivered"]
 
 
 def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,

@@ -144,6 +144,28 @@ def flash_attention(
                          softcap=logits_softcap)
 
 
+def cache_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    q_offset=None,
+    window: int = 0,
+    logits_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Dispatch of a query span attending into the cache it was just
+    written into (``models.transformer.prefill_suffix``): by
+    :func:`flash_eligible`'s rule a set ``q_offset`` rules the flash kernel
+    out, as in the JAX package, so the span takes the plain attention on
+    every device; without an offset it is :func:`flash_attention`."""
+    if flash_eligible(q.shape[1], k.shape[1], q.shape[3], q_offset,
+                      on_cuda=q.is_cuda):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               logits_softcap=logits_softcap)
+    return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               window=window, logits_softcap=logits_softcap)
+
+
 def kernel_tolerance(out: torch.Tensor, ref: torch.Tensor,
                      weighted_abs: torch.Tensor) -> dict:
     """How far a bf16 attention kernel's output ``out`` may lie from the

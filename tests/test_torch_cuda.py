@@ -944,3 +944,175 @@ def test_family_flags_serve_on_the_card(cuda_device):
         assert torch.equal(toks[0], toks[1]) and toks[0].shape == (2, 12)
         launched = decode_attn.paged_decode_attention.launches - p0
         assert launched == (22 * cfg.n_layers if name == "qwen2" else 0)
+
+
+def _persistent_server(cuda_device, paged, **extra):
+    """A 2-layer Gemma-2B-head server holding 4 admitted requests (no
+    round run yet), its tables grown for a persistent round."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              overlap=False, **extra)
+    if paged:
+        kw.update(kv_pool_tokens=4096, kv_block_size=16)
+    srv = GenerationServer(params, cfg, **kw)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 300)
+    srv._admit()
+    srv._ensure_blocks()
+    return srv, params, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_steps", [1, 3])
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_persistent_graph_is_bit_equal_to_eager_at_each_exit(cuda_device, paged,
+                                                             sub_steps):
+    """A persistent round by CUDA graph (after one eager warm-up round)
+    against the same round eager (``_decode_while``) on a clone of the
+    arena, from the same inputs, at each exit: the cap, a lane done on its
+    budget, a lane at its window edge. Tokens, ``delivered``, ``tok``,
+    ``pos`` and every arena byte equal; the paged kernel's launches are
+    the steps the graph ran x layers; fewer than ``sub_steps`` of them
+    past the exit."""
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import PersistentRound
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import _decode_while
+
+    srv, params, cfg = _persistent_server(cuda_device, paged, persistent=True)
+    old = srv._round
+    rnd = PersistentRound(params, old.arena, cfg, batch=4, cap=old.cap,
+                          device=cuda_device, sub_steps=sub_steps,
+                          decode_kernel_fn=old.decode_kernel_fn,
+                          table_width=0 if old._tables is None
+                          else old._tables.shape[1], **old._kw)
+    arena = srv.kv_pool.arena if paged else srv.arena
+    leaves = _leaves(arena)
+    snap = [t.clone() for t in leaves]
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    tok, pos = dev(srv._last), dev(srv._pos)
+    window0 = srv._persistent_window()
+    tables = dev(srv._bt_host) if paged else None
+    edge = window0.copy()
+    edge[1] = srv._pos[1] + 6
+    cases = {"cap": ([300] * 4, window0, old.cap),
+             "done": ([5, 300, 300, 300], window0, 5),
+             "window": ([300] * 4, edge, 6)}
+    rnd(tok, pos, dev([5, 300, 300, 300]), dev(window0), tables)  # warm-up
+    assert (rnd.captures, rnd.replays) == (0, 0)
+    for name, (budget, window, want_d) in cases.items():
+        for t, c in zip(leaves, snap):
+            t.copy_(c)
+        clone = [t.clone() for t in snap]
+        eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2])
+                            for i in range(2))
+        w_out, _, w_tok, w_pos, w_d = _decode_while(
+            params, eager_arena, tok, pos, dev(budget), dev(window), cfg,
+            rnd.cap, attn_fn=attention.reference_attention,
+            block_tables=tables, decode_kernel_fn=rnd.decode_kernel_fn,
+            sub_steps=sub_steps, **rnd._kw)
+        d0 = decode_attn.paged_decode_attention.launches
+        out, g_tok, g_pos, delivered = rnd(tok, pos, dev(budget), dev(window),
+                                           tables)
+        torch.cuda.synchronize()
+        assert rnd.captures == 1, name
+        assert delivered == int(w_d) == want_d, name
+        assert torch.equal(out[:, :delivered], w_out[:, :delivered]), name
+        assert torch.equal(g_tok, w_tok) and torch.equal(g_pos, w_pos), name
+        for a, c in zip(leaves, clone):
+            assert torch.equal(_bits(a), _bits(c)), name
+        assert (decode_attn.paged_decode_attention.launches - d0
+                == rnd.executed * cfg.n_layers), name
+        assert 0 <= rnd.executed - delivered < sub_steps, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_fused_dispatch_is_bit_equal_to_the_sequential_pair(cuda_device, paged):
+    """One decode chunk by graph replay with an admission slice beside it
+    on a side stream (``DecodeGraph.fused``) against the same replay and
+    the same slice run one after the other on the current stream, from
+    the same arena and slice caches: the chunk's tokens, ``last``,
+    ``pos``, the slice's logits, every arena byte and every byte of the
+    slice's caches equal."""
+    srv, params, cfg = _persistent_server(cuda_device, paged)
+    srv.step()  # the eager warm-up chunk
+    srv.step()  # the capture, then a replay
+    srv._ensure_blocks()
+    exe = srv._decode
+    assert exe.captures == 1
+    rng = np.random.default_rng(9)
+    p_caches = transformer.init_kv_caches(cfg, 1, 512, device=cuda_device,
+                                          quantized=True)
+    first = torch.from_numpy(rng.integers(0, 512, (1, 128))).to(cuda_device)
+    transformer.prefill_suffix(params, first, cfg, p_caches, 0, true_len=100)
+    sfx = torch.from_numpy(rng.integers(0, 512, (1, 128))).to(cuda_device)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    kw = {"block_tables": dev(srv._bt_host)} if paged else {}
+    tok, pos = dev(srv._last), dev(srv._pos)
+    leaves = _leaves(srv.kv_pool.arena if paged else srv.arena) + _leaves(p_caches)
+    snap = [t.clone() for t in leaves]
+
+    def slice_fn():
+        return transformer.prefill_suffix(params, sfx, cfg, p_caches, 100,
+                                          return_logits=True, true_len=90)[1]
+
+    out, logits = exe.fused(slice_fn, tok, pos, **kw)
+    torch.cuda.synchronize()
+    fused = [t.clone() for t in (*out, logits)]
+    fused_leaves = [t.clone() for t in leaves]
+    for t, c in zip(leaves, snap):
+        t.copy_(c)
+    out2 = exe(tok, pos, **kw)
+    seq = [t.clone() for t in (*out2, slice_fn())]
+    torch.cuda.synchronize()
+    assert exe.replays >= 3
+    for f, q in zip(fused, seq):
+        assert torch.equal(_bits(f), _bits(q))
+    for f, t in zip(fused_leaves, leaves):
+        assert torch.equal(_bits(f), _bits(t))
+
+
+@pytest.mark.cuda
+def test_persistent_and_chunked_servers_on_the_card(cuda_device):
+    """Persistent rounds over a pool that preempts, and chunked fused
+    admission, against the lock-step server on the same requests: equal
+    tokens; exits partition the rounds; the paged kernel's launches are
+    the steps the rounds ran x layers; chunks rode decode dispatches."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=6, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_pool_tokens=1024, kv_block_size=16)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, n), int(b))
+            for n, b in zip(rng.integers(100, 250, 10), rng.integers(20, 61, 10))]
+
+    def serve(**extra):
+        srv = GenerationServer(params, cfg, **kw, **extra)
+        rids = [srv.submit(p, b) for p, b in reqs]
+        d0 = decode_attn.paged_decode_attention.launches
+        out = srv.run()
+        return ([out[r] for r in rids], srv.stats(),
+                decode_attn.paged_decode_attention.launches - d0)
+
+    base, _, _ = serve(overlap=False)
+    got, st, launched = serve(persistent=True)
+    assert all(np.array_equal(a, b) for a, b in zip(got, base))
+    assert sum(st["persistent_exits"].values()) == st["persistent_rounds"] > 0
+    assert st["preemptions"] >= 1 and st["kv_blocks_in_use"] == 0
+    assert launched == st["persistent_steps_executed"] * cfg.n_layers
+    assert st["persistent_graph_captures"] == 1
+    got, st, _ = serve(sched_policy="slo_chunked", itl_slo_ms=0.0,
+                       prefill_chunk=128)
+    assert all(np.array_equal(a, b) for a, b in zip(got, base))
+    assert st["sched_chunks"] > 0 and st["fused_admissions"] > 0

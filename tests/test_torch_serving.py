@@ -133,11 +133,21 @@ def test_kv_quant_resolution(monkeypatch):
     dict(persistent=True), dict(checkpoint_rounds=4),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_modes_raise(models, kwarg):
-    """Sampling is ported; sampled persistent decode still raises, as
-    persistent decode does (the JAX server refuses that pairing too)."""
+    """Modes not ported yet raise ``NotImplementedError``. The chunked
+    admission policy and persistent decode are ported: they build, and
+    sampled persistent decode raises the JAX server's ``ValueError`` (its
+    rounds are greedy only)."""
     _, _, tp, tcfg = models
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+    if "persistent" in kwarg and "temperature" in kwarg:
+        with pytest.raises(ValueError, match="sampling"):
+            GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+    elif "persistent" in kwarg or "sched_policy" in kwarg:
+        stats = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg).stats()
+        assert stats["persistent"] == int("persistent" in kwarg)
+        assert stats["sched_policy"] == kwarg.get("sched_policy", "fifo_batch")
+    else:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
 
 
 def test_submit_validates_like_jax(models):
