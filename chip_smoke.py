@@ -1123,7 +1123,9 @@ def gemma_setup(seed: int = 0):
 
 # Counters of stats() that run_requests reports for its timed run alone.
 RUN_COUNTERS = ("rounds", "prefills", "prefill_batches", "tokens_emitted",
-                "preemptions", "decode_graph_replays")
+                "preemptions", "decode_graph_replays", "prefix_hits",
+                "prefix_misses", "prefix_tokens_reused", "cow_copies",
+                "kv_demotions", "kv_prefetches", "kv_resume_staged")
 
 
 def warm_server(srv) -> dict:
@@ -1143,14 +1145,16 @@ def warm_server(srv) -> dict:
     return srv.stats()
 
 
-def run_requests(srv, prompts, budgets):
+def run_requests(srv, prompts, budgets, waves=None):
     """Warm the server (:func:`warm_server`), submit every request, reset
     the serving kernels' launch counts, drain the server, read the counts.
-    Returns the outputs in submit order, the wall time, the launches and
-    the server's stats, with :data:`RUN_COUNTERS` counted over this run
-    alone; every request must return its budget of in-vocabulary tokens.
-    A server whose decode runs the plain attention (by its config's rule)
-    must launch the flash kernel and no decode kernel."""
+    ``waves``: the requests' split into waves, each submitted when the one
+    before it has been served to its end (default: one wave). Returns the
+    outputs in submit order, the wall time, the launches and the server's
+    stats, with :data:`RUN_COUNTERS` counted over this run alone; every
+    request must return its budget of in-vocabulary tokens. A server whose
+    decode runs the plain attention (by its config's rule) must launch the
+    flash kernel and no decode kernel."""
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
@@ -1162,13 +1166,21 @@ def run_requests(srv, prompts, budgets):
     kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
                "dense_decode": decode_attention}
     base = warm_server(srv)
-    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+    waves = list(waves or (len(prompts),))
+    rids = [srv.submit(p, int(b)) for p, b in zip(prompts[:waves[0]],
+                                                  budgets[:waves[0]])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
     results = srv.run()
+    at = waves[0]
+    for n in waves[1:]:
+        rids += [srv.submit(p, int(b)) for p, b in zip(prompts[at:at + n],
+                                                       budgets[at:at + n])]
+        results.update(srv.run())
+        at += n
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
@@ -1514,6 +1526,30 @@ def phase_requests(n: int, vocab: int, seed: int = 0, skip: int = 0):
     return prompts, budgets, lens
 
 
+# The prefix phase: 4 lineages of one 512-token head each (a system prompt
+# or template), a warm wave of one request a lineage, a main wave of six
+# a lineage, lineage by lineage, and a return wave of one a lineage.
+PREFIX_HEAD = 512
+PREFIX_WAVES = (4, 24, 4)
+
+
+def prefix_requests(vocab: int, seed: int = 0):
+    """The prefix phase's requests: each a lineage's head plus a suffix of
+    32-480 tokens of its own, budgets 64-128, all from ``seed``. Returns
+    ``(prompts, budgets, lens, lineage of each)`` in submit order; the
+    waves are :data:`PREFIX_WAVES` long."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, PREFIX_HEAD).astype(np.int32)
+             for _ in range(4)]
+    order = [*range(4), *(ln for ln in range(4) for _ in range(6)), *range(4)]
+    prompts = [np.concatenate([heads[ln], rng.integers(0, vocab, n).astype(np.int32)])
+               for ln, n in zip(order, rng.integers(32, 481, len(order)))]
+    budgets = rng.integers(64, 129, len(order))
+    return prompts, budgets, np.array([len(p) for p in prompts]), order
+
+
 # Counters of a persistent server that run_persistent reports for its
 # timed run alone.
 PERSISTENT_COUNTERS = ("rounds", "prefills", "tokens_emitted", "preemptions",
@@ -1792,12 +1828,15 @@ def first_difference_margin(params, cfg, prompts, outs, other) -> dict:
 
 def chunked_first_logits(params, cfg, firsts, quantized: bool) -> dict:
     """Each chunked admission's first-token logits (``firsts``: prompt and
-    logits) against three whole prefills of its prompt on the plain path,
-    with the server's KV cache (int8 when ``quantized``, else bf16):
-    ``plain``, the plain prefill, which attends over the fresh bf16 k/v;
-    ``readback``, the prompt as one ``prefill_suffix`` slice from empty
-    caches, which attends over the cache read back, as every chunk does
-    (here and in the JAX package); ``fp32_p``, the plain prefill with fp32
+    logits, and for a prefix hit the match length ``m``) against three
+    whole prefills of its prompt on the plain path, with the server's KV
+    cache (int8 when ``quantized``, else bf16): ``plain``, the plain
+    prefill, which attends over the fresh bf16 k/v; ``readback``, the
+    prompt as one ``prefill_suffix`` slice from empty caches, which attends
+    over the cache read back, as every chunk does (here and in the JAX
+    package), or for a hit the two slices a hit runs: the head's plain
+    prefill written to the cache, then the rest as one ``prefill_suffix``
+    slice at ``m``; ``fp32_p``, the plain prefill with fp32
     probabilities, whose distance from ``plain`` is the noise floor
     rounding alone makes at this depth. Errors are max |difference| over
     the ``plain`` logits' RMS. Held within the serving bound: the chunks
@@ -1817,7 +1856,8 @@ def chunked_first_logits(params, cfg, firsts, quantized: bool) -> dict:
 
     bound = LOGIT_BOUND["prefill"]
     rows = []
-    for prompt, got in firsts:
+    for prompt, got, *head in firsts:
+        m = head[0] if head else 0
         n = len(prompt)
         pad = next(b for b in SERVE_KW["prefill_buckets"] if b >= n)
         toks = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
@@ -1828,16 +1868,23 @@ def chunked_first_logits(params, cfg, firsts, quantized: bool) -> dict:
                          ("fp32_p", plain_fp32_p)):
             whole[name] = prefill_batch(params, toks, cfg, SERVE_KW["max_len"],
                                         tl, attn_fn=fn, kv_quantized=quantized)[1]
-        caches = init_kv_caches(cfg, 1, SERVE_KW["max_len"], device="cuda",
-                                quantized=quantized)
-        whole["readback"] = prefill_suffix(params, toks.long(), cfg, caches, 0,
-                                           return_logits=True, true_len=n)[1]
+        if m:
+            caches = prefill_batch(params, toks[:, :m], cfg, SERVE_KW["max_len"],
+                                   torch.tensor([m], dtype=torch.int32),
+                                   attn_fn=attention.reference_attention,
+                                   kv_quantized=quantized)[0]
+        else:
+            caches = init_kv_caches(cfg, 1, SERVE_KW["max_len"], device="cuda",
+                                    quantized=quantized)
+        whole["readback"] = prefill_suffix(params, toks[:, m:].long(), cfg,
+                                           caches, m, return_logits=True,
+                                           true_len=n - m)[1]
         rms = float(whole["plain"].square().mean().sqrt())
 
         def err(a, b):
             return float((a - b).abs().max()) / rms
 
-        row = {"prompt_len": n, "vs_plain": err(got, whole["plain"]),
+        row = {"prompt_len": n, "head": m, "vs_plain": err(got, whole["plain"]),
                "vs_readback": err(got, whole["readback"]),
                "readback_vs_plain": err(whole["readback"], whole["plain"]),
                "noise_floor": err(whole["fp32_p"], whole["plain"])}
@@ -1938,6 +1985,329 @@ def phase_sched(params, cfg, seed: int = 0) -> dict:
         problems.append(f"{len(cases)} flash checks")
     if problems:
         raise AssertionError(f"sched: {problems}")
+    return launches
+
+
+# ----- the shared-prefix cache and the host KV tier ---------------------------
+
+
+def recording_admissions(srv, hits_seen: list, ttft: list) -> None:
+    """Record, on ``srv``, each prefix-hit admission group's first-token
+    logits (``hits_seen``: prompts, match length, logits ``[N, vocab]``) and
+    each admission's TTFT with whether it hit (``ttft``)."""
+    from kata_xpu_device_plugin_tpu_torch.guest import serving
+
+    fill, finish = srv._fill_slots, srv._finish_admission
+
+    def fill_recording(slots, reqs, pad_len, hits=None):
+        if not hits:
+            return fill(slots, reqs, pad_len)
+        sample = serving._next_token
+
+        def recording(logits, *a, **kw):
+            hits_seen.append(([req.prompt for req in reqs], hits[0].length,
+                              logits.float().clone()))
+            return sample(logits, *a, **kw)
+
+        serving._next_token = recording
+        try:
+            return fill(slots, reqs, pad_len, hits)
+        finally:
+            serving._next_token = sample
+
+    def finish_recording(b, req, first, pos, t_first, hit=None):
+        ttft.append((t_first - req.t_submit, hit is not None))
+        return finish(b, req, first, pos, t_first, hit=hit)
+
+    srv._fill_slots = fill_recording
+    srv._finish_admission = finish_recording
+
+
+def timing_resumes(srv, ms: list) -> None:
+    """Record on ``srv`` the host milliseconds of each resume that landed."""
+    resume = srv._resume_one
+
+    def timed(b):
+        t0 = time.perf_counter()
+        landed = resume(b)
+        if landed:
+            ms.append(round((time.perf_counter() - t0) * 1e3, 4))
+        return landed
+
+    srv._resume_one = timed
+
+
+def timing_stages(srv, marks: list) -> None:
+    """Record on ``srv``, for each staged resume upload, CUDA events on the
+    side stream before and after its copies and one on the main stream
+    right behind the chunk just dispatched (``marks``): the upload's
+    device time, and by how much the chunk outlasted it."""
+    import torch
+
+    stage = srv._stage_resume_prefetch
+    srv._h2d_stream = torch.cuda.Stream()
+
+    def timed():
+        before = srv._stage
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(srv._h2d_stream)
+        stage()
+        if srv._stage is not None and srv._stage is not before:
+            up, chunk = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            up.record(srv._h2d_stream)
+            chunk.record()
+            marks.append((start, up, chunk))
+
+    srv._stage_resume_prefetch = timed
+
+
+def p50(xs):
+    import numpy as np
+
+    return float(np.percentile(xs, 50)) if len(xs) else None
+
+
+def pool_rows_bits(pool, blocks, block_size: int) -> list:
+    """The rows of ``blocks`` in every leaf of ``pool`` (int8 payloads and
+    scales alike), as integers, so that equality is bit equality."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest.kv_arena import pool_gather_rows
+    from kata_xpu_device_plugin_tpu_torch.guest.prefix_cache import cache_leaves
+
+    table = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+    return [_bits(t).clone() for t in cache_leaves(
+        pool_gather_rows(pool.arena, table, block_size))]
+
+
+def demote_promote_exact(srv) -> dict:
+    """Force the tier's least recently used unpinned segment down to the
+    host tier and back: its rows (int8 payload and scales) before and after
+    must be bit-equal, and the pool's tensors the ones the decode graph
+    holds."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest.prefix_cache import cache_leaves
+
+    tier, pool = srv.prefix_store, srv.kv_pool
+    seg = min((s for s in tier._segments if not s.host and s.refs == 0),
+              key=lambda s: s.tick)
+    ptrs = [t.data_ptr() for t in cache_leaves(pool.arena)]
+    before, blocks = pool_rows_bits(pool, seg.blocks, pool.block_size), list(seg.blocks)
+    if not (tier._demote(seg) and seg.host and tier._promote(seg)):
+        raise AssertionError("prefix: the forced demotion or promotion failed")
+    after = pool_rows_bits(pool, seg.blocks, pool.block_size)
+    torch.cuda.synchronize()
+    return {"tokens": seg.length, "blocks_before": blocks[:4],
+            "blocks_after": seg.blocks[:4],
+            "bytes_compared": sum(t.numel() * t.element_size() for t in before),
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(after, before)),
+            "pool_in_place": [t.data_ptr() for t in cache_leaves(pool.arena)] == ptrs}
+
+
+def prefix_cow_check(params, cfg, prompts, budgets) -> dict:
+    """Copy-on-write on the card: a lock-step server over a pool of 48-token
+    blocks (a 512-token match ends mid-block), the warm wave served, then
+    two hits a lineage admitted at once. Each hit's private boundary block
+    must hold the tier block's prefix rows bit for bit; lanes must share
+    tier blocks; one decode chunk run eagerly on a clone of the pool holds
+    every paged kernel call against the plain version
+    (:func:`checked_paged`); the rest of the run returns every budget and
+    leaves the pool holding the tier's blocks alone."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+    from kata_xpu_device_plugin_tpu_torch.guest.prefix_cache import cache_leaves
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import QTensor
+
+    bs = 48
+    srv = GenerationServer(params, cfg, max_batch=16, kv_pool_tokens=8000,
+                           kv_block_size=bs, prefix_cache_tokens=1,
+                           overlap=False, **SERVE_KW)
+    for p, b in zip(prompts[:4], budgets[:4]):
+        srv.submit(p, int(b))
+    srv.run()
+    picks = [4 + 6 * ln + i for ln in range(4) for i in (0, 1)]
+    rids = [srv.submit(prompts[i], int(budgets[i])) for i in picks]
+    srv.step()
+    pool, exe = srv.kv_pool, srv._decode
+    boundary, lanes = [], 0
+    for b, hit in enumerate(srv._slot_prefix):
+        if hit is None:
+            continue
+        lanes += 1
+        k, r = hit.length // bs, hit.length % bs
+        mine, theirs = srv._lane_blocks[b][k], hit.segment.blocks[k]
+        boundary.append(all(
+            torch.equal(_bits(t[:, 0, mine * bs: mine * bs + r]),
+                        _bits(t[:, 0, theirs * bs: theirs * bs + r]))
+            for t in cache_leaves(pool.arena)))
+    held = [blk for t in srv._lane_blocks for blk in t]
+    shared = sum(1 for blk in set(held) if held.count(blk) > 1)
+    srv._ensure_blocks()
+    clone = iter([t.clone() for t in cache_leaves(pool.arena)])
+    eager_arena = tuple(type(c)(*(next(clone) for _ in c)) if isinstance(c, QTensor)
+                        else next(clone) for c in pool.arena)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to("cuda")
+
+    cases = []
+    serve_decode(params, eager_arena, dev(srv._last), dev(srv._pos), cfg,
+                 exe.steps, checked_paged(exe.decode_kernel_fn, cases, bs,
+                                          SERVE_KW["max_len"]),
+                 block_tables=dev(srv._bt_host), **exe._kw)
+    torch.cuda.synchronize()
+    out = srv.run()
+    st = srv.stats()
+    row = {"block_size": bs, "hit_lanes": lanes, "cow_copies": st["cow_copies"],
+           "boundary_rows_bit_equal": boundary, "blocks_shared_by_lanes": shared,
+           "eager_chunk_kernel_calls_checked": len(cases),
+           "eager_chunk_max_err_over_bound": max(
+               (c["max_err_over_bound"] for c in cases), default=None),
+           "kv_blocks_in_use": st["kv_blocks_in_use"],
+           "tier_blocks": srv.prefix_store.blocks_used}
+    problems = []
+    if not (st["cow_copies"] > 0 and lanes == len(picks) and all(boundary)):
+        problems.append("copy on write")
+    if not shared:
+        problems.append("no block shared by two lanes")
+    if len(cases) != exe.steps * cfg.n_layers:
+        problems.append(f"{len(cases)} checked kernel calls")
+    if [len(out[r]) for r in rids] != [int(budgets[i]) for i in picks]:
+        problems.append("budgets")
+    if st["kv_blocks_in_use"] != srv.prefix_store.blocks_used:
+        problems.append("blocks leaked")
+    if problems:
+        raise AssertionError(f"prefix cow: {problems} {row}")
+    return row
+
+
+def phase_prefix(params, cfg, seed: int = 0) -> dict:
+    """The shared-prefix cache and the host KV tier at full Gemma-2B width:
+    :func:`prefix_requests` (4 lineages of a 512-token head; waves of 4, 24
+    and 4) through the default paged server of the paged phase, (a)
+    without the cache, (b) with ``prefix_cache_tokens``, (c) with it and
+    ``kv_host_tokens=4096``: tok/s, TTFT (hits and cold apart), ITL, hits,
+    reuse, the tier's evictions, demotions, promotions, preemptions,
+    copies on write, batched hit admissions, the token match of (b)
+    against (a). Then (b)'s hits' first-token logits against the plain
+    two-slice reference (int8 cache), a bf16-cache server's against the
+    whole plain prefill; a forced demotion and promotion on (c), bit for
+    bit; the paged phase's requests with ``kv_host_tokens=2048`` beside
+    the tier-less server (tokens bit-equal, resumes from staged uploads,
+    each resume's host ms); and :func:`prefix_cow_check`. Every run's
+    kernel launches are counted through replays (:func:`run_requests`),
+    and the pool ends holding the tier's blocks and nothing else."""
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+
+    prompts, budgets, lens, _order = prefix_requests(cfg.vocab_size, seed)
+    base_kw = dict(**PAGED_KW, **SERVE_KW)
+    runs = {"a_no_cache": {}, "b_prefix": dict(prefix_cache_tokens=1),
+            "c_prefix_host": dict(prefix_cache_tokens=1, kv_host_tokens=4096)}
+    launches, rows, outs, hit_logits, problems = {}, {}, {}, {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, extra in runs.items():
+        srv = GenerationServer(params, cfg, **base_kw, **extra)
+        hits, ttft = [], []
+        recording_admissions(srv, hits, ttft)
+        outs[name], wall, got, st = run_requests(srv, prompts, budgets,
+                                                 waves=PREFIX_WAVES)
+        add(got)
+        tier = srv.prefix_store
+        looked = st["prefix_hits"] + st["prefix_misses"]
+        row = {k: v for k, v in serve_row(st, wall, budgets, lens, got).items()
+               if k in SIDE_KEYS}
+        row.update({k: st[k] for k in (
+            "prefix_hits", "prefix_tokens_reused", "kv_demotions",
+            "kv_prefetches", "preemptions", "cow_copies", "kv_blocks_in_use")})
+        row["prefix_hit_ratio"] = round(st["prefix_hits"] / looked, 4) if looked else 0.0
+        row["tier_evictions"] = tier.stats()["evictions"] if tier else 0
+        row["tier_blocks"] = tier.blocks_used if tier else 0
+        row["hit_admission_groups"] = len(hits)
+        row["hit_admissions_batched"] = sum(len(h[0]) for h in hits if len(h[0]) > 1)
+        row["ttft_p50_hit_s"] = p50([t for t, hit in ttft if hit])
+        row["ttft_p50_cold_s"] = p50([t for t, hit in ttft if not hit])
+        if st["kv_blocks_in_use"] != row["tier_blocks"]:
+            problems.append(f"{name}: {st['kv_blocks_in_use']} blocks in use, "
+                            f"the tier holds {row['tier_blocks']}")
+        if name == "c_prefix_host":
+            row["demote_promote"] = demote_promote_exact(srv)
+        hit_logits[name] = hits
+        rows[name] = row
+        del srv
+    rows["b_prefix"]["token_match_vs_a"] = token_match(
+        outs["b_prefix"], outs["a_no_cache"], budgets)
+    rows["b_prefix"]["first_difference_margin"] = first_difference_margin(
+        params, cfg, prompts, outs["b_prefix"], outs["a_no_cache"])
+    firsts = [(p, logits[i:i + 1], m) for ps, m, logits in hit_logits["b_prefix"]
+              for i, p in enumerate(ps)][:8]
+    # A bf16-cache server: the warm wave, then the first hit of each lineage.
+    picks = [*range(4), *(4 + 6 * ln for ln in range(4))]
+    srv = GenerationServer(params, cfg, kv_quant=False, prefix_cache_tokens=1,
+                           **base_kw)
+    hits_bf16 = []
+    recording_admissions(srv, hits_bf16, [])
+    _o, _w, got, st16 = run_requests(srv, [prompts[i] for i in picks],
+                                     [budgets[i] for i in picks], waves=(4, 4))
+    add(got)
+    del srv
+    firsts_rows = [chunked_first_logits(params, cfg, firsts, True),
+                   chunked_first_logits(
+                       params, cfg, [(p, logits[i:i + 1], m)
+                                     for ps, m, logits in hits_bf16
+                                     for i, p in enumerate(ps)], False)]
+    # The resume prefetch: the paged phase's preempting requests, no cache.
+    pp, pb, _plens = phase_requests(32, cfg.vocab_size, seed)
+    resume = {}
+    for name, extra in (("no_tier", {}), ("host_2048", dict(kv_host_tokens=2048))):
+        srv = GenerationServer(params, cfg, **base_kw, **extra)
+        ms, marks = [], []
+        timing_resumes(srv, ms)
+        if extra:
+            timing_stages(srv, marks)
+        o, wall, got, st = run_requests(srv, pp, pb)
+        add(got)
+        resume[name] = {"outs": o, "tok_s": round(int(sum(pb)) / wall, 2),
+                        **{k: st[k] for k in ("preemptions", "kv_prefetches",
+                                              "kv_resume_staged", "kv_blocks_in_use")},
+                        "resume_host_ms": ms, "resume_host_ms_p50": p50(ms)}
+        if marks:
+            resume[name]["staged_upload_ms"] = [
+                round(a.elapsed_time(b), 4) for a, b, _ in marks]
+            resume[name]["chunk_past_upload_ms"] = [
+                round(b.elapsed_time(c), 4) for _, b, c in marks]
+        del srv
+    resume_equal = all((a == b).all() for a, b in zip(resume["no_tier"].pop("outs"),
+                                                      resume["host_2048"].pop("outs")))
+    cow = prefix_cow_check(params, cfg, prompts, budgets)
+    emit("prefix", config=PAGED_KW, head=PREFIX_HEAD, waves=PREFIX_WAVES,
+         requests=len(budgets), **rows, hit_first_logits=firsts_rows,
+         bf16_kv_hits=st16["prefix_hits"], resume_prefetch=dict(
+             resume, tokens_bit_equal=resume_equal), cow=cow)
+    a, b, c = rows["a_no_cache"], rows["b_prefix"], rows["c_prefix_host"]
+    if not (b["prefix_hits"] > 0 and c["prefix_hits"] > 0 and a["prefix_hits"] == 0):
+        problems.append("prefix hits")
+    if not (c["kv_demotions"] > 0 and c["kv_prefetches"] > 0):
+        problems.append("no demotion or promotion in (c)")
+    dp = c["demote_promote"]
+    if not (dp["bit_equal"] and dp["pool_in_place"]):
+        problems.append(f"demote/promote {dp}")
+    for row in firsts_rows:
+        if not row["ok"] or not row["compared"]:
+            problems.append(f"hit first-token logits {row}")
+    h = resume["host_2048"]
+    if not (resume_equal and h["preemptions"] > 0 and h["kv_prefetches"] > 0
+            and h["kv_resume_staged"] > 0):
+        problems.append(f"resume prefetch {resume}")
+    if problems:
+        raise AssertionError(f"prefix: {problems}")
     return launches
 
 
@@ -2366,6 +2736,7 @@ def main(argv: list[str]) -> int:
     launches["persistent"] = timed_phase("persistent", phase_persistent,
                                          params, cfg)
     launches["sched"] = timed_phase("sched", phase_sched, params, cfg)
+    launches["prefix"] = timed_phase("prefix", phase_prefix, params, cfg)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     del params
     torch.cuda.empty_cache()

@@ -55,3 +55,16 @@ ENV_FUSED = "KATA_TPU_FUSED"
 # degrades to off, as does a server that samples; an explicit
 # persistent=True on a sampling server raises.
 ENV_PERSISTENT = "KATA_TPU_PERSISTENT"
+
+# Shared-prefix KV cache for GenerationServer: a slotted server's store of
+# that many tokens, or, on a paged server, any value > 0 turns on the
+# prefix tier inside the pool. A malformed or negative value degrades to
+# 0, as does the env value on a server without prefill_buckets; an
+# explicit prefix_cache_tokens= without prefill_buckets raises.
+ENV_PREFIX_CACHE_TOKENS = "KATA_TPU_PREFIX_CACHE_TOKENS"
+
+# Host-RAM KV tier below a paged pool, in tokens: demoted prefix segments
+# and preempted sessions' spills. A malformed or negative value degrades
+# to 0, as does the env value on a slotted server; an explicit
+# kv_host_tokens= < 0, or > 0 on a slotted server, raises.
+ENV_KV_HOST_TOKENS = "KATA_TPU_KV_HOST_TOKENS"

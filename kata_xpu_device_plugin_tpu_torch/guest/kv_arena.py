@@ -19,19 +19,30 @@ table rows.
 - Pool ops: copies between contiguous per-request caches (what
   ``prefill_batch`` produces) and pool blocks, and the gather/scatter pair
   preemption spills and restores with. They update the pool IN PLACE where
-  the JAX package donates it.
+  the JAX package donates it: the decode graph holds the pool's addresses.
+- :class:`HostKVTier`: the bounded host-RAM store below the pool, the
+  accounting and payloads of demoted prefix segments and preempted
+  sessions' spills. On CUDA its payloads sit in pinned memory
+  (:func:`rows_to_host`), so uploads from it are asynchronous.
+- :class:`PagedPrefixTier`: the radix prefix store of
+  :mod:`.prefix_cache` homed inside the pool. Segments are block lists; a
+  hit shares the fully covered blocks with the admitted request's table
+  (pool reference counts, read-only) and the partly covered boundary block
+  is copied on write into a private block; LRU eviction returns blocks to
+  the free list decode allocates from, or, with a host tier, demotes the
+  segment to host RAM, and a later hit promotes it back verbatim.
 
 Physical block ``t`` occupies pool rows ``t * block_size .. (t + 1) *
 block_size``: the layout the paged decode kernel addresses, its KV tile
 being one pool block.
 
-The prefix tier, the host offload tier and block-sharded placement are
-not ported yet.
+Block-sharded placement is not ported yet.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -43,6 +54,7 @@ from ..models.transformer import (
     init_kv_caches,
 )
 from ..ops.quant import QTensor
+from .prefix_cache import PrefixHit, RadixStore, cache_leaves
 
 ZERO_BLOCK = PAGED_ZERO_BLOCK
 SCRATCH_BLOCK = PAGED_SCRATCH_BLOCK
@@ -50,15 +62,6 @@ RESERVED_BLOCKS = 2
 
 
 # ----- device ops ------------------------------------------------------------
-
-
-def _leaves(tree) -> list:
-    """The tensors of a cache pair ``(k, v)``, QTensor payloads and scales
-    alike, in a fixed order."""
-    out = []
-    for c in tree:
-        out.extend(c if isinstance(c, QTensor) else (c,))
-    return out
 
 
 def _rows_of(table: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -86,7 +89,7 @@ def pool_write_seq(pool, caches, row: int, table: torch.Tensor,
     the request's own last block, past its prompt, and decode overwrites
     them before it attends to them. Returns the pool."""
     dest = _rows_of(table, block_size)
-    for p, c in zip(_leaves(pool), _leaves(caches)):
+    for p, c in zip(cache_leaves(pool), cache_leaves(caches)):
         p[:, 0, dest] = _pad_rows(c[:, row], 1, dest.numel())
     return pool
 
@@ -98,7 +101,7 @@ def pool_write_batch(pool, caches, tables: torch.Tensor, block_size: int):
     don't-care, nothing reads them. Returns the pool."""
     n, nb = tables.shape
     dest = _rows_of(tables, block_size)
-    for p, c in zip(_leaves(pool), _leaves(caches)):
+    for p, c in zip(cache_leaves(pool), cache_leaves(caches)):
         seq = _pad_rows(c[:, :n], 2, nb * block_size)
         p[:, 0, dest] = seq.reshape((seq.shape[0], n * nb * block_size)
                                     + tuple(seq.shape[3:]))
@@ -110,12 +113,7 @@ def pool_gather_rows(pool, table: torch.Tensor, block_size: int):
     contiguous pair with leaves ``[L, len(table)*bs, ...]``: the preemption
     spill read (the caller copies it to the host)."""
     src = _rows_of(table, block_size)
-
-    def take(p):
-        return p[:, 0, src]
-
-    return tuple(QTensor(*map(take, c)) if isinstance(c, QTensor) else take(c)
-                 for c in pool)
+    return map_rows(pool, lambda p: p[:, 0, src])
 
 
 def pool_scatter_rows(pool, rows, table: torch.Tensor, block_size: int):
@@ -124,9 +122,65 @@ def pool_scatter_rows(pool, rows, table: torch.Tensor, block_size: int):
     preemption restore write. SCRATCH entries absorb the padding tail.
     Returns the pool."""
     dest = _rows_of(table, block_size)
-    for p, r in zip(_leaves(pool), _leaves(rows)):
+    for p, r in zip(cache_leaves(pool), cache_leaves(rows)):
         p[:, 0, dest] = r
     return pool
+
+
+def pool_materialize(pool, table: torch.Tensor, length: int,
+                     cfg: DecoderConfig, max_len: int, quantized: bool, dtype,
+                     n: int, block_size: int):
+    """A fresh ``[L, n, max_len, ...]`` cache pair with the pool rows of
+    blocks ``table`` landed in every row at positions ``[0, length)``: the
+    caches ``prefill_suffix`` resumes from (``n > 1``: one shared prefix
+    fanned out to a same-match admission group)."""
+    caches = init_kv_caches(cfg, n, max_len, device=table.device, dtype=dtype,
+                            quantized=quantized)
+    src = _rows_of(table, block_size)[:length]
+    for c, p in zip(cache_leaves(caches), cache_leaves(pool)):
+        c[:, :, :length] = p[:, 0, src][:, None]
+    return caches
+
+
+def map_rows(rows, fn):
+    """``fn`` applied to every tensor of a cache or rows pair, the pair's
+    structure (QTensor or plain) kept."""
+    return tuple(QTensor(*map(fn, c)) if isinstance(c, QTensor) else fn(c)
+                 for c in rows)
+
+
+def rows_to_host(rows):
+    """A rows pair the gather just made, copied to the host: on CUDA into
+    pinned buffers by ``non_blocking`` copies on the current stream, behind
+    the work that writes the rows, so an upload from them is asynchronous
+    as well. Nothing reads the buffers on the host; a copy back to the card
+    from the same stream, or from one that waits for an event recorded
+    after this call, finds them complete. On the CPU the rows themselves."""
+    def down(t):
+        if not t.is_cuda:
+            return t
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    return map_rows(rows, down)
+
+
+def table_tensor(blocks, device: torch.device) -> torch.Tensor:
+    """Block ids (a list or an array) as an int32 table on ``device``: on
+    CUDA uploaded from a pinned copy without waiting, ordered on the
+    current stream, so that a table made while a chunk is in flight does
+    not wait for the chunk."""
+    t = torch.tensor(np.asarray(blocks, np.int32))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def rows_to_device(rows, device):
+    """Upload a host rows pair on the current stream (asynchronous from
+    pinned buffers)."""
+    return map_rows(rows, lambda t: t.to(device, non_blocking=True))
 
 
 # ----- the pool --------------------------------------------------------------
@@ -168,6 +222,7 @@ class KVPool:
             cfg, 1, num_blocks * self.block_size, device=device,
             dtype=self.dtype, quantized=kv_quant,
         )
+        self.device = cache_leaves(self.arena)[0].device
         self._free: deque[int] = deque(range(RESERVED_BLOCKS, num_blocks))
         self._refs = np.zeros(num_blocks, np.int64)
 
@@ -230,4 +285,306 @@ class KVPool:
             "occupancy": self.occupancy(),
             "shards": self.shards,
             "shard_occupancy": [self.occupancy()],
+        }
+
+
+# ----- the host-RAM tier -------------------------------------------------------
+
+
+@dataclass
+class _HostEntry:
+    """One host-resident KV parcel: ``rows`` the spilled pair (None for an
+    entry that only accounts for a payload held elsewhere, as the serving
+    loop's preemption spills), ``tokens`` its length, ``pinned`` state in
+    flight that must not LRU out and may overflow the capacity."""
+
+    tokens: int
+    rows: Any = None
+    tick: int = 0
+    pinned: bool = False
+
+
+class HostKVTier:
+    """Bounded host-RAM store below the pool: cold KV (demoted prefix
+    segments, preempted sessions' spills) parks here instead of holding
+    device memory. Accounting and payloads only: what demotes and when to
+    upload is its clients' policy (:class:`PagedPrefixTier`, the server's
+    preemption), and it never touches the device itself.
+
+    ``capacity_tokens`` bounds the unpinned (cache) population; a client
+    makes room with :meth:`room` before :meth:`put` and evicts its own LRU
+    entries, since it owns the index state a drop must clean up."""
+
+    def __init__(self, capacity_tokens: int, block_size: int) -> None:
+        if capacity_tokens < 1:
+            raise ValueError(
+                f"host tier capacity must be >= 1 token, got {capacity_tokens}")
+        self.capacity_tokens = int(capacity_tokens)
+        self.block_size = int(block_size)
+        self._entries: dict[Any, _HostEntry] = {}
+        self._tick = 0
+
+    def _next_tick(self) -> int:
+        self._tick += 1
+        return self._tick
+
+    def room(self, tokens: int) -> bool:
+        return self.tokens_used + int(tokens) <= self.capacity_tokens
+
+    def put(self, key, tokens: int, rows: Any = None, *,
+            pinned: bool = False) -> bool:
+        """Store (or account again) one parcel. An unpinned put respects the
+        capacity (False: no room); a pinned one always lands."""
+        if not pinned and not self.room(tokens):
+            return False
+        self._entries[key] = _HostEntry(tokens=int(tokens), rows=rows,
+                                        tick=self._next_tick(), pinned=pinned)
+        return True
+
+    def get(self, key) -> Optional[_HostEntry]:
+        entry = self._entries.get(key)
+        if entry is not None:
+            entry.tick = self._next_tick()
+        return entry
+
+    def pop(self, key) -> Optional[_HostEntry]:
+        return self._entries.pop(key, None)
+
+    def drop_unpinned(self) -> int:
+        """Drop every unpinned entry and return how many; pinned session
+        spills stay."""
+        dead = [k for k, e in self._entries.items() if not e.pinned]
+        for k in dead:
+            del self._entries[k]
+        return len(dead)
+
+    def lru_unpinned(self) -> Optional[Any]:
+        """The least recently used unpinned key, or None."""
+        victims = [(e.tick, k) for k, e in self._entries.items() if not e.pinned]
+        return min(victims, key=lambda v: v[0])[1] if victims else None
+
+    @property
+    def tokens_used(self) -> int:
+        return sum(e.tokens for e in self._entries.values())
+
+    @property
+    def blocks_used(self) -> int:
+        return sum(-(-e.tokens // self.block_size) for e in self._entries.values())
+
+    @property
+    def entries(self) -> int:
+        return len(self._entries)
+
+    def occupancy(self) -> float:
+        return round(self.tokens_used / self.capacity_tokens, 4)
+
+    def stats(self) -> dict:
+        return {
+            "capacity_tokens": self.capacity_tokens,
+            "tokens_used": self.tokens_used,
+            "blocks_used": self.blocks_used,
+            "entries": self.entries,
+            "occupancy": self.occupancy(),
+        }
+
+
+# ----- the shared-prefix tier --------------------------------------------------
+
+
+@dataclass(eq=False)  # identity: segments key the host tier
+class _TierSegment:
+    """One cached prefix: rows ``[0, length)`` live in ``blocks`` (the last
+    one perhaps partly covered). ``refs`` counts in-flight hit pins,
+    ``tick`` is the LRU clock, ``nodes`` the radix entries pointing here.
+    ``host=True``: demoted, its rows in the :class:`HostKVTier`, no blocks,
+    its radix entries kept so that a later hit can promote it."""
+
+    blocks: list
+    length: int
+    refs: int = 0
+    tick: int = 0
+    nodes: list = field(default_factory=list)
+    host: bool = False
+
+
+# A tier's hit: ``length`` prefix tokens in ``segment.blocks``.
+TierHit = PrefixHit
+
+
+class PagedPrefixTier(RadixStore):
+    """The radix prefix store of :mod:`.prefix_cache` as a tier of one
+    :class:`KVPool`: segments are pool block lists, hit admissions share
+    the fully covered blocks with their own tables (a partly covered
+    boundary block is copied on write by the admission scatter), and
+    eviction returns blocks to the free list decode grows from, so the
+    cache and decode split one memory budget. Inserts skip under pool
+    pressure rather than take a live lane's blocks.
+
+    With a :class:`HostKVTier`, pool pressure demotes the LRU unpinned
+    segment to host RAM (a block gather and a copy into pinned memory) in
+    place of dropping it, and a later hit promotes it back: fresh blocks,
+    an upload, the restore scatter, every row verbatim. The server drains
+    this tier before it preempts a lane. Every move writes the pool in
+    place."""
+
+    def __init__(self, pool: KVPool, cfg: DecoderConfig, buckets: tuple, *,
+                 host_tier: Optional[HostKVTier] = None) -> None:
+        super().__init__(buckets)
+        self.pool = pool
+        self.cfg = cfg
+        self.kv_quant = pool.kv_quant
+        self.dtype = pool.dtype
+        self.host_tier = host_tier
+        self.demotions = 0
+        self.prefetches = 0
+        self.host_evictions = 0
+        self.prefetch_stalls = 0
+
+    def _resident(self, seg: _TierSegment) -> bool:
+        """A demoted segment is promoted first; when the pool cannot hold
+        it now, the lookup is a miss and the segment stays on the host."""
+        if not seg.host or self._promote(seg):
+            return True
+        self.prefetch_stalls += 1
+        return False
+
+    def shared_blocks(self, hit: TierHit) -> list:
+        """The segment's blocks the match covers fully: those an admitted
+        table may reference read-only (the caller takes the pool
+        references). A partly covered boundary block is never shared."""
+        return list(hit.segment.blocks[: hit.length // self.pool.block_size])
+
+    def _store_rows(self, caches, row: int, bound: int) -> Optional[_TierSegment]:
+        """Rows ``[0, bound)`` of cache row ``row`` into tier-owned blocks;
+        unpinned segments give way first, live lanes never."""
+        bs = self.pool.block_size
+        nb = -(-bound // bs)
+        blocks = self.pool.try_alloc(nb)
+        while blocks is None:
+            if not self.evict_one():
+                return None
+            blocks = self.pool.try_alloc(nb)
+        pool_write_seq(self.pool.arena, caches, row,
+                       table_tensor(blocks, self.pool.device), bs)
+        return _TierSegment(blocks, bound)
+
+    def evict_one(self) -> bool:
+        """Relieve the pool by one segment: demote the LRU unpinned
+        device-resident segment to the host tier, or, without one or when
+        the host budget cannot take it, drop it. False when every
+        device-resident segment is pinned."""
+        victims = [s for s in self._segments if s.refs == 0 and not s.host]
+        if not victims:
+            return False
+        seg = min(victims, key=lambda s: s.tick)
+        if self.host_tier is not None and self._demote(seg):
+            return True
+        self._drop(seg)
+        self.pool.unref(seg.blocks)
+        self.evictions += 1
+        return True
+
+    def _demote(self, seg: _TierSegment) -> bool:
+        """Park ``seg`` in the host tier: make room there (dropping its own
+        LRU demoted segments first), gather the segment's block rows and
+        copy them into pinned host memory on the current stream, free the
+        blocks. Decode never writes a tier block, so the copy needs no
+        fence: whatever reuses the blocks later is ordered behind it on the
+        stream. The radix entries stay."""
+        while not self.host_tier.room(seg.length):
+            if not self._evict_host_one():
+                return False
+        rows = rows_to_host(pool_gather_rows(
+            self.pool.arena, table_tensor(seg.blocks, self.pool.device),
+            self.pool.block_size))
+        self.host_tier.put(seg, seg.length, rows=rows)
+        self.pool.unref(seg.blocks)
+        seg.blocks = []
+        seg.host = True
+        seg.tick = self._next_tick()
+        self.demotions += 1
+        return True
+
+    def _promote(self, seg: _TierSegment) -> bool:
+        """Bring a demoted segment back into fresh blocks (making room by
+        evicting or demoting colder segments), upload its rows on the
+        current stream and scatter them verbatim. False when the pool
+        cannot hold it now; the segment stays on the host."""
+        entry = self.host_tier.get(seg)
+        if entry is None or entry.rows is None:
+            # A host flag without a host entry: drop the segment, a miss.
+            if seg in self._segments:
+                self._drop(seg)
+            return False
+        bs = self.pool.block_size
+        nb = -(-seg.length // bs)
+        # Pinned while blocks are found: a demotion the pressure loop makes
+        # must not drop this entry to make room for itself.
+        entry.pinned = True
+        try:
+            blocks = self.pool.try_alloc(nb)
+            while blocks is None:
+                if not self.evict_one():
+                    return False
+                blocks = self.pool.try_alloc(nb)
+        finally:
+            entry.pinned = False
+        self.host_tier.pop(seg)
+        pool_scatter_rows(self.pool.arena,
+                          rows_to_device(entry.rows, self.pool.device),
+                          table_tensor(blocks, self.pool.device), bs)
+        seg.blocks = blocks
+        seg.host = False
+        seg.tick = self._next_tick()
+        self.prefetches += 1
+        return True
+
+    def _evict_host_one(self) -> bool:
+        """Drop the host tier's LRU unpinned entry when it is one of this
+        tier's segments (session spills are pinned), radix entries and
+        all."""
+        key = self.host_tier.lru_unpinned()
+        if not isinstance(key, _TierSegment):
+            return False
+        self.host_tier.pop(key)
+        self._drop(key)
+        self.host_evictions += 1
+        return True
+
+    def materialize(self, hit: TierHit, max_len: int, n: int = 1):
+        """A fresh ``[L, n, max_len, ...]`` cache pair with the hit's prefix
+        rows in every row at ``[0, hit.length)``."""
+        bs = self.pool.block_size
+        nb = -(-hit.length // bs)
+        table = table_tensor(hit.segment.blocks[:nb], self.pool.device)
+        return pool_materialize(self.pool.arena, table, hit.length, self.cfg,
+                                max_len, self.kv_quant, self.dtype, n, bs)
+
+    @property
+    def tokens_used(self) -> int:
+        """Device-resident tier tokens (demoted ones count in the host
+        tier)."""
+        return sum(s.length for s in self._segments if not s.host)
+
+    @property
+    def blocks_used(self) -> int:
+        """Pool blocks the tier's segments hold a reference on (some may
+        also sit in lane tables)."""
+        return sum(len(s.blocks) for s in self._segments)
+
+    def occupancy(self) -> float:
+        """Tier fill as a share of the whole pool, the budget it lives in."""
+        return round(self.tokens_used / max(1, self.pool.capacity_tokens), 4)
+
+    def stats(self) -> dict:
+        return {
+            "capacity_tokens": self.pool.capacity_tokens,
+            "tokens_used": self.tokens_used,
+            "occupancy": self.occupancy(),
+            **self._counters(),
+            "demotions": self.demotions,
+            "prefetches": self.prefetches,
+            "host_evictions": self.host_evictions,
+            "prefetch_stalls": self.prefetch_stalls,
+            "host_segments": sum(1 for s in self._segments if s.host),
         }

@@ -1,13 +1,12 @@
-"""Admission scheduling: the grouping of ``fifo_batch`` and the policy
-objects of ``kata_xpu_device_plugin_tpu/guest/scheduler.py``, copied.
+"""Admission scheduling: the policy objects of
+``kata_xpu_device_plugin_tpu/guest/scheduler.py``, copied.
 
 A policy decides WHEN admission prefill runs and in what slices, never
 what the forwards compute, so greedy outputs do not depend on it.
 
 - :class:`Scheduler` (``fifo_batch``): every admission pass admits the
-  FIFO prefix of the queue that fits the free lanes, grouped by padded
-  prompt length (:func:`fifo_batch`) so one prefill forward serves each
-  group.
+  FIFO prefix of the queue that fits the free lanes, grouped so that one
+  prefill forward serves each group (``GenerationServer._admit``).
 - :class:`SLOChunkedScheduler` (``slo_chunked``): when requests are
   decoding and the projected per-token latency of running the pending
   admission whole exceeds the deadline, the admission is sliced into
@@ -24,7 +23,6 @@ prefill cost per token and of the decode cadence per delivered token);
 """
 from __future__ import annotations
 
-from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
@@ -43,27 +41,6 @@ DEFAULT_ITL_SLO_MS = 50.0
 # Weight of a new observation in the estimates: converges within a few
 # observations, and one outlier round does not flip a decision.
 _EWMA_ALPHA = 0.3
-
-
-def fifo_batch(queue: deque, n_free: int, buckets: tuple,
-               reserve=None) -> dict[int, list]:
-    """Pop the FIFO prefix of ``queue`` that fits ``n_free`` slots and group
-    it by padded length — the smallest prefill bucket that holds the
-    prompt, or its exact length when none does (insertion-ordered: groups
-    stay FIFO). ``reserve`` (the paged pool's block reservation) is asked
-    for each request before it is popped; the first one it refuses stays
-    at the head of the queue and ends the pass, so nothing admits past
-    it."""
-    groups: dict[int, list] = {}
-    while queue and n_free > 0:
-        if reserve is not None and not reserve(queue[0]):
-            break
-        req = queue.popleft()
-        n = len(req.prompt)
-        bucket = next((k for k in buckets if k >= n), None)
-        groups.setdefault(bucket or n, []).append(req)
-        n_free -= 1
-    return groups
 
 
 @dataclass(frozen=True)

@@ -42,6 +42,22 @@ cap, a lane's freeze, or a live lane's reserved window edge
 (:class:`.decode_graph.PersistentRound`), and rounds run lock-step.
 Neither changes greedy outputs.
 
+The shared-prefix KV cache (``prefix_cache_tokens``, else
+``KATA_TPU_PREFIX_CACHE_TOKENS``; or an injected ``prefix_store``): an
+admission looks its prompt up in a radix index of cached bucket-aligned
+prefixes, and a hit copies the prefix rows and prefills only the suffix
+(``prefill_suffix``), batched across hits on one segment. Slotted, the
+cache is a :class:`.prefix_cache.PrefixStore` of its own; paged, it is a
+:class:`.kv_arena.PagedPrefixTier` inside the pool whose fully covered
+blocks a hit's table shares (its boundary block copied on write).
+``kv_host_tokens`` (else ``KATA_TPU_KV_HOST_TOKENS``; paged only) adds a
+host-RAM tier below the pool: pool pressure demotes unpinned prefix
+segments there before any lane is preempted, a hit on one promotes it
+back, preemption spills are accounted there, and the oldest preempted
+request's rows are uploaded on a side stream while a chunk decodes, so
+its resume lands them without waiting. None of this changes greedy
+outputs.
+
 On CUDA every whole prefill runs the flash kernel and every decode step
 the paged decode kernel: over the pool through the lanes' real block
 tables, or over a zero-copy pool view of the slotted arena
@@ -59,9 +75,8 @@ do the round, admission, chunk and persistent-exit counts under the same
 settings; sampled outputs repeat under one seed.
 
 Arguments of the JAX server that select modes not ported yet (tensor
-parallelism, speculative decoding, ring caches, the prefix cache, the host
-KV tier, the block-sharded pool layout and crash recovery) raise
-``NotImplementedError`` when set.
+parallelism, speculative decoding, ring caches, the block-sharded pool
+layout and crash recovery) raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -81,10 +96,12 @@ from ..constants import (
     ENV_DECODE_STEPS,
     ENV_FUSED,
     ENV_ITL_SLO_MS,
+    ENV_KV_HOST_TOKENS,
     ENV_KV_POOL_TOKENS,
     ENV_KV_QUANT,
     ENV_PERSISTENT,
     ENV_PREFILL_CHUNK,
+    ENV_PREFIX_CACHE_TOKENS,
     ENV_SCHED_POLICY,
 )
 from ..models.transformer import (
@@ -104,19 +121,24 @@ from .decode_graph import DecodeGraph, PersistentRound, Sampling
 from .kv_arena import (
     RESERVED_BLOCKS,
     SCRATCH_BLOCK,
+    HostKVTier,
     KVPool,
+    PagedPrefixTier,
     pool_gather_rows,
     pool_scatter_rows,
     pool_write_batch,
     pool_write_seq,
+    rows_to_device,
+    rows_to_host,
+    table_tensor,
 )
+from .prefix_cache import PrefixHit, PrefixStore, cache_bytes, cache_leaves
 from .scheduler import (
     DEFAULT_ITL_SLO_MS,
     DEFAULT_PREFILL_CHUNK,
     POLICIES,
     POLICY_FIFO,
     POLICY_SLO,
-    fifo_batch,
     make_scheduler,
 )
 
@@ -153,6 +175,14 @@ def _env_int(name: str, default: int) -> int:
         return int(raw) if raw else default
     except ValueError:
         return default
+
+
+def _resolve_tokens(value: Optional[int], env: str) -> tuple[int, bool]:
+    """A token-count knob: ``(tokens, explicit)``, the argument when given,
+    else the env value, which degrades to 0 when malformed or negative."""
+    if value is not None:
+        return int(value), True
+    return max(_env_int(env, 0), 0), False
 
 
 def _env_flag(name: str) -> Optional[bool]:
@@ -259,11 +289,37 @@ class _Request:
 @dataclass
 class _Preempted:
     """A request spilled under pool pressure: its written KV rows on the
-    host (leaves ``[L, ceil(pos/bs)*bs, ...]``), and where decode resumes."""
+    host (leaves ``[L, ceil(pos/bs)*bs, ...]``, pinned on CUDA), and where
+    decode resumes. ``ready``: on CUDA an event recorded after the rows'
+    copy to the host, which a staged upload on another stream waits for."""
     req: _Request
     kv: Any
     pos: int
     last: int
+    ready: Optional[torch.cuda.Event] = None
+
+
+@dataclass
+class _ResumeStage:
+    """The staged resume prefetch: request ``rid``'s spilled rows uploaded
+    on the side stream into ``rows``; ``done`` is recorded there after the
+    upload, ``src`` the pinned rows it reads."""
+    rid: int
+    rows: Any
+    done: Optional[torch.cuda.Event] = None
+    src: Any = None
+
+
+@dataclass
+class _LanePlan:
+    """A paged admission's block reservation, made before its prefill
+    forward. ``table[:n_shared]`` are prefix-tier blocks the lane reads and
+    never writes (pool references); the admission scatter masks them with
+    SCRATCH. When the match is not block-aligned, the partly covered
+    boundary block is the first private entry, filled from the
+    materialized cache: the copy on write."""
+    table: list
+    n_shared: int
 
 
 @dataclass
@@ -275,8 +331,9 @@ class _PartialPrefill:
     same ``_finish_admission`` as every other admission. Head-of-line:
     while it exists nothing else admits or resumes."""
     req: _Request
+    hit: Optional[PrefixHit]
     caches: Any
-    offset: int     # prompt rows already prefilled
+    offset: int     # prompt rows already resident (prefix reuse and chunks)
     fused: int = 0  # chunks that rode a decode dispatch
 
 
@@ -369,7 +426,19 @@ class GenerationServer:
     degrade to the defaults, as in the JAX server.
     :meth:`request_drain` and :meth:`drain` stop admission: started work,
     preempted spills included, runs to its end, and what never started
-    fails into :meth:`failures`."""
+    fails into :meth:`failures`.
+
+    ``prefix_cache_tokens`` (else ``KATA_TPU_PREFIX_CACHE_TOKENS``) > 0
+    turns on the prefix cache (module doc): a slotted server's
+    :class:`.prefix_cache.PrefixStore` of that many tokens, a paged
+    server's tier in its pool. ``prefix_store`` injects a store, which may
+    back several slotted servers; its config, buckets, KV dtype and device
+    must be this server's, and it keeps an env pool size from paging the
+    server (an explicit one raises). The cache needs ``prefill_buckets``:
+    without them an explicit size or store raises, an env size degrades.
+    ``kv_host_tokens`` (else ``KATA_TPU_KV_HOST_TOKENS``) sizes the host
+    tier of a paged server: explicit values < 0, or > 0 on a slotted
+    server, raise; env values degrade to 0."""
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -383,6 +452,7 @@ class GenerationServer:
                  kv_layout: Optional[str] = None, tp: Optional[int] = None,
                  speculative_k: int = 0, ring_kv: bool = False,
                  prefix_cache_tokens: Optional[int] = None,
+                 prefix_store: Optional[PrefixStore] = None,
                  sched_policy: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
                  itl_slo_ms: Optional[float] = None,
@@ -391,13 +461,11 @@ class GenerationServer:
                  persistent: Optional[bool] = None,
                  checkpoint_rounds: Optional[int] = None):
         unported = {
-            "kv_host_tokens (host KV tier, ROADMAP Queue 1 item 4)": kv_host_tokens,
             "kv_layout='blocks' (ROADMAP Queue 1 item 10)": (
                 kv_layout not in (None, "heads")),
             "tp (tensor parallelism, ROADMAP Queue 1 item 10)": (tp or 1) > 1,
             "speculative_k (ROADMAP Queue 1 item 11)": speculative_k,
             "ring_kv (ROADMAP Queue 1 item 11)": ring_kv,
-            "prefix_cache_tokens (ROADMAP Queue 1 item 8)": prefix_cache_tokens,
             "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9)": checkpoint_rounds,
         }
         for what, value in unported.items():
@@ -461,7 +529,18 @@ class GenerationServer:
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.kv_block = int(kv_block_size)
         self.kv_pool: Optional[KVPool] = None
-        self.paged = self._resolve_paged(kv_pool_tokens)
+        host_tokens, explicit_host = _resolve_tokens(kv_host_tokens,
+                                                     ENV_KV_HOST_TOKENS)
+        if host_tokens < 0:
+            raise ValueError(f"kv_host_tokens must be >= 0, got {host_tokens}")
+        self.paged = self._resolve_paged(kv_pool_tokens, prefix_store)
+        if not self.paged and host_tokens > 0:
+            if explicit_host:
+                raise ValueError("kv_host_tokens requires a paged KV pool "
+                                 "(kv_pool_tokens)")
+            host_tokens = 0
+        self._kv_host = (HostKVTier(host_tokens, self.kv_block)
+                         if host_tokens > 0 else None)
         if self.paged:
             self.arena = None  # the pool is the arena: no slot grid
             self.kv_pool = KVPool(cfg, self._pool_tokens, self.kv_block,
@@ -478,6 +557,23 @@ class GenerationServer:
             self.arena = init_kv_caches(cfg, max_batch, max_len,
                                         device=self.device,
                                         quantized=self.kv_quant)
+        self.prefix_store = self._make_prefix_store(prefix_cache_tokens,
+                                                    prefix_store)
+        # The per-server prefix counters (a store may back several
+        # servers), and each lane's pinned hit, released at its finish.
+        self._slot_prefix: list[Optional[PrefixHit]] = [None] * max_batch
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefix_tokens_reused = 0
+        self._cow_copies = 0
+        # Host-tier traffic of preemption spills (the tier's own demotions
+        # and promotions count in the tier) and the staged resume upload.
+        self._host_demotions = 0
+        self._host_prefetches = 0
+        self._resume_staged = 0
+        self._stage: Optional[_ResumeStage] = None
+        self._h2d_stream = None
+        self._h2d_inflight: list[_ResumeStage] = []
         self._preempted: deque[_Preempted] = deque()
         self._preemptions = 0
         self._lanes_peak = 0
@@ -531,7 +627,37 @@ class GenerationServer:
 
     # ----- arena model -----------------------------------------------------
 
-    def _resolve_paged(self, kv_pool_tokens: Optional[int]) -> bool:
+    def _make_prefix_store(self, tokens: Optional[int], injected):
+        """The prefix cache by the JAX server's rules (class doc), or
+        None."""
+        tokens, explicit = _resolve_tokens(tokens, ENV_PREFIX_CACHE_TOKENS)
+        if injected is None and tokens <= 0:
+            return None
+        if not self.prefill_buckets:
+            if explicit or injected is not None:
+                raise ValueError(
+                    "prefix caching requires prefill_buckets: matches are "
+                    "bucket-aligned")
+            return None
+        if self.paged:
+            return PagedPrefixTier(self.kv_pool, self.cfg, self.prefill_buckets,
+                                   host_tier=self._kv_host)
+        if injected is not None:
+            if (injected.cfg != self.cfg
+                    or injected.buckets != self.prefill_buckets
+                    or injected.kv_quant != self.kv_quant
+                    or injected.dtype != self.cfg.dtype
+                    or injected.device != self.device):
+                raise ValueError(
+                    "injected prefix_store does not match this server (cfg, "
+                    "prefill_buckets, kv_quant, cache dtype and device must "
+                    "agree: its rows land verbatim in this arena)")
+            return injected
+        return PrefixStore(self.cfg, tokens, self.prefill_buckets,
+                           kv_quant=self.kv_quant, device=self.device)
+
+    def _resolve_paged(self, kv_pool_tokens: Optional[int],
+                       prefix_store) -> bool:
         """Whether this server runs paged: explicit ``kv_pool_tokens`` >
         ``KATA_TPU_KV_POOL_TOKENS`` > slotted. A malformed environment
         value, or one this server cannot run, degrades to slotted; an
@@ -542,7 +668,7 @@ class GenerationServer:
         self._pool_tokens = int(kv_pool_tokens)
         if self._pool_tokens <= 0:
             return False
-        reason = self._pool_conflict(self._pool_tokens)
+        reason = self._pool_conflict(self._pool_tokens, prefix_store)
         if reason is None:
             return True
         if explicit:
@@ -550,12 +676,15 @@ class GenerationServer:
                              f"with this server ({reason})")
         return False
 
-    def _pool_conflict(self, pool_tokens: int) -> Optional[str]:
-        """Why this server cannot run paged, or None. (The JAX server's other
-        conflicts, ring caches, speculation and an injected prefix store,
-        are modes that raise before this is asked.)"""
+    def _pool_conflict(self, pool_tokens: int, prefix_store) -> Optional[str]:
+        """Why this server cannot run paged, or None. An injected prefix
+        store is one: the pool's own tier is the paged prefix path. (The
+        JAX server's other conflicts, ring caches and speculation, are
+        modes that raise before this is asked.)"""
         if self.kv_block < 1:
             return f"bad_block_size:{self.kv_block}"
+        if prefix_store is not None:
+            return "injected_prefix_store"
         usable = pool_tokens // self.kv_block - RESERVED_BLOCKS
         if usable < -(-self.max_len // self.kv_block):
             # Progress guarantee: the drained pool must hold one full-length
@@ -664,8 +793,17 @@ class GenerationServer:
         delivered to live lanes, the steps they ran (delivered or past an
         exit), and the captures and replays of their graph. The
         scheduler's ``sched_*``, ``fused_*`` and persistent keys are the
-        JAX server's."""
+        JAX server's, as are the prefix, copy-on-write and host-tier keys
+        (zeros when the feature is off): ``prefix_hit_ratio`` is hits over
+        this server's admitted lookups, ``kv_demotions`` and
+        ``kv_prefetches`` count the tier's segment moves and the
+        preemption spills and resumes a host tier accounts. So is
+        ``kv_resume_staged``: the resumes that landed a staged upload."""
         pool, exe, rnd = self.kv_pool, self._decode, self._round
+        store, host = self.prefix_store, self._kv_host
+        tier = store if isinstance(store, PagedPrefixTier) else None
+        lookups = self._prefix_hits + self._prefix_misses
+        arena_bytes = cache_bytes(pool.arena if pool else self.arena)
         return {
             "rounds": self._rounds,
             "decode_steps": self._decode_steps,
@@ -674,10 +812,7 @@ class GenerationServer:
             "tokens_emitted": self._emitted,
             "ttft_s": self._ttft.summary(),
             "decode_token_s": self._tok_lat.summary(),
-            "arena_bytes": sum(
-                t.numel() * t.element_size()
-                for c in (pool.arena if pool else self.arena)
-                for t in (c if isinstance(c, QTensor) else (c,))),
+            "arena_bytes": arena_bytes,
             "decode_backend": self._decode_attn,
             "decode_backend_reason": self._decode_attn_reason,
             "kv_quant": "int8" if self.kv_quant else "bf16",
@@ -708,20 +843,40 @@ class GenerationServer:
             "persistent_steps_executed": rnd.executed_total if rnd else 0,
             "persistent_graph_captures": rnd.captures if rnd else 0,
             "persistent_graph_replays": rnd.replays if rnd else 0,
+            "prefix_hits": self._prefix_hits,
+            "prefix_misses": self._prefix_misses,
+            "prefix_tokens_reused": self._prefix_tokens_reused,
+            "prefix_hit_ratio": (round(self._prefix_hits / lookups, 4)
+                                 if lookups else 0.0),
+            "prefix_store_tokens": store.tokens_used if store else 0,
+            "prefix_store_occupancy": store.occupancy() if store else 0.0,
+            # The paged tier has no arena of its own: its footprint is the
+            # share of the pool its segments' blocks hold.
+            "prefix_store_bytes": (
+                arena_bytes * tier.blocks_used // pool.num_blocks if tier
+                else cache_bytes(store.arena) if store else 0),
+            "cow_copies": self._cow_copies,
+            "kv_host_tokens": host.capacity_tokens if host else 0,
+            "kv_host_blocks": host.blocks_used if host else 0,
+            "kv_demotions": self._host_demotions + (tier.demotions if tier else 0),
+            "kv_prefetches": (self._host_prefetches
+                              + (tier.prefetches if tier else 0)),
+            "kv_resume_staged": self._resume_staged,
         }
 
     # ----- admission -------------------------------------------------------
 
     def _admit(self) -> None:
-        """Refill free slots from the queue, FIFO, one ``prefill_batch`` per
-        padded-length group. Loops because a request can finish during its
-        own prefill (eos or a 1-token budget) and free its slot again.
-        Paged: preempted requests are older than anything queued and resume
-        first; a cold admission reserves its blocks before its prefill, and
-        the first request the pool cannot hold stays at the head of the
-        queue and ends the pass. A chunked admission in progress goes
-        first of all (head-of-line), and the policy may start one instead
-        of a whole pass; at most one chunk runs per pass while it defers."""
+        """Refill free slots from the queue, FIFO (:meth:`_take`), one
+        forward per group: prefix hits on one segment at one match length
+        and padded suffix share a ``prefill_suffix``, the rest a
+        ``prefill_batch`` per padded length; hits run first, as in the JAX
+        server. Loops because a request can finish during its own prefill
+        (eos or a 1-token budget) and free its slot again. Paged: preempted
+        requests are older than anything queued and resume first. A
+        chunked admission in progress goes first of all (head-of-line), and
+        the policy may start one instead of a whole pass; at most one chunk
+        runs per pass while it defers."""
         pass_chunks = 0
         while True:
             if self._partial is not None:
@@ -743,10 +898,9 @@ class GenerationServer:
                 if self._draining and len(free) == self.max_batch:
                     # Every lane is free and the pool still cannot hold
                     # the spill: it never can, so the drain fails it.
-                    pre = self._preempted.popleft()
-                    self._failures[pre.req.rid] = (
-                        f"drained mid-flight ({self._drain_reason}): "
-                        "cannot re-admit")
+                    self._fail_preempted(f"drained mid-flight "
+                                         f"({self._drain_reason}): cannot "
+                                         "re-admit")
                     continue
                 return  # strict FIFO: nothing admits past it
             if self._draining:
@@ -758,56 +912,151 @@ class GenerationServer:
                 if not self._start_partial():
                     return  # paged reservation failed: head-of-line wait
                 continue  # the partial branch runs this pass's chunk
-            groups = fifo_batch(
-                self._queue, len(free), self.prefill_buckets,
-                reserve=self._reserve_lane_blocks if self.paged else None)
-            if not groups:
+            take = self._take(len(free))
+            if not take:
                 return
-            now = time.perf_counter()
+            hit_groups: dict[tuple, list] = {}
+            groups: dict[int, list] = {}
+            for req, hit in take:
+                if hit is None:
+                    groups.setdefault(self._cold_cost(req), []).append(req)
+                    continue
+                pad = self._suffix_pad(hit.length, len(req.prompt) - hit.length)
+                hit_groups.setdefault((id(hit.segment), hit.length, pad),
+                                      []).append((req, hit))
             it = iter(free)
+            for (_seg, _m, pad_len), pairs in hit_groups.items():
+                reqs, hits = zip(*pairs)
+                self._fill_slots([next(it) for _ in reqs], list(reqs), pad_len,
+                                 list(hits))
             for pad_len, reqs in groups.items():
-                for req in reqs:
-                    self._sched.note_queue_delay(now - req.t_submit)
-                self._fill_slots_batched([next(it) for _ in reqs], reqs, pad_len)
+                self._fill_slots([next(it) for _ in reqs], reqs, pad_len)
 
-    def _fill_slots_batched(self, slots: list[int], reqs: list,
-                            pad_len: int) -> None:
-        """Prefill N same-length-group requests in one ``[N, pad_len]``
-        forward and copy their caches into the arena slots."""
+    def _take(self, n_free: int) -> list:
+        """Pop one pass's admitted set: the FIFO prefix of the queue that
+        fits ``n_free`` lanes and, paged, whose block reservations succeed;
+        the first request the pool cannot hold stays at the head and ends
+        the pass. Each lookup pins its hit, and a failed reservation undoes
+        the lookup wholly. Returns ``[(request, hit or None)]``."""
+        take = []
+        while self._queue and len(take) < n_free:
+            req = self._queue[0]
+            hit = self._prefix_lookup_raw(req)
+            if self.paged and not self._reserve_lane_blocks(req, hit):
+                if self.prefix_store is not None:
+                    self.prefix_store.unlookup(hit)
+                break
+            self._count_prefix(hit)
+            self._queue.popleft()
+            self._sched.note_queue_delay(time.perf_counter() - req.t_submit)
+            take.append((req, hit))
+        return take
+
+    # ----- prefix cache ----------------------------------------------------
+
+    def _prefix_lookup_raw(self, req: _Request) -> Optional[PrefixHit]:
+        """The store's lookup without the server's counters (a paged
+        reservation may still undo it), pinned; None when the store is off
+        or nothing usable is cached. A hit whose suffix fits no bucket
+        inside ``max_len`` while the whole prompt fits one is cancelled:
+        cold bucketed admission keeps the bounded shapes."""
+        if self.prefix_store is None:
+            return None
+        hit = self.prefix_store.lookup(req.prompt)
+        if hit is not None:
+            n = len(req.prompt)
+            if (self._suffix_bucket(hit.length, n - hit.length) is None
+                    and any(k >= n for k in self.prefill_buckets)):
+                self.prefix_store.cancel(hit)
+                hit = None
+        return hit
+
+    def _count_prefix(self, hit: Optional[PrefixHit]) -> None:
+        """The server's counters for one admitted lookup (none when the
+        store is off)."""
+        if self.prefix_store is None:
+            return
+        if hit is None:
+            self._prefix_misses += 1
+            return
+        self._prefix_hits += 1
+        self._prefix_tokens_reused += hit.length
+
+    def _suffix_bucket(self, m: int, s_len: int) -> Optional[int]:
+        """The smallest bucket that holds a suffix of ``s_len`` after a match
+        of ``m`` inside ``max_len``, or None."""
+        return next((k for k in self.prefill_buckets
+                     if k >= s_len and m + k <= self.max_len), None)
+
+    def _suffix_pad(self, m: int, s_len: int) -> int:
+        """The padded suffix length of a hit at ``m``: its
+        :meth:`_suffix_bucket`, or the exact length when none fits."""
+        pad = self._suffix_bucket(m, s_len)
+        return pad if pad is not None else s_len
+
+    def _commit(self, slots: list[int], reqs: list, caches) -> None:
+        """Write one admission forward's cache rows to their lanes (slotted
+        arena or reserved pool blocks), then insert each prompt into the
+        prefix cache."""
+        if not self.paged:
+            _write_slots(self.arena, caches, torch.as_tensor(
+                slots, dtype=torch.long, device=self.device))
+        elif len(reqs) == 1:
+            self._paged_commit(slots[0], reqs[0], caches, 0)
+        else:
+            self._paged_commit_batch(slots, reqs, caches)
+        if self.prefix_store is not None:
+            for i, req in enumerate(reqs):
+                self.prefix_store.insert(req.prompt, caches, i)
+
+    def _fill_slots(self, slots: list[int], reqs: list, pad_len: int,
+                    hits: Optional[list] = None) -> None:
+        """Admit N requests in one ``[N, pad_len]`` forward and write their
+        caches to the lanes. Cold (``hits`` None): a ``prefill_batch`` of
+        the bucket-padded prompts. Prefix hits on one segment at one match
+        length ``m``: the prefix rows copied into fresh caches (one copy
+        fanned out to N rows) and a ``prefill_suffix`` of the padded rest
+        at offset ``m`` (plain attention over the cache, the JAX rule).
+        Each prompt is then inserted into the prefix cache, which for a hit
+        deepens the store where the prompt reaches a bucket past the
+        match."""
         n = len(reqs)
-        prompts = np.zeros((n, pad_len), np.int32)
-        true_lens = np.array([len(r.prompt) for r in reqs], np.int32)
+        m = hits[0].length if hits else 0
+        tokens = np.zeros((n, pad_len), np.int32)
+        true_lens = np.array([len(r.prompt) - m for r in reqs], np.int32)
         for i, req in enumerate(reqs):
-            prompts[i, : len(req.prompt)] = req.prompt
+            tokens[i, : true_lens[i]] = req.prompt[m:]
         t0 = time.perf_counter()
-        caches, last_logits, _pos = prefill_batch(
-            self.params, torch.from_numpy(prompts).to(self.device), self.cfg,
-            pad_len, torch.from_numpy(true_lens), kv_quantized=self.kv_quant,
-        )
+        tokens = torch.from_numpy(tokens).to(self.device)
+        if hits:
+            caches = self.prefix_store.materialize(hits[0], self.max_len, n=n)
+            _c, last_logits, _pos = prefill_suffix(
+                self.params, tokens, self.cfg, caches, m, return_logits=True,
+                true_len=torch.from_numpy(true_lens).to(self.device))
+        else:
+            caches, last_logits, _pos = prefill_batch(
+                self.params, tokens, self.cfg, pad_len,
+                torch.from_numpy(true_lens), kv_quantized=self.kv_quant)
         firsts = _next_token(last_logits, self.generator, self._do_sample,
                              self._temp_dev, self.top_k, self.top_p).cpu().numpy()
         t_first = time.perf_counter()  # the transfer above fenced the forward
         self._sched.note_prefill(n * pad_len, t_first - t0)
-        if not self.paged:
-            _write_slots(self.arena, caches, torch.as_tensor(
-                slots, dtype=torch.long, device=self.device))
-        elif n == 1:
-            self._paged_commit(slots[0], reqs[0], caches, 0)
-        else:
-            self._paged_commit_batch(slots, reqs, caches)
+        self._commit(slots, reqs, caches)
         if n >= 2:
             self._batch_prefills += 1
         for i, (b, req) in enumerate(zip(slots, reqs)):
-            self._finish_admission(b, req, int(firsts[i]), int(true_lens[i]),
-                                   t_first)
+            self._finish_admission(b, req, int(firsts[i]), m + int(true_lens[i]),
+                                   t_first, hit=hits[i] if hits else None)
 
     def _finish_admission(self, b: int, req: _Request, first: int, pos: int,
-                          t_first: float) -> None:
+                          t_first: float,
+                          hit: Optional[PrefixHit] = None) -> None:
         req.out.append(first)
         self._prefills += 1
         self._emitted += 1
         self._ttft.observe(t_first - req.t_submit)
         self._slot_req[b] = req
+        self._slot_prefix[b] = hit  # pinned until the request finishes
         self._pos[b] = pos
         self._last[b] = first
         self._fresh_rows.add(b)  # overlap: override the in-flight row
@@ -822,18 +1071,22 @@ class GenerationServer:
         return next((k for k in self.prefill_buckets if k >= n), None) or n
 
     def _start_partial(self) -> bool:
-        """Begin a chunked admission of the queue head: reserve its blocks
-        (paged) as a whole admission would, then park it as the partial
-        with fresh caches of its own; :meth:`_advance_partial` runs its
-        chunks. False when the pool cannot hold it: it stays queued."""
-        req = self._queue[0]
-        if self.paged and not self._reserve_lane_blocks(req):
+        """Begin a chunked admission of the queue head: look it up and
+        reserve its blocks (paged) as a whole admission would, then park it
+        as the partial with caches of its own, a hit's prefix rows already
+        in them; :meth:`_advance_partial` runs its chunks from there. False
+        when the pool cannot hold it: it stays queued."""
+        take = self._take(1)
+        if not take:
             return False
-        self._queue.popleft()
-        self._sched.note_queue_delay(time.perf_counter() - req.t_submit)
-        caches = init_kv_caches(self.cfg, 1, self.max_len, device=self.device,
-                                quantized=self.kv_quant)
-        self._partial = _PartialPrefill(req=req, caches=caches, offset=0)
+        req, hit = take[0]
+        if hit is not None:
+            caches = self.prefix_store.materialize(hit, self.max_len)
+        else:
+            caches = init_kv_caches(self.cfg, 1, self.max_len,
+                                    device=self.device, quantized=self.kv_quant)
+        self._partial = _PartialPrefill(req=req, hit=hit, caches=caches,
+                                        offset=hit.length if hit else 0)
         return True
 
     def _advance_partial(self, ran: int = 0) -> tuple[bool, int]:
@@ -920,15 +1173,12 @@ class GenerationServer:
         the fused final slice."""
         req = p.req
         b = next(i for i in range(self.max_batch) if self._slot_req[i] is None)
-        if self.paged:
-            self._paged_commit(b, req, p.caches, 0)
-        else:
-            _write_slots(self.arena, p.caches, torch.as_tensor(
-                [b], dtype=torch.long, device=self.device))
+        self._commit([b], [req], p.caches)
         self._partial = None
         if p.fused:
             self._fused_admissions += 1
-        self._finish_admission(b, req, first, len(req.prompt), t_first)
+        self._finish_admission(b, req, first, len(req.prompt), t_first,
+                               hit=p.hit)
 
     def _prepare_fused_chunk(self) -> Optional[tuple]:
         """Take the pending slice for a fused dispatch, advancing the
@@ -970,6 +1220,7 @@ class GenerationServer:
             self._results[req.rid] = np.asarray(req.out[: req.max_new_tokens],
                                                 np.int32)
             self._slot_req[b] = None
+            self._release_prefix(b)
             if self.paged:
                 # The table resets to SCRATCH, so what this lane still
                 # writes in the round lands in the scratch block.
@@ -986,77 +1237,122 @@ class GenerationServer:
         self._bt_host[b, len(table):] = SCRATCH_BLOCK
 
     def _free_lane(self, b: int) -> None:
+        """Drop the lane's block references: private blocks return to the
+        pool now, tier-shared ones once the tier and every other lane let
+        go."""
         self.kv_pool.unref(self._lane_blocks[b])
         self._set_lane_table(b, [])
 
-    def _reserve_lane_blocks(self, req: _Request) -> bool:
+    def _release_prefix(self, b: int) -> None:
+        """Unpin the lane's prefix hit: its segment may be evicted again
+        once no other request holds it."""
+        hit, self._slot_prefix[b] = self._slot_prefix[b], None
+        if hit is not None:
+            self.prefix_store.release(hit)
+
+    def _alloc_blocks(self, n: int) -> Optional[list]:
+        """``n`` pool blocks, evicting (or, with a host tier, demoting)
+        unpinned prefix-tier segments LRU first under pressure; None when
+        live state holds everything. Every allocation for a lane comes
+        through here, so the tier always gives way before a preemption."""
+        got = self.kv_pool.try_alloc(n)
+        while got is None:
+            tier = self.prefix_store
+            if not isinstance(tier, PagedPrefixTier) or not tier.evict_one():
+                return None
+            got = self.kv_pool.try_alloc(n)
+        return got
+
+    def _reserve_lane_blocks(self, req: _Request,
+                             hit: Optional[PrefixHit] = None) -> bool:
         """Reserve the blocks ``req``'s admission scatter needs, those of
         its bucket-padded rows, BEFORE its prefill forward runs: a failed
-        reservation must leave the request queued, not waste a forward. The
-        plan waits in ``_plans`` until the fill path commits it."""
+        reservation must leave the request queued, not waste a forward. A
+        hit shares the tier segment's fully covered blocks and gets private
+        ones for the rest, the copy-on-write boundary block among them when
+        the match is not block-aligned. The plan waits in ``_plans`` until
+        the fill path commits it."""
         n = len(req.prompt)
-        rows = next((k for k in self.prefill_buckets if k >= n), None) or n
-        blocks = self.kv_pool.try_alloc(-(-rows // self.kv_block))
-        if blocks is None:
+        shared: list = []
+        if hit is not None:
+            rows = hit.length + self._suffix_pad(hit.length, n - hit.length)
+            shared = self.prefix_store.shared_blocks(hit)
+        else:
+            rows = self._cold_cost(req)
+        priv = self._alloc_blocks(-(-rows // self.kv_block) - len(shared))
+        if priv is None:
             return False
-        self._plans[req.rid] = blocks
+        self.kv_pool.ref(shared)
+        if hit is not None and hit.length % self.kv_block:
+            self._cow_copies += 1
+        self._plans[req.rid] = _LanePlan(shared + priv, len(shared))
         return True
 
-    def _table_tensor(self, tables) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(tables, np.int32)).to(self.device)
-
     def _paged_commit(self, b: int, req: _Request, caches, row: int) -> None:
-        """Land one admission's cache row in its reserved blocks and install
-        the lane table."""
-        table = self._plans.pop(req.rid)
+        """Land one admission's cache row in its reserved private blocks and
+        install the lane table. Shared tier blocks are masked with SCRATCH
+        in the scatter: other lanes read their rows, which must not be
+        written again."""
+        plan = self._plans.pop(req.rid)
+        scatter = [SCRATCH_BLOCK] * plan.n_shared + plan.table[plan.n_shared:]
         pool_write_seq(self.kv_pool.arena, caches, row,
-                       self._table_tensor(table), self.kv_block)
-        self._set_lane_table(b, table)
+                       table_tensor(scatter, self.device), self.kv_block)
+        self._set_lane_table(b, plan.table)
 
     def _paged_commit_batch(self, slots: list[int], reqs: list, caches) -> None:
         """Batched :meth:`_paged_commit`: one scatter per leaf for a whole
-        same-bucket admission group. Tables are padded with SCRATCH to the
-        widest plan; pad entries collide only on SCRATCH, which nothing
-        reads, and never touch the ZERO block."""
+        admission group, shared entries masked with SCRATCH per row and
+        tables padded with SCRATCH to the widest plan; masked and pad
+        entries collide only on SCRATCH, which nothing reads, and never
+        touch the ZERO block."""
         plans = [self._plans.pop(req.rid) for req in reqs]
-        width = max(len(p) for p in plans)
+        width = max(len(p.table) for p in plans)
         tables = np.full((len(plans), width), SCRATCH_BLOCK, np.int32)
         for i, plan in enumerate(plans):
-            tables[i, : len(plan)] = plan
+            tables[i, plan.n_shared:len(plan.table)] = plan.table[plan.n_shared:]
         pool_write_batch(self.kv_pool.arena, caches,
-                         self._table_tensor(tables), self.kv_block)
+                         table_tensor(tables, self.device), self.kv_block)
         for b, plan in zip(slots, plans):
-            self._set_lane_table(b, plan)
+            self._set_lane_table(b, plan.table)
 
     def _preempt_lane(self, b: int) -> None:
         """Preempt the request in lane ``b`` under pool pressure: gather its
         written KV rows out of the pool, copy them to the host, release its
-        blocks and put it on the wait list. Only the blocks that hold
-        written rows (``ceil(pos / bs)``) are spilled: there is no compiled
-        executable whose shape a full-width table would keep fixed. Greedy
-        output is unchanged: :meth:`_resume_one` re-lands the rows verbatim
-        and decode resumes at the same ``pos`` with the same ``last``. Under
-        overlap those are the host's, one chunk behind the device: the
-        in-flight chunk's tokens for this lane are dropped at retire, and
-        what it still writes into the freed blocks lands, in stream order,
-        before anything their next owner writes."""
+        blocks and prefix pin and put it on the wait list. Only the blocks
+        that hold written rows (``ceil(pos / bs)``) are spilled: there is no
+        compiled executable whose shape a full-width table would keep
+        fixed. Greedy output is unchanged: :meth:`_resume_one` re-lands the
+        rows verbatim and decode resumes at the same ``pos`` with the same
+        ``last``. Under overlap those are the host's, one chunk behind the
+        device: the in-flight chunk's tokens for this lane are dropped at
+        retire. The gather and the copy to pinned memory are queued on the
+        stream behind that chunk, which still writes these blocks, so they
+        read its rows; what it writes past ``pos`` into the freed blocks
+        lands, in stream order, before anything their next owner writes.
+        With a host tier the spill is accounted there, pinned."""
         req = self._slot_req[b]
         pos = int(self._pos[b])
         written = self._lane_blocks[b][: -(-pos // self.kv_block)]
-        rows = pool_gather_rows(self.kv_pool.arena, self._table_tensor(written),
-                                self.kv_block)
-        spilled = tuple(
-            QTensor(*(t.cpu() for t in c)) if isinstance(c, QTensor) else c.cpu()
-            for c in rows)
+        spilled = rows_to_host(pool_gather_rows(
+            self.kv_pool.arena, table_tensor(written, self.device), self.kv_block))
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
         self._free_lane(b)
+        self._release_prefix(b)
         # Kept sorted by rid: a pass preempts youngest first while older
         # requests may already wait, and resume order must be submit order.
         self._preempted = deque(sorted(
             [*self._preempted,
-             _Preempted(req=req, kv=spilled, pos=pos, last=int(self._last[b]))],
+             _Preempted(req=req, kv=spilled, pos=pos, last=int(self._last[b]),
+                        ready=ready)],
             key=lambda p: p.req.rid))
         self._slot_req[b] = None
         self._preemptions += 1
+        if self._kv_host is not None:
+            self._kv_host.put(("spill", req.rid), pos, pinned=True)
+            self._host_demotions += 1
 
     def _resume_one(self, b: int) -> bool:
         """Re-admit the OLDEST preempted request into lane ``b``: fresh
@@ -1064,21 +1360,69 @@ class GenerationServer:
         payload and scale alike), decode resuming where the spill cut it.
         False when the pool still cannot hold it: the caller waits."""
         pre = self._preempted[0]
-        blocks = self.kv_pool.try_alloc(-(-pre.pos // self.kv_block))
+        blocks = self._alloc_blocks(-(-pre.pos // self.kv_block))
         if blocks is None:
             return False
-        rows = tuple(
-            QTensor(*(t.to(self.device) for t in c)) if isinstance(c, QTensor)
-            else c.to(self.device) for c in pre.kv)
-        pool_scatter_rows(self.kv_pool.arena, rows, self._table_tensor(blocks),
-                          self.kv_block)
+        stage, self._stage = self._stage, None
+        if stage is not None and stage.done is not None:
+            # Held, source and rows, until its upload is known complete.
+            self._h2d_inflight.append(stage)
+        if stage is not None and stage.rid == pre.req.rid:
+            rows = stage.rows
+            if stage.done is not None:
+                # The main stream waits for the side stream's upload and
+                # uses the rows it made.
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(stage.done)
+                for t in cache_leaves(rows):
+                    t.record_stream(main)
+            self._resume_staged += 1
+        else:
+            rows = rows_to_device(pre.kv, self.device)
+        pool_scatter_rows(self.kv_pool.arena, rows,
+                          table_tensor(blocks, self.device), self.kv_block)
         self._set_lane_table(b, blocks)
         self._slot_req[b] = pre.req
         self._pos[b] = pre.pos
         self._last[b] = pre.last
         self._fresh_rows.add(b)  # overlap: override the in-flight row
         self._preempted.popleft()
+        if self._kv_host is not None:
+            self._kv_host.pop(("spill", pre.req.rid))
+            self._host_prefetches += 1
         return True
+
+    def _stage_resume_prefetch(self) -> None:
+        """Start the upload of the oldest preempted request's spilled rows
+        while a decode chunk is in flight (called right after each
+        dispatch, and after a lock-step round), so that its resume lands
+        rows already on the card. Only with a host tier, one staged upload
+        at a time. On CUDA the upload runs on a side stream from the pinned
+        spill, after the spill's own copy (its ``ready`` event), beside the
+        chunk; it records ``done``, which the resume waits for. A failed
+        copy raises."""
+        if self._kv_host is None or not self._preempted:
+            return
+        pre = self._preempted[0]
+        if self._stage is not None and self._stage.rid == pre.req.rid:
+            return  # already staged for the current head
+        if self.device.type != "cuda":
+            self._stage = _ResumeStage(pre.req.rid, rows_to_device(pre.kv,
+                                                                   self.device))
+            return
+        self._h2d_inflight = [s for s in self._h2d_inflight
+                              if not s.done.query()]
+        if self._h2d_stream is None:
+            self._h2d_stream = torch.cuda.Stream(self.device)
+        side = self._h2d_stream
+        side.wait_event(pre.ready)
+        with torch.cuda.stream(side):
+            rows = rows_to_device(pre.kv, self.device)
+            done = torch.cuda.Event()
+            done.record(side)
+        if self._stage is not None:  # staged for an earlier head: dropped
+            self._h2d_inflight.append(self._stage)
+        self._stage = _ResumeStage(pre.req.rid, rows, done, src=pre.kv)
 
     def _ensure_blocks(self) -> None:
         """Grow every live lane's table to cover the next dispatch window,
@@ -1108,7 +1452,7 @@ class GenerationServer:
             need = min(-(-(int(self._pos[b]) + lookahead) // bs), cap,
                        self._nb_max)
             while len(self._lane_blocks[b]) < need and self._slot_req[b] is req:
-                got = self.kv_pool.try_alloc(need - len(self._lane_blocks[b]))
+                got = self._alloc_blocks(need - len(self._lane_blocks[b]))
                 if got is not None:
                     self._set_lane_table(b, self._lane_blocks[b] + got)
                     break
@@ -1146,14 +1490,20 @@ class GenerationServer:
         messages. Every submitted request is now in the results or in
         :meth:`failures`."""
         while self._preempted:
-            pre = self._preempted.popleft()
-            self._failures[pre.req.rid] = (
-                f"drained mid-flight ({self._drain_reason})")
+            self._fail_preempted(f"drained mid-flight ({self._drain_reason})")
         while self._queue:
             req = self._queue.popleft()
             self._failures[req.rid] = (
                 f"drained before start ({self._drain_reason})")
         self._drain_done = True
+
+    def _fail_preempted(self, error: str) -> None:
+        """Fail the oldest preempted request, its host-tier accounting
+        released with it."""
+        pre = self._preempted.popleft()
+        self._failures[pre.req.rid] = error
+        if self._kv_host is not None:
+            self._kv_host.pop(("spill", pre.req.rid))
 
     def _decode_budget(self) -> Optional[np.ndarray]:
         """Per-lane upper bounds on the tokens still to come, which arm the
@@ -1279,6 +1629,9 @@ class GenerationServer:
         # A slice that rode this dispatch lands after the decode tokens.
         fc, self._fused_ret = self._fused_ret, None
         self._apply_fused(fc)
+        # No chunk is in flight here, but the upload still runs ahead of
+        # the next round's admission pass.
+        self._stage_resume_prefetch()
         return True
 
     def _step_overlapped(self) -> bool:
@@ -1308,6 +1661,7 @@ class GenerationServer:
                 last, pos = prev.last, prev.pos
             self._fresh_rows.clear()
             self._dispatch_chunk(last, pos)
+            self._stage_resume_prefetch()  # overlaps the chunk just dispatched
         if prev is not None:
             self._retire(prev)  # host work overlaps the dispatched chunk
         return (self._inflight is not None or bool(self._queue)

@@ -1116,3 +1116,141 @@ def test_persistent_and_chunked_servers_on_the_card(cuda_device):
                        prefill_chunk=128)
     assert all(np.array_equal(a, b) for a, b in zip(got, base))
     assert st["sched_chunks"] > 0 and st["fused_admissions"] > 0
+
+
+def _prefix_server(cuda_device, **extra):
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=6, max_len=512, prefill_buckets=(128, 256, 512),
+              chunk=4, **extra)
+    return GenerationServer(params, cfg, **kw), params, cfg
+
+
+@pytest.mark.cuda
+def test_staged_resume_upload_is_bit_equal_beside_a_replay(cuda_device):
+    """Over a pool that preempts, with a host tier: each resume upload
+    staged on the side stream right after a dispatch, while that chunk's
+    graph replays, lands the same bits as a plain upload of the spill on
+    the main stream; the run's tokens equal the tier-less server's and
+    every resume consumed a staged upload."""
+    from kata_xpu_device_plugin_tpu_torch.guest.kv_arena import rows_to_device
+
+    pool = dict(kv_pool_tokens=768, kv_block_size=16)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, n), int(b))
+            for n, b in zip(rng.integers(100, 129, 8), rng.integers(40, 81, 8))]
+
+    def serve(srv):
+        rids = [srv.submit(p, b) for p, b in reqs]
+        out = srv.run()
+        return [out[r] for r in rids]
+
+    base_srv, params, cfg = _prefix_server(cuda_device, **pool)
+    base = serve(base_srv)
+    srv = GenerationServer(params, cfg, max_batch=6, max_len=512,
+                           prefill_buckets=(128, 256, 512), chunk=4,
+                           kv_host_tokens=2048, **pool)
+    stage, checks = srv._stage_resume_prefetch, []
+
+    def checking():
+        before = srv._stage
+        stage()
+        st = srv._stage
+        if st is None or st is before:
+            return
+        replaying = srv._inflight is not None and srv._decode.replays > 0
+        spill = srv._preempted[0].kv
+        assert all(t.is_pinned() for t in _leaves(spill))
+        plain = rows_to_device(spill, cuda_device)
+        torch.cuda.current_stream().wait_event(st.done)
+        checks.append((replaying, all(
+            torch.equal(_bits(a), _bits(b))
+            for a, b in zip(_leaves(st.rows), _leaves(plain)))))
+
+    srv._stage_resume_prefetch = checking
+    got = serve(srv)
+    stats = srv.stats()
+    assert all(np.array_equal(a, b) for a, b in zip(got, base))
+    assert stats["preemptions"] >= 1
+    assert stats["kv_resume_staged"] == stats["preemptions"]
+    assert checks and all(eq for _, eq in checks)
+    assert any(replaying for replaying, _ in checks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 48], ids=["aligned", "cow"])
+def test_masked_commit_leaves_shared_blocks_untouched(cuda_device, bs):
+    """A 256-token head cached in the tier, then hits admitted in one
+    batched scatter and alone: every byte of the tier's blocks (int8
+    payload and scales) is what it was before the hits; at a tile of 48
+    the boundary block is copied on write instead."""
+    srv, _params, _cfg = _prefix_server(cuda_device, kv_pool_tokens=4096,
+                                        kv_block_size=bs, prefix_cache_tokens=1)
+    rng = np.random.default_rng(4)
+    head = rng.integers(0, 512, 256)
+    srv.submit(np.concatenate([head, rng.integers(0, 512, 20)]), 8)
+    srv.run()
+    (seg,) = srv.prefix_store._segments
+    pool = srv.kv_pool
+
+    def rows():
+        return [torch.cat([_bits(t[:, 0, blk * bs:(blk + 1) * bs]).clone()
+                           for blk in seg.blocks], dim=1)
+                for t in _leaves(pool.arena)]
+
+    before = rows()
+    for n in (10, 40, 70, 100, 30):
+        srv.submit(np.concatenate([head, rng.integers(0, 512, n)]), 12)
+    srv.run()
+    srv.submit(np.concatenate([head, rng.integers(0, 512, 50)]), 12)
+    srv.run()
+    stats = srv.stats()
+    assert stats["prefix_hits"] == 6 and stats["prefill_batches"] >= 1
+    assert (stats["cow_copies"] > 0) == (bs == 48)
+    for a, b in zip(rows(), before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_graph_replay_over_shared_and_cow_blocks_is_bit_equal(cuda_device):
+    """Lanes whose tables share tier blocks and hold copy-on-write
+    boundary blocks (tile 48, a 256-token match): the server's chunk by
+    graph replay against the same chunk run eagerly on a clone of the
+    pool, tokens, last, pos and every pool byte equal."""
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+
+    bs = 48
+    srv, params, cfg = _prefix_server(cuda_device, kv_pool_tokens=4096,
+                                      kv_block_size=bs, prefix_cache_tokens=1,
+                                      overlap=False)
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, 512, 256)
+    srv.submit(np.concatenate([head, rng.integers(0, 512, 20)]), 16)
+    srv.run()  # the eager warm-up chunk and the capture
+    for n in (10, 40, 70, 100):
+        srv.submit(np.concatenate([head, rng.integers(0, 512, n)]), 40)
+    srv.step()
+    exe = srv._decode
+    assert exe.captures == 1 and srv.stats()["cow_copies"] == 4
+    held = [blk for t in srv._lane_blocks for blk in t]
+    assert any(held.count(blk) == 4 for blk in srv.prefix_store._segments[0].blocks)
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena
+    clone = [t.clone() for t in _leaves(arena)]
+    eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2]) for i in range(2))
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    tables = dev(srv._bt_host)
+    tok, pos = dev(srv._last), dev(srv._pos)
+    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, block_tables=tables, **exe._kw)
+    got = exe(tok, pos, block_tables=tables)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(_leaves(arena), clone):
+        assert torch.equal(_bits(a), _bits(c))

@@ -134,11 +134,18 @@ def test_kv_quant_resolution(monkeypatch):
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_modes_raise(models, kwarg):
     """Modes not ported yet raise ``NotImplementedError``. The chunked
-    admission policy and persistent decode are ported: they build, and
-    sampled persistent decode raises the JAX server's ``ValueError`` (its
-    rounds are greedy only)."""
+    admission policy, persistent decode and the prefix cache are ported:
+    they build, and sampled persistent decode raises the JAX server's
+    ``ValueError`` (its rounds are greedy only), as does the host KV tier
+    on this slotted server (it needs a paged pool)."""
     _, _, tp, tcfg = models
-    if "persistent" in kwarg and "temperature" in kwarg:
+    if "kv_host_tokens" in kwarg:
+        with pytest.raises(ValueError, match="paged"):
+            GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+    elif "prefix_cache_tokens" in kwarg:
+        srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+        assert srv.prefix_store.capacity_tokens == 64
+    elif "persistent" in kwarg and "temperature" in kwarg:
         with pytest.raises(ValueError, match="sampling"):
             GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
     elif "persistent" in kwarg or "sched_policy" in kwarg:
