@@ -91,6 +91,21 @@ Phases, each printing one JSON line:
    logits within the serving bound of one read-back slice of the whole
    prompt, and over the bf16 cache of the whole plain prefill; a whole
    admission pass's flash calls within ``kernel_tolerance``;
+7a. prefix — the shared-prefix cache and the host KV tier (``phase_prefix``);
+7b. tp — tensor-parallel serving with every shard on the one card: the
+   shard-local paged decode kernel (K2) at the Gemma-2B (H=8, KV=1, D=256)
+   and Qwen2-7B (H=28, KV=4, D=128) decode shapes, bf16 and int8, tiles 16
+   and 128, tp 2 and 4, over lanes on one shard, lanes across shards and a
+   dead lane: each shard's (acc, m, l) against the plain shard-local
+   version, the merged output bit-equal to the unsharded kernel for lanes
+   on one shard and within ``kernel_tolerance`` of the plain version,
+   relaunches bit-identical, timed by graph replay beside the unsharded
+   kernel and its byte bound; full-width Gemma-2B on the paged phase's
+   pool and 32 requests at tp=1, tp=2 heads, tp=2 and tp=4 blocks (tok/s,
+   TTFT, ITL, shard occupancies, launches = rounds x chunk x layers x
+   shards, token match and the first parting's margin against tp=1), a
+   tp=2 blocks ``graph_check``, each run's logits against the plain path
+   (``tp_crosscheck``), and Qwen2-7B (4 layers) at tp=2 heads beside tp=1;
 8. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
    cache, under ``KATA_TPU_DECODE_KERNEL=1``: 18 x 63 launches of the dense
    decode kernel, each layer of the first decode step held against the
@@ -380,12 +395,17 @@ def relaunch_equal(name: str, out, again) -> None:
         raise AssertionError(f"{name}: a second launch gave other bits")
 
 
-def decode_bound(keys: float, B, SQ, H, KV, D, nb, quantized, flops) -> dict:
+def decode_bound(keys: float, B, SQ, H, KV, D, nb, quantized, flops,
+                 out_bytes=None) -> dict:
     """The least time the card could take for a paged decode call that must
     read ``keys`` K rows and as many V rows once (payload and, for int8,
-    scale), q and the tables once, and write the output once."""
+    scale), q and the tables once, and write the output once (``out_bytes``,
+    by default the bf16 ``[B, SQ, H, D]``)."""
     row_bytes = D * (1 if quantized else 2) + (4 if quantized else 0)
-    nbytes = 2 * keys * KV * row_bytes + 2 * 2 * B * SQ * H * D + 4 * B * (nb + 2)
+    if out_bytes is None:
+        out_bytes = 2 * B * SQ * H * D
+    nbytes = (2 * keys * KV * row_bytes + 2 * B * SQ * H * D + out_bytes
+              + 4 * B * (nb + 2))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
@@ -1160,10 +1180,12 @@ def run_requests(srv, prompts, budgets, waves=None):
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
         decode_attention,
         paged_decode_attention,
+        paged_decode_shard_stats,
     )
     from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
 
     kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+               "paged_decode_shard": paged_decode_shard_stats,
                "dense_decode": decode_attention}
     base = warm_server(srv)
     waves = list(waves or (len(prompts),))
@@ -1193,14 +1215,19 @@ def run_requests(srv, prompts, budgets, waves=None):
         if not ((out >= 0) & (out < srv.cfg.vocab_size)).all():
             raise AssertionError(f"request {rid}: token out of vocabulary")
     kernel = stats["decode_backend"] == "cuda_paged"
-    want = {"flash_fwd", "paged_decode"} if kernel else {"flash_fwd"}
+    # A tensor-parallel server launches the decode kernel once a shard; under
+    # the blocks layout in its shard-local form.
+    decode = "paged_decode_shard" if stats["kv_pool_shards"] > 1 else "paged_decode"
+    want = {"flash_fwd", decode} if kernel else {"flash_fwd"}
     if set(launches) != want:
         raise AssertionError(f"serving ({stats['decode_backend']} decode) must "
                              f"launch {sorted(want)} and no other: {launches}")
     rounds, steps = stats["rounds"], stats["decode_steps"] * srv.chunk
-    if kernel and launches["paged_decode"] != rounds * steps * srv.cfg.n_layers:
+    per_round = steps * srv.cfg.n_layers * stats["tp_degree"]
+    if kernel and launches[decode] != rounds * per_round:
         raise AssertionError(f"a decode step left the paged kernel: {launches}, "
-                             f"{rounds} rounds of {steps} steps")
+                             f"{rounds} rounds of {steps} steps, "
+                             f"{stats['tp_degree']} shards")
     if (life["decode_graph_captures"] != 1
             or life["decode_graph_replays"] != life["rounds"] - 1
             or stats["decode_graph_replays"] != rounds):
@@ -1290,7 +1317,7 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
             gen.set_state(state)
 
     t0 = time.perf_counter()
-    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+    want = serve_decode(srv.params, eager_arena, tok, pos, cfg, exe.steps,
                         exe.decode_kernel_fn, **extra, **exe._kw)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
@@ -1324,6 +1351,7 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
     if gen is not None:  # no restore: the generator has moved on
         fresh = not torch.equal(exe(tok, pos, **extra)[0], first[0])
     row = dict(arena="paged" if srv.paged else "slotted",
+               tp=srv.stats()["tp_degree"], kv_layout=srv.stats()["kv_layout"],
                sampled=gen is not None, fresh_draws_without_restore=fresh,
                scratch_block_bit_equal=None if scratch is None else scratch_equal,
                kv_quant=srv.stats()["kv_quant"], steps=exe.steps,
@@ -1576,10 +1604,12 @@ def run_persistent(srv, prompts, budgets):
     from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
         decode_attention,
         paged_decode_attention,
+        paged_decode_shard_stats,
     )
     from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
 
     kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+               "paged_decode_shard": paged_decode_shard_stats,
                "dense_decode": decode_attention}
     for b in (4, 12):
         srv.submit(np.arange(1, 101, dtype=np.int32), b)
@@ -2431,6 +2461,389 @@ def phase_families(seed: int = 0, profile: bool = False) -> dict:
     return launches
 
 
+# ----- tensor-parallel serving ------------------------------------------------
+
+# The tp phase's servers beside tp=1: (name, degree, KV layout).
+TP_RUNS = (("tp2_heads", 2, "heads"), ("tp2_blocks", 2, "blocks"),
+           ("tp4_blocks", 4, "blocks"))
+
+
+def shard_inputs(B, H, KV, D, bs, tp, quantized, keys=2048, seed=0):
+    """A shard-local decode call's inputs on the card: a block-sharded pool
+    of ``tp`` sub-pools of ``nbl`` blocks (shard ``s`` holds global blocks
+    ``[s·nbl, (s+1)·nbl)``; block 0 the ZERO block) and ``B`` lanes at
+    ragged positions: lane 0's blocks all on shard 0, lane 1's all on the
+    last shard, the others' drawn from the shards in turn (as the pool's
+    allocator deals them), the last lane dead over blocks of every shard.
+    Table entries past a lane's position are unmapped (ZERO). Returns
+    ``(q, k, v, tables, pos, nbl, kw)``."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import quantize_kv
+
+    rng = np.random.default_rng(seed + bs + tp + KV + int(quantized))
+    nb = keys // bs
+    nbl = B * nb // tp + nb + 2
+    nt = tp * nbl * bs
+    g = torch.Generator(device="cuda").manual_seed(seed + bs + tp)
+    q = torch.randn(B, 1, H, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pk = torch.randn(1, nt, KV, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pv = torch.randn(1, nt, KV, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    pk[0, :bs] = 0.0
+    pv[0, :bs] = 0.0
+    nxt = [2] * tp  # each shard's next free local block
+
+    def take(shard):
+        nxt[shard] += 1
+        return shard * nbl + nxt[shard] - 1
+
+    pos = rng.integers(0, keys, B)
+    pos[:2] = rng.integers(keys // 2, keys, 2)
+    pos[-1] = 10_000
+    tables = np.zeros((B, nb), np.int32)
+    for b in range(B - 1):
+        for j in range(nb):
+            shard = 0 if b == 0 else tp - 1 if b == 1 else (b + j) % tp
+            tables[b, j] = take(shard) if j <= pos[b] // bs else 0
+    tables[-1] = rng.integers(2, tp * nbl, nb)
+    k, v = (quantize_kv(pk), quantize_kv(pv)) if quantized else (pk, pv)
+    return (q, k, v, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(pos.astype(np.int32)).cuda(), nbl,
+            dict(block_size=bs, paged_len=keys))
+
+
+def shard_view(c, s: int, rows: int):
+    """Shard ``s``'s sub-pool: rows ``[s·rows, (s+1)·rows)`` of a pool
+    leaf (or both tensors of an int8 QTensor)."""
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import QTensor
+
+    if isinstance(c, QTensor):
+        return QTensor(c.q[:, s * rows:(s + 1) * rows],
+                       c.scale[:, s * rows:(s + 1) * rows])
+    return c[:, s * rows:(s + 1) * rows]
+
+
+def owned_keys(tables, pos, lo: int, nbl: int, bs: int, keys: int) -> float:
+    """Keys of the tiles a shard holding global blocks ``[lo, lo + nbl)``
+    reads for these lanes: the keys up to each lane's position (a dead
+    lane's view to its end) in the tiles whose table entry it holds."""
+    import torch
+
+    p = pos.clamp(max=keys - 1).long()
+    key = torch.arange(keys, device=pos.device)
+    blk = torch.gather(tables.long(), 1, (key // bs).expand(len(p), -1))
+    mine = (blk >= lo) & (blk < lo + nbl) & (key[None, :] <= p[:, None])
+    return float(mine.sum())
+
+
+def shard_case(name, B, H, KV, D, bs, tp, quantized, timed=False):
+    """The shard-local paged decode form (K2) on every shard of a
+    block-sharded pool (:func:`shard_inputs`): each shard's ``(acc, m,
+    l)`` against the plain shard-local version within
+    ``decode_attn.shard_stats_tolerance`` and its normalised output within
+    ``kernel_tolerance``; a relaunch bit-identical; the merged output
+    bit-equal to the unsharded kernel for the two lanes whose blocks lie on
+    one shard, and within ``kernel_tolerance`` of the plain version for
+    every live lane. ``timed``: shard 0's launch by CUDA-graph replay
+    beside its plain version and its bound (the bytes of the tiles it
+    holds), every shard's launch and the merge together, and the unsharded
+    kernel on the same pool and tables."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        from_stat_rows,
+        paged_decode_attention,
+        paged_decode_reference,
+        paged_decode_shard_stats,
+        paged_decode_split_reference,
+        shard_stats_tolerance,
+    )
+
+    q, k, v, tables, pos, nbl, kw = shard_inputs(B, H, KV, D, bs, tp, quantized)
+    rows = nbl * bs
+    parts, worst = [], {"stats_m_err": 0.0, "stats_l_err_over_bound": 0.0,
+                        "empty_rows": 0}
+    norm_cases = []
+    for s in range(tp):
+        ks, vs = shard_view(k, s, rows), shard_view(v, s, rows)
+        shard = dict(shard_lo=s * nbl, shard_blocks=nbl)
+        got = paged_decode_shard_stats(q, ks, vs, tables, pos, **kw, **shard)
+        again = paged_decode_shard_stats(q, ks, vs, tables, pos, **kw, **shard)
+        want = paged_decode_split_reference(q, ks, vs, tables, pos, **kw,
+                                            **shard, return_stats=True)
+        mag = paged_decode_split_reference(q.float(), ks, shard_view(
+            v_abs(v), s, rows), tables, pos, **kw, **shard, return_stats=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            relaunch_equal(f"{name} shard {s}", _bits(a), _bits(b))
+        live = slice(0, B - 1)  # the dead lane's rows are garbage on both
+        res = shard_stats_tolerance([t[live] for t in got],
+                                    [t[live] for t in want], q, ks)
+        if not res["ok"]:
+            raise AssertionError(f"{name} shard {s}: statistics {res}")
+        worst["stats_m_err"] = max(worst["stats_m_err"], res["m_err"])
+        worst["stats_l_err_over_bound"] = max(worst["stats_l_err_over_bound"],
+                                              res["l_err_over_bound"])
+        worst["empty_rows"] += res["empty_rows"]
+        held = from_stat_rows(want[1][live] > attention.NEG_INF / 2, 1)
+        norm = [t[0][live][held] / from_stat_rows(t[2][live], 1)[held][..., None]
+                for t in (got, want, mag)]
+        norm_cases.append(check(f"{name} shard {s} normalised",
+                                norm[0].to(torch.bfloat16), norm[1], norm[2]))
+        parts.append(got)
+        del want, mag
+    merged = attention.merge_shard_stats(parts, q.dtype)
+    whole = paged_decode_attention(q, k, v, tables, pos, **kw)
+    torch.cuda.synchronize()
+    one_shard_bit_equal = torch.equal(_bits(merged[:2]), _bits(whole[:2]))
+    if not one_shard_bit_equal:
+        raise AssertionError(f"{name}: lanes on one shard differ from the "
+                             "unsharded kernel")
+    ref = paged_decode_reference(q, k, v, tables, pos, **kw)
+    mag = paged_decode_reference(q.float(), k, v_abs(v), tables, pos, **kw)
+    res = check(name, merged[:-1], ref[:-1], mag[:-1])
+    res.update(worst, lanes_on_one_shard_bit_equal=True,
+               normalised_max_err_over_bound=max(
+                   c["max_err_over_bound"] for c in norm_cases))
+    del ref, mag
+    if timed:
+        ks, vs = shard_view(k, 0, rows), shard_view(v, 0, rows)
+        shard = dict(shard_lo=0, shard_blocks=nbl)
+        call = lambda: paged_decode_shard_stats(  # noqa: E731
+            q, ks, vs, tables, pos, **kw, **shard)
+        res["ms"] = graph_ms(call, 20)
+        res["call_ms"] = time_ms(call, 20)
+        res["plain_ms"] = time_ms(lambda: paged_decode_split_reference(
+            q, ks, vs, tables, pos, **kw, **shard, return_stats=True), 3, 1)
+        res["library_ms"] = None  # no single PyTorch call computes it
+
+        def all_shards():
+            return attention.merge_shard_stats(
+                [paged_decode_shard_stats(q, shard_view(k, s, rows),
+                                          shard_view(v, s, rows), tables, pos,
+                                          **kw, shard_lo=s * nbl,
+                                          shard_blocks=nbl)
+                 for s in range(tp)], q.dtype)
+
+        res["all_shards_and_merge_ms"] = graph_ms(all_shards, 10)
+        res["unsharded_ms"] = graph_ms(
+            lambda: paged_decode_attention(q, k, v, tables, pos, **kw), 20)
+        nb = tables.shape[1]
+        # The bound counts every lane the kernel computes, the dead one
+        # included (its rows are computed and then dropped by the caller);
+        # the live lanes' share is printed beside it.
+        mine = owned_keys(tables, pos, 0, nbl, bs, kw["paged_len"])
+        live = owned_keys(tables[:-1], pos[:-1], 0, nbl, bs, kw["paged_len"])
+        # The statistics are fp32: acc [B, H, D], m and l [B, H].
+        bound = decode_bound(mine, B, 1, H, KV, D, nb, quantized,
+                             4.0 * H * D * mine, out_bytes=B * H * (4 * D + 8))
+        live_bound = decode_bound(live, B - 1, 1, H, KV, D, nb, quantized,
+                                  4.0 * H * D * live,
+                                  out_bytes=(B - 1) * H * (4 * D + 8))
+        res.update(bound, owned_keys=mine, live_owned_keys=live,
+                   live_bound_ms=live_bound["bound_ms"],
+                   all_keys=float((pos.clamp(max=kw["paged_len"] - 1) + 1).sum()))
+    emit("check", kernel="paged_decode_shard", B=B, H=H, KV=KV, D=D, bs=bs,
+         tp=tp, int8=quantized, pos=pos.tolist(), **res)
+    return res
+
+
+def tp_crosscheck(params, cfg, prompt, tp: int, layout: str) -> dict:
+    """One request through a tp server's forward (``tp_serving_params``:
+    per-shard flash, the sums across shards) against the tp=1 kernel path
+    and the plain path: the prefill's last-position logits, then the first
+    decode step's from the tp=1 prefill's caches, through the layout's TP
+    form of the paged kernel (over a pool of ``tp`` sub-pools, the
+    request's blocks dealt across them, under "blocks"; over the slotted
+    arena under "heads"). Each within LOGIT_BOUND x the plain logits' RMS
+    of the plain path's, as the serving crosscheck holds the tp=1 path;
+    the distance to the tp=1 kernel path is printed."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest.kv_arena import (
+        SCRATCH_BLOCK,
+        KVPool,
+        pool_write_seq,
+        table_tensor,
+    )
+    from kata_xpu_device_plugin_tpu_torch.guest.tp_serving import ServingMesh
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        forward,
+        prefill_batch,
+        tp_serving_params,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    ref = attention.reference_attention
+    max_len, bs = SERVE_KW["max_len"], 16
+    mesh = ServingMesh.for_config(cfg, tp, "cuda")
+    tparams = tp_serving_params(params, cfg, mesh)
+    n = len(prompt)
+    pad = next(b for b in SERVE_KW["prefill_buckets"] if b >= n)
+    toks = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    toks[0, :n] = torch.from_numpy(np.asarray(prompt, np.int32))
+    tl = torch.tensor([n], dtype=torch.int32)
+    logits = {}
+    for name, p_, fn in (("tp", tparams, None), ("tp1", params, None),
+                         ("plain", params, ref)):
+        caches, logits[name], pos = prefill_batch(
+            p_, toks, cfg, max_len, tl, attn_fn=fn, kv_quantized=True)
+        if name == "tp1":
+            base = caches
+    first = torch.argmax(logits["tp1"], -1).to(torch.int32)[:, None]
+    paged = layout == "blocks"
+    if paged:
+        pool = KVPool(cfg, 64 * tp * bs, bs, kv_quant=True, shards=tp,
+                      device="cuda")
+        blocks = pool.try_alloc(-(-(n + 1) // bs))
+        pool_write_seq(pool.arena, base, 0,
+                       table_tensor(blocks, torch.device("cuda")), bs)
+        bt = np.full((1, max_len // bs), SCRATCH_BLOCK, np.int32)
+        bt[0, :len(blocks)] = blocks
+        extra = dict(block_tables=torch.from_numpy(bt).cuda(), block_size=bs,
+                     paged_len=max_len)
+        arena = pool.arena
+    else:
+        extra, arena = {}, base
+
+    def clone(c):
+        return tuple(type(x)(*(t.clone() for t in x)) for x in c)
+
+    def step(p_, fn, attn_fn, caches, kw):
+        out, _ = forward(p_, first, cfg, attn_fn=attn_fn, positions=pos[:, None],
+                         kv_caches=caches, cache_offset=pos, decode_kernel_fn=fn,
+                         **kw)
+        return out[:, -1]
+
+    kfn = dict(paged=paged, block_size=bs, paged_len=max_len, arena_len=max_len,
+               device="cuda")
+    dec = {
+        "tp": step(tparams, attention.make_decode_attn_fn(
+            cfg, mesh=mesh, kv_layout=layout, **kfn), ref, clone(arena), extra),
+        "tp1": step(params, attention.make_decode_attn_fn(cfg, **kfn), ref,
+                    clone(arena), extra),
+        "plain": step(params, None, ref, clone(base), {}),
+    }
+    row = {"tp": tp, "kv_layout": layout, "prompt_len": n,
+           "logit_bound_x_rms": LOGIT_BOUND}
+    for what, got in (("prefill", logits), ("decode", dec)):
+        rms = float(got["plain"].square().mean().sqrt())
+        row[f"{what}_logit_rms"] = rms
+        row[f"{what}_err_x_rms"] = float((got["tp"] - got["plain"]).abs().max()) / rms
+        row[f"{what}_tp1_err_x_rms"] = float(
+            (got["tp1"] - got["plain"]).abs().max()) / rms
+        row[f"{what}_vs_tp1_x_rms"] = float(
+            (got["tp"] - got["tp1"]).abs().max()) / rms
+    emit("tp_crosscheck", **row)
+    if not (row["prefill_err_x_rms"] <= LOGIT_BOUND["prefill"]
+            and row["decode_err_x_rms"] <= LOGIT_BOUND["decode"]):
+        raise AssertionError(f"tp crosscheck out of the serving bound: {row}")
+    return row
+
+
+def tp_row(stats, wall, budgets, lens, launches) -> dict:
+    """A tp server's serving row: :func:`serve_row`'s times with its shard
+    counters."""
+    row = {k: v for k, v in serve_row(stats, wall, budgets, lens,
+                                      launches).items() if k in SIDE_KEYS}
+    row.update({k: stats[k] for k in (
+        "tp_degree", "kv_layout", "kv_pool_shards", "kv_pool_shard_occupancy",
+        "kv_pool_shard_occupancy_peak", "kv_pool_occupancy_peak",
+        "preemptions", "lanes_busy_peak", "arena_bytes")})
+    return row
+
+
+def phase_tp(params, cfg, seed: int = 0) -> tuple:
+    """Tensor-parallel serving on one card (every shard on it): the K2
+    kernel checks (:func:`shard_case` at the Gemma-2B decode shape, H=8,
+    KV=1, D=256, and at Qwen2-7B's group of 7, H=28, KV=4, D=128; bf16 and
+    int8; tiles 16 and 128; tp 2 and 4); then full-width Gemma-2B over the
+    paged phase's pool and 32 requests at ``tp=1``, ``tp=2`` under heads
+    (kv-replicated: 1 KV head), ``tp=2`` and ``tp=4`` under blocks, each
+    counted (paged launches = rounds x chunk x layers x shards, through the
+    shard-local form under blocks) with its tokens against tp=1's and the
+    plain top-2 margin where they first part (row-parallel bf16 partial
+    sums round otherwise than one GEMM, so equality is not expected);
+    ``graph_check`` of a tp=2 blocks chunk; :func:`tp_crosscheck` of each
+    tp run's layout and degree; then Qwen2-7B (4 of 28 layers)
+    at tp=2 under heads, its KV heads split (2 a shard, group 7), beside
+    tp=1. Returns the serving launches and the K2 check cases."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        init_params,
+    )
+
+    cases = []
+    for model, (H, KV, D) in (("gemma2b", (8, 1, 256)), ("qwen2-7b", (28, 4, 128))):
+        for quantized in (True, False):
+            for bs in (16, 128):
+                for tp in (2, 4):
+                    timed = (model == "gemma2b" and quantized and bs == 16
+                             and tp == 2)
+                    kind = "int8" if quantized else "bf16"
+                    cases.append(shard_case(f"{model} {kind} bs{bs} tp{tp}", 16,
+                                            H, KV, D, bs, tp, quantized,
+                                            timed=timed))
+    prompts, budgets, lens = phase_requests(32, cfg.vocab_size, seed)
+    launches = {}
+    srv = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW)
+    outs1, wall, runs, stats = run_requests(srv, prompts, budgets)
+    del srv
+    rows = {"tp1": tp_row(stats, wall, budgets, lens, runs)}
+    for name, tp, layout in TP_RUNS:
+        srv = GenerationServer(params, cfg, **PAGED_KW, **SERVE_KW, tp=tp,
+                               kv_layout=layout)
+        outs, wall, runs, stats = run_requests(srv, prompts, budgets)
+        del srv
+        torch.cuda.empty_cache()
+        shards = tp if layout == "blocks" else 1
+        if (stats["tp_degree"], stats["kv_pool_shards"]) != (tp, shards) or len(
+                stats["kv_pool_shard_occupancy"]) != tp:
+            raise AssertionError(f"{name}: {stats}")
+        for k_, n in runs.items():
+            launches[k_] = launches.get(k_, 0) + n
+        rows[name] = dict(
+            tp_row(stats, wall, budgets, lens, runs),
+            token_match_vs_tp1=token_match(outs, outs1, budgets),
+            first_difference_vs_tp1=first_difference_margin(
+                params, cfg, prompts, outs, outs1))
+    graph = graph_check(params, cfg, dict(**PAGED_KW, **SERVE_KW, tp=2,
+                                          kv_layout="blocks"))
+    emit("tp", model="gemma_2b", config=dict(PAGED_KW, **SERVE_KW),
+         devices=torch.cuda.device_count(), **rows,
+         graph_check_tp2_blocks=graph["outputs_bit_equal"]
+         and graph["arena_bit_equal"])
+    for _name, tp, layout in TP_RUNS:
+        tp_crosscheck(params, cfg, prompts[0], tp, layout)
+    qcfg, reduced = family_config("qwen2_7b", 4)
+    qparams = fuse_decoder_params(
+        init_params(qcfg, seed=seed, device="cuda", dtype=torch.bfloat16))
+    qprompts, qbudgets, qlens = phase_requests(16, qcfg.vocab_size, seed)
+    side = {}
+    for name, tp in (("tp1", 1), ("tp2_heads", 2)):
+        srv = GenerationServer(qparams, qcfg, **PAGED_KW, **SERVE_KW, tp=tp)
+        side[name] = run_requests(srv, qprompts, qbudgets)
+        del srv
+    for k_, n in side["tp2_heads"][2].items():
+        launches[k_] = launches.get(k_, 0) + n
+    emit("tp_qwen2", model="qwen2_7b", reduced=reduced, **{
+        name: tp_row(st, w, qbudgets, qlens, ln)
+        for name, (_o, w, ln, st) in side.items()},
+        token_match_tp2_vs_tp1=token_match(side["tp2_heads"][0],
+                                           side["tp1"][0], qbudgets),
+        first_difference_vs_tp1=first_difference_margin(
+            qparams, qcfg, qprompts, side["tp2_heads"][0], side["tp1"][0]))
+    del qparams
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
 def phase_generate(params, cfg, seed: int = 0, phase: str = "generate") -> dict:
     """``generate()`` under ``KATA_TPU_DECODE_KERNEL=1``: lock-step decode
     through the dense kernel, counted; then each layer's kernel call of the
@@ -2737,6 +3150,8 @@ def main(argv: list[str]) -> int:
                                          params, cfg)
     launches["sched"] = timed_phase("sched", phase_sched, params, cfg)
     launches["prefix"] = timed_phase("prefix", phase_prefix, params, cfg)
+    launches["tp"], checks["paged_decode_shard"] = timed_phase(
+        "tp", phase_tp, params, cfg)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -2763,6 +3178,15 @@ def main(argv: list[str]) -> int:
         "paged_decode": dict(route="cuda", source=f"{src}/paged_decode.cu",
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213",
                              extra=extra),
+        # The shard-local form (K2) of the same TPU kernel: shard_blocks,
+        # shard_lo and return_stats (decode_attn.py:222-269, :406-418).
+        "paged_decode_shard": dict(
+            route="cuda", source=f"{src}/paged_decode.cu",
+            replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:213",
+            extra={k: next(c for c in checks["paged_decode_shard"] if "ms" in c)[k]
+                   for k in ("all_shards_and_merge_ms", "unsharded_ms",
+                             "owned_keys", "live_owned_keys", "live_bound_ms",
+                             "all_keys")}),
         "dense_decode": dict(route="cuda", source=f"{src}/dense_decode.cu",
                              replaces="kata_xpu_device_plugin_tpu/ops/decode_attn.py:74",
                              extra=dense_extra),

@@ -68,3 +68,16 @@ ENV_PREFIX_CACHE_TOKENS = "KATA_TPU_PREFIX_CACHE_TOKENS"
 # to 0, as does the env value on a slotted server; an explicit
 # kv_host_tokens= < 0, or > 0 on a slotted server, raises.
 ENV_KV_HOST_TOKENS = "KATA_TPU_KV_HOST_TOKENS"
+
+# Tensor-parallel degree of GenerationServer (the daemon's override): "0" or
+# "1" pins one shard; a malformed or negative value degrades to the degree
+# the topology env gives (guest/tp_serving.py tp_from_env); a degree above
+# the devices present degrades to 1. An explicit tp= argument wins.
+ENV_TP = "KATA_TPU_TP"
+
+# Paged pool layout under tensor parallelism: "heads" (the KV-head axis
+# splits where the KV heads divide the degree, else the pool replicates) or
+# "blocks" (the pool's token axis splits into per-shard sub-pools). An
+# unknown value degrades to "heads", as does "blocks" on a slotted server;
+# an explicit kv_layout= wins.
+ENV_KV_LAYOUT = "KATA_TPU_KV_LAYOUT"

@@ -31,6 +31,14 @@
 //    block writes the unnormalised partials (acc_c [G, D], m_c, l_c), fp32,
 //    to the wrapper's scratch. A padding row attends no key: every logit is
 //    NEG_INF, so m_c = NEG_INF and p = 1 on every visited key.
+//    Shard-local form (paged, shard_blocks > 0): the pool is one shard's
+//    slice of a block-sharded pool, holding global blocks [shard_lo,
+//    shard_lo + shard_blocks). A tile whose (clamped) table entry lies
+//    outside is another shard's: it is not visited at all (no copy, its
+//    keys take p = 0 and stay out of m_c), which masking would not give (a
+//    row whose every key is masked takes p = 1). An owned entry is
+//    localised to table - shard_lo. A chunk with no owned tile writes m_c =
+//    NEG_INF, l_c = 0, acc_c = 0 and copies nothing.
 //    A block holds the logits of at most PIECE keys. A chunk longer than
 //    that (a tile of more than PIECE keys) is walked in pieces with the
 //    online rescale of the TPU kernels inside the block: p at the running
@@ -43,12 +51,20 @@
 //    denominator replaced by 1, then rounds to bf16. A padding row gets the
 //    mean of V over its visited keys: finite, within max|V|, read by no
 //    caller. No atomics: the output is the same bits on every launch.
+//    Statistics mode (stat_acc set): the pass writes sum_c acc_c w_c, M and
+//    sum_c l_c w_c, fp32, undivided: what a merge across shards takes
+//    (ops/attention.py `make_decode_attn_fn`).
 //
 // The partition and the pieces depend on bs and the row's position alone,
 // so a span row and a single-query launch at the row's position, the dense
 // kernel and the slotted re-view (both tile 128), and a paged and a slotted
 // server at one tile, cut the same keys into the same chunks and give the
-// same bits.
+// same bits. A lane whose blocks all lie on one shard therefore gets, on
+// that shard, the unsharded chunks and partials, and exact zeros elsewhere.
+//
+// Pools are read through a row stride of kv_ld heads (kv_ld >= KV), so a
+// view of some KV heads of a larger pool (a head-sharded pool) is read in
+// place.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +74,9 @@
 namespace decode_split {
 
 constexpr float NEG_INF = -1e30f;
+// The logit of another shard's key: exp(-inf - m) = 0 for every m the
+// pass can hold, NEG_INF included, and fmaxf ignores it.
+#define DECODE_SPLIT_UNOWNED __uint_as_float(0xff800000u)
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int SUB = 32;     // keys per pipeline stage
@@ -82,6 +101,12 @@ struct Params {
   int lk;                  // keys of logits held: min(T*bs, PIECE), rounded
                            // up to a multiple of SUB (set by launch_passes)
   float scale;
+  int kv_ld = 0;           // pool row stride in heads (0: KV)
+  int shard_lo = 0;        // shard-local form: first global block held
+  int shard_blocks = 0;    // blocks this shard holds (0: unsharded)
+  float* stat_acc = nullptr;  // statistics mode: [B, SQ, H, D]
+  float* stat_m = nullptr;    // [B, KV, SQ*G]
+  float* stat_l = nullptr;    // [B, KV, SQ*G]
 };
 
 // One stage of the ring: SUB rows of K or V (rows padded by 16 bytes, so
@@ -180,8 +205,8 @@ struct Chunk {
   int vis, kvh;
 };
 
-// Pool row times KV plus the head of the chunk's key `r`, or -1 past the
-// visited keys.
+// Pool row times kv_ld plus the head of the chunk's key `r`, or -1 past
+// the visited keys and on another shard's tile.
 template <bool DENSE>
 __device__ __forceinline__ int key_row(const Params& p, const Chunk& ch,
                                        int r) {
@@ -191,9 +216,10 @@ __device__ __forceinline__ int key_row(const Params& p, const Chunk& ch,
     prow = ch.row0 + r;
   } else {
     const int t = r / p.bs;
+    if (ch.tbl[t] < 0) return -1;
     prow = static_cast<long long>(ch.tbl[t]) * p.bs + (r - t * p.bs);
   }
-  return static_cast<int>(prow * p.KV + ch.kvh);
+  return static_cast<int>(prow * p.kv_ld + ch.kvh);
 }
 
 // Issue the copies of a K (or V) stage into `st`; `rows(r)` is key_row of
@@ -318,13 +344,31 @@ __device__ __forceinline__ void split_pass(const Params& p) {
     }
     cp_async_commit();  // empty groups keep the wait count uniform
   };
+  const long long head0 = (static_cast<long long>(b) * p.SQ + j) * p.H + kvh * G;
+  const long long stat0 = head0 * p.n_chunks + c;
   if constexpr (!DENSE) {
+    bool owned = false;
     if (tid < ch.vis / p.bs) {
       const int blk_max = min(row.pos / p.bs, p.NB - 1);
-      tbl_s[tid] = p.tables[static_cast<long long>(b) * p.NB +
-                            min(tile0 + tid, blk_max)];
+      int t = p.tables[static_cast<long long>(b) * p.NB +
+                       min(tile0 + tid, blk_max)];
+      if (p.shard_blocks) {
+        t -= p.shard_lo;
+        if (t < 0 || t >= p.shard_blocks) t = -1;  // another shard's tile
+      }
+      tbl_s[tid] = t;
+      owned = t >= 0;
     }
-    __syncthreads();
+    if (!__syncthreads_or(owned)) {
+      // Nothing of this chunk lies on the shard: empty partials.
+      for (int i = tid; i < G * D; i += NTHREADS)
+        p.acc[(stat0 + (i / D) * p.n_chunks) * D + i % D] = 0.f;
+      if (tid < G) {
+        p.m[stat0 + tid * p.n_chunks] = NEG_INF;
+        p.l[stat0 + tid * p.n_chunks] = 0.f;
+      }
+      return;
+    }
 #pragma unroll
     for (int s = 0; s < NS; ++s) plan(s);
     __syncthreads();
@@ -337,7 +381,6 @@ __device__ __forceinline__ void split_pass(const Params& p) {
   }
 
   // Q as the A operand: head g's row; rows 8-15 (a1, a3) are padding.
-  const long long head0 = (static_cast<long long>(b) * p.SQ + j) * p.H + kvh * G;
   uint32_t qa[D / 16][2];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -355,7 +398,6 @@ __device__ __forceinline__ void split_pass(const Params& p) {
   float o[NTO][4];
 #pragma unroll
   for (int n = 0; n < NTO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  const long long stat0 = head0 * p.n_chunks + c;
 
   for (int i = 0; i < n_pieces; ++i) {
     const int sub0 = i * PS, np = min(PS, n_sub - sub0), s0 = 2 * sub0;
@@ -379,8 +421,12 @@ __device__ __forceinline__ void split_pass(const Params& p) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = u * SUB + warp * 8 + t4 * 2 + e;  // in the piece
-          const bool live = !row.pad && c * ck + sub0 * SUB + r <= row.last;
-          sl[g * ldl + r] = live ? sc[e] * p.scale : NEG_INF;
+          const int kc = sub0 * SUB + r;                  // in the chunk
+          const bool live = !row.pad && c * ck + kc <= row.last;
+          float s = live ? sc[e] * p.scale : NEG_INF;
+          if (!DENSE && p.shard_blocks && kc < ch.vis && tbl_s[kc / p.bs] < 0)
+            s = DECODE_SPLIT_UNOWNED;
+          sl[g * ldl + r] = s;
         }
       }
     }
@@ -497,6 +543,17 @@ __device__ __forceinline__ void combine_pass(const Params& p) {
     }
     __syncthreads();
   }
+  if (p.stat_acc != nullptr) {
+    p.stat_acc[head * D + tid] = num;
+    if (tid == 0) {
+      const int G = p.H / p.KV, kvh = h / G;
+      const long long r =
+          ((static_cast<long long>(b) * p.KV + kvh) * p.SQ + j) * G + h % G;
+      p.stat_m[r] = mx;
+      p.stat_l[r] = den;
+    }
+    return;
+  }
   p.o[head * D + tid] = __float2bfloat16_rn(num / (den == 0.f ? 1.f : den));
 }
 
@@ -517,6 +574,7 @@ static int launch_passes(void (*split)(Params), void (*combine)(Params),
     allowed = true;
   }
   p.lk = min((p.T * p.bs + SUB - 1) / SUB * SUB, PIECE);
+  if (p.kv_ld == 0) p.kv_ld = p.KV;
   split<<<dim3(p.n_chunks, p.B * p.KV, p.SQ), NTHREADS,
           split_smem<D, G, QUANT>(p.lk), stream>>>(p);
   cudaError_t e = cudaGetLastError();

@@ -2,10 +2,15 @@
 //
 // Replaces the TPU kernel `_paged_decode_kernel` in
 // kata_xpu_device_plugin_tpu/ops/decode_attn.py (launched by
-// `pallas_paged_decode_attention`), in its unsharded form, single-query
-// (SQ = 1) and multi-query (SQ > 1 with per-lane query lengths), over a
-// bf16 pool or an int8 pool with fp32 per-vector scales that is
-// dequantized as the tensor-core fragments are built. Each lane's queries
+// `pallas_paged_decode_attention`), single-query (SQ = 1) and multi-query
+// (SQ > 1 with per-lane query lengths), over a bf16 pool or an int8 pool
+// with fp32 per-vector scales that is dequantized as the tensor-core
+// fragments are built, in both its forms: unsharded, and shard-local with
+// raw softmax statistics (`shard_lo`, `shard_blocks`, `return_stats`: one
+// shard of a block-sharded pool visits only the tiles it holds, and the
+// combine writes fp32 (acc, m, l) undivided for the merge across shards).
+// A shard-local launch reads only the owned tiles' bytes; a chunk it does
+// not own costs one table read and a write of empty partials. Each lane's queries
 // attend its block-table view of the shared pool in place: no gather to a
 // dense view. The block reads its lane's table from device memory itself
 // (there is no scalar prefetch). The split-K passes, their masking and
@@ -24,7 +29,10 @@
 // chunk); the combine is a second launch; at G < 8 most of the m16 tile is
 // padding; the copies are cp.async issued by every thread, not TMA, and
 // the block waits for each stage instead of specialising a producer warp;
-// a tile of more than PIECE keys is one chunk, so it does not spread.
+// a tile of more than PIECE keys is one chunk, so it does not spread; a
+// shard-local launch still starts a block for every chunk of every lane, and
+// a chunk that mixes shards' tiles runs its products over the zero-filled
+// rows of the tiles it does not own.
 
 #include "decode_split.cuh"
 
@@ -79,14 +87,21 @@ int launch_g(const Params& p, int G, int quantized, cudaStream_t s) {
 // [B] (the last query row's position) and q_lens [B] (or null: all SQ rows
 // real) int32. `part` is fp32 scratch of B*SQ*H*n_chunks*(D + 2) floats:
 // the partial accumulators, then the chunk maxima, then the denominators.
-// T and n_chunks are the wrapper's `decode_chunks(bs, grid_k)`.
+// T and n_chunks are the wrapper's `decode_chunks(bs, grid_k)`. The pools'
+// rows are kv_ld heads apart (kv_ld >= KV: a view of KV heads of a wider
+// pool). shard_blocks > 0 selects the shard-local form over a pool that
+// holds global blocks [shard_lo, shard_lo + shard_blocks). With stat_acc
+// set ([B, SQ, H, D], and stat_m, stat_l [B, KV, SQ*G], fp32) the combine
+// writes the undivided statistics there and `o` is not written.
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale,
                                  const void* tables, const void* pos,
                                  const void* q_lens, void* o, void* part, int B,
                                  int SQ, int H, int KV, int D, int NB, int bs,
                                  int grid_k, int T, int n_chunks, int quantized,
-                                 float scale, void* stream) {
+                                 float scale, int kv_ld, int shard_lo,
+                                 int shard_blocks, void* stat_acc,
+                                 void* stat_m, void* stat_l, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = k;
@@ -111,7 +126,15 @@ extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
   p.T = T;
   p.n_chunks = n_chunks;
   p.scale = scale;
-  if (H % KV || n_chunks < 1 || T < 1 || T > decode_split::MAX_T)
+  p.kv_ld = kv_ld;
+  p.shard_lo = shard_lo;
+  p.shard_blocks = shard_blocks;
+  p.stat_acc = static_cast<float*>(stat_acc);
+  p.stat_m = static_cast<float*>(stat_m);
+  p.stat_l = static_cast<float*>(stat_l);
+  if (H % KV || n_chunks < 1 || T < 1 || T > decode_split::MAX_T ||
+      kv_ld < KV || shard_blocks < 0 ||
+      (stat_acc != nullptr && (stat_m == nullptr || stat_l == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KV;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

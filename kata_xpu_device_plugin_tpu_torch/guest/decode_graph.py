@@ -100,10 +100,15 @@ def serve_decode(params, arena, tok, pos, cfg, steps: int,
 
 
 def launch_counted():
-    """Every kernel wrapper of the port that counts its launches."""
+    """Every kernel wrapper of the port that counts its launches. A
+    tensor-parallel chunk launches the paged kernel once a shard, through
+    the shard-local wrapper under the blocks layout; its shards and their
+    merge are captured in the same graph, so a replay adds every shard's
+    launches."""
     from ..ops import decode_attn, flash
 
-    return (decode_attn.paged_decode_attention, decode_attn.decode_attention,
+    return (decode_attn.paged_decode_attention,
+            decode_attn.paged_decode_shard_stats, decode_attn.decode_attention,
             flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
 
 

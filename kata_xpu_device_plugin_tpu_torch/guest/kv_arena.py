@@ -36,7 +36,13 @@ Physical block ``t`` occupies pool rows ``t * block_size .. (t + 1) *
 block_size``: the layout the paged decode kernel addresses, its KV tile
 being one pool block.
 
-Block-sharded placement is not ported yet.
+Block-sharded placement (``shards > 1``, the ``"blocks"`` layout of
+tensor-parallel serving): shard ``s`` holds blocks ``[s·shard_blocks,
+(s+1)·shard_blocks)``, a sub-pool of whole blocks with a free list of its
+own; a lane's table mixes shards freely. With every shard on one device
+(:mod:`.tp_serving`) the sub-pools are views of the one pool tensor, so
+the pool ops below, the prefix tier's and the host tier's, move rows as
+they do unsharded.
 """
 from __future__ import annotations
 
@@ -189,10 +195,13 @@ def rows_to_device(rows, device):
 class KVPool:
     """Device-resident paged KV pool plus host-side block accounting.
 
-    ``pool_tokens`` sizes the arena (rounded down to whole blocks; two are
-    reserved). Blocks are reference counted: :meth:`try_alloc` hands out
-    blocks at count 1, :meth:`ref` adds a holder, and :meth:`unref` returns
-    a block to the free list when its last holder lets go."""
+    ``pool_tokens`` sizes the arena (rounded down to whole blocks, and to a
+    multiple of ``shards``; two are reserved, both on shard 0). Blocks are
+    reference counted: :meth:`try_alloc` hands out blocks at count 1,
+    :meth:`ref` adds a holder, and :meth:`unref` returns a block to its
+    shard's free list when its last holder lets go. On a sharded pool
+    :meth:`try_alloc` draws each block from the emptiest shard, in the
+    JAX package's order, so the sub-pools fill evenly."""
 
     def __init__(self, cfg: DecoderConfig, pool_tokens: int,
                  block_size: int = 16, *, kv_quant: bool = False, dtype=None,
@@ -201,11 +210,8 @@ class KVPool:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        if shards > 1:
-            raise NotImplementedError(
-                "block-sharded pools (shards > 1) are not ported yet: they "
-                "come with tensor-parallel serving")
         num_blocks = int(pool_tokens) // int(block_size)
+        num_blocks = (num_blocks // shards) * shards
         if num_blocks - RESERVED_BLOCKS < 1:
             raise ValueError(
                 f"pool_tokens={pool_tokens} holds {num_blocks} blocks of "
@@ -215,7 +221,8 @@ class KVPool:
         self.cfg = cfg
         self.block_size = int(block_size)
         self.num_blocks = num_blocks
-        self.shards = 1
+        self.shards = int(shards)
+        self.shard_blocks = num_blocks // self.shards
         self.kv_quant = bool(kv_quant)
         self.dtype = dtype or cfg.dtype
         self.arena = init_kv_caches(
@@ -223,7 +230,11 @@ class KVPool:
             dtype=self.dtype, quantized=kv_quant,
         )
         self.device = cache_leaves(self.arena)[0].device
-        self._free: deque[int] = deque(range(RESERVED_BLOCKS, num_blocks))
+        self._free: list[deque[int]] = [
+            deque(b for b in range(s * self.shard_blocks,
+                                   (s + 1) * self.shard_blocks)
+                  if b >= RESERVED_BLOCKS)
+            for s in range(self.shards)]
         self._refs = np.zeros(num_blocks, np.int64)
 
     # -- block accounting -----------------------------------------------------
@@ -235,7 +246,7 @@ class KVPool:
 
     @property
     def blocks_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
     @property
     def blocks_in_use(self) -> int:
@@ -248,14 +259,29 @@ class KVPool:
     def occupancy(self) -> float:
         return round(self.blocks_in_use / max(1, self.blocks_total), 4)
 
+    def shard_of(self, block: int) -> int:
+        """The shard that holds ``block`` (0 on an unsharded pool)."""
+        return block // self.shard_blocks
+
+    def shard_occupancy(self) -> list[float]:
+        """Each shard's blocks in use over its usable blocks (shard 0's
+        count leaves out the two reserved blocks)."""
+        out = []
+        for s, free in enumerate(self._free):
+            usable = self.shard_blocks - (RESERVED_BLOCKS if s == 0 else 0)
+            out.append(round((usable - len(free)) / max(1, usable), 4))
+        return out
+
     def try_alloc(self, n: int) -> Optional[list[int]]:
         """``n`` blocks at count 1, or None: all or nothing, since a partial
-        grant would deadlock two growing lanes against each other."""
+        grant would deadlock two growing lanes against each other. Each
+        block comes from the shard with the most free blocks (the lowest
+        such shard on a tie)."""
         if n < 0:
             raise ValueError(f"try_alloc({n})")
         if self.blocks_free < n:
             return None
-        out = [self._free.popleft() for _ in range(n)]
+        out = [max(self._free, key=len).popleft() for _ in range(n)]
         self._refs[out] += 1
         return out
 
@@ -273,7 +299,7 @@ class KVPool:
             self._refs[b] -= 1
             assert self._refs[b] >= 0, f"block {b} over-released"
             if self._refs[b] == 0:
-                self._free.append(b)
+                self._free[self.shard_of(b)].append(b)
 
     def stats(self) -> dict:
         return {
@@ -284,7 +310,7 @@ class KVPool:
             "capacity_tokens": self.capacity_tokens,
             "occupancy": self.occupancy(),
             "shards": self.shards,
-            "shard_occupancy": [self.occupancy()],
+            "shard_occupancy": self.shard_occupancy(),
         }
 
 

@@ -74,9 +74,24 @@ Greedy outputs per request equal the JAX server's on the same weights, as
 do the round, admission, chunk and persistent-exit counts under the same
 settings; sampled outputs repeat under one seed.
 
-Arguments of the JAX server that select modes not ported yet (tensor
-parallelism, speculative decoding, ring caches, the block-sharded pool
-layout and crash recovery) raise ``NotImplementedError`` when set.
+Tensor-parallel serving (``tp``, else ``KATA_TPU_TP`` and the topology
+env, :mod:`.tp_serving`): the server splits its parameters into ``tp``
+shards by the serving rules and runs every forward across them,
+column-parallel q/k/v and gate/up, row-parallel ``wo`` and ``w_down`` each
+followed by the sum across shards, every shard attending with its own
+query heads. ``kv_layout`` picks the placement of the KV state: ``"heads"``
+splits the KV heads where they divide ``tp`` (else every shard reads every
+KV head), ``"blocks"`` (paged only) splits the pool into per-shard
+sub-pools of whole blocks, and decode attention then runs the shard-local
+paged kernel on each shard and merges the shards' softmax statistics.
+Every shard lives on the server's one device (a port-only difference:
+JAX places them on distinct chips); greedy outputs equal ``tp=1``'s.
+
+Arguments of the JAX server that select modes not ported yet (a
+caller's training-layout ``mesh``, speculative decoding, ring caches,
+telemetry, fault injection and crash recovery, the degraded mesh shrink)
+raise ``NotImplementedError`` naming their ROADMAP item when set to
+anything but their no-op value.
 """
 from __future__ import annotations
 
@@ -97,6 +112,7 @@ from ..constants import (
     ENV_FUSED,
     ENV_ITL_SLO_MS,
     ENV_KV_HOST_TOKENS,
+    ENV_KV_LAYOUT,
     ENV_KV_POOL_TOKENS,
     ENV_KV_QUANT,
     ENV_PERSISTENT,
@@ -112,11 +128,13 @@ from ..models.transformer import (
     init_kv_caches,
     prefill_batch,
     prefill_suffix,
+    tp_serving_params,
 )
 from ..obs.metrics import Rolling
 from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
+from . import tp_serving
 from .decode_graph import DecodeGraph, PersistentRound, Sampling
 from .kv_arena import (
     RESERVED_BLOCKS,
@@ -141,6 +159,7 @@ from .scheduler import (
     POLICY_SLO,
     make_scheduler,
 )
+from .tp_serving import KV_LAYOUT_BLOCKS, KV_LAYOUT_HEADS, KV_LAYOUTS, ServingMesh
 
 BACKEND_PAGED = attention.BACKEND_PAGED
 BACKEND_REFERENCE = attention.BACKEND_REFERENCE
@@ -190,6 +209,56 @@ def _env_flag(name: str) -> Optional[bool]:
     malformed (which degrades to the knob's default)."""
     raw = os.environ.get(name, "").strip()
     return {"0": False, "1": True}.get(raw)
+
+
+def resolve_kv_layout(kv_layout: Optional[str]) -> tuple[str, bool]:
+    """``(layout, explicit)``: an explicit unknown layout raises; an
+    unknown ``KATA_TPU_KV_LAYOUT`` degrades to ``"heads"``."""
+    if kv_layout is not None:
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"unknown kv_layout {kv_layout!r} (have {KV_LAYOUTS})")
+        return kv_layout, True
+    raw = os.environ.get(ENV_KV_LAYOUT, "").strip()
+    return (raw if raw in KV_LAYOUTS else KV_LAYOUT_HEADS), False
+
+
+def tp_conflict(cfg: DecoderConfig, tp: int, ring_kv: bool,
+                speculative: bool) -> Optional[str]:
+    """Why this server cannot serve at degree ``tp``, or None: the JAX
+    server's reasons (ring caches and speculation re-layout or add caches
+    the serving rules do not cover), and this package's own, a split the
+    shards cannot take (every shard holds whole query heads and an equal
+    share of the KV features and of the MLP)."""
+    if tp <= 1:
+        return None
+    if ring_kv:
+        return "ring_kv"
+    if speculative:
+        return "speculative"
+    for name, n in (("n_heads", cfg.n_heads), ("kv_dim", cfg.kv_dim),
+                    ("d_ff", cfg.d_ff)):
+        if n % tp:
+            return f"indivisible:{name}={n}"
+    return None
+
+
+def resolve_tp(tp: Optional[int], cfg: DecoderConfig, ring_kv: bool = False,
+               speculative: bool = False) -> int:
+    """The serving degree: an explicit ``tp`` (< 1 or in
+    :func:`tp_conflict` raises; more shards than devices share the one
+    device), else :func:`.tp_serving.tp_from_env`, which degrades to 1 on
+    a conflict."""
+    if tp is not None:
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        reason = tp_conflict(cfg, tp, ring_kv, speculative)
+        if reason is not None:
+            raise ValueError(f"tp={tp} is incompatible with this server "
+                             f"({reason})")
+        return tp
+    tp = tp_serving.tp_from_env()
+    return 1 if tp_conflict(cfg, tp, ring_kv, speculative) else tp
 
 
 def resolve_kv_quant(kv_quant) -> bool:
@@ -438,7 +507,18 @@ class GenerationServer:
     without them an explicit size or store raises, an env size degrades.
     ``kv_host_tokens`` (else ``KATA_TPU_KV_HOST_TOKENS``) sizes the host
     tier of a paged server: explicit values < 0, or > 0 on a slotted
-    server, raise; env values degrade to 0."""
+    server, raise; env values degrade to 0.
+
+    ``tp`` (else ``KATA_TPU_TP`` and the topology env) serves across that
+    many shards of the server's device (module doc); ``kv_layout`` (else
+    ``KATA_TPU_KV_LAYOUT``, else ``"heads"``) places the KV state:
+    ``"blocks"`` needs a paged pool (explicit on a slotted server raises,
+    the env value degrades to ``"heads"``) and makes the pool one
+    sub-pool a shard. An explicit ``tp`` below 1, with ``ring_kv`` or
+    ``speculative_k``, or one the model's heads, KV features or MLP do
+    not divide, raises; the env value degrades to 1. ``tp_min`` is
+    validated as in the JAX server; the mesh shrink it floors is not
+    ported."""
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -459,20 +539,58 @@ class GenerationServer:
                  fused: Optional[bool] = None,
                  decode_steps: Optional[int] = None,
                  persistent: Optional[bool] = None,
-                 checkpoint_rounds: Optional[int] = None):
+                 checkpoint_rounds: Optional[int] = None,
+                 mesh: Any = None, draft: Optional[tuple] = None,
+                 strict: Optional[bool] = None,
+                 tripwire: Optional[bool] = None,
+                 fault_injector: Any = None,
+                 fence_timeout_s: Optional[float] = None,
+                 quarantine_after: Optional[int] = None,
+                 recovery_backoff_s: Optional[float] = None,
+                 spec_opt_in: Optional[bool] = None,
+                 tp_min: Optional[int] = None,
+                 degraded: Optional[bool] = None,
+                 heartbeat_rounds: Optional[int] = None,
+                 watchdog: Any = None):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self._tp = resolve_tp(tp, cfg, ring_kv,
+                              bool(speculative_k) or draft is not None)
         unported = {
-            "kv_layout='blocks' (ROADMAP Queue 1 item 10)": (
-                kv_layout not in (None, "heads")),
-            "tp (tensor parallelism, ROADMAP Queue 1 item 10)": (tp or 1) > 1,
-            "speculative_k (ROADMAP Queue 1 item 11)": speculative_k,
-            "ring_kv (ROADMAP Queue 1 item 11)": ring_kv,
-            "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9)": checkpoint_rounds,
+            "mesh= (a caller's training-layout mesh, ROADMAP Queue 1 item 12b)":
+                mesh is not None,
+            "speculative_k (ROADMAP Queue 1 item 11b)": speculative_k,
+            "draft (speculative decoding, ROADMAP Queue 1 item 11b)":
+                draft is not None,
+            "spec_opt_in (speculative decoding, ROADMAP Queue 1 item 11b)":
+                spec_opt_in,
+            "ring_kv (ROADMAP Queue 1 item 11b)": ring_kv,
+            "strict (transfer guard, ROADMAP Queue 1 item 9a)": strict,
+            "tripwire (steady-state census, ROADMAP Queue 1 item 9a)": tripwire,
+            "heartbeat_rounds (telemetry, ROADMAP Queue 1 item 9a)":
+                heartbeat_rounds,
+            "watchdog (telemetry, ROADMAP Queue 1 item 9a)":
+                watchdog not in (None, False),
+            "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9b)":
+                checkpoint_rounds,
+            "fault_injector (resilience, ROADMAP Queue 1 item 9b)":
+                fault_injector is not None,
+            "fence_timeout_s (resilience, ROADMAP Queue 1 item 9b)":
+                fence_timeout_s is not None,
+            "quarantine_after (resilience, ROADMAP Queue 1 item 9b)":
+                quarantine_after is not None,
+            "recovery_backoff_s (resilience, ROADMAP Queue 1 item 9b)":
+                recovery_backoff_s is not None,
+            "degraded=True (the mesh shrink needs fault detection, ROADMAP "
+            "Queue 1 item 9b)": degraded is True,
         }
         for what, value in unported.items():
             if value:
                 raise NotImplementedError(f"{what} is not ported yet")
-        if chunk < 1:
-            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        # The shrink ladder's floor, validated as in the JAX server; the
+        # shrink itself is not ported (degraded=True raises above).
+        if tp_min is not None and int(tp_min) < 1:
+            raise ValueError(f"tp_min must be >= 1, got {tp_min}")
         if any(b < 1 or b > max_len for b in prefill_buckets):
             raise ValueError(
                 f"prefill_buckets {prefill_buckets} must lie in [1, max_len]")
@@ -484,7 +602,13 @@ class GenerationServer:
             raise ValueError(
                 f"params live on {params['embed'].device}, the server runs on "
                 f"{self.device}")
-        self.params, self.cfg = params, cfg
+        self.cfg = cfg
+        # The shards of a tensor-parallel server (every one on this device);
+        # params split across them by the serving rules.
+        self._mesh = (ServingMesh.for_config(cfg, self._tp, self.device)
+                      if self._tp > 1 else None)
+        self.params = (tp_serving_params(params, cfg, self._mesh)
+                       if self._mesh is not None else params)
         self.max_batch, self.max_len = max_batch, max_len
         self.eos_id, self.chunk = eos_id, chunk
         self.top_k, self.top_p = top_k, top_p
@@ -529,11 +653,19 @@ class GenerationServer:
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.kv_block = int(kv_block_size)
         self.kv_pool: Optional[KVPool] = None
+        # Set before the pool resolves: the blocks layout rounds the pool
+        # to whole blocks a shard.
+        self._kv_layout, explicit_layout = resolve_kv_layout(kv_layout)
         host_tokens, explicit_host = _resolve_tokens(kv_host_tokens,
                                                      ENV_KV_HOST_TOKENS)
         if host_tokens < 0:
             raise ValueError(f"kv_host_tokens must be >= 0, got {host_tokens}")
         self.paged = self._resolve_paged(kv_pool_tokens, prefix_store)
+        if not self.paged and self._kv_layout == KV_LAYOUT_BLOCKS:
+            if explicit_layout:
+                raise ValueError("kv_layout='blocks' requires a paged KV pool "
+                                 "(kv_pool_tokens)")
+            self._kv_layout = KV_LAYOUT_HEADS
         if not self.paged and host_tokens > 0:
             if explicit_host:
                 raise ValueError("kv_host_tokens requires a paged KV pool "
@@ -544,7 +676,8 @@ class GenerationServer:
         if self.paged:
             self.arena = None  # the pool is the arena: no slot grid
             self.kv_pool = KVPool(cfg, self._pool_tokens, self.kv_block,
-                                  kv_quant=self.kv_quant, device=self.device)
+                                  kv_quant=self.kv_quant,
+                                  shards=self._kv_shards(), device=self.device)
             self._nb_max = -(-max_len // self.kv_block)
             self._lane_blocks: list[list[int]] = [[] for _ in range(max_batch)]
             # SCRATCH filler: a lane with no live request (or a finished
@@ -578,13 +711,16 @@ class GenerationServer:
         self._preemptions = 0
         self._lanes_peak = 0
         self._occupancy_peak = 0.0
+        self._shard_peak = [0.0] * self._tp
         self._decode_attn, self._decode_attn_reason = (
             self._resolve_decode_attn(decode_attn))
         decode_kernel = None
         if self._decode_attn == BACKEND_PAGED:
             decode_kernel = attention.make_decode_attn_fn(
                 cfg, paged=self.paged, block_size=self.kv_block,
-                paged_len=max_len, arena_len=max_len, device=self.device)
+                paged_len=max_len, arena_len=max_len, device=self.device,
+                mesh=self._mesh, kv_layout=self._kv_layout)
+        params = self.params
         arena = self.kv_pool.arena if self.paged else self.arena
         paged_kw = dict(table_width=self._nb_max if self.paged else 0,
                         block_size=self.kv_block if self.paged else 0,
@@ -685,12 +821,18 @@ class GenerationServer:
             return f"bad_block_size:{self.kv_block}"
         if prefix_store is not None:
             return "injected_prefix_store"
-        usable = pool_tokens // self.kv_block - RESERVED_BLOCKS
+        shards = self._kv_shards()
+        usable = (pool_tokens // self.kv_block) // shards * shards - RESERVED_BLOCKS
         if usable < -(-self.max_len // self.kv_block):
             # Progress guarantee: the drained pool must hold one full-length
             # request, or the oldest request could wait forever.
             return f"pool_too_small:{pool_tokens}"
         return None
+
+    def _kv_shards(self) -> int:
+        """The pool's sub-pools: the degree under the blocks layout, else
+        1."""
+        return self._tp if self._kv_layout == KV_LAYOUT_BLOCKS else 1
 
     # ----- decode backend --------------------------------------------------
 
@@ -798,18 +940,37 @@ class GenerationServer:
         this server's admitted lookups, ``kv_demotions`` and
         ``kv_prefetches`` count the tier's segment moves and the
         preemption spills and resumes a host tier accounts. So is
-        ``kv_resume_staged``: the resumes that landed a staged upload."""
+        ``kv_resume_staged``: the resumes that landed a staged upload. So
+        are the occupancy keys (``tokens_per_round``, ``slots_busy``,
+        ``queued``, ``batch_occupancy``, ``kv_slot_utilization``), the
+        layout and the tensor-parallel keys (``kv_layout``,
+        ``kv_pool_shards``, ``tp_degree``, ``tp_degraded``, ``tp_shrinks``,
+        ``kv_pool_shard_occupancy``: one entry a shard, zeros at ``tp=1``
+        and on slotted servers); ``kv_pool_shard_occupancy_peak`` is this
+        package's own, each shard's fullest at a dispatch. ``arena_bytes``
+        counts the one copy the shards share on this device."""
         pool, exe, rnd = self.kv_pool, self._decode, self._round
         store, host = self.prefix_store, self._kv_host
         tier = store if isinstance(store, PagedPrefixTier) else None
         lookups = self._prefix_hits + self._prefix_misses
         arena_bytes = cache_bytes(pool.arena if pool else self.arena)
+        busy = [b for b in range(self.max_batch) if self._slot_req[b] is not None]
+        decoded = self._emitted - self._prefills
         return {
             "rounds": self._rounds,
             "decode_steps": self._decode_steps,
             "prefills": self._prefills,
             "prefill_batches": self._batch_prefills,
             "tokens_emitted": self._emitted,
+            "tokens_per_round": (round(decoded / self._rounds, 3)
+                                 if self._rounds else 0.0),
+            "slots_busy": len(busy),
+            "queued": len(self._queue),
+            "batch_occupancy": round(len(busy) / self.max_batch, 4),
+            # Mean cache fill of the busy lanes: positions over max_len.
+            "kv_slot_utilization": round(float(np.mean(
+                [min(1.0, self._pos[b] / self.max_len) for b in busy])), 4)
+            if busy else 0.0,
             "ttft_s": self._ttft.summary(),
             "decode_token_s": self._tok_lat.summary(),
             "arena_bytes": arena_bytes,
@@ -862,7 +1023,24 @@ class GenerationServer:
             "kv_prefetches": (self._host_prefetches
                               + (tier.prefetches if tier else 0)),
             "kv_resume_staged": self._resume_staged,
+            "kv_layout": self._kv_layout,
+            "kv_pool_shards": pool.shards if pool else 1,
+            "tp_degree": self._tp,
+            "tp_degraded": 0,  # no mesh shrink without fault detection
+            "tp_shrinks": 0,
+            "kv_pool_shard_occupancy": self._pool_shard_occupancy(),
+            "kv_pool_shard_occupancy_peak": list(self._shard_peak),
         }
+
+    def _pool_shard_occupancy(self) -> list:
+        """Each shard's pool fill, ``tp`` entries: the sub-pools' own under
+        the blocks layout, the pool's under heads (every block spans every
+        shard), zeros at ``tp=1`` and on slotted servers."""
+        if self._tp <= 1 or self.kv_pool is None:
+            return [0.0] * self._tp
+        if self.kv_pool.shards > 1:
+            return self.kv_pool.shard_occupancy()
+        return [self.kv_pool.occupancy()] * self._tp
 
     # ----- admission -------------------------------------------------------
 
@@ -1551,6 +1729,8 @@ class GenerationServer:
         if self.paged:
             self._occupancy_peak = max(self._occupancy_peak,
                                        self.kv_pool.occupancy())
+            self._shard_peak = [max(a, b) for a, b in zip(
+                self._shard_peak, self._pool_shard_occupancy())]
             kw["block_tables"] = self._host_tensor(self._bt_host)
         fuse = self._prepare_fused_chunk()
         if fuse is not None:

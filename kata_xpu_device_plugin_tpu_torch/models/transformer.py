@@ -388,11 +388,59 @@ def _bias(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x + b.to(x.dtype)
 
 
-def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
+def _qkv_parts(cfg: DecoderConfig, h: torch.Tensor, layer: Params, tp: int):
+    """One shard's column-parallel q, k and v features (``[B, S, .]``):
+    ``1/tp`` of each, from its slice of the (fused or separate) weights."""
+    qd, kd = cfg.q_dim // tp, cfg.kv_dim // tp
+    if "wqkv" in layer:
+        qkv = weight_matmul(h, layer["wqkv"])
+        if "bqkv" in layer:
+            qkv = _bias(qkv, layer["bqkv"])
+        return qkv[..., :qd], qkv[..., qd: qd + kd], qkv[..., qd + kd:]
+    q = weight_matmul(h, layer["wq"])
+    k = weight_matmul(h, layer["wk"])
+    v = weight_matmul(h, layer["wv"])
+    if "bq" in layer:
+        q, k, v = (_bias(t, layer[b]) for t, b in
+                   ((q, "bq"), (k, "bk"), (v, "bv")))
+    return q, k, v
+
+
+def _gather(parts: list) -> torch.Tensor:
+    """The shards' column-parallel pieces side by side (the all-gather)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _per_shard(mesh, fn: AttnFn, q, k, v, **kw) -> list:
+    """Attention of each shard's query heads, ``[B, S, H/tp, D]`` each: a
+    shard attends with its own KV heads (``mesh.kv_heads``), or, when its
+    query heads straddle KV heads, runs every head and keeps its own.
+    Without a mesh, the one full attention."""
+    if mesh is None:
+        return [fn(q, k, v, **kw)]
+    outs = []
+    for s in range(mesh.tp):
+        hs, kvs = mesh.q_heads(s), mesh.kv_heads(s)
+        if kvs is None:
+            outs.append(fn(q, k, v, **kw)[:, :, hs])
+        else:
+            outs.append(fn(q[:, :, hs].contiguous(), k[:, :, kvs].contiguous(),
+                           v[:, :, kvs].contiguous(), **kw))
+    return outs
+
+
+def _row_parallel(mesh, parts: list, shards: list, name: str) -> torch.Tensor:
+    """The row-parallel projection: each shard's ``parts[s] @ w_s`` (its
+    slice of the input features), summed across shards by ``mesh``."""
+    outs = [weight_matmul(p, sh[name]) for p, sh in zip(parts, shards)]
+    return outs[0] if mesh is None else mesh.reduce(outs)
+
+
+def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
            positions: torch.Tensor, kv_cache=None, cache_offset=None,
            prefill: bool = False, decode_kernel_fn=None, block_tables=None,
            view_tables=None, block_size: int = 0,
-           paged_len: int = 0, index: int = 0) -> torch.Tensor:
+           paged_len: int = 0, index: int = 0, mesh=None) -> torch.Tensor:
     """Decoder block ``index`` (its window and rope come from the config's
     cycles), x ``[B, S, d]``. With a cache: ``prefill=True``
     writes the fresh k/v at 0 and attends over them alone (self-attention,
@@ -403,44 +451,50 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
     Otherwise a ``[B]`` ``cache_offset`` is ragged decode over a slotted
     cache (a single-token step goes through ``decode_kernel_fn`` when the
     server built one), and a scalar one (an int or a 0-dim tensor) is
-    lock-step decode: every row writes and attends at the same position."""
+    lock-step decode: every row writes and attends at the same position.
+
+    Tensor-parallel (``mesh``, a :class:`..guest.tp_serving.ServingMesh`;
+    ``layer`` the list of the shards' layer dicts): q/k/v and gate/up are
+    column-parallel, each shard computing its slice; the slices are
+    gathered (the all-gather) into the k/v written to the cache, which
+    every shard's view reads; each shard attends with its own query heads
+    (``decode_kernel_fn`` then returns the shards' outputs as a list);
+    ``wo`` and ``w_down`` are row-parallel, each followed by the sum
+    across shards; norms are replicated."""
     B, S, _ = x.shape
+    shards = layer if mesh is not None else [layer]
+    tp = len(shards)
     akw = {}
     window = cfg.layer_window(index)
     if window:
         akw["window"] = window
     if cfg.attn_logits_softcap:
         akw["logits_softcap"] = cfg.attn_logits_softcap
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    if "wqkv" in layer:
-        qkv = weight_matmul(h, layer["wqkv"])
-        if "bqkv" in layer:
-            qkv = _bias(qkv, layer["bqkv"])
-        q = qkv[..., : cfg.q_dim]
-        k = qkv[..., cfg.q_dim: cfg.q_dim + cfg.kv_dim]
-        v = qkv[..., cfg.q_dim + cfg.kv_dim:]
-    else:
-        q = weight_matmul(h, layer["wq"])
-        k = weight_matmul(h, layer["wk"])
-        v = weight_matmul(h, layer["wv"])
-        if "bq" in layer:
-            q, k, v = (_bias(t, layer[b]) for t, b in
-                       ((q, "bq"), (k, "bk"), (v, "bv")))
+    h = rms_norm(x, shards[0]["attn_norm"], cfg.norm_eps)
+    q, k, v = (_gather(list(p)) for p in zip(
+        *(_qkv_parts(cfg, h, sh, tp) for sh in shards)))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    if "q_norm" in layer:  # per-head QK-norm over head_dim, before rope
-        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
+    if "q_norm" in shards[0]:  # per-head QK-norm over head_dim, before rope
+        q = rms_norm(q, shards[0]["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, shards[0]["k_norm"], cfg.norm_eps)
     theta, linear = cfg.layer_rope(index)
     q = rope(q, positions, theta, cfg.rope_llama3_scaling, linear)
     k = rope(k, positions, theta, cfg.rope_llama3_scaling, linear)
+
+    def attend(kk, vv, **kw):
+        return _per_shard(mesh, attn_fn, q, kk, vv, causal=True, **kw, **akw)
+
+    def kernel(*args):
+        out = decode_kernel_fn(*args)
+        return out if mesh is not None else [out]
 
     if kv_cache is not None and prefill:
         ck, cv = kv_cache
         _cache_write_full(ck, k, 0)
         _cache_write_full(cv, v, 0)
-        attn_out = attn_fn(q, k, v, causal=True, q_offset=None, **akw)
+        outs = attend(k, v, q_offset=None)
     elif kv_cache is not None and block_tables is not None:
         # Paged ragged decode. A block index past the table (a finished
         # lane overrunning its budget, a dead lane's stale position) clamps
@@ -466,10 +520,9 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
             # The paged kernel walks each lane's table in place. A span
             # passes its LAST row's position and all-real query lengths.
             if S == 1:
-                attn_out = decode_kernel_fn(q, ck, cv, view_tables,
-                                            cache_offset)
+                outs = kernel(q, ck, cv, view_tables, cache_offset)
             else:
-                attn_out = decode_kernel_fn(
+                outs = kernel(
                     q, ck, cv, view_tables, cache_offset + (S - 1),
                     torch.full((B,), S, dtype=torch.int32, device=x.device))
         else:
@@ -477,21 +530,19 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
                 (view_tables.long() * bs)[:, :, None]
                 + torch.arange(bs, device=x.device)[None, None, :]
             ).reshape(B, -1)[:, :paged_len]
-            attn_out = attn_fn(
-                q, dequantize_kv(_paged_view(ck, view_idx), x.dtype),
-                dequantize_kv(_paged_view(cv, view_idx), x.dtype),
-                causal=True, q_offset=cache_offset, **akw)
+            outs = attend(dequantize_kv(_paged_view(ck, view_idx), x.dtype),
+                          dequantize_kv(_paged_view(cv, view_idx), x.dtype),
+                          q_offset=cache_offset)
     elif (kv_cache is not None and torch.is_tensor(cache_offset)
           and cache_offset.ndim == 1):
         ck, cv = kv_cache
         _cache_write_rows(ck, k, cache_offset)
         _cache_write_rows(cv, v, cache_offset)
         if decode_kernel_fn is not None and S == 1:
-            attn_out = decode_kernel_fn(q, ck, cv, None, cache_offset)
+            outs = kernel(q, ck, cv, None, cache_offset)
         else:
-            attn_out = attn_fn(q, dequantize_kv(ck, x.dtype),
-                               dequantize_kv(cv, x.dtype), causal=True,
-                               q_offset=cache_offset, **akw)
+            outs = attend(dequantize_kv(ck, x.dtype), dequantize_kv(cv, x.dtype),
+                          q_offset=cache_offset)
     elif kv_cache is not None:
         # Lock-step decode: one position for every row. On CUDA the default
         # attn_fn sends a bf16 cache to the dense decode kernel when
@@ -499,26 +550,29 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer: Params,
         ck, cv = kv_cache
         _cache_write_full(ck, k, cache_offset)
         _cache_write_full(cv, v, cache_offset)
-        attn_out = attn_fn(q, dequantize_kv(ck, x.dtype),
-                           dequantize_kv(cv, x.dtype), causal=True,
-                           q_offset=cache_offset, **akw)
+        outs = attend(dequantize_kv(ck, x.dtype), dequantize_kv(cv, x.dtype),
+                      q_offset=cache_offset)
     else:
-        attn_out = attn_fn(q, k, v, causal=True, q_offset=None, **akw)
+        outs = attend(k, v, q_offset=None)
 
-    attn_proj = weight_matmul(attn_out.reshape(B, S, cfg.q_dim), layer["wo"])
-    if "post_attn_norm" in layer:  # Gemma-2/3: the sublayer's output normed too
-        attn_proj = rms_norm(attn_proj, layer["post_attn_norm"], cfg.norm_eps)
+    attn_proj = _row_parallel(mesh, [o.reshape(B, S, -1) for o in outs],
+                              shards, "wo")
+    if "post_attn_norm" in shards[0]:  # Gemma-2/3: the sublayer's output normed too
+        attn_proj = rms_norm(attn_proj, shards[0]["post_attn_norm"], cfg.norm_eps)
     x = x + attn_proj
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    if "w_gateup" in layer:
-        gu = weight_matmul(h, layer["w_gateup"])
-        act = _gate_act(gu[..., : cfg.d_ff], cfg.activation) * gu[..., cfg.d_ff:]
-    else:
-        act = (_gate_act(weight_matmul(h, layer["w_gate"]), cfg.activation)
-               * weight_matmul(h, layer["w_up"]))
-    mlp_out = weight_matmul(act, layer["w_down"])
-    if "post_mlp_norm" in layer:
-        mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps)
+    h = rms_norm(x, shards[0]["mlp_norm"], cfg.norm_eps)
+    acts = []
+    for sh in shards:
+        if "w_gateup" in sh:
+            gu = weight_matmul(h, sh["w_gateup"])
+            f = gu.shape[-1] // 2
+            acts.append(_gate_act(gu[..., :f], cfg.activation) * gu[..., f:])
+        else:
+            acts.append(_gate_act(weight_matmul(h, sh["w_gate"]), cfg.activation)
+                        * weight_matmul(h, sh["w_up"]))
+    mlp_out = _row_parallel(mesh, acts, shards, "w_down")
+    if "post_mlp_norm" in shards[0]:
+        mlp_out = rms_norm(mlp_out, shards[0]["post_mlp_norm"], cfg.norm_eps)
     return x + mlp_out
 
 
@@ -529,7 +583,9 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             paged_len: int = 0) -> torch.Tensor:
     """The decoder stack up to (not including) the final norm. ``remat``
     (training, no caches) checkpoints each layer: its activations are
-    recomputed in the backward instead of kept."""
+    recomputed in the backward instead of kept. Tensor-parallel serving
+    params (:func:`tp_serving_params`) run every layer across their
+    shards."""
     check_supported(cfg)
     if attn_fn is None:
         from ..ops.attention import flash_attention
@@ -546,9 +602,12 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             raise ValueError("block_tables need block_size and paged_len")
         view_tables = torch.where(block_tables == PAGED_SCRATCH_BLOCK,
                                   PAGED_ZERO_BLOCK, block_tables)
-    layers = {k: _unbind(v) for k, v in params["layers"].items()}
+    mesh = params.get("mesh")
+    trees = params["shards"] if mesh is not None else [params["layers"]]
+    per_shard = [{k: _unbind(v) for k, v in t.items()} for t in trees]
     for i in range(cfg.n_layers):
-        layer = {k: v[i] for k, v in layers.items()}
+        shard_layers = [{k: v[i] for k, v in t.items()} for t in per_shard]
+        layer = shard_layers if mesh is not None else shard_layers[0]
         if remat and kv_caches is None:
             x = torch.utils.checkpoint.checkpoint(
                 _layer, cfg, attn_fn, x, layer, positions, index=i,
@@ -560,8 +619,24 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         x = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
                    prefill=prefill, decode_kernel_fn=decode_kernel_fn,
                    block_tables=block_tables, view_tables=view_tables,
-                   block_size=block_size, paged_len=paged_len, index=i)
+                   block_size=block_size, paged_len=paged_len, index=i,
+                   mesh=mesh)
     return x
+
+
+def tp_serving_params(params: Params, cfg: DecoderConfig, mesh) -> Params:
+    """Serving params split across ``mesh``'s shards
+    (:func:`..parallel.sharding.shard_serving_params`): the replicated
+    leaves (embeddings, final norm) as they are, ``"shards"`` the shards'
+    layer trees and ``"mesh"`` the mesh. Every function of this module that
+    takes params runs them tensor-parallel."""
+    from ..parallel.sharding import shard_serving_params
+
+    trees = shard_serving_params(params, cfg, mesh.tp)
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["shards"] = [t["layers"] for t in trees]
+    out["mesh"] = mesh
+    return out
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,

@@ -219,12 +219,42 @@ def decode_kernel_conflict(cfg):
     return None
 
 
+def _narrow(c, axis: int, start: int, length: int):
+    """A view of ``length`` entries of a cache leaf (or both tensors of an
+    int8 QTensor) along ``axis`` from ``start``."""
+    if isinstance(c, tuple):
+        return type(c)(*(t.narrow(axis, start, length) for t in c))
+    return c.narrow(axis, start, length)
+
+
+def merge_shard_stats(parts: list, dtype) -> torch.Tensor:
+    """The merge across shards of the shard-local paged decode kernel's
+    statistics ``(acc [B, SQ, H, D], m, l [B, KV, SQ·G])``, as JAX's
+    ``blocks_form`` does it: ``m = max_s m_s``, each shard's partials
+    rescaled by ``exp(m_s - m)`` and summed across shards (``l`` and
+    ``acc``), one division at the end with a zero denominator replaced by
+    1. A shard holding none of a row's keys has ``m_s = NEG_INF``, so its
+    factor is 0 and it adds exact zeros: a lane whose blocks all lie on
+    one shard gets that shard's value, the unsharded kernel's bits."""
+    from .collectives import all_reduce_max, all_reduce_sum
+    from .decode_attn import from_stat_rows
+
+    sq = parts[0][0].shape[1]
+    m = all_reduce_max([p[1] for p in parts])
+    corr = [torch.exp(p[1] - m) for p in parts]
+    l = all_reduce_sum([p[2] * c for p, c in zip(parts, corr)])
+    acc = all_reduce_sum([p[0] * from_stat_rows(c, sq)[..., None]
+                          for p, c in zip(parts, corr)])
+    den = from_stat_rows(torch.where(l == 0.0, torch.ones_like(l), l), sq)
+    return (acc / den[..., None]).to(dtype)
+
+
 def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
-                        paged_len: int = 0, arena_len: int = 0, device=None):
+                        paged_len: int = 0, arena_len: int = 0, device=None,
+                        mesh=None, kv_layout: str = "heads"):
     """Build the serving decode-attention callable
     ``fn(q, ck, cv, tables, pos, q_lens=None) -> [B, SQ, H, D]`` the
-    transformer's ragged decode branches dispatch through (the JAX
-    function's unsharded form).
+    transformer's ragged decode branches dispatch through.
 
     ``paged=True``: ``ck``/``cv`` are the layer's ``[1, NT, KV, D]`` pool
     slice (bf16 or int8 QTensor) and ``tables`` the lanes' view tables
@@ -233,12 +263,34 @@ def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
     slotted arena of ``arena_len`` positions re-views without a copy as a
     pool with synthetic identity tables, and ``tables`` is ignored.
 
-    The returned function carries ``multi_query = True``: it takes spans of
-    ``SQ > 1`` tokens with per-lane ``q_lens``. Raises on configs the
-    kernel cannot model (sliding windows, the attention-logit softcap, an
-    arena length no tile divides) and, for a CUDA ``device``, on shapes
-    the kernel does not take."""
-    from .decode_attn import check_kernel_shapes, paged_decode_attention
+    Unsharded (no ``mesh``, or one shard), the returned function carries
+    ``multi_query = True``: it takes spans of ``SQ > 1`` tokens with
+    per-lane ``q_lens``. Tensor-parallel (``mesh``, a
+    :class:`..guest.tp_serving.ServingMesh` of ``tp > 1`` shards, JAX's
+    ``shard_map`` forms), it takes one token a lane and returns the list
+    of the shards' outputs, ``[B, 1, H/tp, D]`` each (shard ``s``'s query
+    heads), and carries no marker, so multi-token spans take the gather
+    path, as in JAX:
+
+    - ``"heads"``, KV heads dividing ``tp``: each shard runs the kernel on
+      its own query heads over its KV heads' view of the pool; no
+      collective.
+    - ``"heads"``, kv-replicated: each shard runs the kernel on its own
+      query heads over the one KV head they share; only where a shard's
+      query heads straddle KV heads does it run the full kernel and keep
+      its heads.
+    - ``"blocks"`` (paged): each shard runs the shard-local kernel
+      (:func:`.decode_attn.paged_decode_shard_stats`) over its sub-pool of
+      whole blocks, and :func:`merge_shard_stats` combines the shards.
+
+    Raises on configs the kernel cannot model (sliding windows, the
+    attention-logit softcap, an arena length no tile divides) and, for a
+    CUDA ``device``, on shapes the kernel does not take."""
+    from .decode_attn import (
+        check_kernel_shapes,
+        paged_decode_attention,
+        paged_decode_shard_stats,
+    )
 
     conflict = decode_kernel_conflict(cfg)
     if conflict is not None:
@@ -259,7 +311,7 @@ def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
     nb_row = plen // bs
     table_cache: dict = {}
 
-    def pool_form(q, ck, cv, tables, pos, q_lens=None):
+    def pool_form(q, ck, cv, tables, pos, q_lens=None, **shard):
         if not paged:
             B = q.shape[0]
             key = (B, q.device)
@@ -278,9 +330,49 @@ def make_decode_attn_fn(cfg, *, paged: bool = False, block_size: int = 0,
                 ck, cv = type(ck)(*map(reshape, ck)), type(cv)(*map(reshape, cv))
             else:
                 ck, cv = reshape(ck), reshape(cv)
-        return paged_decode_attention(
-            q, ck, cv, tables, pos, q_lens, block_size=bs, paged_len=plen,
-        )
+        fn = paged_decode_shard_stats if shard else paged_decode_attention
+        return fn(q, ck, cv, tables, pos, q_lens, block_size=bs, paged_len=plen,
+                  **shard)
 
-    pool_form.multi_query = True
-    return pool_form
+    if mesh is None or mesh.tp <= 1:
+        pool_form.multi_query = True
+        return pool_form
+
+    from ..guest.tp_serving import KV_LAYOUT_BLOCKS
+    from ..parallel.sharding import decode_attn_specs
+
+    tp = mesh.tp
+    if paged and kv_layout == KV_LAYOUT_BLOCKS:
+        # The axis of a layer's pool leaf ([1, NT, KV, D]) a shard splits.
+        _q, axis, _out = decode_attn_specs(cfg, tp, False, KV_LAYOUT_BLOCKS)
+
+        def blocks_form(q, ck, cv, tables, pos):
+            nt = (ck[0] if isinstance(ck, tuple) else ck).shape[1]
+            nb_local = nt // bs // tp
+            rows = nb_local * bs
+            parts = [pool_form(q, _narrow(ck, axis, s * rows, rows),
+                               _narrow(cv, axis, s * rows, rows), tables, pos,
+                               shard_lo=s * nb_local, shard_blocks=nb_local)
+                     for s in range(tp)]
+            out = merge_shard_stats(parts, q.dtype)
+            return [out[:, :, mesh.q_heads(s)] for s in range(tp)]
+
+        return blocks_form
+
+    def heads_form(q, ck, cv, tables, pos):
+        # Each shard attends with the KV heads its query heads read, as the
+        # prefill does (ServingMesh.kv_heads), over a view of the KV-head
+        # axis (2 of [B, S, KV, D] and of [1, NT, KV, D]).
+        outs = []
+        for s in range(tp):
+            hs, kvs = mesh.q_heads(s), mesh.kv_heads(s)
+            if kvs is None:
+                outs.append(pool_form(q, ck, cv, tables, pos)[:, :, hs])
+                continue
+            n = kvs.stop - kvs.start
+            outs.append(pool_form(q[:, :, hs].contiguous(),
+                                  _narrow(ck, 2, kvs.start, n),
+                                  _narrow(cv, 2, kvs.start, n), tables, pos))
+        return outs
+
+    return heads_form

@@ -1,8 +1,10 @@
 """The train step on one device: AdamW as optax applies it, and
 ``make_train_step`` (counterpart of ``make_optimizer`` and
 ``make_train_step`` in ``kata_xpu_device_plugin_tpu/parallel/sharding.py``,
-without the mesh: FSDP, tensor and sequence parallelism are not ported
-yet).
+without the mesh: FSDP and tensor and sequence parallelism for training
+are not ported yet); and the serving partition rules of tensor-parallel
+serving (:data:`SERVING_RULES`, :func:`shard_serving_params`), which
+split serving parameters into per-shard trees.
 
 The step contract is the JAX package's: ``init_state(seed)`` returns
 ``{"params", "opt", "step"}`` and ``step(state, tokens)`` returns
@@ -15,13 +17,15 @@ state) and returns the same dict.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+import re
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..models import transformer as tfm
+from ..ops.quant import QTensor
 
 
 def leaves(tree) -> list[torch.Tensor]:
@@ -201,3 +205,138 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
         return (state, loss, aux) if aux_metrics else (state, loss)
 
     return init_state, step
+
+
+# ----- tensor-parallel serving ------------------------------------------------
+
+# The JAX package's serving rules (``parallel/sharding.py`` SERVING_RULES):
+# ``re.search`` over a leaf's dotted path, first match wins. Where JAX gives
+# a PartitionSpec over the mesh's ``model`` axis, a rule here gives the axis
+# of the stacked leaf that a shard splits, or None to replicate. Norms and
+# embeddings replicate (a decode step reads one embedding row per token);
+# attention and the MLP take the Megatron split: column-parallel q/k/v
+# (fused wqkv and the Qwen2 biases along the same out axis) and gate/up,
+# row-parallel wo and w_down, so each layer needs exactly one sum across
+# shards after wo and one after w_down.
+SERVING_RULES: tuple[tuple[str, Optional[int]], ...] = (
+    (r"norm$", None),
+    (r"^(embed|unembed)$", None),
+    (r"layers\.(wq|wk|wv|wqkv)$", 2),
+    (r"layers\.(bq|bk|bv|bqkv)$", 1),
+    (r"layers\.wo$", 1),
+    (r"layers\.(w_gate|w_up|w_gateup)$", 2),
+    (r"layers\.w_down$", 1),
+    (r"layers\.router$", None),
+    (r"layers\.moe_w_(gate|in|out)$", 1),
+)
+
+
+def _layout_axis(axis: Optional[int], value: Any) -> Any:
+    """A weight rule's axis expanded to its serving layout: an int8
+    :class:`..ops.quant.QTensor`'s payload takes the rule's axis and its
+    scale ``[..., 1, out]`` the same axis where that is the out axis (the
+    reduced in axis stays whole), as JAX's ``_layout_spec`` does."""
+    if isinstance(value, QTensor):
+        last = value.q.ndim - 1
+        return QTensor(q=axis, scale=axis if axis == last else None)
+    return axis
+
+
+def match_partition_rules(rules, params: Any) -> Any:
+    """The split axis of every leaf of ``params`` from ``(regex, axis)``
+    rules, a tree of the same shape. Each leaf's dotted path
+    (``layers.wqkv``) is matched with ``re.search`` in order, first match
+    wins; a leaf of one element replicates; a path no rule covers raises
+    (a silently replicated weight matrix would defeat the split)."""
+
+    def axis_for(path: str, value: Any) -> Optional[int]:
+        t = value.q if isinstance(value, QTensor) else value
+        if t.numel() == 1:
+            return None
+        for pattern, axis in rules:
+            if re.search(pattern, path):
+                return axis
+        raise ValueError(f"no serving partition rule matches param {path!r}")
+
+    def node(value: Any, path: str) -> Any:
+        if isinstance(value, dict):
+            return {k: node(v, f"{path}.{k}" if path else k)
+                    for k, v in value.items()}
+        return _layout_axis(axis_for(path, value), value)
+
+    return node(params, "")
+
+
+def serving_param_specs(params: Any) -> Any:
+    """:data:`SERVING_RULES` applied to ``params`` (any serving layout)."""
+    return match_partition_rules(SERVING_RULES, params)
+
+
+def decode_attn_specs(cfg, tp: int, quantized: bool, kv_layout: str = "heads"):
+    """``(q_axis, kv_axis, out_axis)`` of the paged decode attention under
+    tensor-parallel serving (JAX ``decode_attn_specs``), for q ``[B, S, H,
+    D]``, a pool slice ``[1, NT, KV, D]`` and the output: the head axis (2)
+    of all three when the KV heads divide ``tp``; under "blocks" the
+    pool's token axis (1) with q and the output replicated (None); else
+    everything replicated (the kv-replicated layout). An int8 pool's
+    payload and scales share the axis."""
+    from ..guest.tp_serving import KV_LAYOUT_BLOCKS, kv_heads_shardable
+
+    if kv_layout == KV_LAYOUT_BLOCKS:
+        head, kv = None, 1
+    else:
+        head = kv = 2 if kv_heads_shardable(cfg, tp) else None
+    return head, QTensor(q=kv, scale=kv) if quantized else kv, head
+
+
+# Fused inference weights: each concatenates parts along its out axis, and
+# a shard keeps its own slice of every part.
+_FUSED_PARTS = {
+    "wqkv": lambda cfg: (cfg.q_dim, cfg.kv_dim, cfg.kv_dim),
+    "bqkv": lambda cfg: (cfg.q_dim, cfg.kv_dim, cfg.kv_dim),
+    "w_gateup": lambda cfg: (cfg.d_ff, cfg.d_ff),
+}
+
+
+def _split(t: torch.Tensor, axis: Optional[int], tp: int,
+           parts: tuple = ()) -> list:
+    """``tp`` contiguous per-shard copies of ``t`` cut along ``axis`` (the
+    same tensor for every shard when ``axis`` is None); with ``parts`` each
+    part along the axis is cut and shard ``s`` concatenates its pieces."""
+    if axis is None:
+        return [t] * tp
+    if any(n % tp for n in parts or (t.shape[axis],)):
+        raise ValueError(f"a split of {tuple(t.shape)} along axis {axis} "
+                         f"(parts {parts}) does not divide tp={tp}")
+    if not parts:
+        return [c.contiguous() for c in t.chunk(tp, dim=axis)]
+    pieces = [p.chunk(tp, dim=axis) for p in t.split(list(parts), dim=axis)]
+    return [torch.cat([p[s] for p in pieces], dim=axis) for s in range(tp)]
+
+
+def shard_serving_params(params: dict, cfg, tp: int) -> list:
+    """``tp`` per-shard parameter trees by :data:`SERVING_RULES`: every
+    layer leaf is cut along its rule's axis (an int8 QTensor's payload and
+    scale alike, the scale whole where its axis is the reduced one), a
+    fused ``wqkv``/``bqkv``/``w_gateup`` part by part, so that shard ``s``
+    holds heads ``[s·H/tp, (s+1)·H/tp)`` of q and its slice of k, v and the
+    MLP; replicated leaves are the same tensors in every tree. Raises when
+    a split axis does not divide ``tp``."""
+    specs = serving_param_specs(params)
+    trees = [{k: v for k, v in params.items() if k != "layers"}
+             for _ in range(tp)]
+    for s in range(tp):
+        trees[s]["layers"] = {}
+    for name, leaf in params["layers"].items():
+        axis = specs["layers"][name]
+        parts = _FUSED_PARTS[name](cfg) if name in _FUSED_PARTS else ()
+        if isinstance(leaf, QTensor):
+            qs = _split(leaf.q, axis.q, tp, parts)
+            ss = _split(leaf.scale, axis.scale, tp,
+                        parts if axis.scale is not None else ())
+            cut = [QTensor(a, b) for a, b in zip(qs, ss)]
+        else:
+            cut = _split(leaf, axis, tp, parts)
+        for s in range(tp):
+            trees[s]["layers"][name] = cut[s]
+    return trees

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+from kata_xpu_device_plugin_tpu_torch.guest.tp_serving import ServingMesh
 from kata_xpu_device_plugin_tpu_torch.models import gemma_2b, init_params
 from kata_xpu_device_plugin_tpu_torch.models import transformer
 from kata_xpu_device_plugin_tpu_torch.ops import attention, decode_attn, flash, quant
@@ -1254,3 +1255,223 @@ def test_decode_graph_replay_over_shared_and_cow_blocks_is_bit_equal(cuda_device
         assert torch.equal(g, w)
     for a, c in zip(_leaves(arena), clone):
         assert torch.equal(_bits(a), _bits(c))
+
+
+def _sharded_pool(rng, dev, tp, bs, KV, D, int8, B=4, keys=512):
+    """A block-sharded pool of ``tp`` sub-pools and four lanes over it:
+    lane 0's blocks all on shard 0, lane 1's all on the last shard (its
+    table ZERO past its position), lane 2's alternating between shards,
+    lane 3 dead (a stale position) over random blocks of every shard."""
+    NB = keys // bs
+    nbl = 2 * NB + 2
+    NT = tp * nbl * bs
+    k = _randn(rng, (1, NT, KV, D), dev)
+    v = _randn(rng, (1, NT, KV, D), dev)
+    k[0, :bs] = 0.0
+    v[0, :bs] = 0.0
+    last = (tp - 1) * nbl
+    pos = [keys - 1, keys // 2 + 44, keys - 1, 10_000][:B]
+    tables = np.stack([
+        np.arange(2, 2 + NB),
+        last + np.arange(NB),
+        np.array([(j % tp) * nbl + 2 + j for j in range(NB)]),
+        rng.integers(2, tp * nbl, NB),
+    ]).astype(np.int32)[:B]
+    tables[1, pos[1] // bs + 1:] = 0
+    if int8:
+        k, v = quant.quantize_kv(k), quant.quantize_kv(v)
+    return (k, v, torch.from_numpy(tables).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), nbl)
+
+
+def _shard(c, s, rows):
+    if isinstance(c, quant.QTensor):
+        return quant.QTensor(c.q[:, s * rows:(s + 1) * rows],
+                             c.scale[:, s * rows:(s + 1) * rows])
+    return c[:, s * rows:(s + 1) * rows]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(8, 1, 256), (28, 4, 128)],
+                         ids=["gemma2b", "qwen2_7b"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_shard_local_paged_decode_matches_plain(cuda_device, H, KV, D, tp, bs,
+                                                int8):
+    """The shard-local form (K2): each shard's ``(acc, m, l)`` against the
+    plain shard-local version within the derived statistics bound (its
+    normalised output within the kernels' bound), exact zeros where a
+    shard holds none of a row's tiles; the merged output bit-equal to the
+    unsharded kernel for the lanes whose blocks lie on one shard and
+    within the kernels' bound of the plain version for every live lane;
+    a relaunch gives the same bits."""
+    rng = np.random.default_rng(bs + tp + KV + int8)
+    k, v, tables, pos, nbl = _sharded_pool(rng, cuda_device, tp, bs, KV, D,
+                                           int8)
+    q = _randn(rng, (4, 1, H, D), cuda_device)
+    kw = dict(block_size=bs, paged_len=512)
+    v_abs = quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs()
+    parts = []
+    before = decode_attn.paged_decode_shard_stats.launches
+    for s in range(tp):
+        ks, vs = _shard(k, s, nbl * bs), _shard(v, s, nbl * bs)
+        shard = dict(shard_lo=s * nbl, shard_blocks=nbl)
+        got = decode_attn.paged_decode_shard_stats(q, ks, vs, tables, pos, **kw,
+                                                   **shard)
+        again = decode_attn.paged_decode_shard_stats(q, ks, vs, tables, pos,
+                                                     **kw, **shard)
+        want = decode_attn.paged_decode_split_reference(
+            q, ks, vs, tables, pos, **kw, **shard, return_stats=True)
+        mag = decode_attn.paged_decode_split_reference(
+            q.float(), ks, _shard(v_abs, s, nbl * bs), tables, pos, **kw, **shard,
+            return_stats=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(_bits(a), _bits(b))
+        live = want[1][:3] > attention.NEG_INF / 2  # dead lane 3 left out
+        res = decode_attn.shard_stats_tolerance(
+            [t[:3] for t in got], [t[:3] for t in want], q, ks)
+        assert res["ok"], (s, res)
+        rows = decode_attn.from_stat_rows(live, 1)
+        norm = [t[0][:3][rows] / decode_attn.from_stat_rows(t[2][:3], 1)[rows][
+            ..., None] for t in (got, want, mag)]
+        res = attention.kernel_tolerance(norm[0].to(torch.bfloat16), norm[1],
+                                         norm[2])
+        assert res["ok"], (s, res)
+        parts.append(got)
+    assert decode_attn.paged_decode_shard_stats.launches == before + 2 * tp
+    merged = attention.merge_shard_stats(parts, q.dtype)
+    whole = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(merged[:2]), _bits(whole[:2]))
+    ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+    mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables, pos,
+                                             **kw)
+    res = attention.kernel_tolerance(merged[:3], ref[:3], mag[:3])
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["heads", "blocks"])
+def test_tp_server_graph_chunk_is_bit_equal_to_eager(cuda_device, layout):
+    """A ``tp=2`` paged server's decode chunk (capture, then the first
+    replay) against the same chunk run eagerly on a clone of the pool:
+    tokens and every pool byte equal; each replayed layer step counts one
+    kernel launch a shard; the run ends with the pool empty."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_quant=True, overlap=False, kv_pool_tokens=4096,
+              kv_block_size=16, tp=2, kv_layout=layout)
+    srv = GenerationServer(params, cfg, **kw)
+    assert srv.stats()["tp_degree"] == 2
+    assert srv.stats()["kv_pool_shards"] == (2 if layout == "blocks" else 1)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 40)
+    srv.step()  # admission, then the warm-up chunk
+    exe = srv._decode
+    per_chunk = exe.steps * cfg.n_layers * 2
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena
+    clone = [t.clone() for t in _leaves(arena)]
+    eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2]) for i in range(2))
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    tok, pos, bt = dev(srv._last), dev(srv._pos), dev(srv._bt_host)
+    want = serve_decode(srv.params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, block_tables=bt, **exe._kw)
+    counter = (decode_attn.paged_decode_shard_stats if layout == "blocks"
+               else decode_attn.paged_decode_attention)
+    d0 = counter.launches
+    got = exe(tok, pos, block_tables=bt)
+    torch.cuda.synchronize()
+    assert (exe.captures, exe.replays) == (1, 1)
+    assert counter.launches - d0 == per_chunk
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(_leaves(arena), clone):
+        assert torch.equal(_bits(a), _bits(c))
+    srv.run()
+    assert srv.kv_pool.blocks_in_use == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_paged_decode_reads_a_head_view_in_place(cuda_device, int8, tp):
+    """A head-sharded pool's shard is a view of some KV heads of the pool
+    (row stride KV heads, not the view's): the kernel reads it in place,
+    and a shard's output is bit-equal to the same query heads of the whole
+    kernel's (each KV head's rows are independent), over the slotted
+    arena's re-view too."""
+    rng = np.random.default_rng(tp + int8)
+    B, H, KV, D, bs, NB = 4, 32, 8, 128, 16, 8
+    pos_l = [0, bs * NB - 1, 40, 10_000]
+    k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+    kw = dict(block_size=bs, paged_len=NB * bs)
+    whole = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+    n, g = KV // tp, H // tp
+    for s in range(tp):
+        def heads(c):
+            return (quant.QTensor(c.q[:, :, s * n:(s + 1) * n],
+                                  c.scale[:, :, s * n:(s + 1) * n])
+                    if int8 else c[:, :, s * n:(s + 1) * n])
+
+        assert not (heads(k).q if int8 else heads(k)).is_contiguous()
+        part = decode_attn.paged_decode_attention(
+            q[:, :, s * g:(s + 1) * g].contiguous(), heads(k), heads(v), tables,
+            pos, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(part), _bits(whole[:, :, s * g:(s + 1) * g]))
+    fn = attention.make_decode_attn_fn(
+        replace_cfg(H, KV, D), arena_len=NB * bs, device=cuda_device)
+    arena = [_randn(rng, (B, NB * bs, KV, D), cuda_device) for _ in range(2)]
+    full = fn(q, *arena, None, pos.clamp(max=NB * bs - 1))
+    for s in range(tp):
+        part = fn(q[:, :, s * g:(s + 1) * g].contiguous(),
+                  *(a[:, :, s * n:(s + 1) * n] for a in arena), None,
+                  pos.clamp(max=NB * bs - 1))
+        assert torch.equal(_bits(part), _bits(full[:, :, s * g:(s + 1) * g]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_heads_form_shards_share_one_kv_head(cuda_device, int8, tp):
+    """Gemma-2B's one KV head under the heads layout: each shard's kernel
+    call takes its own H/tp query heads over that head (a group of
+    H/tp), and the shards' outputs are bit-equal to the same query heads
+    of the whole kernel's (each query head's rows are independent)."""
+    rng = np.random.default_rng(10 * tp + int8)
+    B, H, KV, D, bs, NB = 4, 8, 1, 256, 16, 8
+    pos_l = [0, bs * NB - 1, 40, 10_000]
+    k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+    cfg = replace_cfg(H, KV, D)
+    kw = dict(paged=True, block_size=bs, paged_len=NB * bs, device=cuda_device)
+    whole = attention.make_decode_attn_fn(cfg, **kw)(q, k, v, tables, pos)
+    mesh = ServingMesh.for_config(cfg, tp, cuda_device)
+    before = decode_attn.paged_decode_attention.launches
+    outs = attention.make_decode_attn_fn(cfg, mesh=mesh, **kw)(
+        q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert decode_attn.paged_decode_attention.launches == before + tp
+    assert [o.shape[2] for o in outs] == [H // tp] * tp
+    assert torch.equal(_bits(torch.cat(outs, dim=2)), _bits(whole))
+
+
+def replace_cfg(H, KV, D):
+    from dataclasses import replace
+
+    return replace(gemma_2b(), n_heads=H, n_kv_heads=KV, head_dim=D)

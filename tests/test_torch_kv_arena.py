@@ -74,9 +74,21 @@ def test_pool_accounting_matches_jax(models, kv_quant):
 
 
 def test_pool_refuses_what_is_not_ported_or_too_small(models):
-    _, _, _, tcfg = models
-    with pytest.raises(NotImplementedError, match="shards"):
-        tarena.KVPool(tcfg, 64, BS, shards=2, device="cpu")
+    """Block-sharded pools are ported (tensor-parallel serving): as JAX's,
+    a pool rounds down to whole blocks a shard and refuses one that holds
+    no usable block after the rounding."""
+    jcfg, _, _, tcfg = models
+    pool = tarena.KVPool(tcfg, 64, BS, shards=3, device="cpu")
+    twin = jarena.KVPool(jcfg, 64, BS, shards=3)
+    assert (pool.num_blocks, pool.shard_blocks) == (twin.num_blocks,
+                                                    twin.shard_blocks) == (15, 5)
+    for n in (4, 3, 5):
+        assert pool.try_alloc(n) == twin.try_alloc(n)
+        assert pool.shard_occupancy() == twin.shard_occupancy()
+    with pytest.raises(ValueError, match="two reserved"):
+        tarena.KVPool(tcfg, 3 * BS, BS, shards=2, device="cpu")
+    with pytest.raises(ValueError, match="two reserved"):
+        jarena.KVPool(jcfg, 3 * BS, BS, shards=2)
     with pytest.raises(ValueError, match="two reserved"):
         tarena.KVPool(tcfg, 2 * BS, BS, device="cpu")
     with pytest.raises(ValueError, match="block_size"):

@@ -124,17 +124,37 @@ def test_kv_quant_resolution(monkeypatch):
     assert tserving.resolve_kv_quant(None) is True
 
 
+# The JAX server's arguments for modes not ported yet, each at a value that
+# selects the mode, and the ROADMAP item its error names.
+UNPORTED = {
+    "speculative_k": (2, "11b"), "ring_kv": (True, "11b"),
+    "checkpoint_rounds": (4, "9b"), "mesh": (object(), "12b"),
+    "draft": ((None, None), "11b"), "spec_opt_in": (True, "11b"),
+    "strict": (True, "9a"), "tripwire": (True, "9a"),
+    "heartbeat_rounds": (2, "9a"), "watchdog": (object(), "9a"),
+    "fault_injector": (object(), "9b"), "fence_timeout_s": (5.0, "9b"),
+    "quarantine_after": (2, "9b"), "recovery_backoff_s": (0.0, "9b"),
+    "degraded": (True, "9b"),
+}
+# Their no-op values, which build.
+NO_OP = dict(mesh=None, draft=None, strict=False, tripwire=False,
+             fault_injector=None, fence_timeout_s=None, quarantine_after=None,
+             recovery_backoff_s=None, spec_opt_in=False, tp_min=1,
+             degraded=False, heartbeat_rounds=0, watchdog=None)
+
+
 @pytest.mark.parametrize("kwarg", [
-    dict(kv_host_tokens=64), dict(kv_layout="blocks"), dict(tp=2),
-    dict(speculative_k=2),
-    dict(ring_kv=True), dict(prefix_cache_tokens=64),
+    dict(kv_host_tokens=64), dict(kv_layout="blocks", kv_pool_tokens=256),
+    dict(tp=2), dict(prefix_cache_tokens=64),
     dict(temperature=0.7, persistent=True),
     dict(sched_policy="slo_chunked"),
-    dict(persistent=True), dict(checkpoint_rounds=4),
-], ids=lambda kw: next(iter(kw)))
+    dict(persistent=True),
+] + [{k: v} for k, (v, _) in UNPORTED.items()],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_modes_raise(models, kwarg):
-    """Modes not ported yet raise ``NotImplementedError``. The chunked
-    admission policy, persistent decode and the prefix cache are ported:
+    """Modes not ported yet raise ``NotImplementedError`` naming their
+    ROADMAP item. The chunked admission policy, persistent decode, the
+    prefix cache and tensor parallelism under both KV layouts are ported:
     they build, and sampled persistent decode raises the JAX server's
     ``ValueError`` (its rounds are greedy only), as does the host KV tier
     on this slotted server (it needs a paged pool)."""
@@ -142,6 +162,12 @@ def test_unported_modes_raise(models, kwarg):
     if "kv_host_tokens" in kwarg:
         with pytest.raises(ValueError, match="paged"):
             GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+    elif "kv_layout" in kwarg or "tp" in kwarg:
+        stats = GenerationServer(tp, tcfg, device="cpu",
+                                 **KW, **{"tp": 2, **kwarg}).stats()
+        assert stats["tp_degree"] == 2
+        assert stats["kv_layout"] == kwarg.get("kv_layout", "heads")
+        assert stats["kv_pool_shards"] == (2 if "kv_layout" in kwarg else 1)
     elif "prefix_cache_tokens" in kwarg:
         srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
         assert srv.prefix_store.capacity_tokens == 64
@@ -153,8 +179,65 @@ def test_unported_modes_raise(models, kwarg):
         assert stats["persistent"] == int("persistent" in kwarg)
         assert stats["sched_policy"] == kwarg.get("sched_policy", "fifo_batch")
     else:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        (name,) = kwarg
+        item = UNPORTED[name][1]
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP Queue 1 item {item}\).* not ported yet"):
             GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+
+
+def test_server_takes_every_argument_of_the_jax_server(models):
+    """Every parameter of the JAX server's constructor is one of the
+    port's (a JAX caller's keywords never raise ``TypeError``), and their
+    no-op values build."""
+    import inspect
+
+    ours = set(inspect.signature(GenerationServer.__init__).parameters)
+    theirs = set(inspect.signature(JaxServer.__init__).parameters)
+    assert theirs <= ours, sorted(theirs - ours)
+    assert set(NO_OP) | set(UNPORTED) <= theirs
+    _, _, tp, tcfg = models
+    stats = GenerationServer(tp, tcfg, device="cpu", **KW, **NO_OP).stats()
+    assert stats["tp_degree"] == 1
+
+
+# JAX stats keys the port does not compute yet, by the ROADMAP item that
+# brings them: telemetry (9a) and resilience (9b).
+STATS_NOT_YET = {
+    "9a": {"device_busy_frac", "devledger", "dispatch_gap_ms", "heartbeat_rounds",
+           "heartbeat_tokens_per_s", "heartbeats", "loop_phase_s", "mfu",
+           "request_phase_s", "request_traces", "steady_state_compiles",
+           "steady_state_reshards", "trace", "tripwire_enabled",
+           "tripwire_warmed", "watchdog", "watchdog_active", "watchdog_alerts"},
+    "9b": {"checkpoint_rounds", "checkpoints", "device_stalls", "quarantined",
+           "recoveries"},
+}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_stats_have_the_jax_keys(models, paged):
+    """The port's ``stats()`` keys include the JAX server's, less the
+    named keys of items 9a and 9b; the occupancy keys it shares take the
+    JAX values mid-run, after one lock-step round of the same requests."""
+    jcfg, jp, tp, tcfg = models
+    kw = dict(KW, kv_quant=True, overlap=False)
+    if paged:
+        kw.update(kv_pool_tokens=256, kv_block_size=8, prefix_cache_tokens=1,
+                  kv_host_tokens=64)
+    ours = GenerationServer(tp, tcfg, device="cpu", **kw)
+    theirs = JaxServer(jp, jcfg, **kw)
+    for srv in (ours, theirs):
+        for p in _prompts(tcfg.vocab_size):
+            srv.submit(p, 20)
+        srv.step()
+    a, b = ours.stats(), theirs.stats()
+    assert set(b) - set(a) == set().union(*STATS_NOT_YET.values())
+    for k in ("tokens_per_round", "slots_busy", "queued", "batch_occupancy",
+              "kv_slot_utilization", "kv_layout", "kv_pool_shards",
+              "tp_degree", "tp_degraded", "tp_shrinks",
+              "kv_pool_shard_occupancy"):
+        assert a[k] == b[k], (k, a[k], b[k])
+    assert a["slots_busy"] == 2 and a["queued"] == len(LENGTHS) - 2
 
 
 def test_submit_validates_like_jax(models):
