@@ -39,7 +39,16 @@ Phases, each printing one JSON line:
    (the Llama-3-8B and Gemma-2B train shapes timed, beside the ``delta``
    reduction and the SDPA backward), both with ``delta`` given and with the
    dq kernel forming it (``flash_backward``), and a second launch of each
-   giving the same bits;
+   giving the same bits; the ring block API's kernels (K1: global offsets,
+   the lse cotangent ``dlse`` in the backward) on the block pairs of an
+   8192-token ring of 4 at Llama-3-8B's train shape (a full pair below the
+   diagonal, the diagonal pair) and at Gemma-2-2B's local layers (window
+   4096, softcap 50: a pair whose last row sees no key, and one the window
+   does not reach), with a random ``dlse``, out on the live rows and the
+   backward within their bounds, dead rows finite with lse <= NEG_INF / 2,
+   relaunches bit-identical; the forward timed by graph replay, the dq
+   and dk/dv kernels each alone by CUDA events, beside SDPA (no lse, no
+   cap);
 4. serve  — full-width Gemma-2B (random bf16 weights, fused) served by
    the default ``GenerationServer`` (overlapped rounds, int8 KV, chunk 8,
    each decode chunk after the first one CUDA graph replay): 16 requests;
@@ -137,7 +146,19 @@ Phases, each printing one JSON line:
    the cosine of the whole gradient are printed;
 11. train_gemma — the same at Gemma-2B's published widths (head_dim 256,
    MQA, GeGLU, tied and scaled embeddings) with 6 of its 18 layers: 4 steps
-   (6 launches of each kernel a step), then its 2-layer crosscheck.
+   (6 launches of each kernel a step), then its 2-layer crosscheck;
+12. seq — sequence-parallel training: ``make_train_step(cfg,
+   mesh=seq_mesh(4))`` and ``fit`` at Llama-3-8B's widths with 8 of its 32
+   layers, B=1, S=8192 (ring attention over 4 shards of 2048 tokens, all on
+   the one card), 4 steps: step time, tokens/s, MFU, peak memory, losses
+   finite and falling; the K1 forward, dq and dk/dv kernels each launched
+   exactly steps x layers x 10 live pairs, self-attention's kernels never.
+   Then
+   ``seq_crosscheck`` at 2 layers: every K1 call and each layer's merged
+   output checked on its own inputs, the first step's loss and gradient
+   norm at sp=4 beside sp=1 (the flash kernel). Then ``seq_gemma2``:
+   Gemma-2-2B, 4 of its 26 layers, S=8192, sp=4, 3 steps (local layers,
+   window 4096, 9 pairs each; global layers 10).
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
@@ -724,6 +745,163 @@ def bwd_case(name, B, S, H, KV, D, causal=True, window=0, softcap=0.0,
     return row
 
 
+def block_bound(S, H, KV, D, pairs: int, products: int, in_bytes: float,
+                out_bytes: float) -> dict:
+    """The least time for a block pair's call: ``products`` D-long products
+    a live (q row, key) pair of each head over the bf16 peak, or its inputs
+    read once and its outputs written once over the memory rate."""
+    t_ops = products * 2.0 * D * H * pairs / PEAK_BF16_FLOPS
+    t_bytes = (in_bytes + out_bytes) / PEAK_HBM_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def sdpa_band(S, q_off, k_off, window):
+    """The block pair's live set as SDPA's boolean mask ``[S, S]``, or None
+    where ``is_causal`` (the diagonal) or no mask (below it) says it."""
+    import torch
+
+    if window == 0 and q_off == k_off:
+        return None
+    if window == 0 and k_off + S - 1 <= q_off:
+        return None
+    qp = q_off + torch.arange(S, device="cuda")[:, None]
+    kp = k_off + torch.arange(S, device="cuda")[None, :]
+    band = kp <= qp
+    if window:
+        band &= kp > qp - window
+    return band
+
+
+def block_case(name, S, H, KV, D, q_off, k_off, window=0, softcap=0.0,
+               timed=False):
+    """The ring block API's kernels (K1) on one block pair at global offsets,
+    B=1, contiguous ``[1, S, heads, D]`` q/k/v and dout (the training
+    layout) and a nonzero random ``dlse``: the forward's out on the rows
+    with a live key within ``kernel_tolerance`` of the plain version, its
+    lse within LSE_TOL there; a row with no live key finite with lse <=
+    NEG_INF / 2 (a pair with no live key gives 0, as the TPU kernel's
+    finalize of rows none of whose blocks it visits); the backward (dq
+    forming delta - dlse, then dk/dv) within the bound
+    ``backward_magnitudes`` derives with the dlse term; a second
+    launch of each giving the same bits. ``timed``: the forward by CUDA-
+    graph replay, the dq kernel (forming delta - dlse) and the dk/dv kernel
+    each alone by CUDA events, beside the plain versions and SDPA (with
+    ``is_causal`` on the diagonal, no mask below it, the band as a mask
+    with a window; SDPA returns no lse and takes no cap). Returns the
+    forward's, dq's and dk/dv's rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import NEG_INF
+
+    g = torch.Generator(device="cuda").manual_seed(S + H + D + q_off + window)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v, do = rnd(1, S, H, D), rnd(1, S, KV, D), rnd(1, S, KV, D), rnd(1, S, H, D)
+    dlse = torch.randn(1, H, S, generator=g, device="cuda")
+    kw = dict(causal=True, window=window, softcap=softcap)
+    off = dict(q_off=q_off, k_off=k_off)
+    out, lse = flash.flash_block_forward(q, k, v, q_off, k_off, **kw)
+    ref, ref_lse = flash.flash_reference(q, k, v, **off, **kw)
+    mag, _ = flash.flash_reference(q.float(), k.float(), v.abs().float(), **off, **kw)
+    torch.cuda.synchronize()
+    live = flash.live_rows(S, S, True, window, q_off, k_off).cuda()
+    dead = int((~live).sum())
+    if not (torch.isfinite(out.float()).all()
+            and bool((lse[:, :, ~live] <= NEG_INF / 2).all())):
+        raise AssertionError(f"{name}: a row with no live key is not finite "
+                             "with lse <= NEG_INF / 2")
+    if live.any():
+        fwd = {"case": name, **check(f"{name} fwd", out[:, live], ref[:, live],
+                                     mag[:, live]),
+               "lse_max_abs_err": check_lse(name, lse[:, :, live],
+                                            ref_lse[:, :, live])}
+    elif out.any():  # no live row: every warpgroup skips every tile
+        raise AssertionError(f"{name}: a pair with no live key must give 0, "
+                             "as the TPU kernel's finalize of unvisited rows")
+    else:
+        fwd = {"case": name, "max_abs_err": 0.0, "max_err_over_bound": 0.0}
+    again = flash.flash_block_forward(q, k, v, q_off, k_off, **kw)
+    relaunch_equal(f"{name} fwd", out, again[0])
+    relaunch_equal(f"{name} lse", lse, again[1])
+    del ref, mag, ref_lse, again
+    got = flash.flash_block_backward(q, k, v, out, lse, do, dlse, q_off, k_off, **kw)
+    want = flash.flash_backward_reference(q, k, v, out, lse, do, dlse=dlse, **off,
+                                          **kw)
+    mags = flash.backward_magnitudes(q, k, v, out, lse, do, dlse=dlse, **off, **kw)
+    torch.cuda.synchronize()
+    res = check_grads(f"{name} bwd", got, want, mags)
+    del want, mags
+    for gname, a, b in zip(("dq", "dk", "dv"), got, flash.flash_block_backward(
+            q, k, v, out, lse, do, dlse, q_off, k_off, **kw)):
+        relaunch_equal(f"{name} {gname}", a, b)
+    dq = {"case": name, **res["dq"]}
+    dkv = {"case": name, **{f: max(res["dk"][f], res["dv"][f]) for f in (
+        "max_abs_err", "mean_abs_err", "max_err_over_bound")},
+           "mean_bound": min(res["dk"]["mean_bound"], res["dv"]["mean_bound"])}
+    pairs = int(flash._mask(S, S, True, window, q_off, k_off, "cpu").sum())
+    if timed:
+        fwd["ms"] = graph_ms(lambda: flash.flash_block_forward(
+            q, k, v, q_off, k_off, **kw), 20)
+        fwd["call_ms"] = time_ms(lambda: flash.flash_block_forward(
+            q, k, v, q_off, k_off, **kw), 20)
+        fwd["plain_ms"] = time_ms(lambda: flash.flash_reference(
+            q, k, v, **off, **kw), 3, 1)
+        _, delta = flash.flash_block_bwd_dq(q, k, v, out, lse, do, dlse, q_off,
+                                            k_off, **kw)
+        dq["ms"] = time_ms(lambda: flash.flash_block_bwd_dq(
+            q, k, v, out, lse, do, dlse, q_off, k_off, **kw), 10)
+        dkv["ms"] = time_ms(lambda: flash.flash_block_bwd_dkv(
+            q, k, v, do, lse, delta, q_off, k_off, **kw), 10)
+        dq["block_backward_ms"] = time_ms(lambda: flash.flash_block_backward(
+            q, k, v, out, lse, do, dlse, q_off, k_off, **kw), 10)
+        dq["plain_ms"] = dkv["plain_ms"] = time_ms(
+            lambda: flash.flash_backward_reference(
+                q, k, v, out, lse, do, dlse=dlse, **off, **kw), 3, 1)
+        band = sdpa_band(S, q_off, k_off, window)
+        causal = band is None and q_off == k_off
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, is_causal=causal, enable_gqa=True)
+        fwd["library_ms"] = graph_ms(sdpa, 20)
+        o_sdpa = sdpa()
+        do_t = do.transpose(1, 2)
+        # The SDPA backward computes all three gradients: it stands beside
+        # each kernel, as for the self-attention rows.
+        dq["library_ms"] = dkv["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t,
+                                        retain_graph=True), 10)
+        note = ("SDPA returns no lse" + (" and takes no cap" if softcap else "")
+                + ("; band as a boolean mask" if band is not None else ""))
+        fwd["library_note"] = dq["library_note"] = dkv["library_note"] = note
+        bf16 = 2.0 * S * D
+        fwd.update(block_bound(S, H, KV, D, pairs, 2, bf16 * (H + 2 * KV),
+                               bf16 * H + 4.0 * H * S))
+        # dq: S, dP and dq, three products a pair; q, k, v, dout, out, lse
+        # and dlse read, dq and delta - dlse written. dk/dv: S^T, dP^T, dk
+        # and dv, four; q, k, v, dout, lse and delta read, dk and dv
+        # written.
+        dq.update(block_bound(S, H, KV, D, pairs, 3,
+                              bf16 * (3 * H + 2 * KV) + 8.0 * H * S,
+                              bf16 * H + 4.0 * H * S))
+        dkv.update(block_bound(S, H, KV, D, pairs, 4,
+                               bf16 * (2 * H + 2 * KV) + 8.0 * H * S,
+                               bf16 * 2 * KV))
+    emit("check", kernel="flash_block", S=S, H=H, KV=KV, D=D, q_off=q_off,
+         k_off=k_off, window=window, softcap=softcap, live_pairs_a_head=pairs,
+         dead_rows=dead, relaunch_bit_equal=True,
+         fwd={k_: v_ for k_, v_ in fwd.items() if k_ != "case"},
+         dq={k_: v_ for k_, v_ in dq.items() if k_ != "case"},
+         dkv={k_: v_ for k_, v_ in dkv.items() if k_ != "case"},
+         grads={k_: {f: r[f] for f in ("max_abs_err", "max_err_over_bound")}
+                for k_, r in res.items()})
+    return fwd, dq, dkv
+
+
 def bandwidth_fields(prefix: str, res: dict) -> dict:
     """Move a timed case's times out of its check result (the kernels
     line's timed case stays the main path's shape), with its share of the
@@ -889,6 +1067,34 @@ def phase_checks() -> dict:
     results["flash_bwd_extra"] = {
         **{f"llama3_8b_{f}": bwd[0]["dq"][f] for f in (
             "delta_ms", "pair_with_delta_ms", "flash_backward_ms")}, **gemma}
+    # K1: the ring's block pairs at Llama-3-8B's train shape (S_loc = 2048
+    # of an 8192-token ring of 4), the full pair first (6 of a ring's 10
+    # pairs; the kernels line's timed case), then the diagonal, then a
+    # Gemma-2-2B local layer's windowed pair, whose last row sees no key.
+    blocks = [
+        block_case("llama3-8b full pair", 2048, 32, 8, 128, 6144, 0, timed=True),
+        block_case("llama3-8b diagonal pair", 2048, 32, 8, 128, 4096, 4096,
+                   timed=True),
+        block_case("gemma2-2b window4096 softcap50 pair", 2048, 8, 4, 256, 4096,
+                   0, window=4096, softcap=50.0, timed=True),
+        block_case("gemma2-2b window unreached", 2048, 8, 4, 256, 6144, 0,
+                   window=4096, softcap=50.0),
+        block_case("D64 part tiles window", 320, 4, 2, 64, 640, 320, window=200),
+    ]
+    extra = {"full_dq_block_backward_ms": blocks[0][1].pop("block_backward_ms")}
+    for prefix, rows in (("diagonal", blocks[1]), ("window", blocks[2])):
+        for key, row in zip(("fwd", "dq", "dkv"), rows):
+            extra.update({f"{prefix}_{key}_{k_}": row.pop(k_) for k_ in (
+                "ms", "call_ms", "plain_ms", "library_ms", "library_note",
+                "bound_ms", "bound_by", "block_backward_ms") if k_ in row})
+    emit("flash_block_timing", shape="B=1 S=2048 per block: llama3_8b H=32 KV=8 "
+         "D=128 (full pair q_off 6144 k_off 0 on the kernels line; diagonal at "
+         "4096); window: gemma2_2b H=8 KV=4 D=256, window 4096, softcap 50, "
+         "q_off 4096, k_off 0", **extra)
+    results["flash_fwd_block"] = [b_[0] for b_ in blocks]
+    results["flash_bwd_dq_block"] = [b_[1] for b_ in blocks]
+    results["flash_bwd_dkv_block"] = [b_[2] for b_ in blocks]
+    results["flash_block_extra"] = extra
     return results
 
 
@@ -3112,6 +3318,247 @@ def train_crosscheck(model: str = "llama3_8b", seed: int = 1, n_layers: int = 2,
     return row
 
 
+SEQ_MODELS = {  # model -> (layers of the published depth, why cut)
+    "llama3_8b": (32, "one card's memory"),
+    "gemma2_2b": (26, "the side run's share of the phase's time"),
+}
+
+
+def ring_pairs(cfg, sp: int, S_loc: int) -> int:
+    """The block pairs a ring of ``sp`` shards runs a forward over all of
+    ``cfg``'s layers: each shard meets the shards at or below it, up to the
+    window's last hop (``parallel.ring._ring_hops``)."""
+    from kata_xpu_device_plugin_tpu_torch.parallel.ring import _ring_hops
+
+    return sum(min(i, _ring_hops(sp, S_loc, cfg.layer_window(layer))) + 1
+               for layer in range(cfg.n_layers) for i in range(sp))
+
+
+def phase_seq(model: str = "llama3_8b", n_layers: int = 8, steps: int = 4,
+              sp: int = 4, S: int = 8192, seed: int = 0, profile: bool = False,
+              phase: str = "seq") -> dict:
+    """Sequence-parallel training: ``make_train_step(cfg,
+    mesh=seq_mesh(sp))`` and ``fit`` at ``model``'s published widths with
+    ``n_layers`` of its layers on one batch of B=1 window of ``S`` tokens,
+    seen every step; ring attention over ``sp`` shards of ``S / sp``
+    tokens, every shard on the one card, each live block pair through the
+    K1 kernels. Launch counts reset just before and read just after: the
+    block forward and backward exactly ``steps`` x the ring's live pairs,
+    self-attention's kernels never. The loss must be finite and fall."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        TokenBatchLoader,
+        fit,
+        make_optimizer,
+        make_train_step,
+        seq_mesh,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
+
+    cfg = getattr(models, model)(n_layers=n_layers)
+    B, seq_len = 1, S - 1
+    stream = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, B * (seq_len + 1)).astype(np.int32)
+    loader = TokenBatchLoader(stream, batch=B, seq_len=seq_len, shuffle=False)
+    init_state, step = make_train_step(cfg, make_optimizer(), mesh=seq_mesh(sp))
+    stamps = []
+
+    def on_step(_s, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"flash_fwd_block": flash.flash_block_forward,
+                "flash_bwd_dq_block": flash.flash_block_bwd_dq,
+                "flash_bwd_dkv_block": flash.flash_block_bwd_dkv,
+                "flash_fwd": flash.flash_forward, "flash_bwd_dq": flash.flash_bwd_dq,
+                "flash_bwd_dkv": flash.flash_bwd_dkv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, losses = fit(init_state, step, loader, steps=steps, seed=seed,
+                        on_step=on_step)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    if profile:
+        batch = next(loader)
+        profiled(f"{model} seq step {steps + 1}, B={B}, S={S}, sp={sp}",
+                 lambda: step(state, batch))
+    del state
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    p50 = float(np.median(step_s))
+    flops = train_flops_per_step(cfg, B, S)
+    full, why = SEQ_MODELS[model]
+    pairs = ring_pairs(cfg, sp, S // sp)
+    emit(phase, model=model, n_layers=n_layers,
+         reduced=f"n_layers={n_layers} (from {full}; {why})", params=n_params,
+         B=B, S=S, sp=sp, S_loc=S // sp, head_dim=cfg.head_dim,
+         windows=[cfg.layer_window(i) for i in range(n_layers)],
+         block_pairs_a_step=pairs, steps=steps, losses=losses,
+         first_step_s=stamps[0] - t0, step_s=step_s, step_p50_s=p50,
+         tokens_per_s=B * S / p50, model_flops_per_step=flops,
+         mfu=flops / p50 / PEAK_BF16_FLOPS, peak_mem_bytes=peak,
+         device_mem_bytes=torch.cuda.get_device_properties(0).total_memory,
+         launches=counts)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase} loss not finite and falling: {losses}")
+    block = ("flash_fwd_block", "flash_bwd_dq_block", "flash_bwd_dkv_block")
+    want = {**{k: steps * pairs for k in block},
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if counts != want:
+        raise AssertionError(f"{phase} launches {counts}, want {want}")
+    return {k: counts[k] for k in block}
+
+
+@contextlib.contextmanager
+def checking_blocks(checks: dict):
+    """Within the block, each K1 call (``flash_block_forward`` and
+    ``flash_block_backward``, which the block API's autograd function
+    reaches through the module) is held against its plain version on its
+    own inputs: the forward's live rows within ``kernel_tolerance`` and its
+    lse within LSE_TOL, the backward within the bound
+    ``backward_magnitudes`` derives with the dlse term."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    fwd, bwd = flash.flash_block_forward, flash.flash_block_backward
+
+    def checked_fwd(q, k, v, q_off, k_off, causal, window, softcap):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = fwd(q, k, v, q_off, k_off, **kw)
+        ref, ref_lse = flash.flash_reference(q, k, v, q_off=q_off, k_off=k_off, **kw)
+        mag, _ = flash.flash_reference(q.float(), k.float(), v.abs().float(),
+                                       q_off=q_off, k_off=k_off, **kw)
+        live = flash.live_rows(q.shape[1], k.shape[1], causal, window, q_off,
+                               k_off).to(q.device)
+        checks["fwd"].append({**check("seq block fwd", out[:, live], ref[:, live],
+                                      mag[:, live]),
+                              "lse_max_abs_err": check_lse(
+                                  "seq block", lse[:, :, live], ref_lse[:, :, live])})
+        return out, lse
+
+    def checked_bwd(q, k, v, out, lse, dout, dlse, q_off, k_off, causal, window,
+                    softcap):
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_off=q_off, k_off=k_off)
+        got = bwd(q, k, v, out, lse, dout, dlse, q_off, k_off, causal, window,
+                  softcap)
+        want = flash.flash_backward_reference(q, k, v, out, lse, dout, dlse=dlse,
+                                              **kw)
+        mags = flash.backward_magnitudes(q, k, v, out, lse, dout, dlse=dlse, **kw)
+        checks["bwd"].append(check_grads("seq block bwd", got, want, mags))
+        del want, mags
+        torch.cuda.empty_cache()
+        return got
+
+    # The forward wrapper counts its launches through its module name, so
+    # the count lands on the stand-in while it stands in; the backward's
+    # land on flash_block_bwd_dq and flash_block_bwd_dkv.
+    checked_fwd.launches = 0
+    flash.flash_block_forward, flash.flash_block_backward = checked_fwd, checked_bwd
+    try:
+        yield
+    finally:
+        flash.flash_block_forward, flash.flash_block_backward = fwd, bwd
+
+
+def seq_crosscheck(model: str = "llama3_8b", n_layers: int = 2, sp: int = 4,
+                   S: int = 8192, seed: int = 1,
+                   phase: str = "seq_crosscheck") -> dict:
+    """The first train step at ``model``'s widths with ``n_layers`` layers,
+    B=1, S tokens, from the same fp32 weights (seed) and tokens: at sp=4
+    through the K1 kernels and at sp=1 through the flash kernel. At sp=4
+    each K1 call is held against its plain version on its own inputs
+    (:func:`checking_blocks`), and each layer's merged ring output against
+    the plain ring on the same inputs within ``ring_tolerance`` and against
+    the sp=1 flash kernel on the same inputs within the sum of the two
+    kernels' bounds (the ring's 2^-6 W + 2 ulp and the flash kernel's 2^-7
+    W + 2 ulp, each against the plain attention: ``kernel_tolerance`` with
+    5 W covers both, the extra ulps included). The two steps' losses and
+    gradient norms are printed beside each other, not bounded: a layer's
+    rounding difference carries on through the random model."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import (
+        kernel_tolerance,
+        ring_tolerance,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        make_optimizer,
+        make_ring_attention,
+        make_train_step,
+        seq_mesh,
+    )
+
+    cfg = getattr(models, model)(n_layers=n_layers)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, S))
+    ring = make_ring_attention(seq_mesh(sp))
+    plain = make_ring_attention(seq_mesh(sp), use_flash=False)
+    checks = {"fwd": [], "bwd": [], "ring": [], "vs_sp1": []}
+
+    def checked_ring(q, k, v, causal=True, q_offset=None, **kw):
+        out = ring(q, k, v, causal=causal, q_offset=q_offset, **kw)
+        with torch.no_grad():
+            qd, kd, vd = q.detach(), k.detach(), v.detach()
+            ref = plain(qd, kd, vd, **kw)
+            mag = plain(qd.float(), kd.float(), vd.abs().float(), **kw)
+            res = ring_tolerance(out.detach(), ref, mag)
+            sp1 = flash.flash_forward(qd, kd, vd, True, kw.get("window", 0),
+                                      kw.get("logits_softcap", 0.0))
+            res1 = kernel_tolerance(out.detach(), sp1, 5.0 * mag)
+        for name, r in (("ring", res), ("vs_sp1", res1)):
+            if not r.pop("ok"):
+                raise AssertionError(f"{phase} layer {name}: {r}")
+            checks[name].append(r)
+        return out
+
+    rows = {}
+    for name, mesh, attn in (("sp4", seq_mesh(sp), checked_ring),
+                             ("sp1", None, None)):
+        init_state, step = make_train_step(cfg, make_optimizer(), attn_fn=attn,
+                                           aux_metrics=True, mesh=mesh)
+        state = init_state(seed)
+        with checking_blocks(checks) if name == "sp4" else contextlib.nullcontext():
+            state, loss, aux = step(state, toks)
+        rows[name] = (float(loss), float(aux["grad_norm"]))
+        del state
+        torch.cuda.empty_cache()
+    (l4, g4), (l1, g1) = rows["sp4"], rows["sp1"]
+    pairs = ring_pairs(cfg, sp, S // sp)
+    row = {"model": model, "n_layers": n_layers, "B": 1, "S": S, "sp": sp,
+           "loss_sp4": l4, "loss_sp1": l1, "loss_diff": l4 - l1,
+           "grad_norm_sp4": g4, "grad_norm_sp1": g1,
+           "grad_norm_rel_diff": (g4 - g1) / g1,
+           "blocks_checked_fwd": len(checks["fwd"]),
+           "blocks_checked_bwd": len(checks["bwd"]),
+           "block_fwd_max_err_over_bound": max(
+               c["max_err_over_bound"] for c in checks["fwd"]),
+           "block_lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks["fwd"]),
+           "block_bwd_max_err_over_bound": max(
+               c[g]["max_err_over_bound"] for c in checks["bwd"] for g in c),
+           "layer_ring_max_err_over_bound": max(
+               c["max_err_over_bound"] for c in checks["ring"]),
+           "layer_vs_sp1_max_err_over_bound": max(
+               c["max_err_over_bound"] for c in checks["vs_sp1"])}
+    emit(phase, **row)
+    if (row["blocks_checked_fwd"], row["blocks_checked_bwd"]) != (pairs, pairs) or \
+            len(checks["ring"]) != n_layers:
+        raise AssertionError(f"{phase} checked {row}")
+    if not all(math.isfinite(x) for x in (l4, l1, g4, g1)):
+        raise AssertionError(f"{phase} not finite: {row}")
+    return row
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -3141,6 +3588,7 @@ def main(argv: list[str]) -> int:
     dense_extra = checks.pop("dense_decode_extra")
     bwd_extra = checks.pop("flash_bwd_extra")
     fwd_extra = checks.pop("flash_fwd_extra")
+    block_extra = checks.pop("flash_block_extra")
     params, cfg = timed_phase("serve_setup", gemma_setup)
     launches = {"serve": timed_phase("serve", phase_serve, params, cfg,
                                      profile=profile)}
@@ -3169,6 +3617,14 @@ def main(argv: list[str]) -> int:
         profile=profile, phase="train_gemma")
     timed_phase("train_gemma_crosscheck", train_crosscheck, model="gemma_2b",
                 phase="train_gemma_crosscheck")
+    torch.cuda.empty_cache()
+    launches["seq"] = timed_phase("seq", phase_seq, profile=profile)
+    torch.cuda.empty_cache()
+    timed_phase("seq_crosscheck", seq_crosscheck)
+    torch.cuda.empty_cache()
+    launches["seq_gemma2"] = timed_phase(
+        "seq_gemma2", phase_seq, model="gemma2_2b", n_layers=4, steps=3,
+        phase="seq_gemma2")
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
     src = f"{PKG}/csrc"
     jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"
@@ -3194,6 +3650,20 @@ def main(argv: list[str]) -> int:
                              replaces=f"{jax_flash}:219", extra=bwd_extra),
         "flash_bwd_dkv": dict(route="cuda", source=f"{src}/flash_bwd.cu",
                               replaces=f"{jax_flash}:283"),
+        # The ring block API's forms (K1) of the same three TPU kernels:
+        # offsets, and the lse cotangent in the backward's bracket.
+        "flash_fwd_block": dict(route="cuda", source=f"{src}/flash_fwd.cu",
+                                replaces=f"{jax_flash}:551",
+                                extra={k: v for k, v in block_extra.items()
+                                       if "_fwd_" in k}),
+        "flash_bwd_dq_block": dict(route="cuda", source=f"{src}/flash_bwd.cu",
+                                   replaces=f"{jax_flash}:551",
+                                   extra={k: v for k, v in block_extra.items()
+                                          if "_dq_" in k}),
+        "flash_bwd_dkv_block": dict(route="cuda", source=f"{src}/flash_bwd.cu",
+                                    replaces=f"{jax_flash}:551",
+                                    extra={k: v for k, v in block_extra.items()
+                                           if "_dkv_" in k}),
     }
     kernels = []
     for name, cases in checks.items():

@@ -12,6 +12,11 @@
 //   ds = p * (dp - delta) * scale * (1 - t^2)     dp = dO V^T, t = tanh(s/cap)
 //   dq = ds K        dk = ds^T Q        dv = p^T dO
 //
+// The ring block API (`flash_block_attention`) differentiates through the
+// block's logsumexp too: its cotangent dlse joins the bracket as
+// ds = p * (dp - (delta - dlse)) * ..., so the dq kernel, when it forms
+// delta, subtracts dlse from it once and hands delta - dlse to dk/dv.
+//
 // What bounds it: the products. Per (q row, key) pair the two kernels do
 // seven D-long products (S and dP once in each, then dq, dk, dv) against
 // the forward's two; at training lengths (S = 2048, D = 128) that is far
@@ -69,15 +74,17 @@
 //   it, in a fixed order, with no atomics, so a relaunch gives the same
 //   bits; hence two passes (dq over q tiles, dk/dv over key tiles) as on
 //   the TPU, and no dq accumulated by atomics.
-// - Positions enter only through `live()` and the loop bounds, so the ring
-//   API's global offsets are one more pair of arguments there. The plain-
-//   Python model of these loop bounds and of the grid order is ops/flash.py
-//   `bwd_schedule`.
+// - Positions enter only through `live()`, `tile_live()` and the loop
+//   bounds, judged on global positions (q row i at q_off + i, key j at
+//   k_off + j; 0 and 0 for self-attention), so a ring block pair wholly
+//   below the diagonal takes no mask on any tile, and one the window does
+//   not reach visits no tile. The plain-Python model of these loop bounds
+//   and of the grid order is ops/flash.py `bwd_schedule`.
 //
 // Per instantiation, registers (nvcc 12.8 -Xptxas -v, sm_90a; no spills)
 // and dynamic shared memory (Cfg below), and so blocks an SM:
-//   dq<64>  186 regs, 66560 B, 2      dk/dv<64>  200 regs,  68096 B, 2
-//   dq<128> 240 regs, 99328 B, 2      dk/dv<128> 230 regs,  84480 B, 2
+//   dq<64>  194 regs, 66560 B, 2      dk/dv<64>  202 regs,  68096 B, 2
+//   dq<128> 244 regs, 99328 B, 2      dk/dv<128> 232 regs,  84480 B, 2
 //   dq<256> 254 regs, 132096 B, 1     dk/dv<256> 250 regs, 133120 B, 1
 //   the combine pass 32 regs, no shared memory.
 // (Tried on the card and dropped: two warpgroups handing p^T over in
@@ -87,7 +94,8 @@
 // the other's products, 9% slower at D = 128.)
 //
 // Numerics follow the TPU kernels: fp32 logits times 1/sqrt(D), the
-// softcap recomputed from the raw logits, masked p set to 0.
+// softcap recomputed from the raw logits, masked p set to 0 (so a row
+// with no live key in a block pair, whose lse is NEG_INF, adds nothing).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -145,7 +153,10 @@ struct Params {
   long long dout_sb, dout_ss, dout_sh;
   // With `out`, the dq kernel forms delta = rowsum(dO * O) of its rows
   // itself and writes it to delta_out (the buffer `delta` then points to).
+  // With `out` and `dlse` ([B, H, Sq], the cotangent of the forward's
+  // logsumexp), delta_out gets delta - dlse instead.
   const __nv_bfloat16* out;
+  const float* dlse;
   float* delta_out;
   long long out_sb, out_ss, out_sh;
   // dk/dv: the G q heads of a KV head in `nsplit` groups of blocks; with
@@ -154,15 +165,18 @@ struct Params {
   int B, nsplit;
   float* part;
   int causal, window;
+  int q_off, k_off;  // global positions of q row 0 and key 0
   float softcap, scale;
 };
 
-// Whether key kpos is attended to by query qpos.
+// Whether key kpos is attended to by query qpos (local rows; the mask is
+// judged on global positions, q_off + qpos against k_off + kpos).
 __device__ __forceinline__ bool live(const Params& p, int qpos, int kpos) {
   bool ok = qpos < p.Sq && kpos < p.Sk;
   if (p.causal) {
-    ok = ok && kpos <= qpos;
-    if (p.window > 0) ok = ok && kpos > qpos - p.window;
+    const int d = p.q_off - p.k_off;
+    ok = ok && kpos <= qpos + d;
+    if (p.window > 0) ok = ok && kpos > qpos + d - p.window;
   }
   return ok;
 }
@@ -173,39 +187,45 @@ template <int NQ, int NK>
 __device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0) {
   bool ok = q0 + NQ <= p.Sq && k0 + NK <= p.Sk;
   if (p.causal) {
-    ok = ok && k0 + NK - 1 <= q0;
-    if (p.window > 0) ok = ok && k0 > q0 + NQ - 1 - p.window;
+    const int d = p.q_off - p.k_off;
+    ok = ok && k0 + NK - 1 <= q0 + d;
+    if (p.window > 0) ok = ok && k0 > q0 + NQ - 1 + d - p.window;
   }
   return ok;
 }
 
 // Keys [k_begin, k_end) that q tile q0 visits, from the window's lower
-// edge (rounded down to a key tile of NK) up to the causal frontier.
+// edge (rounded down to a key tile of NK) up to the causal frontier;
+// empty when the tile's rows attend to no key.
 template <int NK>
 __device__ __forceinline__ void dq_keys(const Params& p, int q0, int* k_begin,
                                         int* k_end) {
   *k_begin = 0;
   *k_end = p.Sk;
   if (p.causal) {
-    *k_end = min(p.Sk, q0 + BQ);
+    const int d = p.q_off - p.k_off;
+    *k_end = max(0, min(p.Sk, q0 + BQ + d));
     if (p.window > 0) {
-      const int lo = q0 - p.window + 1;
-      if (lo > 0) *k_begin = (lo / NK) * NK;
+      const int lo = q0 + d - p.window + 1;
+      if (lo >= *k_end) *k_end = 0;
+      else if (lo > 0) *k_begin = (lo / NK) * NK;
     }
   }
 }
 
 // Query rows [q_begin, q_end) that can see a key of tile k0: at or past the
 // causal frontier (rounded down to a q tile of NQ), before the window's
-// upper reach.
+// upper reach; empty when no row sees one.
 template <int NQ>
 __device__ __forceinline__ void dkv_queries(const Params& p, int k0,
                                             int* q_begin, int* q_end) {
   *q_begin = 0;
   *q_end = p.Sq;
   if (p.causal) {
-    *q_begin = (k0 / NQ) * NQ;
-    if (p.window > 0) *q_end = min(p.Sq, k0 + BK - 1 + p.window);
+    const int d = p.q_off - p.k_off;
+    if (p.window > 0) *q_end = max(0, min(p.Sq, k0 + BK - 1 + p.window - d));
+    const int first = max(0, k0 - d);  // the first row that sees key k0
+    *q_begin = first < *q_end ? (first / NQ) * NQ : *q_end;
   }
 }
 
@@ -391,6 +411,7 @@ flash_bwd_dq_kernel(const Params p) {
       }
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (p.dlse && in) acc -= p.dlse[rows + qpos[r]];
       delta[r] = acc;
       if (in && t4 == 0) p.delta_out[rows + qpos[r]] = acc;
     } else {
@@ -713,7 +734,8 @@ int launch_dkv(const Params& p, int B, cudaStream_t stream) {
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    int Sq, int Sk, int H, int KV, const long long* strides,
-                   int causal, int window, float softcap, float scale) {
+                   int causal, int window, int q_off, int k_off,
+                   float softcap, float scale) {
   Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -732,6 +754,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.out_sb = strides[12]; p.out_ss = strides[13]; p.out_sh = strides[14];
   p.causal = causal;
   p.window = window;
+  p.q_off = q_off;
+  p.k_off = k_off;
   p.softcap = softcap;
   p.scale = scale;
   return p;
@@ -745,25 +769,30 @@ Params make_params(const void* q, const void* k, const void* v,
 // 16-byte aligned and every stride a multiple of 8 (the wrapper checks).
 // lse and delta are contiguous fp32 [B, H, Sq] with Sq a multiple of 4; dq
 // is a contiguous [B, Sq, H, D], dk and dv contiguous [B, Sk, KV, D]. With
-// `out` non-null, dq forms delta = rowsum(dout * out) itself and writes it
-// to `delta`, for the dk/dv launch that follows on the same stream. dk/dv
+// `out` non-null, dq forms delta = rowsum(dout * out) itself (minus `dlse`,
+// a contiguous fp32 [B, H, Sq], when that is non-null) and writes it to
+// `delta`, for the dk/dv launch that follows on the same stream. q_off and
+// k_off are the global positions of q row 0 and key 0. dk/dv
 // splits each KV head's q heads into `nsplit` groups (a divisor of H / KV);
 // with more than one, `part` is fp32 scratch of 2 nsplit B Sk KV D values.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, const void* out,
-                                 int B, int Sq,
+                                 const void* dlse, int B, int Sq,
                                  int Sk, int H, int KV, int D,
                                  const long long* strides, int causal,
-                                 int window, float softcap, float scale,
-                                 void* stream) {
+                                 int window, int q_off, int k_off,
+                                 float softcap, float scale, void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, Sq, Sk, H, KV, strides,
-                         causal, window, softcap, scale);
+                         causal, window, q_off, k_off, softcap, scale);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.B = B;
   p.nsplit = 1;
   p.out = static_cast<const __nv_bfloat16*>(out);
-  if (out) p.delta_out = const_cast<float*>(p.delta);
+  if (out) {
+    p.delta_out = const_cast<float*>(p.delta);
+    p.dlse = static_cast<const float*>(dlse);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch_dq<64>(p, B, s);
@@ -779,12 +808,12 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   void* part, int B, int Sq, int Sk, int H,
                                   int KV, int D, int nsplit,
                                   const long long* strides, int causal,
-                                  int window, float softcap, float scale,
-                                  void* stream) {
+                                  int window, int q_off, int k_off,
+                                  float softcap, float scale, void* stream) {
   if (nsplit < 1 || (H / KV) % nsplit || (nsplit > 1 && !part))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(q, k, v, dout, lse, delta, Sq, Sk, H, KV, strides,
-                         causal, window, softcap, scale);
+                         causal, window, q_off, k_off, softcap, scale);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.B = B;

@@ -2,10 +2,13 @@
 //
 // Replaces the TPU kernel `_flash_kernel` in
 // kata_xpu_device_plugin_tpu/ops/flash.py (launched by `_fwd_call`): causal
-// (or full) GQA self-attention with an online softmax, so the [S, S] score
+// (or full) GQA attention with an online softmax, so the [Sq, Sk] score
 // matrix never reaches device memory. Optional sliding window (keys in
 // (q - window, q]) and the Gemma-2 logit softcap cap*tanh(s/cap), applied
-// before the mask.
+// before the mask. Positions are global: q row i sits at q_off + i, key j
+// at k_off + j (both 0 for self-attention; the ring block API,
+// `flash_block_attention`, passes a block pair's offsets), and only their
+// difference enters the mask and the loop bounds.
 //
 // What bounds it: at prefill and training lengths (S >= 512) the two
 // products do 4 D flops per (q row, key) pair against ~4 S D bytes a head,
@@ -34,7 +37,7 @@
 //   when their products are done, so copies run ahead with no thread of
 //   the consumers issuing them and no block-wide barrier in the loop. Rows
 //   past Sk are zero-filled; the ring stops at the causal frontier of the
-//   block's last row (a tile edge when Sq = Sk). The producer gives its
+//   block's last row (a tile edge in self-attention). The producer gives its
 //   registers up (setmaxnreg 24) and the consumers take them (240): O, S
 //   and p fit without spills at every width.
 // - Keys a stage: 128 (64 at D = 256, where O takes 128 fp32 registers a
@@ -42,8 +45,10 @@
 //   193 KB at D = 256, 145 KB at D = 64; one block an SM.
 // - The block walks the key tiles from the window's lower edge (rounded
 //   down to a tile) up to the causal frontier of its last row; a warpgroup
-//   skips the tiles where none of its pairs is live. The cap is a template
-//   parameter, chosen once a launch, and the mask is chosen once a
+//   skips the tiles where none of its pairs is live (a block pair of the
+//   ring wholly above the frontier or below the window visits none; one
+//   wholly below the diagonal takes no mask on any tile). The cap is a
+//   template parameter, chosen once a launch, and the mask is chosen once a
 //   warpgroup tile: tiles inside the causal band, the window and the
 //   sequence take no mask at all; only the diagonal tiles, the window's
 //   lower-edge tiles and the sequence's last tile select NEG_INF for the
@@ -70,7 +75,12 @@
 // Numerics follow the TPU kernel: fp32 logits times 1/sqrt(D), finite
 // NEG_INF = -1e30 for masked keys, p = expf(s - m_new) rounded to bf16
 // before the P.V product, l summed from the fp32 p, fp32 accumulators, a
-// zero denominator replaced by 1.
+// zero denominator replaced by 1. A row with no live key in a block pair
+// (a window's reach ends inside the pair) so stays finite: its warpgroup
+// either visits no tile (out 0, l 1) or only masked ones, where m stays
+// NEG_INF and every masked key weighs exp(0) = 1, as in the TPU kernel;
+// either way lse = NEG_INF + log(l) = NEG_INF, so the ring's merge gives
+// the row's out a weight of exactly 0.
 //
 // Training asks for the per-row logsumexp as well (`lse`, fp32 [B, H, Sq],
 // m + log(l) with the same zero-denominator rule, as `_finalize` writes
@@ -118,6 +128,7 @@ struct Params {
   int Sq, Sk, H, KV;
   long long q_sb, q_ss, q_sh;
   int causal, window;
+  int q_off, k_off;  // global positions of q row 0 and key 0
   float softcap, scale;
 };
 
@@ -166,25 +177,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Whether key kpos is attended to by query qpos.
+// Whether key kpos is attended to by query qpos (local rows; the mask is
+// judged on global positions, q_off + qpos against k_off + kpos).
 __device__ __forceinline__ bool live(const Params& p, int qpos, int kpos) {
   bool ok = kpos < p.Sk;
   if (p.causal) {
-    ok = ok && kpos <= qpos;
-    if (p.window > 0) ok = ok && kpos > qpos - p.window;
+    const int d = p.q_off - p.k_off;
+    ok = ok && kpos <= qpos + d;
+    if (p.window > 0) ok = ok && kpos > qpos + d - p.window;
   }
   return ok;
 }
 
 // Keys [lo, hi) that the q rows [q0, q0 + n) below Sq attend to: from the
-// first row's window edge up to the last row's causal frontier.
+// first row's window edge up to the last row's causal frontier; [0, 0)
+// when they attend to none.
 __device__ __forceinline__ void key_range(const Params& p, int q0, int n,
                                           int* lo, int* hi) {
   *lo = 0;
   *hi = p.Sk;
   if (p.causal) {
-    *hi = min(p.Sk, min(p.Sq, q0 + n));
-    if (p.window > 0) *lo = max(0, q0 - p.window + 1);
+    const int d = p.q_off - p.k_off;
+    *hi = max(0, min(p.Sk, min(p.Sq, q0 + n) + d));
+    if (p.window > 0) *lo = max(0, q0 + d - p.window + 1);
+    if (*lo >= *hi) *lo = *hi = 0;
   }
 }
 
@@ -195,8 +211,9 @@ __device__ __forceinline__ bool tile_live(const Params& p, int qw, int k0) {
   const int q_last = min(qw + WG_ROWS, p.Sq) - 1;
   bool ok = k0 + NK <= p.Sk;
   if (p.causal) {
-    ok = ok && k0 + NK - 1 <= qw;
-    if (p.window > 0) ok = ok && k0 > q_last - p.window;
+    const int d = p.q_off - p.k_off;
+    ok = ok && k0 + NK - 1 <= qw + d;
+    if (p.window > 0) ok = ok && k0 > q_last + d - p.window;
   }
   return ok;
 }
@@ -498,7 +515,8 @@ int launch_d(Params& p, const Operand& k, const Operand& v, int B, bool lse,
 // Returns a cudaError_t (0 on success). Strides are in elements; every
 // pointer is 16-byte aligned and every stride a multiple of 8 (the wrapper
 // checks). The output is contiguous [B, Sq, H, D]; `lse` is null or a
-// contiguous fp32 [B, H, Sq].
+// contiguous fp32 [B, H, Sq]. q_off and k_off are the global positions of
+// q row 0 and key 0 (0 and 0 for self-attention).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int Sq, int Sk, int H,
                               int KV,
@@ -506,6 +524,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               long long q_sh, long long k_sb, long long k_ss,
                               long long k_sh, long long v_sb, long long v_ss,
                               long long v_sh, int causal, int window,
+                              int q_off, int k_off,
                               float softcap, float scale, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -518,6 +537,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.causal = causal;
   p.window = window;
+  p.q_off = q_off;
+  p.k_off = k_off;
   p.softcap = softcap;
   p.scale = scale;
   const Operand kt = {k, k_sb, k_ss, k_sh}, vt = {v, v_sb, v_ss, v_sh};

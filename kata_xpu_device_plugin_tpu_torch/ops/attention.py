@@ -197,6 +197,25 @@ def kernel_tolerance(out: torch.Tensor, ref: torch.Tensor,
     return res
 
 
+def ring_tolerance(out: torch.Tensor, ref: torch.Tensor,
+                   weighted_abs: torch.Tensor) -> dict:
+    """How far a ring's merged output ``out`` (bf16 block outputs of the
+    K1 kernels, merged in fp32 by their logsumexps, then cast) may lie
+    from the plain ring's ``ref`` on the same inputs; ``weighted_abs`` is
+    the plain ring over ``|v|`` (``sum_k p_k |v_k|`` over the whole
+    sequence).
+
+    Each block output is the exact within-block attention up to its bf16
+    probabilities (2^-8 of ``W_j``, the block's own ``sum p |v|``) and its
+    rounding to bf16 (half an ulp, at most 2^-8 |out_j| <= 2^-8 W_j); the
+    merge weights them by ``w_j`` with ``sum_j w_j W_j = W`` and adds at
+    most 2^-16 W through the lse's fp32 error. So the merged fp32 value is
+    within ``(2^-7 + 2^-16) W`` of the exact one, the plain ring's within
+    fp32 rounding, and each side's cast to bf16 adds half an ulp: the
+    bound of :func:`kernel_tolerance` with ``2 W`` in place of ``W``."""
+    return kernel_tolerance(out, ref, 2.0 * weighted_abs.float())
+
+
 def dense_decode_tile(arena_len: int) -> int:
     """KV tile for running the slotted arena through the paged decode
     kernel: ``[B, S, KV, D]`` re-views without a copy as the pool

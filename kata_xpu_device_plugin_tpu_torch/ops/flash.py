@@ -1,7 +1,11 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward, with an
 optional logsumexp) and ``csrc/flash_bwd.cu`` (dq; dk and dv per KV head),
-their gates, their plain versions and the autograd function that joins
-them (counterpart of ``kata_xpu_device_plugin_tpu/ops/flash.py``).
+their gates, their plain versions and the autograd functions that join
+them (counterpart of ``kata_xpu_device_plugin_tpu/ops/flash.py``):
+:class:`FlashAttention` for self-attention and, for ring attention, the
+block API :func:`flash_block_attention` (K1: one block pair at global
+offsets ``(q_off, k_off)``, returning the output and its logsumexp, whose
+cotangent ``dlse`` joins the backward's ds bracket).
 
 Eligibility (:func:`pick_block`, :func:`supports`) is decided exactly as
 in the JAX package; the kernels pick their own tiles (the forward 128-row
@@ -11,8 +15,10 @@ blocks of two 64-row warpgroups over 64- or 128-key tiles,
 SM. :func:`fwd_schedule` and :func:`bwd_schedule` model which tiles each
 block visits, in order. The plain versions are
 :func:`flash_reference` and :func:`flash_backward_reference`, taken only
-for CPU tensors. Nonzero offsets and the logsumexp cotangent of the ring
-API are not ported yet.
+for CPU tensors. The block API's launches are counted apart from
+self-attention's, one count a kernel: ``flash_block_forward.launches``,
+``flash_block_bwd_dq.launches`` and ``flash_block_bwd_dkv.launches``
+(:func:`flash_block_backward` launches through the last two).
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ def fwd_tiles(D: int) -> tuple:
 
 
 def fwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
-                 causal: bool = True, window: int = 0, B: int = 1) -> list:
+                 causal: bool = True, window: int = 0, B: int = 1,
+                 q_off: int = 0, k_off: int = 0) -> list:
     """The forward kernel's tile schedule, as ``csrc/flash_fwd.cu`` runs
     it: its blocks in launch order, the q tiles with the longest causal key
     range first, then the batch rows, then the q heads (those of one KV
@@ -76,24 +83,30 @@ def fwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
     by a stage's keys from ``k0``) in loop order, each warpgroup's keys
     ascending. A warpgroup skips a tile with no live pair and rows past
     ``Sq``; ``masked`` says that the tile applies the mask, which holds
-    exactly when one of its pairs (rows below ``Sq``) is masked."""
+    exactly when one of its pairs (rows below ``Sq``) is masked. The mask
+    is judged on global positions, row i at ``q_off + i`` and key j at
+    ``k_off + j``; a block whose rows see no key loads and visits
+    nothing."""
     BQ, NK, _ = fwd_tiles(D)
     W = FWD_WG_ROWS
+    d = q_off - k_off
 
     def key_range(q0, n):
         lo, hi = 0, Sk
         if causal:
-            hi = min(Sk, Sq, q0 + n)
+            hi = max(0, min(Sk, min(Sq, q0 + n) + d))
             if window > 0:
-                lo = max(0, q0 - window + 1)
+                lo = max(0, q0 + d - window + 1)
+            if lo >= hi:
+                lo = hi = 0
         return lo, hi
 
     def tile_live(qw, k0):
         ok = k0 + NK <= Sk
         if causal:
-            ok = ok and k0 + NK - 1 <= qw
+            ok = ok and k0 + NK - 1 <= qw + d
             if window > 0:
-                ok = ok and k0 > min(qw + W, Sq) - 1 - window
+                ok = ok and k0 > min(qw + W, Sq) - 1 + d - window
         return ok
 
     nq = -(-Sq // BQ)
@@ -141,7 +154,8 @@ def dkv_splits(B: int, Sk: int, H: int, KV: int, D: int) -> int:
 
 
 def bwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
-                 causal: bool = True, window: int = 0, B: int = 1) -> dict:
+                 causal: bool = True, window: int = 0, B: int = 1,
+                 q_off: int = 0, k_off: int = 0) -> dict:
     """The backward kernels' tile schedule for one batch row of a launch of
     ``B`` rows, as ``csrc/flash_bwd.cu`` runs it: ``{"dq": blocks, "dkv":
     blocks}``, each list in launch order. A block is a dict with ``grads``
@@ -155,22 +169,40 @@ def bwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
     head group of :func:`dkv_splits`, KV head), lowest key tile first,
     visiting head-major the q tiles that can see the tile; at D = 256 two
     blocks each, one for dv, one for dk. Head groups' partials are summed
-    in ``split`` order."""
+    in ``split`` order. Each block's ``masked`` lists, visit by visit,
+    whether the tile applies the mask (not every pair of it live, rows
+    past ``Sq`` and keys past ``Sk`` counted as masked). Positions are
+    global, as in :func:`fwd_schedule`."""
     T = BWD_TILE
     NK, NQ = bwd_tiles(D)
     G = H // KV
     nq, nk = -(-Sq // T), -(-Sk // T)
+    d = q_off - k_off
+
+    def tile_masked(q0, k0, rows, keys):
+        ok = q0 + rows <= Sq and k0 + keys <= Sk
+        if causal:
+            ok = ok and k0 + keys - 1 <= q0 + d
+            if window > 0:
+                ok = ok and k0 > q0 + rows - 1 + d - window
+        return not ok
+
     dq = []
     for z in range(nq):
         q0 = (nq - 1 - z) * T
         k_begin, k_end = 0, Sk
         if causal:
-            k_end = min(Sk, q0 + T)
-            if window > 0 and q0 - window + 1 > 0:
-                k_begin = (q0 - window + 1) // NK * NK
+            k_end = max(0, min(Sk, q0 + T + d))
+            lo = q0 + d - window + 1
+            if window > 0 and lo >= k_end:
+                k_end = 0
+            elif window > 0 and lo > 0:
+                k_begin = lo // NK * NK
         for h in range(H):
-            dq.append({"grads": ("dq",), "head": h, "q0": q0, "visits": [
-                (q0, k0, h) for k0 in range(k_begin, k_end, NK)]})
+            visits = [(q0, k0, h) for k0 in range(k_begin, k_end, NK)]
+            dq.append({"grads": ("dq",), "head": h, "q0": q0, "visits": visits,
+                       "masked": [tile_masked(q0, k0, T, NK)
+                                  for _, k0, _ in visits]})
     dkv = []
     nsplit = dkv_splits(B, Sk, H, KV, D)
     Gs = G // nsplit
@@ -179,19 +211,22 @@ def bwd_schedule(Sq: int, Sk: int, H: int, KV: int, D: int,
         k0 = kt * T
         q_begin, q_end = 0, Sq
         if causal:
-            q_begin = k0 // NQ * NQ
             if window > 0:
-                q_end = min(Sq, k0 + T - 1 + window)
+                q_end = max(0, min(Sq, k0 + T - 1 + window - d))
+            first = max(0, k0 - d)
+            q_begin = first // NQ * NQ if first < q_end else q_end
         n_qt = max(0, -(-(q_end - q_begin) // NQ))
         for split in range(nsplit):
             for grads in modes:
                 for kvh in range(KV):
                     h0 = kvh * G + split * Gs
+                    visits = [(q_begin + (i % n_qt) * NQ, k0, h0 + i // n_qt)
+                              for i in range(Gs * n_qt)]
                     dkv.append({
                         "grads": grads, "kv_head": kvh, "k0": k0,
-                        "split": split, "visits": [
-                            (q_begin + (i % n_qt) * NQ, k0, h0 + i // n_qt)
-                            for i in range(Gs * n_qt)]})
+                        "split": split, "visits": visits,
+                        "masked": [tile_masked(q, k0, NQ, T)
+                                   for q, _, _ in visits]})
     return {"dq": dq, "dkv": dkv}
 
 
@@ -210,15 +245,16 @@ def _fn(source: str, name: str, argtypes: list):
 
 def _fwd_lib():
     return _fn("flash_fwd", "flash_fwd_bf16",
-               [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _I, _F, _F, _P])
+               [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 4 + [_F, _F, _P])
 
 
 def _bwd_lib(name: str):
-    """dq: 8 pointers (the last ``out``), 6 ints; dk/dv: 9 pointers (the
-    last the partials' scratch), 7 ints (the last the head groups)."""
-    n_ptr, n_int = (8, 6) if name == "flash_bwd_dq_bf16" else (9, 7)
-    return _fn("flash_bwd", name, [_P] * n_ptr + [_I] * n_int
-               + [ctypes.POINTER(_L), _I, _I, _F, _F, _P])
+    """dq: 9 pointers (the last two ``out`` and ``dlse``), 6 ints; dk/dv: 9
+    pointers (the last the partials' scratch), 7 ints (the last the head
+    groups); then the strides, causal, window and the two offsets."""
+    n_int = 6 if name == "flash_bwd_dq_bf16" else 7
+    return _fn("flash_bwd", name, [_P] * 9 + [_I] * n_int
+               + [ctypes.POINTER(_L), _I, _I, _I, _I, _F, _F, _P])
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -266,10 +302,33 @@ def _stream(t: torch.Tensor):
 # ----- plain versions ----------------------------------------------------------
 
 
-def _logits(q, k, causal, window, softcap):
-    """Self-attention logits as the kernels form them, fp32
-    ``[B, KV, G, Sq, Sk]``: q·k times 1/sqrt(D), then the cap. Returns
-    ``(logits, tanh or None, band mask or None)``."""
+def _mask(Sq, Sk, causal, window, q_off, k_off, device):
+    """The ``[Sq, Sk]`` band of live (row, key) pairs on global positions,
+    or None without the causal mask."""
+    if not causal:
+        return None
+    qp = q_off + torch.arange(Sq, device=device)[:, None]
+    kp = k_off + torch.arange(Sk, device=device)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    return mask
+
+
+def live_rows(Sq: int, Sk: int, causal: bool = True, window: int = 0,
+              q_off: int = 0, k_off: int = 0) -> torch.Tensor:
+    """Bool ``[Sq]``: the rows of a block pair that attend to at least one
+    key. A row without one (a window's reach ends inside the pair) has a
+    finite output that carries no meaning and a logsumexp at or below
+    ``NEG_INF / 2``, which gives it a weight of 0 in the ring's merge."""
+    mask = _mask(Sq, Sk, causal, window, q_off, k_off, "cpu")
+    return torch.ones(Sq, dtype=torch.bool) if mask is None else mask.any(-1)
+
+
+def _logits(q, k, causal, window, softcap, q_off=0, k_off=0):
+    """Logits as the kernels form them, fp32 ``[B, KV, G, Sq, Sk]``: q·k
+    times 1/sqrt(D), then the cap. Returns ``(logits, tanh or None, band
+    mask or None)``, the mask on global positions."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D)
@@ -279,26 +338,22 @@ def _logits(q, k, causal, window, softcap):
     if softcap:
         t = torch.tanh(s / softcap)
         s = t * softcap
-    mask = None
-    if causal:
-        qp = torch.arange(Sq, device=q.device)[:, None]
-        kp = torch.arange(Sk, device=q.device)[None, :]
-        mask = kp <= qp
-        if window > 0:
-            mask &= kp > qp - window
-    return s, t, mask
+    return s, t, _mask(Sq, Sk, causal, window, q_off, k_off, q.device)
 
 
 def flash_reference(q, k, v, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, q_off: int = 0, k_off: int = 0):
     """Plain forward with the logsumexp: ``(out, lse)``, ``out`` as
     :func:`.attention.reference_attention` gives it and ``lse`` the fp32
     ``[B, H, Sq]`` logsumexp of the masked logits (``m + log l``, as the
-    TPU kernel's ``_finalize`` writes it)."""
+    TPU kernel's ``_finalize`` writes it). ``q_off``/``k_off`` place the
+    rows and keys at global positions; only ``q_off - k_off`` enters the
+    mask."""
     B, Sq, H, _ = q.shape
-    out = reference_attention(q, k, v, causal=causal, window=window,
-                              logits_softcap=softcap)
-    s, _, mask = _logits(q, k, causal, window, softcap)
+    out = reference_attention(q, k, v, causal=causal,
+                              q_offset=q_off - k_off if causal else None,
+                              window=window, logits_softcap=softcap)
+    s, _, mask = _logits(q, k, causal, window, softcap, q_off, k_off)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
@@ -309,7 +364,8 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _p_ds(q, k, v, dout, lse, delta, causal, window, softcap):
+def _p_ds(q, k, v, dout, lse, delta, causal, window, softcap, q_off=0,
+          k_off=0):
     """fp32 ``p`` and ``ds`` ``[B, KV, G, Sq, Sk]`` as ``_bwd_call``
     computes them: p from the logsumexp with the mask and the recomputed
     cap, ds = p (dp - delta) scale (1 - t^2). Also returns the cap's tanh
@@ -317,7 +373,7 @@ def _p_ds(q, k, v, dout, lse, delta, causal, window, softcap):
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    s, t, mask = _logits(q, k, causal, window, softcap)
+    s, t, mask = _logits(q, k, causal, window, softcap, q_off, k_off)
     p = torch.exp(s - lse.reshape(B, KV, G, Sq, 1))
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))
@@ -344,19 +400,30 @@ def _grads(p, ds, q, k, dout):
     return dq.reshape(B, Sq, H, D), dk, dv
 
 
-def _backward_plain(q, k, v, dout, lse, delta, causal, window, softcap):
+def _backward_plain(q, k, v, dout, lse, delta, causal, window, softcap,
+                    q_off=0, k_off=0):
     """What ``_bwd_call`` and ``_group_kv_grads`` compute, cast to the
     inputs' dtypes."""
-    p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, causal, window, softcap)
+    p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, causal, window, softcap,
+                        q_off, k_off)
     dq, dk, dv = _grads(p, ds, q, k, dout)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _delta_dlse(out, dout, dlse):
+    """The bracket's delta: ``rowsum(dout · out)``, minus the logsumexp's
+    cotangent ``dlse`` (``[B, H, Sq]``) when there is one."""
+    delta = _delta(out, dout)
+    return delta if dlse is None else delta - dlse.float()
+
+
 def backward_magnitudes(q, k, v, out, lse, dout, causal: bool = True,
-                        window: int = 0, softcap: float = 0.0):
+                        window: int = 0, softcap: float = 0.0,
+                        q_off: int = 0, k_off: int = 0, dlse=None):
     """``W`` for :func:`.attention.kernel_tolerance` when it holds a
     backward kernel's ``(dq, dk, dv)`` against the plain version's on the
-    same bf16 inputs, out and lse: ``|kernel - plain| <= 2^-7 W + 2
+    same bf16 inputs, out and lse (and ``dlse``, the block API's logsumexp
+    cotangent ``[B, H, Sq]``): ``|kernel - plain| <= 2^-7 W + 2
     ulp(plain)`` per element, and the mean within ``2^-9 mean(W)``.
 
     Where the two sides round, and what each costs:
@@ -373,7 +440,9 @@ def backward_magnitudes(q, k, v, out, lse, dout, causal: bool = True,
       relative (the exp and the subtraction); ``dp - delta`` by ``e_d = 2
       gamma_D (|dO|.|V| + |dO|.|O|)`` absolute — where dp and delta cancel
       (a row with a single live key has exact ds = 0) this term is all
-      there is; the cap factor 1 - t^2 by ``2 e_x / cap``.
+      there is — plus, with ``dlse``, each side's rounding of
+      ``delta - dlse`` (``2^-23 |delta - dlse|``); the cap factor 1 - t^2
+      by ``2 e_x / cap``.
     - The fp32 sums of the products of the rounded operands then differ by
       at most 2^-7 times the sum of ``P = p (1 + 2^7 e_p)`` or
       ``E = |ds| (1 + 2^7 e_p) + 2^7 p scale (|1 - t^2| e_d + |dp - delta|
@@ -389,13 +458,16 @@ def backward_magnitudes(q, k, v, out, lse, dout, causal: bool = True,
     u = D * 2.0 ** -24
     gamma = u / (1.0 - u)
     qa, ka, va, da, oa = (x.float().abs() for x in (q, k, v, dout, out))
-    p, ds, t, dpd = _p_ds(q, k, v, dout, lse, _delta(out, dout), causal,
-                          window, softcap)
+    delta = _delta_dlse(out, dout, dlse)
+    p, ds, t, dpd = _p_ds(q, k, v, dout, lse, delta, causal, window, softcap,
+                          q_off, k_off)
     qg, dg = qa.reshape(B, Sq, KV, G, D), da.reshape(B, Sq, KV, G, D)
     e_x = torch.einsum("bqhgd,bkhd->bhgqk", qg, ka) * (2 * gamma * scale)
     e_d = torch.einsum("bqhgd,bkhd->bhgqk", dg, va)
     e_d += (da * oa).sum(-1).transpose(1, 2).reshape(B, KV, G, Sq, 1)
     e_d *= 2 * gamma
+    if dlse is not None:
+        e_d += 2.0 ** -23 * delta.abs().reshape(B, KV, G, Sq, 1)
     grow = 1.0 + 2.0 ** 7 * (e_x + 2.0 ** -20)
     extra = (1.0 - t * t).abs() * e_d if t is not None else e_d
     if t is not None:
@@ -405,29 +477,22 @@ def backward_magnitudes(q, k, v, out, lse, dout, causal: bool = True,
 
 
 def flash_backward_reference(q, k, v, out, lse, dout, causal: bool = True,
-                             window: int = 0, softcap: float = 0.0):
+                             window: int = 0, softcap: float = 0.0,
+                             q_off: int = 0, k_off: int = 0, dlse=None):
     """Plain backward: ``(dq, dk, dv)`` from the forward's output and
-    logsumexp, exactly as the JAX package's backward kernels compute them."""
-    return _backward_plain(q, k, v, dout, lse, _delta(out, dout), causal,
-                           window, softcap)
+    logsumexp (and, for the block API, the logsumexp's cotangent ``dlse``
+    ``[B, H, Sq]``), exactly as the JAX package's backward kernels compute
+    them."""
+    return _backward_plain(q, k, v, dout, lse, _delta_dlse(out, dout, dlse),
+                           causal, window, softcap, q_off, k_off)
 
 
 # ----- kernel wrappers -----------------------------------------------------------
 
 
-def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, window: int = 0, softcap: float = 0.0,
-                  return_lse: bool = False):
-    """Self-attention, q ``[B, Sq, H, D]``; k/v ``[B, Sk, KV, D]``. On a CUDA
-    tensor it launches the kernel (bf16, D in 64/128/256) or raises; on a
-    CPU tensor it runs the plain version. ``return_lse`` also returns the
-    fp32 logsumexp ``[B, H, Sq]`` the backward needs."""
+def _launch_fwd(q, k, v, causal, window, softcap, return_lse, q_off, k_off):
+    """One launch of the forward kernel (not counted here)."""
     B, Sq, H, D, Sk, KV = _check(q, k, v, causal, window)
-    if not q.is_cuda:
-        if return_lse:
-            return flash_reference(q, k, v, causal, window, softcap)
-        return reference_attention(q, k, v, causal=causal, window=window,
-                                   logits_softcap=softcap)
     _check_cuda(q, k, v)
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel head_dim {D} not in {KERNEL_HEAD_DIMS}")
@@ -442,11 +507,28 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        int(causal), int(window), float(softcap), 1.0 / float(D) ** 0.5,
-        _stream(q),
+        int(causal), int(window), int(q_off), int(k_off), float(softcap),
+        1.0 / float(D) ** 0.5, _stream(q),
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    return out, lse
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  return_lse: bool = False):
+    """Self-attention, q ``[B, Sq, H, D]``; k/v ``[B, Sk, KV, D]``. On a CUDA
+    tensor it launches the kernel (bf16, D in 64/128/256) or raises; on a
+    CPU tensor it runs the plain version. ``return_lse`` also returns the
+    fp32 logsumexp ``[B, H, Sq]`` the backward needs."""
+    if not q.is_cuda:
+        _check(q, k, v, causal, window)
+        if return_lse:
+            return flash_reference(q, k, v, causal, window, softcap)
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   logits_softcap=softcap)
+    out, lse = _launch_fwd(q, k, v, causal, window, softcap, return_lse, 0, 0)
     flash_forward.launches += 1
     return (out, lse) if return_lse else out
 
@@ -473,16 +555,19 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, window, out=None):
     return (B, Sq, H, D, Sk, KV), ops, strides
 
 
-def _launch_tail(shape, strides, causal, window, softcap, q, *extra):
+def _launch_tail(shape, strides, causal, window, softcap, q_off, k_off, q,
+                 *extra):
     B, Sq, H, D, Sk, KV = shape
     return (B, Sq, Sk, H, KV, D, *extra, strides, int(causal), int(window),
-            float(softcap), 1.0 / float(D) ** 0.5, _stream(q))
+            int(q_off), int(k_off), float(softcap), 1.0 / float(D) ** 0.5,
+            _stream(q))
 
 
-
-def _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out=None):
-    """The dq kernel; with ``out`` (the forward's output) it forms
-    ``delta`` itself and writes it into ``delta``."""
+def _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, q_off=0,
+               k_off=0, out=None, dlse=None):
+    """One launch of the dq kernel (not counted here); with ``out`` (the
+    forward's output) it forms ``delta`` itself, minus ``dlse`` when that
+    is given, and writes it into ``delta``."""
     if out is not None:
         _check_cuda(out)
         if out.shape != q.shape:
@@ -493,15 +578,41 @@ def _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out=None):
     if out is not None and ops[5] is not delta:
         raise ValueError("delta to write must be a contiguous, aligned fp32 "
                          "[B, H, Sq]")
+    if dlse is not None:
+        if out is None:
+            raise ValueError("dlse joins the delta the dq kernel forms from out")
+        if dlse.shape != lse.shape or dlse.dtype != torch.float32:
+            raise ValueError("dlse must be an fp32 [B, H, Sq]")
+        dlse = _aligned(dlse.contiguous())
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _bwd_lib("flash_bwd_dq_bf16")(
         *(t.data_ptr() for t in ops), dq.data_ptr(),
         None if out is None else out.data_ptr(),
-        *_launch_tail(shape, strides, causal, window, softcap, q))
+        None if dlse is None else dlse.data_ptr(),
+        *_launch_tail(shape, strides, causal, window, softcap, q_off, k_off, q))
     if err:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
-    flash_bwd_dq.launches += 1
     return dq
+
+
+def _launch_dkv(q, k, v, dout, lse, delta, causal, window, softcap, q_off=0,
+                k_off=0):
+    """One launch of the dk/dv kernel (not counted here)."""
+    shape, ops, strides = _bwd_args(q, k, v, dout, lse, delta, causal, window)
+    B, Sq, H, D, Sk, KV = shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    nsplit = dkv_splits(B, Sk, H, KV, D)
+    part = (torch.empty((2, nsplit) + tuple(k.shape), dtype=torch.float32,
+                        device=k.device) if nsplit > 1 else None)
+    err = _bwd_lib("flash_bwd_dkv_bf16")(
+        *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(),
+        *_launch_tail(shape, strides, causal, window, softcap, q_off, k_off, q,
+                      nsplit))
+    if err:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
@@ -512,7 +623,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
     if not q.is_cuda:
         return _backward_plain(q, k, v, dout, lse, delta, causal, window,
                                softcap)[0]
-    return _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap)
+    dq = _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap)
+    flash_bwd_dq.launches += 1
+    return dq
 
 
 flash_bwd_dq.launches = 0
@@ -526,19 +639,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     if not q.is_cuda:
         return _backward_plain(q, k, v, dout, lse, delta, causal, window,
                                softcap)[1:]
-    shape, ops, strides = _bwd_args(q, k, v, dout, lse, delta, causal, window)
-    B, Sq, H, D, Sk, KV = shape
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    nsplit = dkv_splits(B, Sk, H, KV, D)
-    part = (torch.empty((2, nsplit) + tuple(k.shape), dtype=torch.float32,
-                        device=k.device) if nsplit > 1 else None)
-    err = _bwd_lib("flash_bwd_dkv_bf16")(
-        *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(),
-        None if part is None else part.data_ptr(),
-        *_launch_tail(shape, strides, causal, window, softcap, q, nsplit))
-    if err:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    dk, dv = _launch_dkv(q, k, v, dout, lse, delta, causal, window, softcap)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -558,8 +659,10 @@ def flash_backward(q, k, v, out, lse, dout, causal: bool = True,
                                window, softcap)
     B, Sq, H, _ = q.shape
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    dq = _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, window, softcap)
+    dq = _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, out=out)
+    flash_bwd_dq.launches += 1
+    dk, dv = _launch_dkv(q, k, v, dout, lse, delta, causal, window, softcap)
+    flash_bwd_dkv.launches += 1
     return dq, dk, dv
 
 
@@ -584,3 +687,136 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, dout, *ctx.opts)
         return dq, dk, dv, None, None, None
+
+
+# ----- ring-attention block API (K1) ---------------------------------------------
+
+
+def flash_block_forward(q, k, v, q_off: int, k_off: int, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """One block pair's attention at global offsets: ``(out [B, Sq, H, D],
+    lse [B, H, Sq] fp32)``, ``out`` normalised within the pair. On a CUDA
+    tensor it launches the forward kernel with the offsets (counted here,
+    not in :func:`flash_forward`) or raises; on a CPU tensor it runs
+    :func:`flash_reference`."""
+    if not q.is_cuda:
+        _check(q, k, v, causal, window)
+        return flash_reference(q, k, v, causal, window, softcap, q_off, k_off)
+    res = _launch_fwd(q, k, v, causal, window, softcap, True, q_off, k_off)
+    flash_block_forward.launches += 1
+    return res
+
+
+flash_block_forward.launches = 0
+
+
+def flash_block_bwd_dq(q, k, v, out, lse, dout, dlse, q_off: int, k_off: int,
+                       causal: bool = True, window: int = 0,
+                       softcap: float = 0.0):
+    """``(dq, delta)`` of one block pair: dq ``[B, Sq, H, D]`` and the
+    bracket's ``delta = rowsum(dout · out) - dlse`` (fp32 ``[B, H, Sq]``),
+    which :func:`flash_block_bwd_dkv` takes. On a CUDA tensor it launches
+    the dq kernel, which forms ``delta`` itself, or raises; on a CPU tensor
+    it runs the plain version."""
+    if not q.is_cuda:
+        _check(q, k, v, causal, window)
+        delta = _delta_dlse(out, dout, dlse)
+        return _backward_plain(q, k, v, dout, lse, delta, causal, window,
+                               softcap, q_off, k_off)[0], delta
+    B, Sq, H, _ = q.shape
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = _launch_dq(q, k, v, dout, lse, delta, causal, window, softcap, q_off,
+                    k_off, out, dlse)
+    flash_block_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_block_bwd_dq.launches = 0
+
+
+def flash_block_bwd_dkv(q, k, v, dout, lse, delta, q_off: int, k_off: int,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """``(dk, dv)`` of one block pair, each ``[B, Sk, KV, D]``, from the
+    ``delta`` :func:`flash_block_bwd_dq` returns. On a CUDA tensor it
+    launches the dk/dv kernel (with its combine pass where the heads split)
+    or raises; on a CPU tensor it runs the plain version."""
+    if not q.is_cuda:
+        _check(q, k, v, causal, window)
+        return _backward_plain(q, k, v, dout, lse, delta, causal, window,
+                               softcap, q_off, k_off)[1:]
+    dk, dv = _launch_dkv(q, k, v, dout, lse, delta, causal, window, softcap,
+                         q_off, k_off)
+    flash_block_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_block_bwd_dkv.launches = 0
+
+
+def flash_block_backward(q, k, v, out, lse, dout, dlse, q_off: int, k_off: int,
+                         causal: bool = True, window: int = 0,
+                         softcap: float = 0.0):
+    """``(dq, dk, dv)`` of one block pair from its output, its logsumexp
+    ``[B, H, Sq]`` and both cotangents: ``dout`` and ``dlse`` (fp32 ``[B,
+    H, Sq]``), which joins the ds bracket as ``delta - dlse``. On a CUDA
+    tensor :func:`flash_block_bwd_dq` then :func:`flash_block_bwd_dkv`
+    (each counting its launch), or an error; on a CPU tensor
+    :func:`flash_backward_reference`."""
+    if not q.is_cuda:
+        _check(q, k, v, causal, window)
+        return flash_backward_reference(q, k, v, out, lse, dout, causal,
+                                        window, softcap, q_off, k_off, dlse)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    dq, delta = flash_block_bwd_dq(q, k, v, out, lse, dout, dlse, q_off, k_off,
+                                   **kw)
+    return (dq, *flash_block_bwd_dkv(q, k, v, dout, lse, delta, q_off, k_off,
+                                     **kw))
+
+
+class FlashBlockAttention(torch.autograd.Function):
+    """The block API's custom VJP (JAX ``_flash_block``): the forward kernel
+    with the lse, returned as ``(out, lse [B, Sq, H])``; the backward takes
+    ``(dout, dlse)``, carries ``dlse`` into the kernel's ``[B, H, Sq]``
+    layout and runs :func:`flash_block_backward`. The offsets and the
+    options get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, k_off, causal, window, softcap):
+        ctx.opts = (q_off, k_off, causal, window, softcap)
+        out, lse = flash_block_forward(q, k, v, q_off, k_off, causal, window,
+                                       softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out, lse.transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_block_backward(
+            q, k, v, out, lse, dout.contiguous(),
+            dlse.transpose(1, 2).contiguous(), *ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_offset: int, k_offset: int, causal: bool = True,
+                          block_q: int = DEFAULT_BLOCK,
+                          block_k: int = DEFAULT_BLOCK, softcap: float = 0.0,
+                          window: int = 0):
+    """One block pair's partial attention for ring attention (JAX
+    ``flash_block_attention``): q ``[B, Sq, H, D]`` at global position
+    ``q_offset``, k/v ``[B, Sk, KV, D]`` at ``k_offset``; returns ``(out
+    [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)``, ``out`` softmax-
+    normalised within the pair, the causal band, ``window`` and the cap
+    ``softcap`` judged as in the JAX kernel. Differentiable
+    (:class:`FlashBlockAttention`): the lse's cotangent joins the backward.
+    On the card the kernels run (bf16), with no fallback; on the CPU their
+    plain versions. ``block_q``/``block_k`` are checked as JAX checks them
+    (a ``pick_block`` must exist); the kernels pick their own tiles."""
+    if q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"block shapes do not match: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    if pick_block(q.shape[1], block_q) is None or pick_block(k.shape[1], block_k) is None:
+        raise ValueError(f"no valid flash block for Sq={q.shape[1]}, Sk={k.shape[1]}")
+    return FlashBlockAttention.apply(q, k, v, int(q_offset), int(k_offset),
+                                     causal, window, softcap)

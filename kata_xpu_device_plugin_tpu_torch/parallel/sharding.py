@@ -1,10 +1,12 @@
-"""The train step on one device: AdamW as optax applies it, and
-``make_train_step`` (counterpart of ``make_optimizer`` and
-``make_train_step`` in ``kata_xpu_device_plugin_tpu/parallel/sharding.py``,
-without the mesh: FSDP and tensor and sequence parallelism for training
-are not ported yet); and the serving partition rules of tensor-parallel
-serving (:data:`SERVING_RULES`, :func:`shard_serving_params`), which
-split serving parameters into per-shard trees.
+"""The train step: AdamW as optax applies it, and ``make_train_step``
+(counterpart of ``make_optimizer``, ``make_train_step``, ``batch_spec``
+and ``shard_batch`` in ``kata_xpu_device_plugin_tpu/parallel/sharding.py``)
+on one device, optionally over a mesh with a ``seq`` axis (sequence
+parallelism: ring attention by default, every shard on the mesh's device,
+:mod:`.mesh`); FSDP, tensor and data parallelism for training are not
+ported yet. And the serving partition rules of tensor-parallel serving
+(:data:`SERVING_RULES`, :func:`shard_serving_params`), which split
+serving parameters into per-shard trees.
 
 The step contract is the JAX package's: ``init_state(seed)`` returns
 ``{"params", "opt", "step"}`` and ``step(state, tokens)`` returns
@@ -26,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..models import transformer as tfm
 from ..ops.quant import QTensor
+from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_SEQ, Mesh
 
 
 def leaves(tree) -> list[torch.Tensor]:
@@ -145,16 +148,48 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
                  grad_clip)
 
 
+def _seq_size(mesh: Mesh) -> int:
+    return mesh.shape.get(AXIS_SEQ, 1)
+
+
+def _tokens_on(tokens, device) -> torch.Tensor:
+    """A token batch (array-like or tensor) as int64 on ``device``."""
+    if torch.is_tensor(tokens):
+        return tokens.to(device).long()
+    return torch.as_tensor(np.asarray(tokens), device=device).long()
+
+
+def batch_spec(mesh: Mesh) -> tuple:
+    """The token batch's partition spec (JAX ``batch_spec``): the batch over
+    the data axes and, when the mesh has a ``seq`` axis, the sequence over
+    it. Every shard of this package's mesh is on its one device, so the
+    spec places nothing; it names the cut the ring and the step make."""
+    return ((AXIS_DATA, AXIS_FSDP), AXIS_SEQ if _seq_size(mesh) > 1 else None)
+
+
+def shard_batch(tokens, mesh: Mesh) -> torch.Tensor:
+    """The batch placed for a step over ``mesh`` (JAX ``shard_batch``): on
+    the mesh's device, as int64."""
+    return _tokens_on(tokens, mesh.device)
+
+
 def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
                     attn_fn: Optional[Callable] = None, remat: bool = False,
                     accum_steps: int = 1, aux_metrics: bool = False,
-                    device=None):
+                    device=None, *, mesh: Optional[Mesh] = None):
     """Returns ``(init_state, step)`` for one device (CUDA unless
-    ``device`` says otherwise; without CUDA and without ``device`` it
-    raises). Parameters are fp32 (``init_params(..., dtype=float32)``, as
-    ``init_sharded_params`` keeps them) and the forward computes in
+    ``device`` or ``mesh`` says otherwise; without CUDA and without either
+    it raises). Parameters are fp32 (``init_params(..., dtype=float32)``,
+    as ``init_sharded_params`` keeps them) and the forward computes in
     ``cfg.dtype``; ``attn_fn`` defaults to ``flash_attention`` — the
     kernels on the card, the plain version on the CPU.
+
+    ``mesh`` (:mod:`.mesh`; JAX's second positional parameter, a keyword
+    here so that the port's positional order stays) runs the step on the
+    mesh's device. A ``seq`` axis above 1 defaults ``attn_fn`` to ring
+    attention over it (:func:`.ring.make_ring_attention`: the K1 block
+    kernels on the card), as JAX does; a ``data``, ``fsdp`` or ``model``
+    axis above 1 raises ``NotImplementedError`` (ROADMAP item 12b).
 
     ``accum_steps > 1`` splits ``tokens [accum_steps·B, S]`` into equal
     microbatches, one live at a time, and applies the mean of their
@@ -163,6 +198,20 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
     gradient. The loss and the norm stay device scalars: the step never
     syncs with the host."""
     optimizer = optimizer or make_optimizer()
+    if mesh is not None:
+        wide = {a: n for a, n in mesh.shape.items() if a != AXIS_SEQ and n > 1}
+        if wide:
+            raise NotImplementedError(
+                f"training over mesh axes {wide} (data, FSDP or tensor "
+                "parallelism) is not ported: ROADMAP item 12b")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device "
+                             f"{mesh.device}")
+        device = mesh.device
+        if attn_fn is None and _seq_size(mesh) > 1:
+            from .ring import make_ring_attention
+
+            attn_fn = make_ring_attention(mesh, axis=AXIS_SEQ)
     device = resolve_device(device)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -173,7 +222,7 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
         return {"params": params, "opt": optimizer.init(params), "step": 0}
 
     def step(state: dict, tokens):
-        tokens = torch.as_tensor(np.asarray(tokens), device=device).long()
+        tokens = _tokens_on(tokens, device)
         if tokens.shape[0] % accum_steps:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"accum_steps={accum_steps}")

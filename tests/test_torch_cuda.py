@@ -1475,3 +1475,189 @@ def replace_cfg(H, KV, D):
     from dataclasses import replace
 
     return replace(gemma_2b(), n_heads=H, n_kv_heads=KV, head_dim=D)
+
+
+# ----- the ring block API (K1) and the ring ------------------------------------
+
+BLOCK_CASES = [  # (S, H, KV, D, q_off, k_off, window, softcap)
+    (256, 8, 2, 128, 512, 512, 0, 0.0),       # diagonal
+    (256, 8, 2, 128, 768, 0, 0, 0.0),         # wholly below the diagonal
+    (256, 4, 1, 256, 512, 0, 300, 50.0),      # window with dead rows, cap
+    (320, 4, 2, 64, 640, 320, 200, 0.0),      # part tiles, window across
+    (256, 8, 1, 256, 256, 256, 100, 30.0),    # windowed diagonal, MQA
+    (256, 4, 4, 128, 0, 256, 0, 0.0),         # wholly above: no live pair
+]
+
+
+def _block_inputs(rng, dev, S, H, KV, D):
+    q, k, v, do = _qkv_do(rng, dev, 1, S, H, KV, D)
+    dlse = torch.from_numpy(rng.standard_normal((1, H, S), np.float32)).to(dev)
+    return q, k, v, do, dlse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,KV,D,q_off,k_off,window,softcap", BLOCK_CASES)
+def test_block_kernels_match_plain(cuda_device, S, H, KV, D, q_off, k_off,
+                                   window, softcap):
+    """K1 at global offsets: the forward's out on the live rows within
+    ``kernel_tolerance`` of the plain version, its lse within the fp32
+    bound; a row with no live key finite with lse <= NEG_INF / 2; the
+    backward under a nonzero random ``dlse`` within the bound
+    ``backward_magnitudes`` derives (with the dlse term); a relaunch of
+    each gives the same bits; launches counted apart from self-attention's,
+    one count for each of the three kernels."""
+    q, k, v, do, dlse = _block_inputs(np.random.default_rng(S + q_off + D),
+                                      cuda_device, S, H, KV, D)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    counters = (flash.flash_block_forward, flash.flash_block_bwd_dq,
+                flash.flash_block_bwd_dkv)
+    n_block = [fn.launches for fn in counters]
+    n_self = flash.flash_forward.launches, flash.flash_bwd_dq.launches
+    out, lse = flash.flash_block_forward(q, k, v, q_off, k_off, **kw)
+    got = flash.flash_block_backward(q, k, v, out, lse, do, dlse, q_off, k_off, **kw)
+    again = (*flash.flash_block_forward(q, k, v, q_off, k_off, **kw),
+             *flash.flash_block_backward(q, k, v, out, lse, do, dlse, q_off,
+                                         k_off, **kw))
+    ref, ref_lse = flash.flash_reference(q, k, v, q_off=q_off, k_off=k_off, **kw)
+    mag, _ = flash.flash_reference(q.float(), k.float(), v.abs().float(),
+                                   q_off=q_off, k_off=k_off, **kw)
+    want = flash.flash_backward_reference(q, k, v, out, lse, do, q_off=q_off,
+                                          k_off=k_off, dlse=dlse, **kw)
+    mags = flash.backward_magnitudes(q, k, v, out, lse, do, q_off=q_off,
+                                     k_off=k_off, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [n + 2 for n in n_block]
+    assert (flash.flash_forward.launches, flash.flash_bwd_dq.launches) == n_self
+    live = flash.live_rows(S, S, True, window, q_off, k_off).to(cuda_device)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (lse[:, :, ~live] <= attention.NEG_INF / 2).all()
+    if live.any():
+        res = attention.kernel_tolerance(out[:, live], ref[:, live], mag[:, live])
+        assert res["ok"], res
+        torch.testing.assert_close(lse[:, :, live], ref_lse[:, :, live],
+                                   atol=1e-4, rtol=1e-5)
+    else:  # no tile visited: the TPU kernel's finalize gives 0
+        assert not out.any()
+    for name, a, b, m in zip(("dq", "dk", "dv"), got, want, mags):
+        assert torch.isfinite(a.float()).all()
+        res = attention.kernel_tolerance(a, b, m)
+        assert res["ok"], (name, res)
+    for a, b in zip((out, lse, *got), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_block_kernels_at_random_offsets(cuda_device):
+    """K1 at offsets that fall anywhere in a tile (seeded draws of the
+    offsets, the window and the cap, at each head width): the forward's
+    live rows and lse, the dead rows' rule and the backward with a random
+    ``dlse``, each within its bound."""
+    rng = np.random.default_rng(12)
+    for i in range(9):
+        D = (64, 128, 256)[i % 3]
+        q_off, k_off = (int(x) for x in rng.integers(0, 1024, 2))
+        window = int(rng.integers(1, 600)) if i % 2 else 0
+        softcap = 30.0 if i % 4 == 1 else 0.0
+        kw = dict(causal=True, window=window, softcap=softcap)
+        off = dict(q_off=q_off, k_off=k_off)
+        q, k, v, do, dlse = _block_inputs(rng, cuda_device, 256, 4, 2, D)
+        out, lse = flash.flash_block_forward(q, k, v, q_off, k_off, **kw)
+        got = flash.flash_block_backward(q, k, v, out, lse, do, dlse, q_off,
+                                         k_off, **kw)
+        ref, ref_lse = flash.flash_reference(q, k, v, **off, **kw)
+        mag, _ = flash.flash_reference(q.float(), k.float(), v.abs().float(),
+                                       **off, **kw)
+        want = flash.flash_backward_reference(q, k, v, out, lse, do, dlse=dlse,
+                                              **off, **kw)
+        mags = flash.backward_magnitudes(q, k, v, out, lse, do, dlse=dlse,
+                                         **off, **kw)
+        torch.cuda.synchronize()
+        case = (D, q_off, k_off, window, softcap)
+        live = flash.live_rows(256, 256, True, window, q_off, k_off).to(cuda_device)
+        assert torch.isfinite(out.float()).all(), case
+        assert (lse[:, :, ~live] <= attention.NEG_INF / 2).all(), case
+        if live.any():
+            res = attention.kernel_tolerance(out[:, live], ref[:, live],
+                                             mag[:, live])
+            assert res["ok"], (case, res)
+            torch.testing.assert_close(lse[:, :, live], ref_lse[:, :, live],
+                                       atol=1e-4, rtol=1e-5)
+        for name, a, b, m in zip(("dq", "dk", "dv"), got, want, mags):
+            res = attention.kernel_tolerance(a, b, m)
+            assert res["ok"], (case, name, res)
+
+
+def _plain_ring(n, q, k, v, **kw):
+    from kata_xpu_device_plugin_tpu_torch.parallel import ring, seq_mesh
+
+    mesh = seq_mesh(n, devices=[q.device])
+    return ring.make_ring_attention(mesh, use_flash=False)(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,H,KV,D,window,softcap", [
+    (4, 8, 2, 128, 0, 0.0), (4, 4, 2, 256, 300, 50.0), (2, 8, 1, 64, 0, 0.0),
+])
+def test_ring_with_k1_matches_the_plain_ring(cuda_device, monkeypatch, n, H,
+                                             KV, D, window, softcap):
+    """The ring through the K1 kernels (``use_flash=None`` engages them on
+    the card) against the plain einsum ring on the same bf16 inputs: the
+    merged output within ``ring_tolerance``; every block's backward call,
+    under the cotangents the merge hands it, within its derived bound; one
+    forward and one backward launch a live pair."""
+    from kata_xpu_device_plugin_tpu_torch.parallel import ring, seq_mesh
+
+    S = 256 * n
+    q, k, v, do = _qkv_do(np.random.default_rng(n + H + D), cuda_device, 1, S,
+                          H, KV, D)
+    checks, real = [], flash.flash_block_backward
+
+    def checked(q_, k_, v_, out, lse, dout, dlse, q_off, k_off, causal,
+                window, softcap):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = real(q_, k_, v_, out, lse, dout, dlse, q_off, k_off, **kw)
+        want = flash.flash_backward_reference(q_, k_, v_, out, lse, dout,
+                                              q_off=q_off, k_off=k_off,
+                                              dlse=dlse, **kw)
+        mags = flash.backward_magnitudes(q_, k_, v_, out, lse, dout,
+                                         q_off=q_off, k_off=k_off, dlse=dlse,
+                                         **kw)
+        checks.extend(attention.kernel_tolerance(a, b, m)
+                      for a, b, m in zip(got, want, mags))
+        return got
+
+    monkeypatch.setattr(flash, "flash_block_backward", checked)
+    xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    counters = (flash.flash_block_forward, flash.flash_block_bwd_dq,
+                flash.flash_block_bwd_dkv)
+    n_block = [fn.launches for fn in counters]
+    kw = dict(window=window, logits_softcap=softcap)
+    out = ring.make_ring_attention(seq_mesh(n, devices=[cuda_device]))(*xs, **kw)
+    torch.autograd.grad(out, xs, do)
+    pairs = sum(min(i, ring._ring_hops(n, 256, window)) + 1
+                for i in range(n))
+    assert [fn.launches for fn in counters] == [n + pairs for n in n_block]
+    assert len(checks) == 3 * pairs
+    assert all(c["ok"] for c in checks), [c for c in checks if not c["ok"]]
+    with torch.no_grad():
+        ref = _plain_ring(n, q, k, v, **kw)
+        mag = _plain_ring(n, q.float(), k.float(), v.abs().float(), **kw)
+    res = attention.ring_tolerance(out.detach(), ref, mag)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_ring_on_the_card_raises_without_a_block_kernel(cuda_device):
+    """``use_flash=None`` on a CUDA tensor runs the K1 kernels or fails: a
+    shard length with no flash block raises instead of running the einsum
+    ring on the card; ``use_flash=False`` still takes the plain ring."""
+    from kata_xpu_device_plugin_tpu_torch.parallel import ring, seq_mesh
+
+    q, k, v, _ = _qkv_do(np.random.default_rng(3), cuda_device, 1, 400, 4, 2, 64)
+    mesh = seq_mesh(4, devices=[cuda_device])
+    n_f = flash.flash_block_forward.launches
+    with pytest.raises(ValueError, match="no flash block kernel"):
+        ring.make_ring_attention(mesh)(q, k, v)
+    out = ring.make_ring_attention(mesh, use_flash=False)(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    assert flash.flash_block_forward.launches == n_f
