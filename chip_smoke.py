@@ -78,6 +78,23 @@ Phases, each printing one JSON line:
    call held against the plain version on its own inputs
    (``paged_crosscheck``), and the slotted server on the same requests for
    the token-match fraction;
+5a. telemetry — the paged configuration's server with telemetry off and
+   with the defaults (heartbeat every 32 rounds, device ledger, watchdog,
+   tripwire) plus ``strict=True`` and a JSONL sink, 32 requests each, in
+   turns twice: tokens equal, launches as in the paged phase, the
+   heartbeat count of the cadence, ``0 < mfu <= 1`` and
+   ``0 < device_busy_frac <= 1`` a heartbeat, the ledger's FLOPs within 25%
+   of this script's count, ``hbm_*`` fields attributing at least the
+   params and the pool, a second run with no compile and no new capture,
+   one request trace a request summing to its wall time, the fields
+   ``tools/obs_report.py`` reads; then a watchdog drill (an ITL budget no
+   round meets: an alert and a flight dump holding the breach), strict
+   mode's negative control (an injected ``.item()`` in the guarded round
+   raises), and a 2-step ``fit`` at Llama-3-8B widths (2 layers) in
+   ``train.step`` spans with a ``torch.profiler`` window
+   (``KATATPU_OBS_PROFILE_*``) writing a trace. Printed: tok/s off and on
+   and the cost of telemetry. Every other phase's default server arms the
+   same telemetry (the JAX default);
 6. persistent — the serve phase's 16 requests (slotted) and the paged
    phase's 32 (paged) through ``persistent=True`` servers (a round decodes
    until its cap of 256 steps, a lane's eos or budget, or a lane's window
@@ -1371,9 +1388,11 @@ def warm_server(srv) -> dict:
     return srv.stats()
 
 
-def run_requests(srv, prompts, budgets, waves=None):
+def run_requests(srv, prompts, budgets, waves=None, after_warm=None):
     """Warm the server (:func:`warm_server`), submit every request, reset
     the serving kernels' launch counts, drain the server, read the counts.
+    ``after_warm()``, when given, runs between the warm-up and the timed
+    run (the telemetry phase marks its event stream there).
     ``waves``: the requests' split into waves, each submitted when the one
     before it has been served to its end (default: one wave). Returns the
     outputs in submit order, the wall time, the launches and the server's
@@ -1394,6 +1413,8 @@ def run_requests(srv, prompts, budgets, waves=None):
                "paged_decode_shard": paged_decode_shard_stats,
                "dense_decode": decode_attention}
     base = warm_server(srv)
+    if after_warm is not None:
+        after_warm()
     waves = list(waves or (len(prompts),))
     rids = [srv.submit(p, int(b)) for p, b in zip(prompts[:waves[0]],
                                                   budgets[:waves[0]])]
@@ -1738,6 +1759,317 @@ def phase_paged(params, cfg, seed: int = 0, profile: bool = False) -> dict:
         for overlap in (True, False):
             profile_rounds(params, cfg, dict(**PAGED_KW, **SERVE_KW, overlap=overlap),
                            rng, lanes=16)
+    return launches
+
+
+# ----- telemetry ---------------------------------------------------------------
+
+TELEMETRY_DIR = os.path.join(HERE, "build", "telemetry")
+# The heartbeat fields tools/obs_report.py's report and the daemon's
+# HeartbeatAggregator read, and the request_trace fields the report's
+# schema gate requires.
+HEARTBEAT_FIELDS = ("round", "interval_rounds", "interval_s", "tokens_per_s",
+                    "itl_p99_ms", "batch_occupancy", "kv_pool_occupancy",
+                    "kv_host_occupancy", "queued", "chips", "mfu",
+                    "device_busy_frac", "dispatch_gap_ms", "dispatches_delta",
+                    "phase_admit_s", "phase_dispatch_s", "phase_retire_s",
+                    "phase_host_transfer_s", "phase_other_s")
+HBM_FIELDS = ("hbm_used_bytes", "hbm_peak_bytes", "hbm_limit_bytes",
+              "hbm_headroom_bytes", "hbm_params_bytes", "hbm_kv_arena_bytes",
+              "hbm_attributed_bytes", "hbm_unattributed_bytes")
+TRACE_PHASES = ("queue", "prefill", "decode", "decode_degraded", "preempted",
+                "recovery")
+
+
+def decode_round_flops(cfg, lanes: int, steps: int, keys: float) -> float:
+    """This script's own count of a decode round's FLOPs (the bench
+    convention of :func:`train_flops_per_step`): 2 x matmul parameters x
+    the tokens of every lane the chunk computes, plus QK^T and PV, 4 x H x
+    D a key, over ``keys`` keys a row, in every layer."""
+    per_layer = (cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    matmul = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    attn = 4 * cfg.n_heads * cfg.head_dim * cfg.n_layers * keys
+    return lanes * steps * (2.0 * matmul + attn)
+
+
+def check_stream(events, server: str, n_requests: int) -> dict:
+    """The checks ``tools/obs_report.py --check`` makes on a stream, on this
+    server's events: heartbeats with the fields the report and the daemon's
+    aggregator read, one ``request_trace`` a request with its phases,
+    spans with durations. Returns the heartbeats and traces."""
+    mine = [e for e in events if e.get("server") == server]
+    hbs = [e for e in mine if e["name"] == "serving_heartbeat"]
+    traces = [e for e in mine if e["name"] == "request_trace"]
+    spans = [e for e in events if e.get("kind") == "span"
+             and e["name"].startswith("serving.")]
+    missing = sorted({k for hb in hbs for k in HEARTBEAT_FIELDS if k not in hb})
+    if not hbs or missing:
+        raise AssertionError(f"heartbeats {len(hbs)}, missing fields {missing}")
+    if len(traces) != n_requests or len({t["rid"] for t in traces}) != n_requests:
+        raise AssertionError(f"{len(traces)} request traces for {n_requests}")
+    for t in traces:
+        for k in ("rid", "outcome", "wall_s", "tokens",
+                  *(f"{p}_s" for p in TRACE_PHASES)):
+            if k not in t:
+                raise AssertionError(f"request_trace without {k}: {t}")
+    if not spans or any("dur_s" not in e for e in spans):
+        raise AssertionError("serving spans missing or without dur_s")
+    return {"heartbeats": hbs, "traces": traces}
+
+
+def telemetry_drills(params, cfg, prompts, budgets) -> dict:
+    """The watchdog, strict-mode and profiler drills and the instrumented
+    ``fit`` (module doc, phase 5a). Returns the fit's kernel launches."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models, obs
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        TokenBatchLoader,
+        fit,
+        make_optimizer,
+        make_train_step,
+    )
+
+    small = dict(PAGED_KW, max_batch=4, **SERVE_KW)
+    # Watchdog: an ITL budget no round meets, judged every heartbeat.
+    slo_ms = 1e-3
+    wd = obs.SLOBurnWatchdog(obs.WatchdogConfig(slo_ms=slo_ms, window=2,
+                                                sustain=1, clear=1))
+    srv = GenerationServer(params, cfg, heartbeat_rounds=2, watchdog=wd, **small)
+    for p, b in zip(prompts[:4], budgets[:4]):
+        srv.submit(p, 24)
+    srv.run()
+    st = srv.stats()
+    dump = st["watchdog"]["last_dump"]
+    if not st["watchdog_alerts"] or not dump or not os.path.exists(dump):
+        raise AssertionError(f"the watchdog drill left no dump: {st['watchdog']}")
+    dumped = obs.read_events(dump)
+    breach = [e for e in dumped if e["name"] == "serving_heartbeat"
+              and e["itl_p99_ms"] > slo_ms]
+    if not breach:
+        raise AssertionError(f"the flight dump {dump} holds no breaching heartbeat")
+    del srv
+    # Strict mode's negative control: a host read of the card injected into
+    # the guarded round must raise, and say so on the stream.
+    srv = GenerationServer(params, cfg, strict=True, **small)
+    real = srv._dispatch_decode
+
+    def with_sync(tok, pos):
+        torch.ones(1, device="cuda").sum().item()
+        return real(tok, pos)
+
+    srv._dispatch_decode = with_sync
+    srv.submit(prompts[0], 8)
+    mark = os.path.getsize(obs.default_sink().path)
+    try:
+        srv.run()
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        tripped = str(exc).splitlines()[0][:120]
+    else:
+        raise AssertionError("strict mode let a sync in the guarded round pass")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("strict mode left the sync guard on")
+    trips = [e for e in obs.read_events(obs.default_sink().path, mark)
+             if e["name"] == "guard_trip"]
+    if len(trips) != 1:
+        raise AssertionError(f"guard_trip events {trips}")
+    del srv
+    # fit, 2 steps at Llama-3-8B widths with 2 layers, in train.step spans,
+    # with a profiler window (KATATPU_OBS_PROFILE_*) over its second step.
+    prof_dir = os.path.join(TELEMETRY_DIR, "profile")
+    os.environ.update(KATATPU_OBS_PROFILE_DIR=prof_dir,
+                      KATATPU_OBS_PROFILE_START="2",
+                      KATATPU_OBS_PROFILE_STEPS="1")
+    tcfg = models.llama3_8b(n_layers=2)
+    stream = np.random.default_rng(3).integers(0, tcfg.vocab_size,
+                                               2048).astype(np.int32)
+    init_state, step = make_train_step(tcfg, make_optimizer())
+    kernels = (flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    mark = os.path.getsize(obs.default_sink().path)
+    try:
+        state, losses = fit(init_state, step, TokenBatchLoader(
+            stream, batch=1, seq_len=2047, shuffle=False), steps=2)
+    finally:
+        for k in ("DIR", "START", "STEPS"):
+            os.environ.pop(f"KATATPU_OBS_PROFILE_{k}")
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                        (fn.launches for fn in kernels)))
+    del state
+    evs = obs.read_events(obs.default_sink().path, mark)
+    steps = [e for e in evs if e["name"] == "train.step"]
+    traces = [e for e in evs if e["name"] == "torch_trace"]
+    if ([e["step"] for e in steps] != [1, 2]
+            or not all(math.isfinite(e["loss"]) and e["dur_s"] > 0 for e in steps)
+            or [e["loss"] for e in steps] != [round(x, 6) for x in losses]):
+        raise AssertionError(f"train.step spans {steps} for losses {losses}")
+    if len(traces) != 1 or not os.path.getsize(traces[0]["path"]):
+        raise AssertionError(f"the profiler window wrote no trace: {traces}")
+    if any(n != 2 * tcfg.n_layers for n in launches.values()):
+        raise AssertionError(f"fit launches {launches}")
+    return dict(
+        launches=launches,
+        watchdog=dict(alerts=st["watchdog_alerts"], active=st["watchdog"]["active"],
+                      dump=os.path.relpath(dump, HERE),
+                      breaching_heartbeats_in_dump=len(breach)),
+        strict_trip=tripped,
+        fit=dict(model="llama3_8b", n_layers=2, B=1, S=2048,
+                 step_s=[e["dur_s"] for e in steps], losses=losses,
+                 trace=os.path.relpath(traces[0]["path"], HERE),
+                 trace_bytes=os.path.getsize(traces[0]["path"])))
+
+
+def phase_telemetry(params, cfg, smi: str) -> dict:
+    """Phase 5a: the paged phase's configuration and 32 requests through two
+    servers, in turns twice: **off** (``heartbeat_rounds=0``, no tripwire,
+    no strict) and **on** (the defaults: heartbeat every 32 rounds, the
+    device ledger and the watchdog armed, the tripwire; plus
+    ``strict=True``), every event of the run into a sink under
+    ``build/telemetry/``. Asserted: equal tokens, paged launches = rounds x
+    chunk x K x layers, the heartbeat count of the cadence and the final
+    flush, ``0 < mfu <= 1`` and ``0 < device_busy_frac <= 1`` on every
+    heartbeat, the ledger's FLOPs over the run within 25% of this script's
+    own count (:func:`decode_round_flops`), the ``hbm_*`` fields with at
+    least the params' and the pool's bytes attributed, no compile and no
+    new capture in the on server's second run, one ``request_trace`` a
+    request whose phases sum to its wall time within 5%, and the stream's
+    fields for ``tools/obs_report.py`` (:func:`check_stream`; the stream
+    is copied to ``chiprun_out/`` where that directory exists). Then the
+    drills (:func:`telemetry_drills`). Printed: tok/s off and on and the
+    cost of telemetry, with the card's name and power limit."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import obs
+
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    os.makedirs(TELEMETRY_DIR)
+    prev_flight = os.environ.get("KATATPU_FLIGHT_DIR")
+    os.environ["KATATPU_FLIGHT_DIR"] = os.path.join(TELEMETRY_DIR, "flight")
+    sink_path = os.path.join(TELEMETRY_DIR, "events.jsonl")
+    sink = obs.EventSink(sink_path)
+    prev_sink = obs.set_default_sink(sink)
+    prompts, budgets, lens = phase_requests(32, cfg.vocab_size)
+    kw = dict(**PAGED_KW, **SERVE_KW)
+    try:
+        from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+
+        servers = {
+            "off": GenerationServer(params, cfg, heartbeat_rounds=0,
+                                    tripwire=False, strict=False, **kw),
+            "on": GenerationServer(params, cfg, strict=True, **kw)}
+        on = servers["on"]
+        if (on._hb_every, on._watchdog is None, on._devledger.armed,
+                on.tripwire) != (32, False, True, True):
+            raise AssertionError("the default server did not arm the heartbeat, "
+                                 "the ledger, the watchdog and the tripwire")
+        runs, launches = [], {}
+        for turn in range(2):
+            for name, srv in servers.items():
+                mark = {}
+                outs, wall, ln, stats = run_requests(
+                    srv, prompts, budgets, after_warm=lambda m=mark, s=srv: m.update(
+                        offset=os.path.getsize(sink_path), stats=s.stats()))
+                for k, n in ln.items():
+                    launches[k] = launches.get(k, 0) + n
+                runs.append(dict(name=name, turn=turn, outs=outs, wall=wall,
+                                 stats=stats, before=mark["stats"],
+                                 events=obs.read_events(sink_path, mark["offset"])))
+        peak = on._devledger.peak_flops()
+        rows = []
+        for run in runs:
+            st, before = run["stats"], run["before"]
+            tok_s = float(sum(budgets)) / run["wall"]
+            row = dict(server=run["name"], turn=run["turn"], tok_s=round(tok_s, 2),
+                       wall_s=round(run["wall"], 4), rounds=st["rounds"],
+                       heartbeats=st["heartbeats"] - before["heartbeats"])
+            if run["name"] == "on":
+                got = check_stream(run["events"], on._label, len(prompts))
+                hbs = got["heartbeats"]
+                want_hb = -(-st["rounds"] // 32)
+                if len(hbs) != want_hb or row["heartbeats"] != want_hb:
+                    raise AssertionError(f"{len(hbs)} heartbeats for {st['rounds']} "
+                                         f"rounds at cadence 32 (want {want_hb})")
+                for hb in hbs:
+                    if not (0 < hb["mfu"] <= 1 and 0 < hb["device_busy_frac"] <= 1):
+                        raise AssertionError(f"heartbeat out of range: {hb}")
+                    absent = [k for k in HBM_FIELDS if k not in hb]
+                    if absent:
+                        raise AssertionError(f"heartbeat without {absent}")
+                ledger = sum(hb["mfu"] * hb["interval_s"] for hb in hbs) * peak
+                keys = float(np.mean(lens + budgets / 2))
+                ours = st["rounds"] * decode_round_flops(
+                    cfg, kw["max_batch"], st["decode_steps"] * on.chunk, keys)
+                if abs(ledger - ours) > 0.25 * ours:
+                    raise AssertionError(f"ledger FLOPs {ledger:.4g} against this "
+                                         f"script's {ours:.4g}")
+                owned = sum(t.numel() * t.element_size() for t in
+                            [params["embed"], params["final_norm"],
+                             *params["layers"].values()])
+                owned += sum(t.numel() * t.element_size() for c in on.kv_pool.arena
+                             for t in (c if isinstance(c, tuple) else (c,)))
+                last = hbs[-1]
+                if last["hbm_attributed_bytes"] < owned:
+                    raise AssertionError(f"attributed {last['hbm_attributed_bytes']} "
+                                         f"< params + pool {owned}")
+                for t in got["traces"]:
+                    total = sum(t[f"{p}_s"] for p in TRACE_PHASES)
+                    if abs(total - t["wall_s"]) > 0.05 * t["wall_s"]:
+                        raise AssertionError(f"request_trace phases {total} "
+                                             f"against wall {t['wall_s']}: {t}")
+                if turn == 1 and (st["steady_state_compiles"]
+                                  or st["steady_state_reshards"]
+                                  or st["decode_graph_captures"] != 1):
+                    raise AssertionError(f"steady state compiled: {st}")
+                row.update(
+                    mfu_ledger=round(ledger / (run["wall"] * peak), 6),
+                    mfu_script=round(ours / (run["wall"] * peak), 6),
+                    ledger_vs_script=round(ledger / ours, 4),
+                    device_busy_frac=[hb["device_busy_frac"] for hb in hbs],
+                    dispatch_gap_ms=[hb["dispatch_gap_ms"] for hb in hbs],
+                    hbm={k: last[k] for k in HBM_FIELDS},
+                    hbm_components={k: v for k, v in last.items()
+                                    if k.startswith("hbm_") and k not in HBM_FIELDS},
+                    steady_state_compiles=st["steady_state_compiles"],
+                    watchdog_alerts=st["watchdog_alerts"],
+                    events=len(run["events"]))
+            rows.append(row)
+        for a in runs[1:]:
+            for x, y, b in zip(a["outs"], runs[0]["outs"], budgets):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"tokens differ between {a['name']} "
+                                         f"turn {a['turn']} and off turn 0")
+        del servers, on
+        torch.cuda.empty_cache()
+        drills = telemetry_drills(params, cfg, prompts, budgets)
+    finally:
+        obs.set_default_sink(prev_sink)
+        sink.close()
+        if prev_flight is None:
+            os.environ.pop("KATATPU_FLIGHT_DIR", None)
+        else:
+            os.environ["KATATPU_FLIGHT_DIR"] = prev_flight
+    out_dir = os.path.join(HERE, "chiprun_out")
+    if os.path.isdir(out_dir):
+        shutil.copy(sink_path, os.path.join(out_dir, "telemetry_events.jsonl"))
+    off_s = [r["tok_s"] for r in rows if r["server"] == "off"]
+    on_s = [r["tok_s"] for r in rows if r["server"] == "on"]
+    cost = 100.0 * (1.0 - sum(on_s) / sum(off_s))
+    for k, n in drills.pop("launches").items():
+        launches[k] = launches.get(k, 0) + n
+    emit("telemetry", nvidia_smi=smi, config=PAGED_KW, requests=len(prompts),
+         runs=rows, tok_s_off=off_s, tok_s_on=on_s,
+         telemetry_cost_pct=round(cost, 3), peak_flops=peak, **drills,
+         launches=launches)
     return launches
 
 
@@ -2251,9 +2583,9 @@ def recording_admissions(srv, hits_seen: list, ttft: list) -> None:
         finally:
             serving._next_token = sample
 
-    def finish_recording(b, req, first, pos, t_first, hit=None):
+    def finish_recording(b, req, first, pos, t_first, hit=None, **event):
         ttft.append((t_first - req.t_submit, hit is not None))
-        return finish(b, req, first, pos, t_first, hit=hit)
+        return finish(b, req, first, pos, t_first, hit=hit, **event)
 
     srv._fill_slots = fill_recording
     srv._finish_admission = finish_recording
@@ -3581,7 +3913,7 @@ def main(argv: list[str]) -> int:
         seconds[name] = round(time.perf_counter() - t0, 2)
         return out
 
-    phase_device()
+    smi = phase_device()
     timed_phase("build", phase_build)
     checks = timed_phase("check", phase_checks)
     extra = checks.pop("paged_decode_extra")
@@ -3594,6 +3926,8 @@ def main(argv: list[str]) -> int:
                                      profile=profile)}
     launches["paged"] = timed_phase("paged", phase_paged, params, cfg,
                                     profile=profile)
+    launches["telemetry"] = timed_phase("telemetry", phase_telemetry, params,
+                                        cfg, smi)
     launches["persistent"] = timed_phase("persistent", phase_persistent,
                                          params, cfg)
     launches["sched"] = timed_phase("sched", phase_sched, params, cfg)

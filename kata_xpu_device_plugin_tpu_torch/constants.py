@@ -81,3 +81,39 @@ ENV_TP = "KATA_TPU_TP"
 # unknown value degrades to "heads", as does "blocks" on a slotted server;
 # an explicit kv_layout= wins.
 ENV_KV_LAYOUT = "KATA_TPU_KV_LAYOUT"
+
+# ----- telemetry (obs/, guest/serving.py) ------------------------------------
+
+# Serving heartbeat cadence in rounds: one ``serving_heartbeat`` event every
+# K rounds, which the device ledger and the watchdog ride on. Default 32; 0
+# disables heartbeat, ledger, watchdog and the loop-phase clock. A malformed
+# or negative value degrades to the default with a ``heartbeat_invalid``
+# event; an explicit heartbeat_rounds= < 0 raises.
+ENV_HEARTBEAT_ROUNDS = "KATA_TPU_HEARTBEAT_ROUNDS"
+DEFAULT_HEARTBEAT_ROUNDS = 32
+
+# The daemon's per-allocation trace id: a server adopts it for every span
+# and event it emits (else it mints one).
+ENV_TRACE_CTX = "KATA_TPU_TRACE_CTX"
+
+# Device ledger kill switch: "0" disarms it on heartbeat-armed servers.
+ENV_DEVLEDGER = "KATA_TPU_DEVLEDGER"
+
+# SLO-burn watchdog: "0" disarms it node-wide; the rest tune its rules
+# (obs/watchdog.py), each degrading to its default when malformed.
+ENV_WATCHDOG = "KATA_TPU_WATCHDOG"
+ENV_WATCHDOG_BURN = "KATA_TPU_WATCHDOG_BURN"
+ENV_WATCHDOG_WINDOW = "KATA_TPU_WATCHDOG_WINDOW"
+ENV_WATCHDOG_SUSTAIN = "KATA_TPU_WATCHDOG_SUSTAIN"
+ENV_WATCHDOG_CLEAR = "KATA_TPU_WATCHDOG_CLEAR"
+ENV_WATCHDOG_PREEMPT_STORM = "KATA_TPU_WATCHDOG_PREEMPT_STORM"
+ENV_WATCHDOG_RECOVERY_STORM = "KATA_TPU_WATCHDOG_RECOVERY_STORM"
+ENV_WATCHDOG_PROFILE_DIR = "KATA_TPU_WATCHDOG_PROFILE_DIR"
+ENV_WATCHDOG_PROFILE_STEPS = "KATA_TPU_WATCHDOG_PROFILE_STEPS"
+ENV_WATCHDOG_GAP_RATIO = "KATA_TPU_WATCHDOG_GAP_RATIO"
+ENV_WATCHDOG_GAP_MIN_MS = "KATA_TPU_WATCHDOG_GAP_MIN_MS"
+ENV_WATCHDOG_HEADROOM_FLOOR = "KATA_TPU_WATCHDOG_HEADROOM_FLOOR"
+
+# Strict mode: "1"/"true"/"yes"/"on" guards every overlapped round against
+# host synchronization (compat/torchapi.py); strict= on the server wins.
+ENV_STRICT = "KATA_TPU_STRICT"

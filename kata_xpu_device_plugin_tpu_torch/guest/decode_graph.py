@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..compat.torchapi import allow_transfer, note_compile
 from ..models.transformer import (
     _decode_scan,
     _persistent_steps,
@@ -161,6 +162,9 @@ class DecodeGraph:
         host tensors, whose copies run asynchronously. Returns ``(toks,
         last, pos)`` on the device without waiting for them."""
         if self.device.type != "cuda":
+            if not self._warm:
+                self._warm = True
+                note_compile("decode signature")
             return self._run(tok, pos, budget, block_tables)
         given = {"tok": tok, "pos": pos, "budget": budget,
                  "block_tables": block_tables}
@@ -202,6 +206,7 @@ class DecodeGraph:
         return out, res
 
     def _warm_up(self):
+        note_compile("decode signature")
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
@@ -213,21 +218,24 @@ class DecodeGraph:
         return out
 
     def _capture(self) -> None:
+        note_compile("graph capture")
         counters = launch_counted()
         before = [fn.launches for fn in counters]
         t0 = time.perf_counter()
         # torch.cuda.graph synchronizes and empties the allocator's cache
         # itself; doing it first makes the reserved bytes' growth the pool's.
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        sampling = self._kw["sampling"]
-        if sampling is not None:
-            graph.register_generator_state(sampling.generator)
-        with torch.cuda.graph(graph, stream=self._stream):
-            out = self._run(**self._in)
+        # A capture happens once a server: strict mode sanctions its syncs.
+        with allow_transfer("decode graph capture (once a signature)"):
+            torch.cuda.synchronize(self.device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            sampling = self._kw["sampling"]
+            if sampling is not None:
+                graph.register_generator_state(sampling.generator)
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = self._run(**self._in)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0
         self._delta = {}
@@ -319,6 +327,9 @@ class PersistentRound:
         if self._tables is not None:
             self._tables.copy_(block_tables, non_blocking=True)
         if self.device.type != "cuda":
+            if not self._warm:
+                self._warm = True
+                note_compile("persistent signature")
             self._eager_round()
         elif self._graph is None and not self._warm:
             self._warm_up()
@@ -356,6 +367,7 @@ class PersistentRound:
         self.executed_total += self.executed
 
     def _warm_up(self) -> None:
+        note_compile("persistent signature")
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
@@ -364,16 +376,18 @@ class PersistentRound:
         self._warm = True
 
     def _capture(self) -> None:
+        note_compile("graph capture")
         counters = launch_counted()
         before = [fn.launches for fn in counters]
         t0 = time.perf_counter()
-        torch.cuda.synchronize(self.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream):
-            self._steps()
+        with allow_transfer("persistent graph capture (once a server)"):
+            torch.cuda.synchronize(self.device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream):
+                self._steps()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0
         self._delta = {}

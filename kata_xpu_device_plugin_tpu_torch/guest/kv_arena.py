@@ -53,6 +53,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.transformer import (
     PAGED_SCRATCH_BLOCK,
     PAGED_ZERO_BLOCK,
@@ -454,8 +455,11 @@ class PagedPrefixTier(RadixStore):
     place."""
 
     def __init__(self, pool: KVPool, cfg: DecoderConfig, buckets: tuple, *,
-                 host_tier: Optional[HostKVTier] = None) -> None:
-        super().__init__(buckets)
+                 host_tier: Optional[HostKVTier] = None, label: str = "",
+                 on_demote=None, on_prefetch=None) -> None:
+        super().__init__(buckets, label)
+        # The server's metric counters of tier traffic, called per move.
+        self._on_demote, self._on_prefetch = on_demote, on_prefetch
         self.pool = pool
         self.cfg = cfg
         self.kv_quant = pool.kv_quant
@@ -508,6 +512,9 @@ class PagedPrefixTier(RadixStore):
         self._drop(seg)
         self.pool.unref(seg.blocks)
         self.evictions += 1
+        obs.emit("serving", "prefix_evict", store=self.label,
+                 tokens=seg.length, blocks=len(seg.blocks),
+                 segments_left=len(self._segments), tier="kv_pool")
         return True
 
     def _demote(self, seg: _TierSegment) -> bool:
@@ -525,10 +532,16 @@ class PagedPrefixTier(RadixStore):
             self.pool.block_size))
         self.host_tier.put(seg, seg.length, rows=rows)
         self.pool.unref(seg.blocks)
+        nb = len(seg.blocks)
         seg.blocks = []
         seg.host = True
         seg.tick = self._next_tick()
         self.demotions += 1
+        if self._on_demote is not None:
+            self._on_demote()
+        obs.emit("serving", "kv_demote", store=self.label, tokens=seg.length,
+                 blocks=nb, host_tokens=self.host_tier.tokens_used,
+                 host_entries=self.host_tier.entries)
         return True
 
     def _promote(self, seg: _TierSegment) -> bool:
@@ -563,6 +576,10 @@ class PagedPrefixTier(RadixStore):
         seg.host = False
         seg.tick = self._next_tick()
         self.prefetches += 1
+        if self._on_prefetch is not None:
+            self._on_prefetch()
+        obs.emit("serving", "kv_prefetch", store=self.label, tokens=seg.length,
+                 blocks=nb, host_tokens=self.host_tier.tokens_used)
         return True
 
     def _evict_host_one(self) -> bool:
@@ -575,6 +592,9 @@ class PagedPrefixTier(RadixStore):
         self.host_tier.pop(key)
         self._drop(key)
         self.host_evictions += 1
+        obs.emit("serving", "prefix_evict", store=self.label,
+                 tokens=key.length, blocks=0,
+                 segments_left=len(self._segments), tier="kv_host")
         return True
 
     def materialize(self, hit: TierHit, max_len: int, n: int = 1):

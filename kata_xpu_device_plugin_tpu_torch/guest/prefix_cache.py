@@ -33,7 +33,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..models.transformer import DecoderConfig, init_kv_caches
 from ..ops.quant import QTensor
 
@@ -215,7 +215,8 @@ class RadixStore:
     says whether a matched segment can serve now. Not thread-safe: share
     a store only between servers driven from one thread."""
 
-    def __init__(self, buckets: tuple) -> None:
+    def __init__(self, buckets: tuple, label: str = "") -> None:
+        self.label = label  # the owning server's, on this store's events
         buckets = tuple(sorted(buckets))
         if not buckets:
             raise ValueError(
@@ -347,8 +348,8 @@ class PrefixStore(RadixStore):
 
     def __init__(self, cfg: DecoderConfig, capacity_tokens: int,
                  buckets: tuple, *, kv_quant: Optional[bool] = None,
-                 dtype=None, device=None) -> None:
-        super().__init__(buckets)
+                 dtype=None, device=None, label: str = "") -> None:
+        super().__init__(buckets, label)
         if capacity_tokens < self.buckets[0]:
             raise ValueError(
                 f"capacity_tokens={capacity_tokens} cannot hold even the "
@@ -385,6 +386,9 @@ class PrefixStore(RadixStore):
         self._drop(seg)
         self._freelist.free(seg.offset, seg.length)
         self.evictions += 1
+        obs.emit("serving", "prefix_evict", store=self.label,
+                 tokens=seg.length, offset=seg.offset,
+                 segments_left=len(self._segments))
         return True
 
     def materialize(self, hit: PrefixHit, max_len: int, n: int = 1):

@@ -181,6 +181,16 @@ class Scheduler:
             "sched_queue_delay_s": self.queue_delay.summary(),
         }
 
+    def heartbeat_fields(self) -> dict:
+        """The scheduler's fields of the serving heartbeat: the admission
+        wait's quantiles in ms (the chunk, defer and violation deltas come
+        from the counters above)."""
+        q = self.queue_delay.summary()
+        return {
+            "admission_wait_p50_ms": round(q.get("p50", 0.0) * 1e3, 3),
+            "admission_wait_p99_ms": round(q.get("p99", 0.0) * 1e3, 3),
+        }
+
 
 class SLOChunkedScheduler(Scheduler):
     """``slo_chunked``: chunk the pending admission whenever running it

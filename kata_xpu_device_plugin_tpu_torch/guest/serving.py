@@ -87,29 +87,53 @@ paged kernel on each shard and merges the shards' softmax statistics.
 Every shard lives on the server's one device (a port-only difference:
 JAX places them on distinct chips); greedy outputs equal ``tp=1``'s.
 
+Telemetry, as in the JAX server: every event goes through :meth:`_emit`
+(kind ``serving``, the server's label and the allocation trace id of
+``KATA_TPU_TRACE_CTX``), with the JAX server's names and fields, into the
+default sink (``KATATPU_OBS``) and the flight ring. Admission forwards run
+in ``serving.prefill*`` spans; each decode chunk is a
+``serving.decode_chunk`` span (detached under overlap, ended at its
+retire). Every request keeps a lifecycle ledger (queue, prefill, decode,
+preempted) and emits one ``request_trace`` at its end. Every
+``heartbeat_rounds`` rounds (``KATA_TPU_HEARTBEAT_ROUNDS``, default 32; 0
+disables) one ``serving_heartbeat`` rolls up the interval: tokens/s,
+latency quantiles, occupancy, tier traffic, the loop's phase times, and
+the device ledger's ``mfu``, ``device_busy_frac``, dispatch gaps and
+memory (:class:`..obs.devledger.DeviceLedger`); the SLO-burn watchdog
+(:class:`..obs.watchdog.SLOBurnWatchdog`) reads each heartbeat. Every
+``run()`` after the first counts the tripwire's compiles and reshards
+(:mod:`..compat.torchapi`), and ``strict`` guards the overlapped round
+against host synchronization with the card. None of it changes greedy
+tokens; :meth:`export_metrics` exposes the JAX server's metric families.
+
 Arguments of the JAX server that select modes not ported yet (a
 caller's training-layout ``mesh``, speculative decoding, ring caches,
-telemetry, fault injection and crash recovery, the degraded mesh shrink)
-raise ``NotImplementedError`` naming their ROADMAP item when set to
-anything but their no-op value.
+fault injection and crash recovery, the degraded mesh shrink) raise
+``NotImplementedError`` naming their ROADMAP item when set to anything
+but their no-op value.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
+from ..compat import torchapi
 from ..constants import (
+    DEFAULT_HEARTBEAT_ROUNDS,
     DEFAULT_KV_QUANT,
     ENV_DECODE_ATTN,
     ENV_DECODE_STEPS,
     ENV_FUSED,
+    ENV_HEARTBEAT_ROUNDS,
     ENV_ITL_SLO_MS,
     ENV_KV_HOST_TOKENS,
     ENV_KV_LAYOUT,
@@ -119,6 +143,7 @@ from ..constants import (
     ENV_PREFILL_CHUNK,
     ENV_PREFIX_CACHE_TOKENS,
     ENV_SCHED_POLICY,
+    ENV_TRACE_CTX,
 )
 from ..models.transformer import (
     DecoderConfig,
@@ -164,10 +189,6 @@ from .tp_serving import KV_LAYOUT_BLOCKS, KV_LAYOUT_HEADS, KV_LAYOUTS, ServingMe
 BACKEND_PAGED = attention.BACKEND_PAGED
 BACKEND_REFERENCE = attention.BACKEND_REFERENCE
 
-# Decode rounds one persistent round may span at most (the JAX server's
-# heartbeat cadence, whose default bounds the cap there too): the cap is
-# max(min(chunk × decode_steps × this, max_len), chunk × decode_steps).
-PERSISTENT_CAP_ROUNDS = 32
 PERSISTENT_EXITS = ("cap", "done", "window")
 
 
@@ -187,38 +208,59 @@ def require_flash_buckets(buckets: tuple, head_dim: int) -> None:
             f"{head_dim} (need a divisor >= 128 that is a multiple of 32)")
 
 
-def _env_int(name: str, default: int) -> int:
-    """An integer env knob; unset or malformed gives ``default``."""
+def _no_emit(name: str, **fields) -> None:
+    """The emitter of a resolution made outside a server: no event."""
+
+
+def _env_int(name: str, default: int, emit=_no_emit, event: str = "") -> int:
+    """An integer env knob; unset gives ``default``, and so does a
+    malformed value, with one ``event`` (reason ``bad_env:<raw>``)."""
     raw = os.environ.get(name, "")
+    if not raw:
+        return default
     try:
-        return int(raw) if raw else default
+        return int(raw)
     except ValueError:
+        if event:
+            emit(event, reason=f"bad_env:{raw[:32]}")
         return default
 
 
-def _resolve_tokens(value: Optional[int], env: str) -> tuple[int, bool]:
+def _resolve_tokens(value: Optional[int], env: str, emit=_no_emit,
+                    event: str = "", negative_event: bool = False
+                    ) -> tuple[int, bool]:
     """A token-count knob: ``(tokens, explicit)``, the argument when given,
-    else the env value, which degrades to 0 when malformed or negative."""
+    else the env value, which degrades to 0 when malformed (with ``event``)
+    or negative (with ``event`` too when ``negative_event``)."""
     if value is not None:
         return int(value), True
-    return max(_env_int(env, 0), 0), False
+    n = _env_int(env, 0, emit, event)
+    if n < 0 and negative_event:
+        emit(event, reason=f"bad_env:{n}")
+    return max(n, 0), False
 
 
-def _env_flag(name: str) -> Optional[bool]:
+def _env_flag(name: str, emit=_no_emit, event: str = "") -> Optional[bool]:
     """A ``"0"``/``"1"`` env knob: its value, or None when unset or
-    malformed (which degrades to the knob's default)."""
+    malformed (which degrades to the knob's default, with ``event``)."""
     raw = os.environ.get(name, "").strip()
+    if raw and raw not in ("0", "1"):
+        emit(event, reason=f"bad_env:{raw[:32]}")
     return {"0": False, "1": True}.get(raw)
 
 
-def resolve_kv_layout(kv_layout: Optional[str]) -> tuple[str, bool]:
+def resolve_kv_layout(kv_layout: Optional[str],
+                      emit=_no_emit) -> tuple[str, bool]:
     """``(layout, explicit)``: an explicit unknown layout raises; an
-    unknown ``KATA_TPU_KV_LAYOUT`` degrades to ``"heads"``."""
+    unknown ``KATA_TPU_KV_LAYOUT`` degrades to ``"heads"`` with a
+    ``kv_layout_invalid`` event."""
     if kv_layout is not None:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r} (have {KV_LAYOUTS})")
         return kv_layout, True
     raw = os.environ.get(ENV_KV_LAYOUT, "").strip()
+    if raw and raw not in KV_LAYOUTS:
+        emit("kv_layout_invalid", reason=f"bad_env:{raw[:32]}")
     return (raw if raw in KV_LAYOUTS else KV_LAYOUT_HEADS), False
 
 
@@ -243,11 +285,12 @@ def tp_conflict(cfg: DecoderConfig, tp: int, ring_kv: bool,
 
 
 def resolve_tp(tp: Optional[int], cfg: DecoderConfig, ring_kv: bool = False,
-               speculative: bool = False) -> int:
+               speculative: bool = False, emit=_no_emit, label: str = "",
+               trace: str = "") -> int:
     """The serving degree: an explicit ``tp`` (< 1 or in
     :func:`tp_conflict` raises; more shards than devices share the one
     device), else :func:`.tp_serving.tp_from_env`, which degrades to 1 on
-    a conflict."""
+    a conflict with a ``tp_disabled`` event."""
     if tp is not None:
         tp = int(tp)
         if tp < 1:
@@ -257,42 +300,58 @@ def resolve_tp(tp: Optional[int], cfg: DecoderConfig, ring_kv: bool = False,
             raise ValueError(f"tp={tp} is incompatible with this server "
                              f"({reason})")
         return tp
-    tp = tp_serving.tp_from_env()
-    return 1 if tp_conflict(cfg, tp, ring_kv, speculative) else tp
+    tp = tp_serving.tp_from_env(label=label, trace=trace)
+    reason = tp_conflict(cfg, tp, ring_kv, speculative)
+    if reason is not None:
+        emit("tp_disabled", reason=reason, tp=tp)
+        return 1
+    return tp
 
 
-def resolve_kv_quant(kv_quant) -> bool:
+def resolve_kv_quant(kv_quant, emit=_no_emit) -> bool:
     """Explicit argument > ``KATA_TPU_KV_QUANT`` ("int8" | "bf16") > int8.
-    A malformed env value degrades to the default."""
+    A malformed env value degrades to the default with one
+    ``kv_quant_invalid`` event."""
     if kv_quant is not None:
         return bool(kv_quant)
     raw = os.environ.get(ENV_KV_QUANT, "").strip().lower()
+    if raw and raw not in ("int8", "bf16"):
+        emit("kv_quant_invalid", reason=f"bad_env:{raw[:32]}")
     if raw not in ("int8", "bf16"):
         raw = DEFAULT_KV_QUANT
     return raw == "int8"
 
 
-def resolve_decode_steps(decode_steps: Optional[int]) -> int:
+def resolve_decode_steps(decode_steps: Optional[int], emit=_no_emit) -> int:
     """K, the decode chunks one dispatch runs: explicit argument >
     ``KATA_TPU_DECODE_STEPS`` > 1. An explicit value < 1 raises; a
-    malformed or < 1 env value degrades to 1."""
+    malformed or < 1 env value degrades to 1 with a
+    ``decode_steps_invalid`` event."""
     if decode_steps is not None:
         if int(decode_steps) < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
         return int(decode_steps)
-    return max(_env_int(ENV_DECODE_STEPS, 1), 1)
+    k = _env_int(ENV_DECODE_STEPS, 1, emit, "decode_steps_invalid")
+    if k < 1:
+        emit("decode_steps_invalid", reason=f"bad_env:{k}")
+        k = 1
+    return k
 
 
 def resolve_sched(sched_policy: Optional[str], prefill_chunk: Optional[int],
-                  itl_slo_ms: Optional[float]) -> tuple[str, int, float]:
+                  itl_slo_ms: Optional[float],
+                  emit=_no_emit) -> tuple[str, int, float]:
     """``(policy, chunk tokens, slo ms)``, the JAX server's rules: an
     explicit unknown policy or a ``prefill_chunk`` < 1 raises; an unknown
-    ``KATA_TPU_SCHED_POLICY`` degrades to ``fifo_batch``, a malformed or
-    < 1 ``KATA_TPU_PREFILL_CHUNK`` to 128 and a malformed
-    ``KATA_TPU_ITL_SLO_MS`` to 50."""
+    ``KATA_TPU_SCHED_POLICY`` degrades to ``fifo_batch``
+    (``sched_disabled``), a malformed or < 1 ``KATA_TPU_PREFILL_CHUNK`` to
+    128 (``prefill_chunk_invalid``) and a malformed ``KATA_TPU_ITL_SLO_MS``
+    to 50 (``itl_slo_invalid``)."""
     if sched_policy is None:
-        sched_policy = os.environ.get(ENV_SCHED_POLICY, "").strip() or POLICY_FIFO
+        raw = os.environ.get(ENV_SCHED_POLICY, "").strip()
+        sched_policy = raw or POLICY_FIFO
         if sched_policy not in POLICIES:
+            emit("sched_disabled", reason=f"bad_env:{raw[:32]}")
             sched_policy = POLICY_FIFO
     elif sched_policy not in POLICIES:
         raise ValueError(
@@ -303,47 +362,267 @@ def resolve_sched(sched_policy: Optional[str], prefill_chunk: Optional[int],
                 f"prefill_chunk must be >= 1 token, got {prefill_chunk}")
         chunk_tokens = int(prefill_chunk)
     else:
-        chunk_tokens = _env_int(ENV_PREFILL_CHUNK, DEFAULT_PREFILL_CHUNK)
+        chunk_tokens = _env_int(ENV_PREFILL_CHUNK, DEFAULT_PREFILL_CHUNK, emit,
+                                "prefill_chunk_invalid")
         if chunk_tokens < 1:
+            emit("prefill_chunk_invalid", reason=f"bad_env:{chunk_tokens}")
             chunk_tokens = DEFAULT_PREFILL_CHUNK
     if itl_slo_ms is not None:
         slo_ms = float(itl_slo_ms)
     else:
+        raw = os.environ.get(ENV_ITL_SLO_MS, "")
         try:
-            slo_ms = float(os.environ.get(ENV_ITL_SLO_MS, "") or DEFAULT_ITL_SLO_MS)
+            slo_ms = float(raw) if raw else DEFAULT_ITL_SLO_MS
         except ValueError:
+            emit("itl_slo_invalid", reason=f"bad_env:{raw[:32]}")
             slo_ms = DEFAULT_ITL_SLO_MS
     return sched_policy, chunk_tokens, slo_ms
 
 
-def resolve_fused(fused: Optional[bool], sched_policy: str) -> bool:
+def resolve_fused(fused: Optional[bool], sched_policy: str,
+                  emit=_no_emit) -> bool:
     """Whether chunk slices ride decode dispatches: on under
     ``slo_chunked`` unless ``KATA_TPU_FUSED=0`` (a malformed value
-    degrades to on), off otherwise; an explicit ``fused=True`` without
-    ``slo_chunked`` raises."""
+    degrades to on, with ``fused_disabled``), off otherwise; an explicit
+    ``fused=True`` without ``slo_chunked`` raises."""
     if fused is not None:
         if fused and sched_policy != POLICY_SLO:
             raise ValueError(
                 "fused=True requires sched_policy='slo_chunked': only chunked "
                 "admission makes the slices a fused dispatch carries")
         return bool(fused)
-    return sched_policy == POLICY_SLO and _env_flag(ENV_FUSED) is not False
+    flag = _env_flag(ENV_FUSED, emit, "fused_disabled")
+    return sched_policy == POLICY_SLO and flag is not False
 
 
-def resolve_persistent(persistent: Optional[bool], do_sample: bool) -> bool:
+def resolve_persistent(persistent: Optional[bool], do_sample: bool,
+                       emit=_no_emit) -> bool:
     """Whether rounds are persistent: explicit argument >
     ``KATA_TPU_PERSISTENT`` ("1" on; malformed degrades to off) > off. The
     round is greedy only: on a sampling server an explicit
-    ``persistent=True`` raises and the env value degrades."""
+    ``persistent=True`` raises and the env value degrades. Each degrade
+    emits ``persistent_disabled``."""
     explicit = persistent is not None
-    on = bool(persistent) if explicit else _env_flag(ENV_PERSISTENT) is True
+    on = (bool(persistent) if explicit
+          else _env_flag(ENV_PERSISTENT, emit, "persistent_disabled") is True)
     if on and do_sample:
         if explicit:
             raise ValueError(
                 "persistent=True is incompatible with this server (sampling): "
                 "persistent rounds are greedy only")
+        emit("persistent_disabled", reason="sampling")
         return False
     return on
+
+
+# Serving heartbeat's loop-phase buckets (the JAX server's): where one
+# interval's host wall clock went. ``admit``: admission passes (prefill
+# forwards included); ``dispatch``: issuing decode chunks; ``retire``:
+# fence waits and landing tokens; ``host_transfer``: preemption spills,
+# resumes and the resume prefetch; ``other``: everything between.
+LOOP_PHASE_ADMIT = "admit"
+LOOP_PHASE_DISPATCH = "dispatch"
+LOOP_PHASE_RETIRE = "retire"
+LOOP_PHASE_HOST = "host_transfer"
+LOOP_PHASE_OTHER = "other"
+LOOP_PHASES = (LOOP_PHASE_ADMIT, LOOP_PHASE_DISPATCH, LOOP_PHASE_RETIRE,
+               LOOP_PHASE_HOST, LOOP_PHASE_OTHER)
+
+
+class _PhaseClock:
+    """Exclusive loop-phase wall time: the loop brackets its sections with
+    :meth:`push`/:meth:`pop`, and elapsed time is charged to the INNERMOST
+    open phase (a spill inside a retire window lands in ``host_transfer``,
+    not twice). Disarmed (``heartbeat_rounds=0``) both calls are one
+    attribute test. Host arithmetic only."""
+
+    __slots__ = ("armed", "acc", "_stack", "_mark")
+
+    def __init__(self, armed: bool):
+        self.armed = armed
+        self.acc = {p: 0.0 for p in LOOP_PHASES[:-1]}
+        self._stack: list = []
+        self._mark = 0.0
+
+    def push(self, phase: str) -> None:
+        if not self.armed:
+            return
+        now = time.perf_counter()
+        if self._stack:
+            top = self._stack[-1]
+            self.acc[top] = self.acc.get(top, 0.0) + (now - self._mark)
+        self._stack.append(phase)
+        self._mark = now
+
+    def pop(self) -> None:
+        if not self.armed or not self._stack:
+            return
+        now = time.perf_counter()
+        phase = self._stack.pop()
+        self.acc[phase] = self.acc.get(phase, 0.0) + (now - self._mark)
+        self._mark = now
+
+    def snapshot(self) -> dict:
+        return dict(self.acc)
+
+    def section(self, phase: str):
+        """``with clock.section(phase):`` — :meth:`push` ... :meth:`pop`."""
+        return _Section(self, phase)
+
+
+class _Section:
+    __slots__ = ("_clock", "_phase")
+
+    def __init__(self, clock: _PhaseClock, phase: str):
+        self._clock, self._phase = clock, phase
+
+    def __enter__(self):
+        self._clock.push(self._phase)
+
+    def __exit__(self, *exc):
+        self._clock.pop()
+
+
+# Request lifecycle phases (the JAX server's): a request is in exactly one
+# at any moment, and its ledger accrues wall time into the current one at
+# each transition, so a ``request_trace``'s phases sum to its wall time.
+# The port never decodes degraded or recovers (item 9b): those two phases
+# stay 0.
+PHASE_QUEUE = "queue"                # submit to admission grant
+PHASE_PREFILL = "prefill"            # grant to the first-token fence
+PHASE_DECODE = "decode"              # decoding rounds
+PHASE_DECODE_DEGRADED = "decode_degraded"
+PHASE_PREEMPTED = "preempted"        # spilled, waiting for the pool
+PHASE_RECOVERY = "recovery"
+PHASES = (PHASE_QUEUE, PHASE_PREFILL, PHASE_DECODE, PHASE_DECODE_DEGRADED,
+          PHASE_PREEMPTED, PHASE_RECOVERY)
+
+# Scrape-time gauges of stats() (the JAX server's names; a server's label
+# tells instances apart). draft_acceptance and the resilience gauges read
+# 0 until their modes are ported.
+_PROM_STATS = (
+    ("rounds", "Device rounds dispatched"),
+    ("prefills", "Prompt prefills performed"),
+    ("tokens_emitted", "Tokens emitted (pre-trim, incl. prefill tokens)"),
+    ("tokens_per_round", "Mean decoded tokens per device round"),
+    ("slots_busy", "Arena slots currently serving a request"),
+    ("queued", "Requests waiting for a slot"),
+    ("batch_occupancy", "Busy fraction of the arena's slots"),
+    ("kv_slot_utilization", "Mean busy-slot cache fill (pos / arena len)"),
+    ("arena_bytes", "KV arena HBM footprint (addressable shards summed)"),
+    ("draft_acceptance", "Speculative draft acceptance rate"),
+    ("prefill_batches", "Multi-request admission prefill forwards"),
+    ("prefix_hit_ratio", "Prefix-cache hit ratio (hits / lookups)"),
+    ("prefix_store_occupancy", "Prefix store fill (tokens used / capacity)"),
+    ("kv_pool_occupancy", "Paged KV pool fill (blocks in use / usable)"),
+    ("kv_blocks_in_use", "Paged KV pool blocks currently referenced"),
+    ("kv_host_blocks", "Host-RAM KV tier blocks resident (demoted prefix "
+                       "segments + preempted session spills)"),
+    ("preemptions", "Requests preempted (KV spilled, requeued FIFO)"),
+    ("cow_copies", "Prefix-tier boundary blocks privatized copy-on-write"),
+    ("recoveries", "Supervisor recoveries from a failed scheduler round"),
+    ("quarantined", "Requests failed after K consecutive implicated rounds"),
+    ("device_stalls", "Watchdog fence deadlines exceeded (real or injected)"),
+    ("checkpoints", "Host KV checkpoints taken for crash recovery"),
+    ("sched_chunks", "Chunked-prefill slices run by the admission scheduler"),
+    ("sched_defers", "Admission passes deferred to decode under SLO pressure"),
+    ("slo_violations", "Decode rounds whose cadence exceeded the ITL SLO"),
+    ("tp_degree", "Tensor-parallel degree of the serving mesh (1 = unsharded)"),
+    ("tp_degraded", "Serving below the configured tensor-parallel degree "
+                    "after a permanent chip fault (0/1)"),
+    ("tp_shrinks", "Elastic mesh-shrink recoveries performed (chip loss / "
+                   "ICI failure survived degraded)"),
+    ("request_traces", "Request lifecycle traces emitted (one request_trace "
+                       "event per retired/failed request)"),
+    ("decode_steps", "Multi-step decode multiplier K (tokens per dispatch = "
+                     "chunk × K; 1 = one chunk per dispatch)"),
+    ("heartbeats", "Serving heartbeats emitted (one serving_heartbeat "
+                   "event every heartbeat_rounds rounds)"),
+    ("heartbeat_tokens_per_s", "Decoded tokens/s over the last heartbeat "
+                               "interval (0.0 before the first heartbeat)"),
+    ("watchdog_alerts", "SLO-burn watchdog alerts fired (sustained "
+                        "breaches; each dumped the flight ring)"),
+    ("watchdog_active", "Watchdog alert kinds currently active (0 = "
+                        "healthy)"),
+    ("mfu", "Model FLOP/s utilization over the last heartbeat interval "
+            "(dispatched executable FLOPs / interval wall / public "
+            "per-chip peak x tp)"),
+    ("device_busy_frac", "Fraction of the last heartbeat interval covered "
+                         "by in-flight decode rounds (dispatch->retire)"),
+    ("dispatch_gap_ms", "Mean retire-fence -> next-dispatch host gap over "
+                        "the last heartbeat interval (ms; the "
+                        "device-idle signal)"),
+)
+
+# Labeled histograms, gauges and counters (the JAX server's families),
+# made through the idempotent factory: (kind, name, doc, labels).
+_FAMILIES = {
+    "phase": ("histogram", "kata_tpu_serving_request_phase_seconds",
+              "Per-request lifecycle phase time attributed at retire "
+              "(queue/prefill/decode/decode_degraded/preempted/recovery)",
+              ("server", "phase")),
+    "loop": ("histogram", "kata_tpu_serving_loop_phase_seconds",
+             "Serving-loop phase time per heartbeat interval "
+             "(admit/dispatch/retire/host_transfer/other)",
+             ("server", "phase")),
+    "ttft": ("histogram", "kata_tpu_serving_ttft_seconds",
+             "Time to first token: submit → prefill token sampled",
+             ("server",)),
+    "tok_lat": ("histogram", "kata_tpu_serving_decode_token_seconds",
+                "Per-token decode latency (fenced chunk time / steps)",
+                ("server",)),
+    "shard_occ": ("gauge", "kata_tpu_serving_kv_pool_shard_occupancy",
+                  "Paged KV pool fill per tensor-parallel mesh shard "
+                  "(0.0 at tp=1 or on slotted servers)", ("server", "shard")),
+    "backend": ("gauge", "kata_tpu_serving_decode_attn_backend",
+                "Active decode-attention backend (1 on the server's backend "
+                "label, 0 on the others; cuda_paged | reference)",
+                ("server", "backend")),
+    "headroom": ("gauge", "kata_tpu_serving_hbm_headroom_bytes",
+                 "Device memory headroom (limit - used) at the last heartbeat "
+                 "poll; NaN where the backend exposes no memory_stats",
+                 ("server",)),
+    "prefix_hits": ("counter", "kata_tpu_serving_prefix_hits",
+                    "Admissions served from the prefix KV store (suffix-only "
+                    "prefill)", ("server",)),
+    "prefix_misses": ("counter", "kata_tpu_serving_prefix_misses",
+                      "Admissions with no usable cached prefix (cold "
+                      "prefill)", ("server",)),
+    "prefix_reused": ("counter", "kata_tpu_serving_prefix_tokens_reused",
+                      "Prompt tokens whose KV was copied from the prefix "
+                      "store instead of re-prefilled", ("server",)),
+    "preempt": ("counter", "kata_tpu_serving_kv_preemptions_total",
+                "Requests preempted under KV pool pressure (spilled + "
+                "requeued)", ("server",)),
+    "cow": ("counter", "kata_tpu_serving_kv_cow_copies_total",
+            "Prefix-tier boundary blocks privatized copy-on-write at "
+            "admission", ("server",)),
+    "kv_demote": ("counter", "kata_tpu_serving_kv_demotions_total",
+                  "Cold KV demoted from the device pool to the host-RAM tier "
+                  "(prefix segments under pool pressure + preempted session "
+                  "spills)", ("server",)),
+    "kv_prefetch": ("counter", "kata_tpu_serving_kv_prefetches_total",
+                    "Host-tier KV prefetched back to the device pool (prefix "
+                    "hits on demoted segments + preempted session resumes)",
+                    ("server",)),
+    "sched_chunk": ("counter", "kata_tpu_serving_prefill_chunks_total",
+                    "Chunked-prefill slices run by the admission scheduler",
+                    ("server",)),
+    "sched_defer": ("counter", "kata_tpu_serving_admission_defers_total",
+                    "Admission passes deferred to decode under projected-ITL "
+                    "pressure", ("server",)),
+    "slo": ("counter", "kata_tpu_serving_itl_slo_violations_total",
+            "Decode rounds whose retire cadence exceeded the ITL SLO",
+            ("server",)),
+    "fused": ("counter", "kata_tpu_serving_fused_admissions_total",
+              "Chunked admissions whose slices rode fused prefill+decode "
+              "dispatches", ("server",)),
+}
+
+
+def _family(key: str):
+    kind, name, doc, labels = _FAMILIES[key]
+    return getattr(obs, kind)(name, doc, labels)
 
 
 @dataclass
@@ -353,6 +632,11 @@ class _Request:
     max_new_tokens: int
     t_submit: float = 0.0
     out: list = field(default_factory=list)
+    # Lifecycle ledger: seconds per PHASES entry, the current phase (None
+    # once its request_trace is out) and when it was entered.
+    phases: dict = field(default_factory=dict)
+    state: Optional[str] = PHASE_QUEUE
+    t_state: float = 0.0
 
 
 @dataclass
@@ -403,6 +687,8 @@ class _PartialPrefill:
     hit: Optional[PrefixHit]
     caches: Any
     offset: int     # prompt rows already resident (prefix reuse and chunks)
+    reused: int = 0  # prefix rows copied from the store
+    chunks: int = 0  # chunk forwards run so far
     fused: int = 0  # chunks that rode a decode dispatch
 
 
@@ -431,7 +717,30 @@ class _Inflight:
     pos: torch.Tensor
     slots: list
     t_dispatch: float
+    span: Optional[obs.Span] = None  # detached; ends at retire
     fused: Optional[_FusedChunk] = None  # an admission slice riding along
+
+
+def _tensor_leaves(tree) -> list:
+    """The tensors of a params or cache tree (dicts, lists, tuples and
+    QTensors of tensors), in a fixed order; other leaves are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return []
+
+
+def _storage_bytes(tree) -> int:
+    """Device bytes a tree's tensors hold, each storage once (the shards of
+    a tensor-parallel server may view one storage)."""
+    seen = {}
+    for t in _tensor_leaves(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
 
 
 def _merge_rows(dev_vals: torch.Tensor, host_vals: torch.Tensor,
@@ -518,7 +827,22 @@ class GenerationServer:
     ``speculative_k``, or one the model's heads, KV features or MLP do
     not divide, raises; the env value degrades to 1. ``tp_min`` is
     validated as in the JAX server; the mesh shrink it floors is not
-    ported."""
+    ported.
+
+    Telemetry (module doc): ``heartbeat_rounds`` (else
+    ``KATA_TPU_HEARTBEAT_ROUNDS``, else 32; 0 disables the heartbeat, the
+    ledger, the watchdog and the phase clock; an explicit value < 0
+    raises, a malformed env value degrades with ``heartbeat_invalid``);
+    ``watchdog``: an injected :class:`..obs.watchdog.SLOBurnWatchdog` or
+    ``True`` (both need the heartbeat, else raise), ``False`` disarms,
+    None arms it with the heartbeat unless ``KATA_TPU_WATCHDOG=0``; the
+    ledger follows the heartbeat unless ``KATA_TPU_DEVLEDGER=0``.
+    ``strict`` (else ``KATA_TPU_STRICT``) guards the overlapped round
+    against host synchronization on the card; ``tripwire`` (default on)
+    counts steady-state compiles and reshards into ``stats()``
+    (:mod:`..compat.torchapi`)."""
+
+    _instance_ids = itertools.count()
 
     def __init__(self, params: Any, cfg: DecoderConfig, max_batch: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -554,8 +878,15 @@ class GenerationServer:
                  watchdog: Any = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        # Label and trace first: every degrade event below carries them.
+        # The trace is the daemon's per-allocation id when injected.
+        self._label = f"server{next(GenerationServer._instance_ids)}"
+        self._trace = (os.environ.get(ENV_TRACE_CTX, "").strip()
+                       or obs.new_trace())
         self._tp = resolve_tp(tp, cfg, ring_kv,
-                              bool(speculative_k) or draft is not None)
+                              bool(speculative_k) or draft is not None,
+                              emit=self._emit, label=self._label,
+                              trace=self._trace)
         unported = {
             "mesh= (a caller's training-layout mesh, ROADMAP Queue 1 item 12b)":
                 mesh is not None,
@@ -565,12 +896,6 @@ class GenerationServer:
             "spec_opt_in (speculative decoding, ROADMAP Queue 1 item 11b)":
                 spec_opt_in,
             "ring_kv (ROADMAP Queue 1 item 11b)": ring_kv,
-            "strict (transfer guard, ROADMAP Queue 1 item 9a)": strict,
-            "tripwire (steady-state census, ROADMAP Queue 1 item 9a)": tripwire,
-            "heartbeat_rounds (telemetry, ROADMAP Queue 1 item 9a)":
-                heartbeat_rounds,
-            "watchdog (telemetry, ROADMAP Queue 1 item 9a)":
-                watchdog not in (None, False),
             "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9b)":
                 checkpoint_rounds,
             "fault_injector (resilience, ROADMAP Queue 1 item 9b)":
@@ -624,13 +949,29 @@ class GenerationServer:
                                      device=self.device)
                           if self._do_sample else None)
         self.overlap = bool(overlap)
-        self._decode_steps = resolve_decode_steps(decode_steps)
+        # Every degrade below reports through _emit; the latency summaries
+        # and histograms are bound before anything can observe into them.
+        self._ttft = Rolling()
+        self._tok_lat = Rolling()
+        self._phase_roll = {p: Rolling() for p in PHASES}
+        self._traces_emitted = 0
+        self._bind_histograms()
+        self.kv_quant = resolve_kv_quant(kv_quant, self._emit)
+        # Strict mode guards each overlapped round (compat.torchapi); the
+        # tripwire counts every run() after the first (the warm-up drain).
+        self.strict = (torchapi.strict_enabled() if strict is None
+                       else bool(strict))
+        self.tripwire = True if tripwire is None else bool(tripwire)
+        self._tw_warmed = False
+        self._steady_compiles = 0
+        self._steady_reshards = 0
+        policy, chunk_tokens, slo_ms = resolve_sched(
+            sched_policy, prefill_chunk, itl_slo_ms, self._emit)
+        self._decode_steps = resolve_decode_steps(decode_steps, self._emit)
         # Steps of one dispatch: ITL, the budget gate and the paged
         # lookahead key off this, never off ``chunk`` alone.
         self._dispatch_steps = chunk * self._decode_steps
-        policy, chunk_tokens, slo_ms = resolve_sched(
-            sched_policy, prefill_chunk, itl_slo_ms)
-        self._fused_ok = resolve_fused(fused, policy)
+        self._fused_ok = resolve_fused(fused, policy, self._emit)
         self._sched = make_scheduler(
             policy, chunk_tokens=chunk_tokens, slo_ms=slo_ms,
             decode_steps=self._dispatch_steps, fused=self._fused_ok)
@@ -638,10 +979,15 @@ class GenerationServer:
         self._fuse_pending = False
         self._fused_ret: Optional[_FusedChunk] = None
         self._fused_admissions = 0
-        self._persistent = resolve_persistent(persistent, self._do_sample)
-        # A persistent round's step cap, a static of its executable.
+        self._persistent = resolve_persistent(persistent, self._do_sample,
+                                              self._emit)
+        self._hb_every = self._resolve_heartbeat(heartbeat_rounds)
+        # A persistent round's step cap, a static of its executable: the
+        # heartbeat cadence bounds it (the host surfaces telemetry at least
+        # once a heartbeat interval), max_len its token buffer.
+        cap_rounds = self._hb_every or DEFAULT_HEARTBEAT_ROUNDS
         self._persistent_cap = max(
-            min(self._dispatch_steps * PERSISTENT_CAP_ROUNDS, max_len),
+            min(self._dispatch_steps * cap_rounds, max_len),
             self._dispatch_steps) if self._persistent else 0
         self._persistent_rounds = 0
         self._last_delivered = 0
@@ -650,14 +996,15 @@ class GenerationServer:
         self._persistent_exits = dict.fromkeys(PERSISTENT_EXITS, 0)
         self._persistent_fut: Optional[tuple] = None  # (delivered, window)
         self.prefill_buckets = tuple(sorted(prefill_buckets))
-        self.kv_quant = resolve_kv_quant(kv_quant)
         self.kv_block = int(kv_block_size)
         self.kv_pool: Optional[KVPool] = None
         # Set before the pool resolves: the blocks layout rounds the pool
         # to whole blocks a shard.
-        self._kv_layout, explicit_layout = resolve_kv_layout(kv_layout)
-        host_tokens, explicit_host = _resolve_tokens(kv_host_tokens,
-                                                     ENV_KV_HOST_TOKENS)
+        self._kv_layout, explicit_layout = resolve_kv_layout(kv_layout,
+                                                             self._emit)
+        host_tokens, explicit_host = _resolve_tokens(
+            kv_host_tokens, ENV_KV_HOST_TOKENS, self._emit, "kv_host_invalid",
+            negative_event=True)
         if host_tokens < 0:
             raise ValueError(f"kv_host_tokens must be >= 0, got {host_tokens}")
         self.paged = self._resolve_paged(kv_pool_tokens, prefix_store)
@@ -665,11 +1012,13 @@ class GenerationServer:
             if explicit_layout:
                 raise ValueError("kv_layout='blocks' requires a paged KV pool "
                                  "(kv_pool_tokens)")
+            self._emit("kv_layout_disabled", reason="not_paged")
             self._kv_layout = KV_LAYOUT_HEADS
         if not self.paged and host_tokens > 0:
             if explicit_host:
                 raise ValueError("kv_host_tokens requires a paged KV pool "
                                  "(kv_pool_tokens)")
+            self._emit("kv_host_disabled", reason="not_paged")
             host_tokens = 0
         self._kv_host = (HostKVTier(host_tokens, self.kv_block)
                          if host_tokens > 0 else None)
@@ -678,6 +1027,12 @@ class GenerationServer:
             self.kv_pool = KVPool(cfg, self._pool_tokens, self.kv_block,
                                   kv_quant=self.kv_quant,
                                   shards=self._kv_shards(), device=self.device)
+            # Once a server: the pool's placement shape.
+            self._emit("kv_layout", layout=self._kv_layout,
+                       shards=self.kv_pool.shards,
+                       per_shard_bytes=(cache_bytes(self.kv_pool.arena)
+                                        // self.kv_pool.shards),
+                       host_tier_tokens=host_tokens)
             self._nb_max = -(-max_len // self.kv_block)
             self._lane_blocks: list[list[int]] = [[] for _ in range(max_batch)]
             # SCRATCH filler: a lane with no live request (or a finished
@@ -714,6 +1069,14 @@ class GenerationServer:
         self._shard_peak = [0.0] * self._tp
         self._decode_attn, self._decode_attn_reason = (
             self._resolve_decode_attn(decode_attn))
+        self._decode_attn_emitted = False
+        if (self._tp > 1 and self._kv_layout == KV_LAYOUT_HEADS
+                and not tp_serving.kv_heads_shardable(cfg, self._tp)):
+            # The JAX server's warning that the KV heads replicate across
+            # the shards; every shard here reads the one copy on the
+            # device, so the replication costs no bytes.
+            self._emit("kv_replicated", tp=self._tp,
+                       n_kv_heads=cfg.n_kv_heads, extra_bytes=0)
         decode_kernel = None
         if self._decode_attn == BACKEND_PAGED:
             decode_kernel = attention.make_decode_attn_fn(
@@ -750,8 +1113,6 @@ class GenerationServer:
         self._emitted = 0
         self._prefills = 0
         self._batch_prefills = 0
-        self._ttft = Rolling()
-        self._tok_lat = Rolling()
         # The overlapped loop: the chunk in flight, the lanes refilled since
         # the last dispatch, and the retire clock ITL is read from.
         self._inflight: Optional[_Inflight] = None
@@ -760,13 +1121,16 @@ class GenerationServer:
         self._draining = False
         self._drain_reason = ""
         self._drain_done = False
+        self._drain_announced = False
+        self._init_telemetry(watchdog)
 
     # ----- arena model -----------------------------------------------------
 
     def _make_prefix_store(self, tokens: Optional[int], injected):
         """The prefix cache by the JAX server's rules (class doc), or
         None."""
-        tokens, explicit = _resolve_tokens(tokens, ENV_PREFIX_CACHE_TOKENS)
+        tokens, explicit = _resolve_tokens(tokens, ENV_PREFIX_CACHE_TOKENS,
+                                           self._emit, "prefix_store_disabled")
         if injected is None and tokens <= 0:
             return None
         if not self.prefill_buckets:
@@ -774,10 +1138,14 @@ class GenerationServer:
                 raise ValueError(
                     "prefix caching requires prefill_buckets: matches are "
                     "bucket-aligned")
+            self._emit("prefix_store_disabled", reason="no_prefill_buckets")
             return None
         if self.paged:
-            return PagedPrefixTier(self.kv_pool, self.cfg, self.prefill_buckets,
-                                   host_tier=self._kv_host)
+            return PagedPrefixTier(
+                self.kv_pool, self.cfg, self.prefill_buckets,
+                host_tier=self._kv_host, label=self._label,
+                on_demote=self._c_kv_demote.inc,
+                on_prefetch=self._c_kv_prefetch.inc)
         if injected is not None:
             if (injected.cfg != self.cfg
                     or injected.buckets != self.prefill_buckets
@@ -790,7 +1158,8 @@ class GenerationServer:
                     "agree: its rows land verbatim in this arena)")
             return injected
         return PrefixStore(self.cfg, tokens, self.prefill_buckets,
-                           kv_quant=self.kv_quant, device=self.device)
+                           kv_quant=self.kv_quant, device=self.device,
+                           label=self._label)
 
     def _resolve_paged(self, kv_pool_tokens: Optional[int],
                        prefix_store) -> bool:
@@ -800,7 +1169,8 @@ class GenerationServer:
         explicit one it cannot run raises."""
         explicit = kv_pool_tokens is not None
         if not explicit:
-            kv_pool_tokens = _env_int(ENV_KV_POOL_TOKENS, 0)
+            kv_pool_tokens = _env_int(ENV_KV_POOL_TOKENS, 0, self._emit,
+                                      "kv_pool_disabled")
         self._pool_tokens = int(kv_pool_tokens)
         if self._pool_tokens <= 0:
             return False
@@ -810,6 +1180,7 @@ class GenerationServer:
         if explicit:
             raise ValueError(f"kv_pool_tokens={kv_pool_tokens} is incompatible "
                              f"with this server ({reason})")
+        self._emit("kv_pool_disabled", reason=reason)
         return False
 
     def _pool_conflict(self, pool_tokens: int, prefix_store) -> Optional[str]:
@@ -834,6 +1205,264 @@ class GenerationServer:
         1."""
         return self._tp if self._kv_layout == KV_LAYOUT_BLOCKS else 1
 
+    # ----- telemetry -------------------------------------------------------
+
+    def _resolve_heartbeat(self, heartbeat_rounds: Optional[int]) -> int:
+        """The heartbeat cadence: explicit argument (< 0 raises) >
+        ``KATA_TPU_HEARTBEAT_ROUNDS`` (malformed or < 0 degrades to the
+        default with ``heartbeat_invalid``) > 32."""
+        if heartbeat_rounds is not None:
+            if int(heartbeat_rounds) < 0:
+                raise ValueError(
+                    f"heartbeat_rounds must be >= 0, got {heartbeat_rounds}")
+            return int(heartbeat_rounds)
+        every = _env_int(ENV_HEARTBEAT_ROUNDS, DEFAULT_HEARTBEAT_ROUNDS,
+                         self._emit, "heartbeat_invalid")
+        if every < 0:
+            self._emit("heartbeat_invalid", reason=f"bad_env:{every}")
+            every = DEFAULT_HEARTBEAT_ROUNDS
+        return every
+
+    def _init_telemetry(self, watchdog) -> None:
+        """The heartbeat's state, the loop-phase clock, the device ledger
+        and the watchdog (class doc), then the one ``serving_config``
+        event."""
+        every = self._hb_every
+        self._hb_round = 0          # rounds at the last heartbeat
+        self._hb_count = 0
+        self._hb_t_last = time.monotonic()
+        self._hb_last: Optional[dict] = None
+        self._hb_prev: dict = {}    # the counters the deltas diff against
+        self._clock = _PhaseClock(armed=every > 0)
+        self._clock_prev: dict = {}
+        self._devledger = obs.DeviceLedger(
+            armed=every > 0 and obs.devledger.enabled(), emit=self._emit,
+            clock=self._clock, gap_phases=LOOP_PHASES,
+            components=self._hbm_components, device=self.device)
+        if isinstance(watchdog, obs.SLOBurnWatchdog) or watchdog is True:
+            if every <= 0:
+                raise ValueError("watchdog requires heartbeat_rounds > 0: it "
+                                 "consumes the heartbeats")
+            self._watchdog: Optional[obs.SLOBurnWatchdog] = (
+                watchdog if isinstance(watchdog, obs.SLOBurnWatchdog)
+                else self._default_watchdog())
+        elif watchdog is None and every > 0 and obs.watchdog.enabled():
+            self._watchdog = self._default_watchdog()
+        else:
+            self._watchdog = None
+        if self._watchdog is not None:
+            self._watchdog.bind(self._emit)
+        self._emit(
+            "serving_config", sched_policy=self._sched.name,
+            decode_steps=self._decode_steps, chunk=self.chunk,
+            dispatch_steps=self._dispatch_steps, fused=int(self._fused_ok),
+            overlap=int(self.overlap), paged=int(self.paged), tp=self._tp,
+            kv_layout=self._kv_layout,
+            prefill_buckets=list(self.prefill_buckets),
+            tripwire=int(self.tripwire),
+            kv_host_tokens=(self._kv_host.capacity_tokens
+                            if self._kv_host else 0),
+            heartbeat_rounds=every, watchdog=int(self._watchdog is not None),
+            devledger=int(self._devledger.armed),
+            persistent=int(self._persistent),
+            persistent_cap=self._persistent_cap, tp_overlap=0)
+
+    def _default_watchdog(self) -> obs.SLOBurnWatchdog:
+        return obs.SLOBurnWatchdog(
+            obs.WatchdogConfig.from_env(slo_ms=self._sched.slo_ms),
+            label=self._label, trace=self._trace, emit=self._emit)
+
+    def _emit(self, name: str, **fields) -> None:
+        """The one emitter of serving events: kind ``serving``, the
+        server's label and the allocation trace id (fields win on a
+        collision)."""
+        obs.emit("serving", name,
+                 **{"server": self._label, "trace": self._trace, **fields})
+
+    def _bind_histograms(self) -> None:
+        """Resolve this server's labeled metric children once (again after
+        :meth:`export_metrics` renames it)."""
+        lab = dict(server=self._label)
+        self._h_ttft = _family("ttft").labels(**lab)
+        self._h_tok_lat = _family("tok_lat").labels(**lab)
+        self._h_phase = {p: _family("phase").labels(phase=p, **lab)
+                         for p in PHASES}
+        self._h_loop = {p: _family("loop").labels(phase=p, **lab)
+                        for p in LOOP_PHASES}
+        for key in ("prefix_hits", "prefix_misses", "prefix_reused", "preempt",
+                    "cow", "kv_demote", "kv_prefetch", "sched_chunk",
+                    "sched_defer", "slo", "fused"):
+            setattr(self, f"_c_{key}", _family(key).labels(**lab))
+
+    def _ledger_to(self, req: _Request, state: Optional[str],
+                   now: Optional[float] = None) -> None:
+        """Move ``req`` to lifecycle phase ``state``, accruing the time since
+        its last transition into the phase it leaves; ``now`` stamps at a
+        fence the caller holds. ``state=None`` closes the ledger; a closed
+        ledger never accrues again."""
+        if req.state is None:
+            return
+        if now is None:
+            now = time.perf_counter()
+        dt = now - req.t_state
+        if dt > 0:
+            req.phases[req.state] = req.phases.get(req.state, 0.0) + dt
+        req.state = state
+        req.t_state = now
+
+    def _finish_trace(self, req: _Request, outcome: str,
+                      reason: str = "") -> None:
+        """Close a request's ledger and emit its one ``request_trace``: the
+        six phase fields sum to ``wall_s`` (submit to this stamp) by
+        construction. Observes the per-phase summaries of the phases the
+        request spent time in."""
+        if req.state is None:
+            return
+        now = time.perf_counter()
+        self._ledger_to(req, None, now)
+        wall = max(now - req.t_submit, 0.0)
+        fields = {}
+        for p in PHASES:
+            v = req.phases.get(p, 0.0)
+            fields[f"{p}_s"] = round(v, 6)
+            if v > 0:
+                self._phase_roll[p].observe(v)
+                self._h_phase[p].observe(v)
+        if reason:
+            fields["reason"] = reason
+        self._traces_emitted += 1
+        self._emit("request_trace", rid=req.rid, outcome=outcome,
+                   wall_s=round(wall, 6),
+                   attributed_s=round(sum(req.phases.values()), 6),
+                   tokens=len(req.out), prompt_len=len(req.prompt),
+                   replays=0, **fields)
+
+    def _hb_counters(self) -> dict:
+        """The cumulative counters the heartbeat turns into deltas."""
+        tier = self.prefix_store
+        paged_tier = isinstance(tier, PagedPrefixTier)
+        return {
+            "tokens": self._emitted - self._prefills,
+            "prefills": self._prefills,
+            "prefix_hits": self._prefix_hits,
+            "prefix_misses": self._prefix_misses,
+            "preemptions": self._preemptions,
+            "recoveries": 0,  # crash recovery is not ported (item 9b)
+            "kv_demotions": self._host_demotions + (
+                tier.demotions if paged_tier else 0),
+            "kv_prefetches": self._host_prefetches + (
+                tier.prefetches if paged_tier else 0),
+            "slo_violations": self._sched.slo_violations,
+            "sched_chunks": self._sched.chunks,
+            "sched_defers": self._sched.defers,
+        }
+
+    def _hbm_components(self) -> dict:
+        """The device bytes this server knows it holds, for the ledger's
+        attribution; non-overlapping (a paged prefix tier lives inside the
+        pool and counts 0; the host tier is host memory and stays out)."""
+        store = self.prefix_store
+        stage = self._stage
+        return {
+            "params": _storage_bytes(self.params),
+            "kv_arena": _storage_bytes(self.kv_pool.arena if self.paged
+                                       else self.arena),
+            "prefix_store": (_storage_bytes(store.arena)
+                             if isinstance(store, PrefixStore) else 0),
+            "resume_stage": _storage_bytes(stage.rows) if stage else 0,
+            "decode_graph_pool": self._decode.pool_bytes + (
+                self._round.pool_bytes if self._round is not None else 0),
+        }
+
+    def _tw_addresses(self) -> dict:
+        """Where every parameter and arena (or pool) tensor lives: a decode
+        graph freezes these addresses, so a move is the tripwire's
+        reshard."""
+        arena = self.kv_pool.arena if self.paged else self.arena
+        return {i: t.data_ptr() for i, t in enumerate(
+            _tensor_leaves(self.params) + _tensor_leaves(arena))}
+
+    def _maybe_heartbeat(self, force: bool = False) -> None:
+        """Emit the periodic ``serving_heartbeat`` when the cadence says so
+        (``force`` flushes a partial interval at the end of a run), then
+        feed it to the watchdog. Host state only."""
+        if not self._hb_every:
+            return
+        lag = self._rounds - self._hb_round
+        if lag < self._hb_every and not (force and lag > 0):
+            return
+        now = time.monotonic()
+        interval_s = max(now - self._hb_t_last, 1e-9)
+        snap = self._hb_counters()
+        d = {k: snap[k] - self._hb_prev.get(k, 0) for k in snap}
+        itl = self._tok_lat.summary()
+        ttft = self._ttft.summary()
+        pool, host = self.kv_pool, self._kv_host
+        lookups = d["prefix_hits"] + d["prefix_misses"]
+        phases = self._clock.snapshot()
+        ph = {p: round(phases.get(p, 0.0) - self._clock_prev.get(p, 0.0), 6)
+              for p in LOOP_PHASES[:-1]}
+        ph[LOOP_PHASE_OTHER] = round(max(interval_s - sum(ph.values()), 0.0), 6)
+        busy = sum(r is not None for r in self._slot_req)
+        hb = {
+            "round": self._rounds,
+            "interval_rounds": lag,
+            "interval_s": round(interval_s, 6),
+            "tokens_delta": d["tokens"],
+            "tokens_per_s": round(d["tokens"] / interval_s, 2),
+            "prefills_delta": d["prefills"],
+            "slots_busy": busy,
+            "queued": len(self._queue),
+            "preempted_waiting": len(self._preempted) if self.paged else 0,
+            "batch_occupancy": round(busy / self.max_batch, 4),
+            "kv_pool_occupancy": pool.occupancy() if pool else 0.0,
+            "kv_pool_shard_occupancy": self._pool_shard_occupancy(),
+            "kv_host_occupancy": host.occupancy() if host else 0.0,
+            "kv_host_blocks": host.blocks_used if host else 0,
+            "kv_host_tokens": host.capacity_tokens if host else 0,
+            "prefix_store_occupancy": (self.prefix_store.occupancy()
+                                       if self.prefix_store else 0.0),
+            "prefix_hits_delta": d["prefix_hits"],
+            "prefix_misses_delta": d["prefix_misses"],
+            "prefix_hit_rate": (round(d["prefix_hits"] / lookups, 4)
+                                if lookups else 0.0),
+            "kv_demotions_delta": d["kv_demotions"],
+            "kv_prefetches_delta": d["kv_prefetches"],
+            "preemptions_delta": d["preemptions"],
+            "recoveries_delta": d["recoveries"],
+            "slo_violations_delta": d["slo_violations"],
+            "sched_chunks_delta": d["sched_chunks"],
+            "sched_defers_delta": d["sched_defers"],
+            "itl_p50_ms": round(itl.get("p50", 0.0) * 1e3, 3),
+            "itl_p99_ms": round(itl.get("p99", 0.0) * 1e3, 3),
+            "ttft_p50_ms": round(ttft.get("p50", 0.0) * 1e3, 3),
+            "ttft_p99_ms": round(ttft.get("p99", 0.0) * 1e3, 3),
+            "slo_ms": self._sched.slo_ms,
+            "tp": self._tp,
+            "tp_degraded": 0,
+            "decode_steps": self._decode_steps,
+            "persistent": int(self._persistent),
+            "delivered_steps": self._last_delivered,
+            "tripwire_warmed": int(self._tw_warmed),
+            "steady_state_compiles": self._steady_compiles,
+            "steady_state_reshards": self._steady_reshards,
+            "chips": tp_serving.allocation_chips(),
+        }
+        hb.update(self._sched.heartbeat_fields())
+        hb.update({f"phase_{p}_s": v for p, v in ph.items()})
+        hb.update(self._devledger.heartbeat_fields(interval_s))
+        self._emit("serving_heartbeat", **hb)
+        for p, v in ph.items():
+            self._h_loop[p].observe(v)
+        self._hb_count += 1
+        self._hb_last = hb
+        self._hb_prev = snap
+        self._hb_round = self._rounds
+        self._hb_t_last = now
+        self._clock_prev = phases
+        if self._watchdog is not None:
+            self._watchdog.observe(hb)
+
     # ----- decode backend --------------------------------------------------
 
     def _resolve_decode_attn(self, choice: Optional[str]):
@@ -842,11 +1471,14 @@ class GenerationServer:
         model decodes with the plain attention, and the reason says why;
         an explicit ``"cuda_paged"`` for it raises, an env one degrades.
         Otherwise the automatic pick is the kernel on CUDA and the plain
-        attention on the CPU. A malformed env value is ignored; the plain
-        attention runs on the card otherwise only when asked for."""
+        attention on the CPU. A malformed env value is ignored, with a
+        ``decode_attn_invalid`` event; the plain attention runs on the card
+        otherwise only when asked for."""
         explicit = choice is not None
         if choice is None:
             raw = os.environ.get(ENV_DECODE_ATTN, "").strip()
+            if raw and raw not in attention.DECODE_ATTN_BACKENDS:
+                self._emit("decode_attn_invalid", reason=f"bad_env:{raw[:32]}")
             choice = raw if raw in attention.DECODE_ATTN_BACKENDS else None
         elif choice not in attention.DECODE_ATTN_BACKENDS:
             raise ValueError(f"unknown decode_attn {choice!r} "
@@ -889,14 +1521,32 @@ class GenerationServer:
                 "is padded to a bucket the flash kernel takes")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(_Request(rid, prompt, max_new_tokens,
-                                    t_submit=time.perf_counter()))
+        now = time.perf_counter()
+        # The ledger's queue phase starts at submit.
+        self._queue.append(_Request(rid, prompt, max_new_tokens, t_submit=now,
+                                    t_state=now))
         return rid
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drain queue and slots; returns ``{rid: generated tokens}``."""
-        while self.step():
-            pass
+        """Drain queue and slots; returns ``{rid: generated tokens}``. The
+        first drain is the tripwire's warm-up; every later one counts its
+        compiles and reshards (:mod:`..compat.torchapi`) into
+        ``steady_state_compiles``/``steady_state_reshards`` and emits
+        ``tripwire_breach`` when either is nonzero."""
+        armed = self.tripwire and self._tw_warmed
+        try:
+            with torchapi.compile_tripwire(enabled=armed,
+                                           addresses=self._tw_addresses) as tw:
+                while self.step():
+                    pass
+        finally:
+            self._tw_warmed = True
+            if armed:
+                self._steady_compiles += tw.compiles
+                self._steady_reshards += tw.transfers
+                if tw.compiles or tw.transfers:
+                    self._emit("tripwire_breach", compiles=tw.compiles,
+                               reshards=tw.transfers)
         out, self._results = self._results, {}
         return out
 
@@ -1030,7 +1680,71 @@ class GenerationServer:
             "tp_shrinks": 0,
             "kv_pool_shard_occupancy": self._pool_shard_occupancy(),
             "kv_pool_shard_occupancy_peak": list(self._shard_peak),
+            **self._telemetry_stats(),
         }
+
+    def _telemetry_stats(self) -> dict:
+        """The telemetry keys of :meth:`stats`, the JAX server's: the trace
+        id and request-ledger summaries, the tripwire's counts, the
+        heartbeat and watchdog, and the device ledger (``hbm_*`` inside
+        ``devledger`` only where the device reports memory)."""
+        wd = self._watchdog.stats() if self._watchdog is not None else {
+            "alerts": 0, "active": [], "observed": 0, "last_dump": ""}
+        return {
+            "trace": self._trace,
+            "request_traces": self._traces_emitted,
+            "request_phase_s": {p: self._phase_roll[p].summary()
+                                for p in PHASES},
+            "tripwire_enabled": int(self.tripwire),
+            "tripwire_warmed": int(self._tw_warmed),
+            "steady_state_compiles": self._steady_compiles,
+            "steady_state_reshards": self._steady_reshards,
+            "heartbeats": self._hb_count,
+            "heartbeat_rounds": self._hb_every,
+            "heartbeat_tokens_per_s": (self._hb_last.get("tokens_per_s", 0.0)
+                                       if self._hb_last else 0.0),
+            "loop_phase_s": {p: round(v, 6)
+                             for p, v in self._clock.snapshot().items()},
+            "watchdog_alerts": wd["alerts"],
+            "watchdog_active": len(wd["active"]),
+            "watchdog": wd,
+            **self._devledger.stats_fields(),
+        }
+
+    def export_metrics(self, port: int = 0, label: Optional[str] = None) -> str:
+        """Expose :meth:`stats` as ``kata_tpu_serving_*`` gauges read at
+        scrape time, beside the histograms and counters the server feeds
+        as it runs (the JAX server's families, :mod:`..obs.metrics`).
+        ``port > 0`` also starts the ``/metrics`` endpoint (one a process).
+        ``label`` renames this server (call it before traffic so samples
+        land under the final label). Returns the label."""
+        if label:
+            self._label = label
+            self._bind_histograms()
+        for name, doc in _PROM_STATS:
+            obs.gauge(f"kata_tpu_serving_{name}", doc, ["server"]).labels(
+                server=self._label).set_function(
+                    lambda self=self, n=name: float(self.stats().get(n, 0.0)))
+
+        def shard_occ(i: int) -> float:
+            occ = self._pool_shard_occupancy()
+            return float(occ[i]) if i < len(occ) else 0.0
+
+        for i in range(max(1, self._tp)):
+            _family("shard_occ").labels(server=self._label, shard=str(i)) \
+                .set_function(partial(shard_occ, i))
+        for be in attention.DECODE_ATTN_BACKENDS:
+            _family("backend").labels(server=self._label, backend=be) \
+                .set_function(lambda be=be: float(self._decode_attn == be))
+
+        def headroom() -> float:
+            v = self._devledger.hbm_headroom()
+            return float(v) if v is not None else float("nan")
+
+        _family("headroom").labels(server=self._label).set_function(headroom)
+        if port:
+            obs.serve(port)
+        return self._label
 
     def _pool_shard_occupancy(self) -> list:
         """Each shard's pool fill, ``tp`` entries: the sub-pools' own under
@@ -1045,6 +1759,14 @@ class GenerationServer:
     # ----- admission -------------------------------------------------------
 
     def _admit(self) -> None:
+        """:meth:`_admit_unguarded` in the loop's ``admit`` phase, as one of
+        strict mode's sanctioned sync regions: the prompt's upload and the
+        first token's read are synchronous by nature."""
+        with self._clock.section(LOOP_PHASE_ADMIT), \
+                torchapi.allow_transfer("admission prefill + first-token read"):
+            self._admit_unguarded()
+
+    def _admit_unguarded(self) -> None:
         """Refill free slots from the queue, FIFO (:meth:`_take`), one
         forward per group: prefix hits on one segment at one match length
         and padded suffix share a ``prefill_suffix``, the rest a
@@ -1071,7 +1793,9 @@ class GenerationServer:
             if self._preempted and (
                     not self._queue
                     or self._preempted[0].req.rid < self._queue[0].rid):
-                if self._resume_one(free[0]):
+                with self._clock.section(LOOP_PHASE_HOST):
+                    resumed = self._resume_one(free[0])
+                if resumed:
                     continue
                 if self._draining and len(free) == self.max_batch:
                     # Every lane is free and the pool still cannot hold
@@ -1127,6 +1851,7 @@ class GenerationServer:
             self._count_prefix(hit)
             self._queue.popleft()
             self._sched.note_queue_delay(time.perf_counter() - req.t_submit)
+            self._ledger_to(req, PHASE_PREFILL)  # admission granted
             take.append((req, hit))
         return take
 
@@ -1156,9 +1881,12 @@ class GenerationServer:
             return
         if hit is None:
             self._prefix_misses += 1
+            self._c_prefix_misses.inc()
             return
         self._prefix_hits += 1
         self._prefix_tokens_reused += hit.length
+        self._c_prefix_hits.inc()
+        self._c_prefix_reused.inc(hit.length)
 
     def _suffix_bucket(self, m: int, s_len: int) -> Optional[int]:
         """The smallest bucket that holds a suffix of ``s_len`` after a match
@@ -1204,35 +1932,72 @@ class GenerationServer:
         true_lens = np.array([len(r.prompt) - m for r in reqs], np.int32)
         for i, req in enumerate(reqs):
             tokens[i, : true_lens[i]] = req.prompt[m:]
-        t0 = time.perf_counter()
-        tokens = torch.from_numpy(tokens).to(self.device)
-        if hits:
-            caches = self.prefix_store.materialize(hits[0], self.max_len, n=n)
-            _c, last_logits, _pos = prefill_suffix(
-                self.params, tokens, self.cfg, caches, m, return_logits=True,
-                true_len=torch.from_numpy(true_lens).to(self.device))
+        # The JAX server's spans and ttft fields: one request takes its
+        # single-request path's names, N >= 2 the batched ones.
+        attrs = dict(trace_id=self._trace, server=self._label)
+        if n == 1:
+            attrs.update(rid=reqs[0].rid, slot=slots[0])
+            if hits:
+                name = "serving.prefill_suffix"
+                attrs.update(prompt_len=len(reqs[0].prompt), reused=m,
+                             suffix_len=int(true_lens[0]), padded_len=pad_len,
+                             tokens=int(true_lens[0]))
+            else:
+                name = "serving.prefill"
+                attrs.update(prompt_len=int(true_lens[0]), padded_len=pad_len,
+                             tokens=int(true_lens[0]))
         else:
-            caches, last_logits, _pos = prefill_batch(
-                self.params, tokens, self.cfg, pad_len,
-                torch.from_numpy(true_lens), kv_quantized=self.kv_quant)
-        firsts = _next_token(last_logits, self.generator, self._do_sample,
-                             self._temp_dev, self.top_k, self.top_p).cpu().numpy()
-        t_first = time.perf_counter()  # the transfer above fenced the forward
-        self._sched.note_prefill(n * pad_len, t_first - t0)
+            name = ("serving.prefill_suffix_batch" if hits
+                    else "serving.prefill_batch")
+            attrs.update(n=n, **({"reused": m} if hits else {}),
+                         padded_len=pad_len, tokens=int(true_lens.sum()),
+                         rids=[r.rid for r in reqs], slots=list(slots))
+        ev = {"batched": n} if n >= 2 else {}
+        if hits:
+            ev["prefix_reused"] = m
+        with obs.span(name, **attrs) as sp:
+            tokens = torch.from_numpy(tokens).to(self.device)
+            if hits:
+                caches = self.prefix_store.materialize(hits[0], self.max_len,
+                                                       n=n)
+                _c, last_logits, _pos = prefill_suffix(
+                    self.params, tokens, self.cfg, caches, m,
+                    return_logits=True,
+                    true_len=torch.from_numpy(true_lens).to(self.device))
+            else:
+                caches, last_logits, _pos = prefill_batch(
+                    self.params, tokens, self.cfg, pad_len,
+                    torch.from_numpy(true_lens), kv_quantized=self.kv_quant)
+            # The first tokens' transfer fences the forward.
+            firsts = _next_token(last_logits, self.generator, self._do_sample,
+                                 self._temp_dev, self.top_k,
+                                 self.top_p).cpu().numpy()
+        t_first = time.perf_counter()
+        self._sched.note_prefill(n * pad_len, sp.duration_s)
         self._commit(slots, reqs, caches)
         if n >= 2:
             self._batch_prefills += 1
         for i, (b, req) in enumerate(zip(slots, reqs)):
             self._finish_admission(b, req, int(firsts[i]), m + int(true_lens[i]),
-                                   t_first, hit=hits[i] if hits else None)
+                                   t_first, hit=hits[i] if hits else None, **ev)
 
     def _finish_admission(self, b: int, req: _Request, first: int, pos: int,
-                          t_first: float,
-                          hit: Optional[PrefixHit] = None) -> None:
+                          t_first: float, hit: Optional[PrefixHit] = None,
+                          **event_fields) -> None:
+        """The admission epilogue every fill path shares: the first token,
+        the ledger's move to decode at the first-token fence ``t_first``,
+        TTFT and its ``ttft`` event (``event_fields`` extend it), the lane's
+        state, and the immediate-finish check."""
         req.out.append(first)
         self._prefills += 1
         self._emitted += 1
-        self._ttft.observe(t_first - req.t_submit)
+        self._ledger_to(req, PHASE_DECODE, now=t_first)
+        ttft = t_first - req.t_submit
+        self._ttft.observe(ttft)
+        self._h_ttft.observe(ttft)
+        self._emit("ttft", rid=req.rid, ttft_s=round(ttft, 6),
+                   prompt_len=len(req.prompt), queued=len(self._queue),
+                   **event_fields)
         self._slot_req[b] = req
         self._slot_prefix[b] = hit  # pinned until the request finishes
         self._pos[b] = pos
@@ -1263,8 +2028,9 @@ class GenerationServer:
         else:
             caches = init_kv_caches(self.cfg, 1, self.max_len,
                                     device=self.device, quantized=self.kv_quant)
+        m = hit.length if hit else 0
         self._partial = _PartialPrefill(req=req, hit=hit, caches=caches,
-                                        offset=hit.length if hit else 0)
+                                        offset=m, reused=m)
         return True
 
     def _advance_partial(self, ran: int = 0) -> tuple[bool, int]:
@@ -1284,16 +2050,26 @@ class GenerationServer:
                                       partial=True)
             if not d.admit:
                 if d.fused and self._fused_ok and live > 0:
+                    # Still a deferral: the slice rides the next dispatch.
                     self._fuse_pending = True
-                    self._sched.defers += 1
+                    self._note_defer(p, remaining, d, fused=1)
                     return False, ran
                 if ran:
                     return False, ran  # one chunk per decode dispatch
-                self._sched.defers += 1
+                self._note_defer(p, remaining, d)
             done = self._prefill_one_chunk(p)
             ran += 1
             if done:
                 return True, ran
+
+    def _note_defer(self, p: _PartialPrefill, remaining: int, d,
+                    **fields) -> None:
+        self._sched.defers += 1
+        self._c_sched_defer.inc()
+        self._emit("sched_defer", rid=p.req.rid, offset=p.offset,
+                   remaining=remaining, queued=len(self._queue),
+                   projected_itl_ms=d.projected_itl_ms,
+                   slo_ms=self._sched.slo_ms, **fields)
 
     def _slice_geometry(self, p: _PartialPrefill) -> tuple:
         """The slice rule both chunk paths share: ``chunk_tokens`` wide,
@@ -1324,17 +2100,21 @@ class GenerationServer:
         lands the admission. True when it landed."""
         suffix, take, width = self._slice_geometry(p)
         last = p.offset + take >= len(p.req.prompt)
-        t0 = time.perf_counter()
-        logits = self._run_slice(p, suffix, p.offset, take)
         first = None
-        if last:
-            first = int(self._sample_first(logits))
-        elif self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with obs.span("serving.prefill_chunk", trace_id=self._trace,
+                      server=self._label, rid=p.req.rid, offset=p.offset,
+                      chunk_len=take, padded_len=width, tokens=take) as sp:
+            logits = self._run_slice(p, suffix, p.offset, take)
+            if last:
+                first = int(self._sample_first(logits))
+            else:
+                sp.fence(logits)
         t_done = time.perf_counter()
         p.offset += take
+        p.chunks += 1
         self._sched.chunks += 1
-        self._sched.note_prefill(width, t_done - t0)
+        self._c_sched_chunk.inc()
+        self._sched.note_prefill(width, sp.duration_s)
         if last:
             self._commit_partial(p, first, t_done)
         return last
@@ -1355,13 +2135,15 @@ class GenerationServer:
         self._partial = None
         if p.fused:
             self._fused_admissions += 1
+            self._c_fused.inc()
         self._finish_admission(b, req, first, len(req.prompt), t_first,
-                               hit=p.hit)
+                               hit=p.hit, prefix_reused=p.reused,
+                               chunked=p.chunks, fused=p.fused)
 
     def _prepare_fused_chunk(self) -> Optional[tuple]:
         """Take the pending slice for a fused dispatch, advancing the
         partial's offset and counters at dispatch. Returns ``(suffix,
-        offset, take, is_last)``, or None when none is pending."""
+        offset, take, width, is_last)``, or None when none is pending."""
         if not (self._fuse_pending and self._fused_ok
                 and self._partial is not None):
             self._fuse_pending = False
@@ -1371,12 +2153,14 @@ class GenerationServer:
         n = len(p.req.prompt)
         if p.offset >= n:
             return None  # the final slice is already in flight
-        suffix, take, _width = self._slice_geometry(p)
+        suffix, take, width = self._slice_geometry(p)
         offset = p.offset
         p.offset += take
+        p.chunks += 1
         p.fused += 1
         self._sched.chunks += 1
-        return suffix, offset, take, p.offset >= n
+        self._c_sched_chunk.inc()
+        return suffix, offset, take, width, p.offset >= n
 
     def _apply_fused(self, fc: Optional[_FusedChunk]) -> None:
         """Land a slice that rode a decode dispatch, at its retire: only
@@ -1384,8 +2168,9 @@ class GenerationServer:
         slice's logits and committing the admission."""
         if fc is None or not fc.last or self._partial is not fc.partial:
             return
-        first = self._sample_first(fc.logits)
-        self._commit_partial(fc.partial, first, time.perf_counter())
+        with torchapi.allow_transfer("fused admission commit + first token"):
+            first = self._sample_first(fc.logits)
+            self._commit_partial(fc.partial, first, time.perf_counter())
 
     def _maybe_finish(self, b: int, new_tokens: list) -> None:
         req = self._slot_req[b]
@@ -1395,8 +2180,9 @@ class GenerationServer:
         if hit_eos:
             req.out = req.out[: req.out.index(self.eos_id) + 1]
         if hit_eos or len(req.out) >= req.max_new_tokens:
-            self._results[req.rid] = np.asarray(req.out[: req.max_new_tokens],
-                                                np.int32)
+            req.out = req.out[: req.max_new_tokens]
+            self._results[req.rid] = np.asarray(req.out, np.int32)
+            self._finish_trace(req, outcome="completed")
             self._slot_req[b] = None
             self._release_prefix(b)
             if self.paged:
@@ -1436,8 +2222,12 @@ class GenerationServer:
         got = self.kv_pool.try_alloc(n)
         while got is None:
             tier = self.prefix_store
-            if not isinstance(tier, PagedPrefixTier) or not tier.evict_one():
+            if not isinstance(tier, PagedPrefixTier):
                 return None
+            with torchapi.allow_transfer("kv host tier demotion under pool "
+                                         "pressure"):
+                if not tier.evict_one():
+                    return None
             got = self.kv_pool.try_alloc(n)
         return got
 
@@ -1463,6 +2253,7 @@ class GenerationServer:
         self.kv_pool.ref(shared)
         if hit is not None and hit.length % self.kv_block:
             self._cow_copies += 1
+            self._c_cow.inc()
         self._plans[req.rid] = _LanePlan(shared + priv, len(shared))
         return True
 
@@ -1493,7 +2284,7 @@ class GenerationServer:
         for b, plan in zip(slots, plans):
             self._set_lane_table(b, plan.table)
 
-    def _preempt_lane(self, b: int) -> None:
+    def _preempt_lane(self, b: int, reason: str = "pool_exhausted") -> None:
         """Preempt the request in lane ``b`` under pool pressure: gather its
         written KV rows out of the pool, copy them to the host, release its
         blocks and prefix pin and put it on the wait list. Only the blocks
@@ -1511,8 +2302,10 @@ class GenerationServer:
         req = self._slot_req[b]
         pos = int(self._pos[b])
         written = self._lane_blocks[b][: -(-pos // self.kv_block)]
-        spilled = rows_to_host(pool_gather_rows(
-            self.kv_pool.arena, table_tensor(written, self.device), self.kv_block))
+        with torchapi.allow_transfer("kv pool preemption spill"):
+            spilled = rows_to_host(pool_gather_rows(
+                self.kv_pool.arena, table_tensor(written, self.device),
+                self.kv_block))
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -1528,9 +2321,14 @@ class GenerationServer:
             key=lambda p: p.req.rid))
         self._slot_req[b] = None
         self._preemptions += 1
+        self._c_preempt.inc()
         if self._kv_host is not None:
             self._kv_host.put(("spill", req.rid), pos, pinned=True)
             self._host_demotions += 1
+            self._c_kv_demote.inc()
+        self._ledger_to(req, PHASE_PREEMPTED)  # spilled: decode stops here
+        self._emit("kv_preempt", rid=req.rid, pos=pos, reason=reason,
+                   waiting=len(self._preempted), queued=len(self._queue))
 
     def _resume_one(self, b: int) -> bool:
         """Re-admit the OLDEST preempted request into lane ``b``: fresh
@@ -1545,7 +2343,8 @@ class GenerationServer:
         if stage is not None and stage.done is not None:
             # Held, source and rows, until its upload is known complete.
             self._h2d_inflight.append(stage)
-        if stage is not None and stage.rid == pre.req.rid:
+        staged = stage is not None and stage.rid == pre.req.rid
+        if staged:
             rows = stage.rows
             if stage.done is not None:
                 # The main stream waits for the side stream's upload and
@@ -1568,6 +2367,11 @@ class GenerationServer:
         if self._kv_host is not None:
             self._kv_host.pop(("spill", pre.req.rid))
             self._host_prefetches += 1
+            self._c_kv_prefetch.inc()
+        self._ledger_to(pre.req, PHASE_DECODE)  # restored: decoding again
+        self._emit("kv_resume", rid=pre.req.rid, pos=pre.pos,
+                   waiting=len(self._preempted), queued=len(self._queue),
+                   prefetched=int(staged))
         return True
 
     def _stage_resume_prefetch(self) -> None:
@@ -1634,10 +2438,11 @@ class GenerationServer:
                 if got is not None:
                     self._set_lane_table(b, self._lane_blocks[b] + got)
                     break
-                self._preempt_lane(max(
-                    (v for v in range(self.max_batch)
-                     if self._slot_req[v] is not None),
-                    key=lambda v: self._slot_req[v].rid))
+                with self._clock.section(LOOP_PHASE_HOST):
+                    self._preempt_lane(max(
+                        (v for v in range(self.max_batch)
+                         if self._slot_req[v] is not None),
+                        key=lambda v: self._slot_req[v].rid))
 
     # ----- the round loop --------------------------------------------------
 
@@ -1646,13 +2451,31 @@ class GenerationServer:
         default, :meth:`_step_lockstep` with ``overlap=False``. A requested
         drain finishes here once nothing is in flight. Returns False when
         the queue, the wait list, the lanes and the pipeline are empty."""
+        if self._draining and not self._drain_announced:
+            self._drain_announced = True
+            self._emit("drain_begin", reason=self._drain_reason,
+                       queued=len(self._queue),
+                       slots_busy=sum(r is not None for r in self._slot_req))
         # Persistent rounds run lock-step: the host reads the delivered
-        # count at the fence before it can schedule the next round.
-        alive = (self._step_overlapped() if self.overlap and not self._persistent
-                 else self._step_lockstep())
+        # count at the fence before it can schedule the next round. Under
+        # strict the overlapped round is guarded against host syncs.
+        if self.overlap and not self._persistent:
+            if self.strict:
+                with torchapi.strict_mode(scope="serving.decode_dispatch",
+                                          device=self.device):
+                    alive = self._step_overlapped()
+            else:
+                alive = self._step_overlapped()
+        else:
+            alive = self._step_lockstep()
         if self._draining and not self._drain_done and self._drain_idle():
             self._finish_drain()
             alive = False
+        # The flush when the loop idles out leaves the partial interval on
+        # the stream and closes any watchdog profiler window.
+        self._maybe_heartbeat(force=not alive)
+        if not alive and self._watchdog is not None:
+            self._watchdog.close()
         return alive
 
     def _drain_idle(self) -> bool:
@@ -1667,21 +2490,33 @@ class GenerationServer:
         """Fail everything that never started, with the JAX server's
         messages. Every submitted request is now in the results or in
         :meth:`failures`."""
+        failed = 0
         while self._preempted:
             self._fail_preempted(f"drained mid-flight ({self._drain_reason})")
+            failed += 1
         while self._queue:
-            req = self._queue.popleft()
-            self._failures[req.rid] = (
-                f"drained before start ({self._drain_reason})")
+            self._fail_request(self._queue.popleft(), "drained",
+                               f"drained before start ({self._drain_reason})")
+            failed += 1
+        self._emit("drain", reason=self._drain_reason,
+                   completed=len(self._results), failed=failed)
         self._drain_done = True
 
     def _fail_preempted(self, error: str) -> None:
         """Fail the oldest preempted request, its host-tier accounting
         released with it."""
         pre = self._preempted.popleft()
-        self._failures[pre.req.rid] = error
         if self._kv_host is not None:
             self._kv_host.pop(("spill", pre.req.rid))
+        self._fail_request(pre.req, "drained", error)
+
+    def _fail_request(self, req: _Request, reason: str, error: str) -> None:
+        """A request's terminal failure: :meth:`failures`, a
+        ``request_failed`` event and its ``request_trace``."""
+        self._failures[req.rid] = error
+        self._emit("request_failed", rid=req.rid, reason=reason,
+                   error=error[:200], emitted=len(req.out))
+        self._finish_trace(req, outcome="failed", reason=reason)
 
     def _decode_budget(self) -> Optional[np.ndarray]:
         """Per-lane upper bounds on the tokens still to come, which arm the
@@ -1721,8 +2556,19 @@ class GenerationServer:
         budget decode on harmlessly: their writes clamp inside their own
         slot or land in the scratch block, and their extra tokens are
         trimmed. Returns ``(toks, last, pos)`` on the device, not yet
-        waited for, except a persistent round's, which has finished."""
+        waited for, except a persistent round's, which has finished. The
+        device ledger stamps the dispatch right before the chunk's call
+        (a graph replay on the card) with the signature's analytic cost."""
+        if not self._decode_attn_emitted:
+            self._decode_attn_emitted = True
+            self._emit(
+                "decode_attn_backend", backend=self._decode_attn,
+                reason=self._decode_attn_reason, paged=self.paged,
+                block_size=(self.kv_block if self.paged
+                            else attention.dense_decode_tile(self.max_len)),
+                kv_quant="int8" if self.kv_quant else "bf16")
         budget = self._decode_budget()
+        eos_none = budget is None or self.eos_id is None
         kw = {}
         if budget is not None:
             kw["budget"] = self._host_tensor(budget)
@@ -1732,22 +2578,46 @@ class GenerationServer:
             self._shard_peak = [max(a, b) for a, b in zip(
                 self._shard_peak, self._pool_shard_occupancy())]
             kw["block_tables"] = self._host_tensor(self._bt_host)
+        steps = self._dispatch_steps
         fuse = self._prepare_fused_chunk()
         if fuse is not None:
             p = self._partial
-            suffix, offset, take, is_last = fuse
+            suffix, offset, take, width, is_last = fuse
+            self._devledger.on_dispatch(
+                ("fused", self.paged, steps, width, eos_none, budget is None),
+                partial(self._dispatch_cost, steps, width))
             out, logits = self._decode.fused(
                 lambda: self._run_slice(p, suffix, offset, take), tok, pos, **kw)
             self._fused_ret = _FusedChunk(partial=p, last=is_last, logits=logits)
             return out
         if self._persistent:
             window = self._persistent_window()
+            cap = self._persistent_cap
+            self._devledger.on_dispatch(
+                ("persistent", self.paged, cap, eos_none),
+                partial(self._dispatch_cost, cap), loop_cap=cap)
             toks, last, new_pos, delivered = self._round(
                 tok, pos, kw["budget"], self._host_tensor(window),
                 kw.get("block_tables"))
             self._persistent_fut = (delivered, window)
             return toks[:, :delivered], last, new_pos
+        self._devledger.on_dispatch(
+            ("plain", self.paged, steps, eos_none, budget is None),
+            partial(self._dispatch_cost, steps))
         return self._decode(tok, pos, **kw)
+
+    def _dispatch_cost(self, steps: int, slice_width: int = 0) -> dict:
+        """A dispatch signature's FLOPs and bytes from shapes alone
+        (:func:`..obs.devledger.decode_cost`): every lane for ``steps``
+        steps, plus an admission slice ``slice_width`` rows wide. The
+        signature does not know the lanes' positions: each row is costed
+        over half the arena's keys (at the served models' widths the
+        attention is a few percent of a decode step's FLOPs)."""
+        keys = self.max_len / 2
+        return obs.devledger.decode_cost(
+            self.cfg, lanes=self.max_batch, steps=steps, keys=keys,
+            kv_quant=self.kv_quant, prefill_tokens=slice_width,
+            prefill_keys=keys)
 
     def _persistent_window(self) -> np.ndarray:
         """Each lane's write bound for a persistent round: the end of its
@@ -1762,10 +2632,11 @@ class GenerationServer:
 
     def _step_lockstep(self) -> bool:
         """Refill free lanes, (paged) grow the lanes' tables or preempt,
-        then one dispatch for every lane, fenced by its token transfer. A
-        persistent round is accounted by the steps it delivered, and its
-        exit attributed: ``cap`` when it delivered the cap, ``window``
-        when a lane still running sits at its window edge, else
+        then one dispatch for every lane, fenced by its token transfer
+        inside one ``serving.decode_chunk`` span. A persistent round is
+        accounted by the steps it delivered, and its exit attributed
+        (``persistent_exit``): ``cap`` when it delivered the cap,
+        ``window`` when a lane still running sits at its window edge, else
         ``done``."""
         self._admit()
         self._ensure_blocks()
@@ -1775,16 +2646,27 @@ class GenerationServer:
             return (bool(self._queue) or bool(self._preempted)
                     or self._partial is not None)
         self._lanes_peak = max(self._lanes_peak, len(active))
-        t0 = time.perf_counter()
-        toks, last, pos = self._dispatch_decode(self._host_tensor(self._last),
-                                                self._host_tensor(self._pos))
-        host = DeviceFence(toks=toks, last=last, pos=pos).wait()
-        dur = time.perf_counter() - t0
+        with obs.span("serving.decode_chunk", trace_id=self._trace,
+                      server=self._label,
+                      tokens=len(active) * self._dispatch_steps,
+                      slots_busy=len(active), queued=len(self._queue),
+                      batch_occupancy=round(len(active) / self.max_batch, 4)
+                      ) as sp:
+            with self._clock.section(LOOP_PHASE_DISPATCH):
+                toks, last, pos = self._dispatch_decode(
+                    self._host_tensor(self._last), self._host_tensor(self._pos))
+            with self._clock.section(LOOP_PHASE_RETIRE):
+                host = DeviceFence(toks=toks, last=last, pos=pos).wait()
+        dur = sp.duration_s
         fut, self._persistent_fut = self._persistent_fut, None
         delivered = None if fut is None else fut[0]
+        # The retire stamp after the span: its fence time is in the clock.
+        self._devledger.note_retire(delivered_steps=delivered)
         steps = self._dispatch_steps if delivered is None else delivered
-        self._tok_lat.observe(dur / max(steps, 1))
-        self._sched.note_round(dur, steps=max(steps, 1))
+        tok_lat = dur / max(steps, 1)
+        self._tok_lat.observe(tok_lat)
+        self._h_tok_lat.observe(tok_lat)
+        self._note_round(dur, len(active), steps=max(steps, 1))
         self._last, self._pos = host["last"], host["pos"]
         self._rounds += 1
         for b in active:
@@ -1806,13 +2688,28 @@ class GenerationServer:
             self._last_delivered = delivered
             self._delivered_total += delivered
             self._persistent_exits[reason] += 1
+            self._emit("persistent_exit", reason=reason, delivered=delivered,
+                       cap=self._persistent_cap)
         # A slice that rode this dispatch lands after the decode tokens.
         fc, self._fused_ret = self._fused_ret, None
         self._apply_fused(fc)
         # No chunk is in flight here, but the upload still runs ahead of
         # the next round's admission pass.
-        self._stage_resume_prefetch()
+        with self._clock.section(LOOP_PHASE_HOST):
+            self._stage_resume_prefetch()
         return True
+
+    def _note_round(self, dur_s: float, busy: int,
+                    steps: Optional[int] = None) -> None:
+        """Feed one round's cadence to the scheduler, with the steps it
+        delivered; a round over the deadline counts and emits
+        ``slo_violation``."""
+        steps = self._dispatch_steps if steps is None else max(steps, 1)
+        if self._sched.note_round(dur_s, steps=steps):
+            self._c_slo.inc()
+            self._emit("slo_violation", round_s=round(dur_s, 6),
+                       itl_s=round(dur_s / steps, 6),
+                       slo_ms=self._sched.slo_ms, slots_busy=busy)
 
     def _step_overlapped(self) -> bool:
         """One pipelined round: dispatch the NEXT chunk first, from the
@@ -1841,9 +2738,11 @@ class GenerationServer:
                 last, pos = prev.last, prev.pos
             self._fresh_rows.clear()
             self._dispatch_chunk(last, pos)
-            self._stage_resume_prefetch()  # overlaps the chunk just dispatched
+            with self._clock.section(LOOP_PHASE_HOST):
+                self._stage_resume_prefetch()  # overlaps the chunk just sent
         if prev is not None:
-            self._retire(prev)  # host work overlaps the dispatched chunk
+            with self._clock.section(LOOP_PHASE_RETIRE):
+                self._retire(prev)  # host work overlaps the dispatched chunk
         return (self._inflight is not None or bool(self._queue)
                 or bool(self._preempted) or self._partial is not None
                 or any(r is not None for r in self._slot_req))
@@ -1868,17 +2767,29 @@ class GenerationServer:
     def _dispatch_chunk(self, last, pos) -> None:
         """Dispatch one chunk without waiting: a :class:`DeviceFence`
         starts its outputs' copy to the host behind it, before the next
-        chunk can overwrite them."""
+        chunk can overwrite them. Its detached ``serving.decode_chunk``
+        span ends at retire (``dispatch_s`` the host's dispatch cost)."""
         active = [(b, req) for b, req in enumerate(self._slot_req)
                   if req is not None]
         self._lanes_peak = max(self._lanes_peak, len(active))
-        toks, new_last, new_pos = self._dispatch_decode(last, pos)
+        # chunk_tokens, not tokens: this span's dur_s is the pipeline window
+        # (about two chunk periods), so a rate over it would halve the
+        # truth; retire attaches the rate over the retire cadence.
+        sp = obs.start_span(
+            "serving.decode_chunk", trace_id=self._trace, server=self._label,
+            chunk_tokens=len(active) * self._dispatch_steps,
+            slots_busy=len(active), queued=len(self._queue),
+            batch_occupancy=round(len(active) / self.max_batch, 4),
+            overlapped=True)
+        with self._clock.section(LOOP_PHASE_DISPATCH):
+            toks, new_last, new_pos = self._dispatch_decode(last, pos)
+        sp.mark("dispatch")
         # A slice dispatched with the chunk rides its record to retire.
         fc, self._fused_ret = self._fused_ret, None
         self._inflight = _Inflight(
             fence=DeviceFence(toks=toks, last=new_last, pos=new_pos),
             last=new_last, pos=new_pos, slots=active,
-            t_dispatch=time.perf_counter(), fused=fc)
+            t_dispatch=time.perf_counter(), span=sp, fused=fc)
 
     def _retire(self, fl: _Inflight) -> None:
         """Land one in-flight chunk: wait for its copy, hand its tokens to
@@ -1891,10 +2802,19 @@ class GenerationServer:
         now = time.perf_counter()
         round_s = now - max(fl.t_dispatch, self._t_last_retire)
         self._t_last_retire = now
-        self._tok_lat.observe(round_s / self._dispatch_steps)
+        # The ledger's busy time takes the same anchor as round_s.
+        self._devledger.note_retire(now)
+        n_tokens = len(fl.slots) * self._dispatch_steps
+        fl.span.set(round_s=round(round_s, 6),
+                    tokens_per_s=(round(n_tokens / round_s, 2)
+                                  if round_s > 0 else 0.0))
+        fl.span.end()
+        tok_lat = round_s / self._dispatch_steps
+        self._tok_lat.observe(tok_lat)
+        self._h_tok_lat.observe(tok_lat)
         # The retire cadence is the latency the policy steers by: an
         # admission that took host time between retires shows here.
-        self._sched.note_round(round_s)
+        self._note_round(round_s, len(fl.slots))
         self._rounds += 1
         for b, req in fl.slots:
             if self._slot_req[b] is not req:

@@ -52,7 +52,7 @@ KV_LAYOUT_BLOCKS = "blocks"
 KV_LAYOUTS = (KV_LAYOUT_HEADS, KV_LAYOUT_BLOCKS)
 
 __all__ = ["ENV_KV_LAYOUT", "ENV_TP", "KV_LAYOUTS", "ServingMesh",
-           "kv_heads_shardable", "tp_from_env"]
+           "allocation_chips", "kv_heads_shardable", "tp_from_env"]
 
 # TPU families: (chips per host, whether the type's suffix counts
 # TensorCores, two a chip), the JAX package's topology/slice.py FAMILIES.
@@ -86,10 +86,15 @@ def local_device_count() -> int:
 
 
 def tp_from_env(env: Optional[dict] = None, *,
-                device_count: Optional[int] = None) -> int:
+                device_count: Optional[int] = None, label: str = "",
+                trace: str = "") -> int:
     """The serving degree from the env (the module doc's ladder); always at
-    least 1."""
+    least 1. Every degrade emits one ``serving/tp_disabled`` event with its
+    reason, ``server=label`` and (when given) the allocation ``trace``."""
+    from .. import obs
+
     env = os.environ if env is None else env
+    extra = {"trace": trace} if trace else {}
     raw = env.get(ENV_TP, "").strip()
     tp = None
     if raw:
@@ -97,19 +102,33 @@ def tp_from_env(env: Optional[dict] = None, *,
             tp = int(raw)
         except ValueError:
             tp = None
-        else:
-            if tp < 0:
-                tp = None
-            elif tp == 0:
-                tp = 1
+        if tp is None or tp < 0:
+            obs.emit("serving", "tp_disabled", server=label,
+                     reason=f"bad_env:{raw[:32]}", **extra)
+            tp = None
+        elif tp == 0:
+            tp = 1
     if tp is None:
         tp = _topology_chips(env)
     if tp > 1:
         if device_count is None:
             device_count = local_device_count()
         if tp > device_count:
+            obs.emit("serving", "tp_disabled", server=label, tp=tp,
+                     reason=f"insufficient_devices:{device_count}", **extra)
             tp = 1
     return max(1, tp)
+
+
+def allocation_chips(env: Optional[dict] = None) -> str:
+    """The daemon-granted chip set this guest serves on: the normalized
+    ``TPU_VISIBLE_CHIPS`` list, ``""`` outside an allocation (the JAX
+    package's reading; the daemon's grant variable for NVIDIA cards is not
+    read yet). Every serving heartbeat carries it, the join key of the
+    daemon's per-allocation gauges."""
+    env = os.environ if env is None else env
+    raw = env.get("TPU_VISIBLE_CHIPS", "").strip()
+    return ",".join(c.strip() for c in raw.split(",") if c.strip())
 
 
 def kv_heads_shardable(cfg, tp: int) -> bool:

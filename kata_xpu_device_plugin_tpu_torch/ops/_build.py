@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..compat.torchapi import note_compile
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -50,6 +52,7 @@ def _start(name: str):
     out = _target(name)
     if out.exists():
         return None
+    note_compile(f"nvcc {name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -1661,3 +1661,110 @@ def test_ring_on_the_card_raises_without_a_block_kernel(cuda_device):
     out = ring.make_ring_attention(mesh, use_flash=False)(q, k, v)
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
     assert flash.flash_block_forward.launches == n_f
+
+
+# ----- telemetry on the card -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_span_fence_waits_for_a_long_kernel(cuda_device):
+    """A span fenced on a CUDA tensor ends after the work that produces it:
+    its duration covers a long chain of matmuls queued on the stream, where
+    the unfenced span measures only their launch."""
+    from kata_xpu_device_plugin_tpu_torch import obs
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+    (a @ a).sum()  # the first matmul sets cuBLAS up on the host
+    torch.cuda.synchronize()
+    with obs.span("unfenced") as loose:
+        b = a
+        for _ in range(40):
+            b = b @ a
+    with obs.span("fenced") as tight:
+        c = a
+        for _ in range(40):
+            c = c @ a
+        tight.fence(c)
+    queued = torch.cuda.Event()
+    queued.record()
+    assert queued.query(), "the fenced span returned before its work finished"
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(40):
+        c = c @ a
+    t1.record()
+    t1.synchronize()
+    device_s = t0.elapsed_time(t1) / 1e3
+    assert tight.duration_s >= 0.5 * device_s > loose.duration_s
+
+
+@pytest.mark.cuda
+def test_strict_mode_raises_on_a_sync_in_the_round(cuda_device):
+    """``strict=True`` guards the overlapped round: a clean server runs, a
+    host read of the card injected into the round raises and leaves the
+    guard off; the sanctioned regions (admission, the fence's retire, the
+    graph capture) pass."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.compat import torchapi
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_pool_tokens=1024, kv_block_size=16, strict=True)
+    prompts = [np.arange(1, n, dtype=np.int32) for n in (40, 90, 130)]
+    srv = GenerationServer(params, cfg, **kw)
+    for p in prompts:
+        srv.submit(p, 24)
+    out = srv.run()
+    assert [len(v) for v in out.values()] == [24] * 3
+    assert srv.stats()["decode_graph_captures"] == 1
+    bad = GenerationServer(params, cfg, **kw)
+    real = bad._dispatch_decode
+
+    def with_sync(tok, pos):
+        torch.ones(1, device=cuda_device).sum().item()
+        return real(tok, pos)
+
+    bad._dispatch_decode = with_sync
+    bad.submit(prompts[0], 8)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        bad.run()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert torchapi.strict_depth() == 0
+
+
+@pytest.mark.cuda
+def test_hbm_fields_follow_the_allocator(cuda_device):
+    """The ledger's ``hbm_*`` fields on the card: used and peak are the
+    allocator's, the limit the card's, the headroom at most the limit, and
+    the server's components (params, pool) attributed at their bytes."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    srv = GenerationServer(params, cfg, max_batch=4, max_len=512,
+                           prefill_buckets=(128, 256), chunk=4,
+                           kv_pool_tokens=1024, kv_block_size=16,
+                           heartbeat_rounds=2)
+    srv.submit(np.arange(1, 100, dtype=np.int32), 16)
+    srv.run()
+    fields = srv._devledger.poll_memory()
+    free, total = torch.cuda.mem_get_info()
+    assert fields["hbm_used_bytes"] == torch.cuda.memory_allocated()
+    assert fields["hbm_peak_bytes"] >= torch.cuda.max_memory_allocated() - 1
+    assert fields["hbm_limit_bytes"] == total
+    assert 0 < fields["hbm_headroom_bytes"] <= total
+    arena = sum(t.numel() * t.element_size() for c in srv.kv_pool.arena
+                for t in (c if isinstance(c, tuple) else (c,)))
+    assert fields["hbm_kv_arena_bytes"] == arena
+    assert fields["hbm_params_bytes"] >= sum(
+        t.numel() * t.element_size() for t in
+        [params["embed"], params["final_norm"], *params["layers"].values()])
+    assert fields["hbm_attributed_bytes"] == sum(
+        v for k, v in fields.items()
+        if k.startswith("hbm_") and k[4:-6] in srv._hbm_components())
+    st = srv.stats()
+    assert st["devledger"]["hbm_stats_available"] == 1
+    assert 0 < st["mfu"] <= 1 and 0 < st["device_busy_frac"] <= 1

@@ -1,5 +1,7 @@
-"""PyTorch port, hygiene: the port imports nothing of JAX or of the JAX
-package, its modules import without nvcc, Triton or a card, its entry
+"""PyTorch port, hygiene: the port imports nothing of JAX, of the JAX
+package or of ``prometheus_client`` (the card's machine has none: the
+port's metrics are plain Python), its modules import without nvcc, Triton
+or a card, its entry
 points refuse to fall back to the CPU on their own, and ``chip_smoke.py``
 fails without a card or outside a checkout."""
 import ast
@@ -29,8 +31,8 @@ JAX_PKG = "kata_xpu_device_plugin_tpu"
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.") or name == JAX_PKG
-            or name.startswith(JAX_PKG + "."))
+    return any(name == m or name.startswith(m + ".")
+               for m in ("jax", JAX_PKG, "prometheus_client"))
 
 
 def _sources():
@@ -68,7 +70,8 @@ def test_package_imports_without_jax_nvcc_or_triton():
         "import sys",
         *[f"import {m}" for m in mods],
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        f" or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')]",
+        f" or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')"
+        " or m.split('.')[0] == 'prometheus_client']",
         "assert not bad, bad",
         "assert 'triton' not in sys.modules",
         "print('ok')",

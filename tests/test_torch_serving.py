@@ -131,7 +131,7 @@ UNPORTED = {
     "checkpoint_rounds": (4, "9b"), "mesh": (object(), "12b"),
     "draft": ((None, None), "11b"), "spec_opt_in": (True, "11b"),
     "strict": (True, "9a"), "tripwire": (True, "9a"),
-    "heartbeat_rounds": (2, "9a"), "watchdog": (object(), "9a"),
+    "heartbeat_rounds": (2, "9a"), "watchdog": (True, "9a"),
     "fault_injector": (object(), "9b"), "fence_timeout_s": (5.0, "9b"),
     "quarantine_after": (2, "9b"), "recovery_backoff_s": (0.0, "9b"),
     "degraded": (True, "9b"),
@@ -157,9 +157,24 @@ def test_unported_modes_raise(models, kwarg):
     prefix cache and tensor parallelism under both KV layouts are ported:
     they build, and sampled persistent decode raises the JAX server's
     ``ValueError`` (its rounds are greedy only), as does the host KV tier
-    on this slotted server (it needs a paged pool)."""
+    on this slotted server (it needs a paged pool). The telemetry
+    arguments of item 9a are ported: they build and arm what they name."""
     _, _, tp, tcfg = models
-    if "kv_host_tokens" in kwarg:
+    if UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9a":
+        srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+        stats = srv.stats()
+        (name,) = kwarg
+        if name == "strict":
+            assert srv.strict is True
+        elif name == "tripwire":
+            assert stats["tripwire_enabled"] == 1
+        elif name == "heartbeat_rounds":
+            assert stats["heartbeat_rounds"] == 2
+            assert stats["devledger"]["armed"] == 1
+        else:
+            assert stats["watchdog"]["observed"] == 0
+            assert srv._watchdog is not None
+    elif "kv_host_tokens" in kwarg:
         with pytest.raises(ValueError, match="paged"):
             GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
     elif "kv_layout" in kwarg or "tp" in kwarg:
@@ -202,13 +217,8 @@ def test_server_takes_every_argument_of_the_jax_server(models):
 
 
 # JAX stats keys the port does not compute yet, by the ROADMAP item that
-# brings them: telemetry (9a) and resilience (9b).
+# brings them: resilience (9b).
 STATS_NOT_YET = {
-    "9a": {"device_busy_frac", "devledger", "dispatch_gap_ms", "heartbeat_rounds",
-           "heartbeat_tokens_per_s", "heartbeats", "loop_phase_s", "mfu",
-           "request_phase_s", "request_traces", "steady_state_compiles",
-           "steady_state_reshards", "trace", "tripwire_enabled",
-           "tripwire_warmed", "watchdog", "watchdog_active", "watchdog_alerts"},
     "9b": {"checkpoint_rounds", "checkpoints", "device_stalls", "quarantined",
            "recoveries"},
 }
@@ -217,8 +227,8 @@ STATS_NOT_YET = {
 @pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
 def test_stats_have_the_jax_keys(models, paged):
     """The port's ``stats()`` keys include the JAX server's, less the
-    named keys of items 9a and 9b; the occupancy keys it shares take the
-    JAX values mid-run, after one lock-step round of the same requests."""
+    named keys of item 9b; the occupancy keys it shares take the JAX values
+    mid-run, after one lock-step round of the same requests."""
     jcfg, jp, tp, tcfg = models
     kw = dict(KW, kv_quant=True, overlap=False)
     if paged:
