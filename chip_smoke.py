@@ -132,6 +132,20 @@ Phases, each printing one JSON line:
    shards, token match and the first parting's margin against tp=1), a
    tp=2 blocks ``graph_check``, each run's logits against the plain path
    (``tp_crosscheck``), and Qwen2-7B (4 layers) at tp=2 heads beside tp=1;
+7b. resilience — crash-tolerant serving on the paged phase's server and
+   requests (overlapped, int8 KV, telemetry on, ``strict=True``): a
+   fault-free run, then a transient fault at ``decode_dispatch``,
+   ``prefill``, ``admission_commit`` and ``pool_alloc`` and a ``fence``
+   hang, with ``checkpoint_rounds=4`` and a fence watchdog: every rid
+   served, a recovery a fault, the checkpoint-restored requests admitted
+   before the first fault bit-equal to the fault-free run, paged launches
+   = replays x chunk x layers through the recoveries (one capture: the
+   reset is in place), the backend unchanged, no guard trip; a quarantine
+   drill; then ``tp=4`` blocks losing shard 1: the shrink to 2, the
+   shard-local kernel's launches 4 a step before and 2 after, one new
+   capture; recovery latency by kind, checkpoint ms and bytes, shrink ms,
+   tok/s against fault-free and the token match are printed
+   (:func:`phase_resilience`);
 8. generate — ``generate()`` at full width, B=8, prompt 128, 64 steps, bf16
    cache, under ``KATA_TPU_DECODE_KERNEL=1``: 18 x 63 launches of the dense
    decode kernel, each layer of the first decode step held against the
@@ -3382,6 +3396,327 @@ def phase_tp(params, cfg, seed: int = 0) -> tuple:
     return launches, cases
 
 
+# ----- crash tolerance ----------------------------------------------------------
+
+RESILIENCE_DIR = os.path.join(HERE, "build", "resilience")
+# The faulted run's schedule: a transient fault at four seams and a fence
+# hang, each crossing counted from the server's construction. The counts
+# depend only on the requests' lengths and budgets: fault-free, the warm-up
+# request crosses decode_dispatch and fence twice, the others once; the 32
+# requests then bring them to 49, 49, 21, 21 and 125 (pool_alloc), counted
+# by a CPU run of the same schedule at test widths.
+RESILIENCE_FAULTS = (("decode_dispatch", 16), ("prefill", 12),
+                     ("admission_commit", 15), ("pool_alloc", 90),
+                     ("fence", 36, "hang"))
+RESILIENCE_KW = dict(checkpoint_rounds=4, fence_timeout_s=30.0,
+                     recovery_backoff_s=0.0, strict=True)
+
+
+def instrument_recovery(srv) -> dict:
+    """Wrap ``srv``'s supervisor to record, for this script's readings:
+    each recovery's fault kind and its latency to the next retired chunk,
+    each checkpoint's ms and host bytes, the rids restored from a
+    checkpoint (apart, those never replayed from their prompt), and those
+    admitted before the first fault."""
+    rec = {"recoveries": [], "checkpoints": [], "restored": set(),
+           "restored_first": set(), "before_fault": None}
+    recover, retire = srv._recover, srv._retire
+    checkpoint, restore = srv._checkpoint, srv._restore_lane
+
+    def _recover(exc):
+        if rec["before_fault"] is None:
+            lanes = [r.rid for r in srv._slot_req if r is not None]
+            rec["before_fault"] = set(srv._results) | set(lanes)
+        rec["recoveries"].append({"kind": type(exc).__name__,
+                                  "t": time.perf_counter(), "ms": None})
+        return recover(exc)
+
+    def _retire(fl):
+        out = retire(fl)
+        for r in rec["recoveries"]:
+            if r["ms"] is None:
+                r["ms"] = round((time.perf_counter() - r["t"]) * 1e3, 3)
+        return out
+
+    def _checkpoint():
+        t0 = time.perf_counter()
+        checkpoint()
+        nbytes = sum(t.numel() * t.element_size() for e in srv._ckpt.values()
+                     for c in e.kv for t in (c if isinstance(c, tuple) else (c,)))
+        rec["checkpoints"].append({"ms": round((time.perf_counter() - t0) * 1e3, 3),
+                                   "bytes": nbytes, "lanes": len(srv._ckpt)})
+
+    def _restore(b, entry):
+        ok = restore(b, entry)
+        if ok:
+            rec["restored"].add(entry.req.rid)
+            if not entry.req.replays:  # never replayed from its prompt
+                rec["restored_first"].add(entry.req.rid)
+        return ok
+
+    srv._recover, srv._retire = _recover, _retire
+    srv._checkpoint, srv._restore_lane = _checkpoint, _restore
+    return rec
+
+
+def faulted_run(srv, prompts, budgets, counters):
+    """:func:`warm_server`, then every request submitted, the kernels'
+    launch counts set to 0 and the server drained. Returns the outputs by
+    request (in submit order; None for a failed one), the rids, the wall
+    time, the launches, the graph's replays over the run and the stats."""
+    import torch
+
+    warm_server(srv)
+    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    replays0 = srv.stats()["decode_graph_replays"]
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = srv.stats()
+    outs = [results.get(rid) for rid in rids]
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    return outs, rids, wall, launches, stats["decode_graph_replays"] - replays0, stats
+
+
+def phase_resilience(params, cfg, smi: str, seed: int = 0) -> dict:
+    """Crash-tolerant serving on the card, full-width Gemma-2B on the paged
+    phase's server (16 lanes, a pool of 8000 tokens in blocks of 16, int8
+    KV, overlapped rounds, telemetry on, ``strict=True``) and its 32
+    requests: a fault-free run, then the same requests under
+    :data:`RESILIENCE_FAULTS` with ``checkpoint_rounds=4`` and a 30 s fence
+    watchdog. Asserted: every rid in exactly one of the results and the
+    failures (none fail here), one recovery for each fault fired (all of
+    them), the requests restored from a checkpoint and admitted before the
+    first fault bit-equal to the fault-free run (their rows re-land
+    verbatim and a lane's arithmetic does not depend on its batch-mates),
+    paged kernel launches = graph replays over the run x chunk x layers
+    (counted through replays across the recoveries: the in-place reset
+    keeps the graph, one capture in all, and the tripwire counts no compile
+    and no reshard in the run), the decode backend unchanged,
+    no strict-mode guard trip. Printed: the token match and the first
+    parting's plain top-2 margin of the other requests (a replay may be
+    admitted in another group, and bf16 GEMMs at another batch size round
+    differently), recovery latency by fault kind (fault to the next retired
+    chunk), checkpoint ms and host bytes, tok/s faulted against fault-free.
+    Then a quarantine drill: a poison request whose admission faults twice
+    fails on its own (``quarantine_after=2``) while a request of another
+    bucket, blamed never, finishes bit-equal to its fault-free tokens.
+    Then ``tp=4`` under the blocks layout, fault-free and under
+    ``decode_dispatch:<n>:chip_loss:1``: a ``tp_degraded`` event 4 -> 2,
+    shard-local kernel launches = chunk x layers x (4 x replays before the
+    shrink + 2 x dispatches after), one new capture, none failed; printed:
+    the token match against the fault-free tp=4 run, and the shrink's
+    re-split and capture ms; and the card's reserved bytes once every
+    server of the phase is gone, against before the first (graph pools
+    released)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import obs
+    from kata_xpu_device_plugin_tpu_torch.compat import torchapi
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.resilience import (
+        FaultInjector,
+        FaultSpec,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        paged_decode_attention,
+        paged_decode_shard_stats,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+
+    shutil.rmtree(RESILIENCE_DIR, ignore_errors=True)
+    os.makedirs(RESILIENCE_DIR)
+    prev_flight = os.environ.get("KATATPU_FLIGHT_DIR")
+    os.environ["KATATPU_FLIGHT_DIR"] = os.path.join(RESILIENCE_DIR, "flight")
+    sink_path = os.path.join(RESILIENCE_DIR, "events.jsonl")
+    sink = obs.EventSink(sink_path)
+    prev_sink = obs.set_default_sink(sink)
+    counters = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+                "paged_decode_shard": paged_decode_shard_stats}
+    prompts, budgets, lens = phase_requests(32, cfg.vocab_size, seed)
+    kw = dict(**PAGED_KW, **SERVE_KW)
+    steps, layers = SERVE_KW["chunk"], cfg.n_layers
+    launches: dict = {}
+
+    def reserved() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    reserved0 = reserved()
+
+    def add(runs):
+        for k, n in runs.items():
+            launches[k] = launches.get(k, 0) + n
+
+    try:
+        clean = GenerationServer(params, cfg, strict=True, **kw)
+        ref, _, wall0, _, _, st0 = faulted_run(clean, prompts, budgets, counters)
+        del clean
+        faults = [FaultSpec(*f) for f in RESILIENCE_FAULTS]
+        srv = GenerationServer(params, cfg, fault_injector=FaultInjector(faults),
+                               **RESILIENCE_KW, **kw)
+        rec = instrument_recovery(srv)
+        got, rids, wall, runs, replays, st = faulted_run(srv, prompts, budgets,
+                                                         counters)
+        add(runs)
+        fired = list(srv._inj.fired)
+        fails = srv.failures()
+        served = {r for r, o in zip(rids, got) if o is not None}
+        if served | set(fails) != set(rids) or served & set(fails) or fails:
+            raise AssertionError(f"lost or failed requests: {sorted(fails)}, "
+                                 f"{len(served)} of {len(rids)} served")
+        if len(fired) != len(RESILIENCE_FAULTS) or st["recoveries"] != len(fired):
+            raise AssertionError(f"fired {fired}, recoveries {st['recoveries']}")
+        if (st["decode_backend"], st["decode_backend_reason"]) != (
+                attention.BACKEND_PAGED, ""):
+            raise AssertionError(f"decode left the kernel: {st['decode_backend']}")
+        if (st["decode_graph_captures"], st["steady_state_compiles"],
+                st["steady_state_reshards"]) != (1, 0, 0):
+            raise AssertionError(
+                f"a transient recovery captured again or moved a tensor: "
+                f"{st['decode_graph_captures']} captures, tripwire "
+                f"{st['steady_state_compiles']}/{st['steady_state_reshards']}")
+        if runs.get("paged_decode") != replays * steps * layers:
+            raise AssertionError(f"paged launches {runs} against {replays} "
+                                 f"replays x {steps} x {layers}")
+        if torchapi.strict_depth() or torch.cuda.get_sync_debug_mode():
+            raise AssertionError("strict mode left its guard on")
+        # Positions in submit order of the requests restored from a
+        # checkpoint, never replayed, admitted before the first fault.
+        clean_ids = [i for i, r in enumerate(rids) if r in rec["restored_first"]
+                     and r in rec["before_fault"]]
+        if not clean_ids:
+            raise AssertionError("no request admitted before the first fault "
+                                 "was restored from a checkpoint")
+        for i in clean_ids:
+            if not np.array_equal(got[i], ref[i]):
+                raise AssertionError(f"checkpoint-restored request {rids[i]} "
+                                     "differs from the fault-free run")
+        others = [i for i in range(len(rids)) if i not in clean_ids]
+        by_kind: dict = {}
+        for r in rec["recoveries"]:
+            by_kind.setdefault(r["kind"], []).append(r["ms"])
+        generated = int(sum(budgets))
+        main = dict(
+            fired=[list(f) for f in fired], recoveries=st["recoveries"],
+            device_stalls=st["device_stalls"], checkpoints=st["checkpoints"],
+            restored_before_first_fault=len(clean_ids),
+            restored_all=len(rec["restored"]),
+            token_match_others=token_match([got[r] for r in others],
+                                           [ref[r] for r in others],
+                                           [budgets[r] for r in others]),
+            first_difference_others=first_difference_margin(
+                params, cfg, [prompts[r] for r in others],
+                [got[r] for r in others], [ref[r] for r in others]),
+            recovery_ms_by_kind=by_kind,
+            checkpoint_ms=[c["ms"] for c in rec["checkpoints"]],
+            checkpoint_bytes=[c["bytes"] for c in rec["checkpoints"]],
+            checkpoint_lanes=[c["lanes"] for c in rec["checkpoints"]],
+            tok_s=round(generated / wall, 2), tok_s_fault_free=round(
+                generated / wall0, 2),
+            rounds=st["rounds"], rounds_fault_free=st0["rounds"],
+            replays=replays, launches=runs,
+            preemptions=st["preemptions"], captures=st["decode_graph_captures"])
+        del srv
+        # The quarantine drill: the poison request (bucket 128) and one of
+        # bucket 1024 admit in one pass, two forwards; both of the poison's
+        # faults blame it alone.
+        drill_p = [prompts[0][:100], np.resize(prompts[1], 600).astype(np.int32)]
+        solo = GenerationServer(params, cfg, strict=True, **kw)
+        solo.submit(drill_p[1], 32)
+        want = list(solo.run().values())[0]
+        del solo
+        drill = GenerationServer(
+            params, cfg, quarantine_after=2, fault_injector=FaultInjector(
+                [FaultSpec("prefill", 0), FaultSpec("prefill", 1)]),
+            **RESILIENCE_KW, **kw)
+        poison, other = (drill.submit(p, 32) for p in drill_p)
+        out = drill.run()
+        if list(drill.failures()) != [poison] or not np.array_equal(
+                out.get(other), want) or drill.stats()["quarantined"] != 1:
+            raise AssertionError(f"quarantine drill: failures {drill.failures()}, "
+                                 f"results {sorted(out)}")
+        del drill
+        # The shrink: tp=4 blocks, fault-free, then a chip lost mid-run.
+        tp_kw = dict(kw, tp=4, kv_layout="blocks")
+        clean4 = GenerationServer(params, cfg, **tp_kw)
+        ref4, _, wall4, _, _, _ = faulted_run(clean4, prompts, budgets, counters)
+        del clean4
+        torch.cuda.empty_cache()
+        shrink = GenerationServer(params, cfg, fault_injector=FaultInjector(
+            [FaultSpec("decode_dispatch", 20, "chip_loss", 1)]), **tp_kw,
+            **RESILIENCE_KW)
+        rec4 = instrument_recovery(shrink)
+        got4, _, wall_s, runs4, replays4, st4 = faulted_run(
+            shrink, prompts, budgets, counters)
+        add(runs4)
+        # The new graph's first dispatch runs eagerly; its second captures
+        # and replays.
+        new_replays = shrink._decode.replays
+        old_replays = replays4 - new_replays
+        want_k2 = steps * layers * (4 * old_replays + 2 * (new_replays + 1))
+        deg = [e for e in obs.read_events(sink_path)
+               if e["name"] == "tp_degraded" and e["server"] == shrink._label]
+        if (len(deg) != 1 or (deg[0]["old_tp"], deg[0]["tp"]) != (4, 2)
+                or st4["tp_degree"] != 2 or shrink.failures()
+                or any(o is None for o in got4)):
+            raise AssertionError(f"shrink: {deg}, tp {st4['tp_degree']}, "
+                                 f"failures {shrink.failures()}")
+        if st4["decode_graph_captures"] != 2 or runs4.get(
+                "paged_decode_shard") != want_k2 or "paged_decode" in runs4:
+            raise AssertionError(f"shrink launches {runs4} against {want_k2}; "
+                                 f"captures {st4['decode_graph_captures']}")
+        if (st4["decode_backend"], st4["kv_pool_shards"]) != (
+                attention.BACKEND_PAGED, 2):
+            raise AssertionError(f"after the shrink: {st4['decode_backend']}, "
+                                 f"{st4['kv_pool_shards']} shards")
+        shrink_row = dict(
+            fired=[list(f) for f in shrink._inj.fired], tp=st4["tp_degree"],
+            shards_before_after=[4, 2], replays_before=old_replays,
+            dispatches_after=new_replays + 1, launches=runs4,
+            resplit_ms=round(deg[0]["resplit_s"] * 1e3, 3),
+            capture_ms=round(st4["decode_graph_capture_s"] * 1e3, 3),
+            recovery_ms=[r["ms"] for r in rec4["recoveries"]],
+            token_match_vs_tp4=token_match(got4, ref4, budgets),
+            first_difference_vs_tp4=first_difference_margin(
+                params, cfg, prompts, got4, ref4),
+            tok_s=round(generated / wall_s, 2),
+            tok_s_fault_free=round(generated / wall4, 2))
+        del shrink
+        teardown = reserved() - reserved0
+    finally:
+        obs.set_default_sink(prev_sink)
+        sink.close()
+        if prev_flight is None:
+            os.environ.pop("KATATPU_FLIGHT_DIR", None)
+        else:
+            os.environ["KATATPU_FLIGHT_DIR"] = prev_flight
+    events = obs.read_events(sink_path)
+    trips = [e for e in events if e["name"] == "guard_trip"]
+    if trips:
+        raise AssertionError(f"strict mode tripped: {trips[:2]}")
+    emit("resilience", model="gemma_2b", card=smi, config=dict(
+        PAGED_KW, **SERVE_KW, **RESILIENCE_KW), faults=RESILIENCE_FAULTS,
+        faulted=main, quarantine_drill=dict(
+            poison=poison, other_bit_equal=True, quarantined=1),
+        tp4_blocks_chip_loss=shrink_row,
+        reserved_after_teardown_bytes=teardown, events={n: sum(e["name"] == n for e in events) for n in (
+            "fault_injected", "device_stall", "recovery", "checkpoint",
+            "tp_degraded", "request_failed")})
+    return launches
+
+
 def phase_generate(params, cfg, seed: int = 0, phase: str = "generate") -> dict:
     """``generate()`` under ``KATA_TPU_DECODE_KERNEL=1``: lock-step decode
     through the dense kernel, counted; then each layer's kernel call of the
@@ -3934,6 +4269,8 @@ def main(argv: list[str]) -> int:
     launches["prefix"] = timed_phase("prefix", phase_prefix, params, cfg)
     launches["tp"], checks["paged_decode_shard"] = timed_phase(
         "tp", phase_tp, params, cfg)
+    launches["resilience"] = timed_phase("resilience", phase_resilience,
+                                         params, cfg, smi)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     del params
     torch.cuda.empty_cache()

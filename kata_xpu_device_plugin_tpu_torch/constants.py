@@ -117,3 +117,43 @@ ENV_WATCHDOG_HEADROOM_FLOOR = "KATA_TPU_WATCHDOG_HEADROOM_FLOOR"
 # Strict mode: "1"/"true"/"yes"/"on" guards every overlapped round against
 # host synchronization (compat/torchapi.py); strict= on the server wins.
 ENV_STRICT = "KATA_TPU_STRICT"
+
+# ----- crash tolerance (guest/resilience.py, guest/serving.py) ---------------
+
+# Fault schedule of the server's default injector: a comma-separated
+# ``<seam>:<round>[:<kind>[:<device>]]`` list; malformed entries are skipped
+# with a ``fault_schedule_error`` event. Its RNG seed (malformed: 0).
+ENV_FAULTS = "KATA_TPU_FAULTS"
+ENV_FAULTS_SEED = "KATA_TPU_FAULTS_SEED"
+
+# Watchdog deadline in seconds of every blocking device-to-host wait of the
+# serving loop; unset or 0 waits inline. Malformed: off, with a
+# ``fence_timeout_disabled`` event; an explicit fence_timeout_s= wins.
+ENV_FENCE_TIMEOUT = "KATA_TPU_FENCE_TIMEOUT_S"
+
+# A file whose appearance drains the server (resilience.wire_drain).
+ENV_MAINTENANCE_FILE = "KATA_TPU_MAINTENANCE_FILE"
+
+# Consecutive implicated failed rounds after which a request is failed on
+# its own (default 3, at least 1); malformed: the default, with a
+# ``quarantine_k_invalid`` event; an explicit quarantine_after= wins.
+ENV_QUARANTINE_K = "KATA_TPU_QUARANTINE_K"
+
+# First recovery backoff in seconds, doubled a consecutive failure up to
+# 5 s (default 0.05); malformed: the default, with a
+# ``recovery_backoff_invalid`` event; an explicit recovery_backoff_s= wins.
+ENV_RECOVERY_BACKOFF_S = "KATA_TPU_RECOVERY_BACKOFF_S"
+
+# Rounds between host KV checkpoints of the live lanes (0, the default:
+# none, recovery replays from the prompt); malformed: 0, with a
+# ``checkpoint_disabled`` event; an explicit checkpoint_rounds= wins.
+ENV_CHECKPOINT_ROUNDS = "KATA_TPU_CHECKPOINT_ROUNDS"
+
+# "0" turns the recovery supervisor off: a fault unwinds run().
+ENV_RECOVERY = "KATA_TPU_RECOVERY"
+
+# Degraded mode: "0" turns the tensor-parallel shrink after a permanent
+# fault off (the load then fails loudly); KATA_TPU_TP_MIN floors the
+# shrink ladder (default 1; malformed: 1, with a ``tp_min_invalid`` event).
+ENV_DEGRADED = "KATA_TPU_DEGRADED"
+ENV_TP_MIN = "KATA_TPU_TP_MIN"

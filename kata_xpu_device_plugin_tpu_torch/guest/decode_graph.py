@@ -38,15 +38,21 @@ each replay draws from the generator's offset at that moment and moves it
 on, as the same chunk run eagerly would: two replays draw fresh numbers,
 and restoring the generator's state (``get_state``/``set_state``) before a
 replay repeats an eager chunk's draws. A
-capture that fails raises; nothing drops back to eager launches. The
-kernels' launch counters count at capture and not at replay, so the
-graph takes back what the capture counted and adds it on every replay.
+capture that fails raises and leaves no graph, so the next call captures
+again; nothing drops back to eager launches. The kernels' launch counters
+count at capture and not at replay, so the graph takes back what the
+capture counted (a failed capture's too) and adds it on every replay.
+:meth:`DecodeGraph.release` drops the graph and its outputs, so that its
+private memory pool goes back to the allocator: a server calls it on the
+graphs a mesh shrink replaces. A crash recovery that resets the arena in
+place keeps the graph.
 On the CPU every call runs :func:`serve_decode` eagerly, the plain path.
 """
 from __future__ import annotations
 
 import gc
 import time
+from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
@@ -113,6 +119,38 @@ def launch_counted():
             flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def side_stream(device, role: str) -> torch.cuda.Stream:
+    """The process's one side stream of ``role`` on ``device``: ``"graph"``
+    for the warm-ups and captures of every graph, ``"slice"`` for fused
+    admission slices. cuBLAS keeps a workspace (32 MiB on Hopper) for each
+    stream it has run on and never frees it, so a stream made for each
+    graph would keep 32 MiB for every graph rebuilt or dropped."""
+    key = (torch.device(device), role)
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(key[0])
+    return _SIDE_STREAMS[key]
+
+
+@contextmanager
+def _capture_counts():
+    """Around a capture: yields a dict that receives, per counted wrapper,
+    the launches the capture counted, and puts every counter back where it
+    was, also when the capture raises."""
+    counters = launch_counted()
+    before = [fn.launches for fn in counters]
+    delta: dict = {}
+    try:
+        yield delta
+    finally:
+        for fn, n in zip(counters, before):
+            if fn.launches != n:
+                delta[fn] = fn.launches - n
+                fn.launches = n
+
+
 class DecodeGraph:
     """One server's decode chunk of one static signature (module doc)."""
 
@@ -147,8 +185,7 @@ class DecodeGraph:
                 self._in["budget"] = zeros(batch)
             if table_width:
                 self._in["block_tables"] = zeros(batch, table_width)
-            self._stream = torch.cuda.Stream(self.device)
-        self._slice_stream = None
+            self._stream = side_stream(self.device, "graph")
 
     def _run(self, tok, pos, budget=None, block_tables=None):
         return serve_decode(self.params, self.arena, tok, pos, self.cfg,
@@ -196,12 +233,11 @@ class DecodeGraph:
         ready = torch.cuda.Event()
         ready.record(cur)
         out = self(tok, pos, budget, block_tables)
-        if self._slice_stream is None:
-            self._slice_stream = torch.cuda.Stream(self.device)
-        self._slice_stream.wait_event(ready)
-        with torch.cuda.stream(self._slice_stream):
+        side = side_stream(self.device, "slice")
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
             res = slice_fn()
-        cur.wait_stream(self._slice_stream)
+        cur.wait_stream(side)
         res.record_stream(cur)
         return out, res
 
@@ -219,13 +255,12 @@ class DecodeGraph:
 
     def _capture(self) -> None:
         note_compile("graph capture")
-        counters = launch_counted()
-        before = [fn.launches for fn in counters]
         t0 = time.perf_counter()
         # torch.cuda.graph synchronizes and empties the allocator's cache
         # itself; doing it first makes the reserved bytes' growth the pool's.
         # A capture happens once a server: strict mode sanctions its syncs.
-        with allow_transfer("decode graph capture (once a signature)"):
+        with allow_transfer("decode graph capture (once a signature)"), \
+                _capture_counts() as delta:
             torch.cuda.synchronize(self.device)
             gc.collect()
             torch.cuda.empty_cache()
@@ -238,13 +273,17 @@ class DecodeGraph:
                 out = self._run(**self._in)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0
-        self._delta = {}
-        for fn, n in zip(counters, before):
-            if fn.launches != n:
-                self._delta[fn] = fn.launches - n
-                fn.launches = n
+        self._delta = delta
         self._graph, self._out = graph, out
         self.captures += 1
+
+    def release(self) -> None:
+        """Drop the captured graph and its static outputs (module doc)."""
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = self._out = None
+        self._delta = {}
+        self.pool_bytes = 0
 
 
 class PersistentRound:
@@ -299,7 +338,7 @@ class PersistentRound:
                                       zeros(batch), self.cap)
         self._tables = zeros(batch, table_width) if table_width else None
         if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = side_stream(self.device, "graph")
             self._stop_host = torch.zeros((), dtype=torch.bool, pin_memory=True)
             self._event = torch.cuda.Event()
 
@@ -377,10 +416,9 @@ class PersistentRound:
 
     def _capture(self) -> None:
         note_compile("graph capture")
-        counters = launch_counted()
-        before = [fn.launches for fn in counters]
         t0 = time.perf_counter()
-        with allow_transfer("persistent graph capture (once a server)"):
+        with allow_transfer("persistent graph capture (once a server)"), \
+                _capture_counts() as delta:
             torch.cuda.synchronize(self.device)
             gc.collect()
             torch.cuda.empty_cache()
@@ -390,10 +428,14 @@ class PersistentRound:
                 self._steps()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0
-        self._delta = {}
-        for fn, n in zip(counters, before):
-            if fn.launches != n:
-                self._delta[fn] = fn.launches - n
-                fn.launches = n
+        self._delta = delta
         self._graph = graph
         self.captures += 1
+
+    def release(self) -> None:
+        """Drop the captured graph (:meth:`DecodeGraph.release`)."""
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = None
+        self._delta = {}
+        self.pool_bytes = 0

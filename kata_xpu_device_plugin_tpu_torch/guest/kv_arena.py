@@ -231,12 +231,32 @@ class KVPool:
             dtype=self.dtype, quantized=kv_quant,
         )
         self.device = cache_leaves(self.arena)[0].device
+        self._fresh_lists()
+
+    def _fresh_lists(self) -> None:
         self._free: list[deque[int]] = [
             deque(b for b in range(s * self.shard_blocks,
                                    (s + 1) * self.shard_blocks)
                   if b >= RESERVED_BLOCKS)
             for s in range(self.shards)]
-        self._refs = np.zeros(num_blocks, np.int64)
+        self._refs = np.zeros(self.num_blocks, np.int64)
+
+    def reset(self, shards: Optional[int] = None) -> None:
+        """The pool as a new one of the same size would be, in place: every
+        block free in the constructor's order, no holder, the arena zeroed
+        (the ZERO and scratch blocks restored). The tensors stay where they
+        are: a decode graph holds their addresses. ``shards`` re-partitions
+        the sub-pools (the blocks layout after a mesh shrink); it must
+        divide the block count. The JAX server builds a fresh pool here."""
+        if shards is not None:
+            if shards < 1 or self.num_blocks % shards:
+                raise ValueError(f"{self.num_blocks} blocks do not split "
+                                 f"into {shards} shards")
+            self.shards = int(shards)
+            self.shard_blocks = self.num_blocks // self.shards
+        for t in cache_leaves(self.arena):
+            t.zero_()
+        self._fresh_lists()
 
     # -- block accounting -----------------------------------------------------
 

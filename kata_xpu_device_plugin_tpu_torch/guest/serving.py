@@ -106,11 +106,28 @@ memory (:class:`..obs.devledger.DeviceLedger`); the SLO-burn watchdog
 against host synchronization with the card. None of it changes greedy
 tokens; :meth:`export_metrics` exposes the JAX server's metric families.
 
+Crash tolerance, as in the JAX server: :meth:`GenerationServer.step` is
+supervised. A fault :func:`.resilience.classify` calls TRANSIENT (an
+injected fault at one of the seams the JAX server crosses, as often for
+the same requests, a watchdog stall of a fence, a CUDA out-of-memory
+error) resets the device state IN PLACE (the pool's free list and tables,
+the arena zeroed: the decode graph keeps its addresses, so no new
+capture), then every implicated request is restored from the last host
+checkpoint (``checkpoint_rounds``) or replays from its prompt, strict
+FIFO, and ``quarantine_after`` consecutive implicated faults fail a
+request on its own. A PERMANENT fault that names a shard (an injected
+``chip_loss`` or ``ici_error``) shrinks a tensor-parallel server's degree
+(:func:`.tp_serving.shrink_ladder`): the parameters are re-split from the
+host donor copy and the decode graph is built anew; with no rung left,
+or after a real PERMANENT CUDA error, which takes the one card, every
+unfinished request fails loudly (``chip_lost``). Neither moves decode off
+its backend. Anything else propagates after a ``fatal_error`` event.
+Recovered greedy outputs equal fault-free ones.
+
 Arguments of the JAX server that select modes not ported yet (a
-caller's training-layout ``mesh``, speculative decoding, ring caches,
-fault injection and crash recovery, the degraded mesh shrink) raise
-``NotImplementedError`` naming their ROADMAP item when set to anything
-but their no-op value.
+caller's training-layout ``mesh``, speculative decoding, ring caches)
+raise ``NotImplementedError`` naming their ROADMAP item when set to
+anything but their no-op value.
 """
 from __future__ import annotations
 
@@ -130,8 +147,10 @@ from ..compat import torchapi
 from ..constants import (
     DEFAULT_HEARTBEAT_ROUNDS,
     DEFAULT_KV_QUANT,
+    ENV_CHECKPOINT_ROUNDS,
     ENV_DECODE_ATTN,
     ENV_DECODE_STEPS,
+    ENV_FENCE_TIMEOUT,
     ENV_FUSED,
     ENV_HEARTBEAT_ROUNDS,
     ENV_ITL_SLO_MS,
@@ -142,6 +161,9 @@ from ..constants import (
     ENV_PERSISTENT,
     ENV_PREFILL_CHUNK,
     ENV_PREFIX_CACHE_TOKENS,
+    ENV_QUARANTINE_K,
+    ENV_RECOVERY,
+    ENV_RECOVERY_BACKOFF_S,
     ENV_SCHED_POLICY,
     ENV_TRACE_CTX,
 )
@@ -159,7 +181,7 @@ from ..obs.metrics import Rolling
 from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
-from . import tp_serving
+from . import resilience, tp_serving
 from .decode_graph import DecodeGraph, PersistentRound, Sampling
 from .kv_arena import (
     RESERVED_BLOCKS,
@@ -167,6 +189,7 @@ from .kv_arena import (
     HostKVTier,
     KVPool,
     PagedPrefixTier,
+    map_rows,
     pool_gather_rows,
     pool_scatter_rows,
     pool_write_batch,
@@ -176,6 +199,7 @@ from .kv_arena import (
     table_tensor,
 )
 from .prefix_cache import PrefixHit, PrefixStore, cache_bytes, cache_leaves
+from .resilience import ChipLossFault, DeviceStallError, FaultInjector, IciFault
 from .scheduler import (
     DEFAULT_ITL_SLO_MS,
     DEFAULT_PREFILL_CHUNK,
@@ -486,20 +510,18 @@ class _Section:
 # Request lifecycle phases (the JAX server's): a request is in exactly one
 # at any moment, and its ledger accrues wall time into the current one at
 # each transition, so a ``request_trace``'s phases sum to its wall time.
-# The port never decodes degraded or recovers (item 9b): those two phases
-# stay 0.
 PHASE_QUEUE = "queue"                # submit to admission grant
 PHASE_PREFILL = "prefill"            # grant to the first-token fence
 PHASE_DECODE = "decode"              # decoding rounds
-PHASE_DECODE_DEGRADED = "decode_degraded"
+PHASE_DECODE_DEGRADED = "decode_degraded"  # decoding after a mesh shrink
 PHASE_PREEMPTED = "preempted"        # spilled, waiting for the pool
-PHASE_RECOVERY = "recovery"
+PHASE_RECOVERY = "recovery"          # crash recovery: restore wait, replay
 PHASES = (PHASE_QUEUE, PHASE_PREFILL, PHASE_DECODE, PHASE_DECODE_DEGRADED,
           PHASE_PREEMPTED, PHASE_RECOVERY)
 
 # Scrape-time gauges of stats() (the JAX server's names; a server's label
-# tells instances apart). draft_acceptance and the resilience gauges read
-# 0 until their modes are ported.
+# tells instances apart). draft_acceptance reads 0 until speculative
+# decoding is ported.
 _PROM_STATS = (
     ("rounds", "Device rounds dispatched"),
     ("prefills", "Prompt prefills performed"),
@@ -617,6 +639,15 @@ _FAMILIES = {
     "fused": ("counter", "kata_tpu_serving_fused_admissions_total",
               "Chunked admissions whose slices rode fused prefill+decode "
               "dispatches", ("server",)),
+    "recover": ("counter", "kata_tpu_serving_crash_recoveries_total",
+                "Supervisor recoveries from a failed scheduler round",
+                ("server",)),
+    "quarantine": ("counter", "kata_tpu_serving_requests_quarantined_total",
+                   "Requests failed individually after K consecutive "
+                   "implicated rounds", ("server",)),
+    "stall": ("counter", "kata_tpu_serving_fence_stalls_total",
+              "Watchdog fence deadlines exceeded (real or injected)",
+              ("server",)),
 }
 
 
@@ -632,11 +663,32 @@ class _Request:
     max_new_tokens: int
     t_submit: float = 0.0
     out: list = field(default_factory=list)
+    done: bool = False
+    # Consecutive failed rounds it was implicated in (0 again after a round
+    # it survives; at quarantine_after it fails on its own), and the times
+    # crash recovery requeued it to replay from its prompt.
+    fails: int = 0
+    replays: int = 0
     # Lifecycle ledger: seconds per PHASES entry, the current phase (None
     # once its request_trace is out) and when it was entered.
     phases: dict = field(default_factory=dict)
     state: Optional[str] = PHASE_QUEUE
     t_state: float = 0.0
+
+
+@dataclass
+class _CkptEntry:
+    """One live lane's recovery checkpoint: the request, its tokens and
+    scheduling state as of the snapshot, and its KV rows on the host (the
+    preemption spill's ``[L, ceil(pos/bs)*bs, ...]`` rows when paged, the
+    lane's ``[L, 1, max_len, ...]`` slot slice when slotted). A restore
+    re-lands them verbatim, so greedy decode from there repeats the tokens
+    after the snapshot."""
+    req: _Request
+    out: list
+    pos: int
+    last: int
+    kv: Any
 
 
 @dataclass
@@ -733,6 +785,20 @@ def _tensor_leaves(tree) -> list:
     return []
 
 
+def _tree_to(tree, device: torch.device, copy: bool = False):
+    """A params tree (dicts, lists, tuples and QTensors of tensors) with
+    every tensor on ``device``; ``copy`` copies even where it already is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=copy)
+    if isinstance(tree, QTensor):
+        return QTensor(*(_tree_to(t, device, copy) for t in tree))
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, copy) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device, copy) for v in tree)
+    return tree
+
+
 def _storage_bytes(tree) -> int:
     """Device bytes a tree's tensors hold, each storage once (the shards of
     a tensor-parallel server may view one storage)."""
@@ -825,9 +891,19 @@ class GenerationServer:
     the env value degrades to ``"heads"``) and makes the pool one
     sub-pool a shard. An explicit ``tp`` below 1, with ``ring_kv`` or
     ``speculative_k``, or one the model's heads, KV features or MLP do
-    not divide, raises; the env value degrades to 1. ``tp_min`` is
-    validated as in the JAX server; the mesh shrink it floors is not
-    ported.
+    not divide, raises; the env value degrades to 1.
+
+    Crash tolerance (module doc): ``fault_injector`` (else one from
+    ``KATA_TPU_FAULTS``/``KATA_TPU_FAULTS_SEED``), ``fence_timeout_s``
+    (``KATA_TPU_FENCE_TIMEOUT_S``, 0: inline waits), ``quarantine_after``
+    (``KATA_TPU_QUARANTINE_K``, 3), ``recovery_backoff_s``
+    (``KATA_TPU_RECOVERY_BACKOFF_S``, 0.05), ``checkpoint_rounds``
+    (``KATA_TPU_CHECKPOINT_ROUNDS``, 0; refused with speculative decoding,
+    as in the JAX server), ``KATA_TPU_RECOVERY=0`` (no supervisor),
+    ``degraded`` (``KATA_TPU_DEGRADED``, on) and ``tp_min``
+    (``KATA_TPU_TP_MIN``, 1; < 1 raises). Env values degrade with the JAX
+    server's events. A ``tp > 1`` server with degraded mode on keeps a host
+    copy of the unsplit parameters to re-split after a shrink.
 
     Telemetry (module doc): ``heartbeat_rounds`` (else
     ``KATA_TPU_HEARTBEAT_ROUNDS``, else 32; 0 disables the heartbeat, the
@@ -883,6 +959,10 @@ class GenerationServer:
         self._label = f"server{next(GenerationServer._instance_ids)}"
         self._trace = (os.environ.get(ENV_TRACE_CTX, "").strip()
                        or obs.new_trace())
+        self._init_resilience(
+            fault_injector, fence_timeout_s, quarantine_after,
+            recovery_backoff_s, checkpoint_rounds,
+            speculative=bool(speculative_k) or draft is not None)
         self._tp = resolve_tp(tp, cfg, ring_kv,
                               bool(speculative_k) or draft is not None,
                               emit=self._emit, label=self._label,
@@ -896,26 +976,22 @@ class GenerationServer:
             "spec_opt_in (speculative decoding, ROADMAP Queue 1 item 11b)":
                 spec_opt_in,
             "ring_kv (ROADMAP Queue 1 item 11b)": ring_kv,
-            "checkpoint_rounds (recovery, ROADMAP Queue 1 item 9b)":
-                checkpoint_rounds,
-            "fault_injector (resilience, ROADMAP Queue 1 item 9b)":
-                fault_injector is not None,
-            "fence_timeout_s (resilience, ROADMAP Queue 1 item 9b)":
-                fence_timeout_s is not None,
-            "quarantine_after (resilience, ROADMAP Queue 1 item 9b)":
-                quarantine_after is not None,
-            "recovery_backoff_s (resilience, ROADMAP Queue 1 item 9b)":
-                recovery_backoff_s is not None,
-            "degraded=True (the mesh shrink needs fault detection, ROADMAP "
-            "Queue 1 item 9b)": degraded is True,
         }
         for what, value in unported.items():
             if value:
                 raise NotImplementedError(f"{what} is not ported yet")
-        # The shrink ladder's floor, validated as in the JAX server; the
-        # shrink itself is not ported (degraded=True raises above).
-        if tp_min is not None and int(tp_min) < 1:
-            raise ValueError(f"tp_min must be >= 1, got {tp_min}")
+        # Degraded mode: the shrink ladder's floor and the kill switch.
+        if tp_min is not None:
+            if int(tp_min) < 1:
+                raise ValueError(f"tp_min must be >= 1, got {tp_min}")
+            self._tp_min = int(tp_min)
+        else:
+            self._tp_min = tp_serving.tp_min_from_env(label=self._label,
+                                                      trace=self._trace)
+        self._degraded_ok = (tp_serving.degraded_enabled() if degraded is None
+                             else bool(degraded))
+        self._tp_initial = self._tp
+        self._tp_shrinks = 0
         if any(b < 1 or b > max_len for b in prefill_buckets):
             raise ValueError(
                 f"prefill_buckets {prefill_buckets} must lie in [1, max_len]")
@@ -929,11 +1005,15 @@ class GenerationServer:
                 f"{self.device}")
         self.cfg = cfg
         # The shards of a tensor-parallel server (every one on this device);
-        # params split across them by the serving rules.
+        # params split across them by the serving rules. The unsplit params
+        # stay on the host for a shrink to re-split (the JAX server's donor
+        # copy).
         self._mesh = (ServingMesh.for_config(cfg, self._tp, self.device)
                       if self._tp > 1 else None)
         self.params = (tp_serving_params(params, cfg, self._mesh)
                        if self._mesh is not None else params)
+        self._params_host = (_tree_to(params, torch.device("cpu"), copy=True)
+                             if self._tp > 1 and self._degraded_ok else None)
         self.max_batch, self.max_len = max_batch, max_len
         self.eos_id, self.chunk = eos_id, chunk
         self.top_k, self.top_p = top_k, top_p
@@ -1047,6 +1127,9 @@ class GenerationServer:
                                         quantized=self.kv_quant)
         self.prefix_store = self._make_prefix_store(prefix_cache_tokens,
                                                     prefix_store)
+        # An injected store may back other servers: a shrink disables it
+        # where it rebuilds an owned one.
+        self._prefix_injected = prefix_store is not None
         # The per-server prefix counters (a store may back several
         # servers), and each lane's pinned hit, released at its finish.
         self._slot_prefix: list[Optional[PrefixHit]] = [None] * max_batch
@@ -1070,36 +1153,11 @@ class GenerationServer:
         self._decode_attn, self._decode_attn_reason = (
             self._resolve_decode_attn(decode_attn))
         self._decode_attn_emitted = False
-        if (self._tp > 1 and self._kv_layout == KV_LAYOUT_HEADS
-                and not tp_serving.kv_heads_shardable(cfg, self._tp)):
-            # The JAX server's warning that the KV heads replicate across
-            # the shards; every shard here reads the one copy on the
-            # device, so the replication costs no bytes.
-            self._emit("kv_replicated", tp=self._tp,
-                       n_kv_heads=cfg.n_kv_heads, extra_bytes=0)
-        decode_kernel = None
-        if self._decode_attn == BACKEND_PAGED:
-            decode_kernel = attention.make_decode_attn_fn(
-                cfg, paged=self.paged, block_size=self.kv_block,
-                paged_len=max_len, arena_len=max_len, device=self.device,
-                mesh=self._mesh, kv_layout=self._kv_layout)
-        params = self.params
-        arena = self.kv_pool.arena if self.paged else self.arena
-        paged_kw = dict(table_width=self._nb_max if self.paged else 0,
-                        block_size=self.kv_block if self.paged else 0,
-                        paged_len=max_len if self.paged else 0)
-        # Persistent servers arm the budget mask on every dispatch, the
-        # fixed-step chunk of a fused round included (as in JAX).
-        self._decode = DecodeGraph(
-            params, arena, cfg, batch=max_batch, steps=self._dispatch_steps,
-            device=self.device, decode_kernel_fn=decode_kernel,
-            budget=self._decode_steps > 1 or self._persistent, eos_id=eos_id,
-            sampling=Sampling(self.generator, self._temp_dev, top_k, top_p)
-            if self._do_sample else None, **paged_kw)
-        self._round = PersistentRound(
-            params, arena, cfg, batch=max_batch, cap=self._persistent_cap,
-            device=self.device, decode_kernel_fn=decode_kernel,
-            eos_id=eos_id, **paged_kw) if self._persistent else None
+        self._kv_replicated_warned: set[int] = set()
+        self._note_kv_replicated()
+        # Counts of the graphs a shrink dropped: stats() stay cumulative.
+        self._retired_graphs = {"_decode": [0, 0, 0], "_round": [0, 0, 0]}
+        self._build_decode()
         # Host-side slot state: the request in each slot, its next cache
         # write position, and its last token.
         self._slot_req: list[Optional[_Request]] = [None] * max_batch
@@ -1123,6 +1181,113 @@ class GenerationServer:
         self._drain_done = False
         self._drain_announced = False
         self._init_telemetry(watchdog)
+
+    def _init_resilience(self, fault_injector, fence_timeout_s,
+                         quarantine_after, recovery_backoff_s,
+                         checkpoint_rounds, speculative: bool) -> None:
+        """The supervisor's knobs and counters (class doc), resolved as in
+        the JAX server: explicit arguments win, env values degrade with an
+        event. With every knob at its default the loop is untouched: the
+        injector's ``fire`` is one test, fences wait inline and no
+        checkpoint runs."""
+        def env_int(name, default, event):
+            return resilience.env_int(name, default, event=event,
+                                      server=self._label, trace=self._trace)
+
+        def env_float(name, default, event):
+            return resilience.env_float(name, default, event=event,
+                                        server=self._label, trace=self._trace)
+
+        self._inj = (fault_injector if fault_injector is not None
+                     else FaultInjector.from_env(label=self._label,
+                                                 trace=self._trace))
+        self._fence_timeout_s = (
+            env_float(ENV_FENCE_TIMEOUT, 0.0, "fence_timeout_disabled")
+            if fence_timeout_s is None else float(fence_timeout_s))
+        self._quarantine_k = max(1, (
+            env_int(ENV_QUARANTINE_K, 3, "quarantine_k_invalid")
+            if quarantine_after is None else int(quarantine_after)))
+        self._backoff_s = (
+            env_float(ENV_RECOVERY_BACKOFF_S, 0.05, "recovery_backoff_invalid")
+            if recovery_backoff_s is None else float(recovery_backoff_s))
+        self._supervised = os.environ.get(ENV_RECOVERY, "1") != "0"
+        ckpt = (env_int(ENV_CHECKPOINT_ROUNDS, 0, "checkpoint_disabled")
+                if checkpoint_rounds is None else int(checkpoint_rounds))
+        if ckpt > 0 and speculative:
+            # A draft's cache is a second arena the lane snapshot does not
+            # cover: an explicit cadence raises, the env's degrades.
+            if checkpoint_rounds is not None:
+                raise ValueError(
+                    f"checkpoint_rounds={ckpt} is incompatible with "
+                    "speculative/draft serving")
+            self._emit("checkpoint_disabled", reason="speculative")
+            ckpt = 0
+        self._ckpt_every = max(0, ckpt)
+        self._ckpt: dict[int, _CkptEntry] = {}
+        self._ckpt_round = 0
+        self._recoveries = 0
+        self._quarantined_n = 0
+        self._stalls = 0
+        self._checkpoints = 0
+        self._fail_streak = 0  # consecutive failed rounds: the backoff's input
+        # Crash unwind: the requests taken from the queue and not yet in a
+        # lane, and those the running fill (or a reservation, or a chunk)
+        # admits: a fault there blames them alone. A slice riding a decode
+        # dispatch is blamed with its lanes from preparation to record.
+        self._admitting: list[tuple[_Request, Optional[PrefixHit]]] = []
+        self._admit_current: list[_Request] = []
+        self._fused_blame: Optional[_Request] = None
+
+    def _note_kv_replicated(self) -> None:
+        """The JAX server's warning that the KV heads replicate across the
+        shards, once a degree (a shrink may reach another); every shard
+        here reads the one copy on the device, so it costs no bytes."""
+        if (self._tp > 1 and self._kv_layout == KV_LAYOUT_HEADS
+                and not tp_serving.kv_heads_shardable(self.cfg, self._tp)
+                and self._tp not in self._kv_replicated_warned):
+            self._kv_replicated_warned.add(self._tp)
+            self._emit("kv_replicated", tp=self._tp,
+                       n_kv_heads=self.cfg.n_kv_heads, extra_bytes=0)
+
+    def _build_decode(self) -> None:
+        """The decode executables over the current params and mesh: the
+        decode kernel's callable, the chunk's :class:`DecodeGraph` and,
+        persistent, the :class:`PersistentRound`. Built at construction and
+        again after a mesh shrink, which drops the old graphs (their pools
+        released) and so makes one new capture."""
+        for name, acc in self._retired_graphs.items():
+            old = getattr(self, name, None)
+            if old is not None:
+                acc[0] += old.captures
+                acc[1] += old.replays
+                acc[2] += getattr(old, "executed_total", 0)
+                old.release()
+        decode_kernel = None
+        if self._decode_attn == BACKEND_PAGED:
+            decode_kernel = attention.make_decode_attn_fn(
+                self.cfg, paged=self.paged, block_size=self.kv_block,
+                paged_len=self.max_len, arena_len=self.max_len,
+                device=self.device, mesh=self._mesh, kv_layout=self._kv_layout)
+        arena = self.kv_pool.arena if self.paged else self.arena
+        paged_kw = dict(table_width=self._nb_max if self.paged else 0,
+                        block_size=self.kv_block if self.paged else 0,
+                        paged_len=self.max_len if self.paged else 0)
+        # Persistent servers arm the budget mask on every dispatch, the
+        # fixed-step chunk of a fused round included (as in JAX).
+        self._decode = DecodeGraph(
+            self.params, arena, self.cfg, batch=self.max_batch,
+            steps=self._dispatch_steps, device=self.device,
+            decode_kernel_fn=decode_kernel,
+            budget=self._decode_steps > 1 or self._persistent,
+            eos_id=self.eos_id,
+            sampling=Sampling(self.generator, self._temp_dev, self.top_k,
+                              self.top_p) if self._do_sample else None,
+            **paged_kw)
+        self._round = PersistentRound(
+            self.params, arena, self.cfg, batch=self.max_batch,
+            cap=self._persistent_cap, device=self.device,
+            decode_kernel_fn=decode_kernel, eos_id=self.eos_id,
+            **paged_kw) if self._persistent else None
 
     # ----- arena model -----------------------------------------------------
 
@@ -1291,7 +1456,8 @@ class GenerationServer:
                         for p in LOOP_PHASES}
         for key in ("prefix_hits", "prefix_misses", "prefix_reused", "preempt",
                     "cow", "kv_demote", "kv_prefetch", "sched_chunk",
-                    "sched_defer", "slo", "fused"):
+                    "sched_defer", "slo", "fused", "recover", "quarantine",
+                    "stall"):
             setattr(self, f"_c_{key}", _family(key).labels(**lab))
 
     def _ledger_to(self, req: _Request, state: Optional[str],
@@ -1335,7 +1501,7 @@ class GenerationServer:
                    wall_s=round(wall, 6),
                    attributed_s=round(sum(req.phases.values()), 6),
                    tokens=len(req.out), prompt_len=len(req.prompt),
-                   replays=0, **fields)
+                   replays=req.replays, **fields)
 
     def _hb_counters(self) -> dict:
         """The cumulative counters the heartbeat turns into deltas."""
@@ -1347,7 +1513,7 @@ class GenerationServer:
             "prefix_hits": self._prefix_hits,
             "prefix_misses": self._prefix_misses,
             "preemptions": self._preemptions,
-            "recoveries": 0,  # crash recovery is not ported (item 9b)
+            "recoveries": self._recoveries,
             "kv_demotions": self._host_demotions + (
                 tier.demotions if paged_tier else 0),
             "kv_prefetches": self._host_prefetches + (
@@ -1439,7 +1605,7 @@ class GenerationServer:
             "ttft_p99_ms": round(ttft.get("p99", 0.0) * 1e3, 3),
             "slo_ms": self._sched.slo_ms,
             "tp": self._tp,
-            "tp_degraded": 0,
+            "tp_degraded": int(self._tp < self._tp_initial),
             "decode_steps": self._decode_steps,
             "persistent": int(self._persistent),
             "delivered_steps": self._last_delivered,
@@ -1553,8 +1719,11 @@ class GenerationServer:
     def failures(self) -> dict[int, str]:
         """Per-request terminal failures, ``{rid: error}``: the requests a
         drain failed before they started (or a preempted one the drained
-        pool could not re-admit). Without crash recovery (not ported) an
-        error propagates out of :meth:`run`."""
+        pool could not re-admit), those quarantined after
+        ``quarantine_after`` consecutive faults, and every unfinished one
+        when a permanent fault left no degraded configuration (reason
+        ``chip_lost``). Every submitted rid ends in exactly one of the
+        results and this."""
         return dict(self._failures)
 
     def request_drain(self, reason: str = "api") -> None:
@@ -1600,6 +1769,7 @@ class GenerationServer:
         package's own, each shard's fullest at a dispatch. ``arena_bytes``
         counts the one copy the shards share on this device."""
         pool, exe, rnd = self.kv_pool, self._decode, self._round
+        old_exe, old_rnd = (self._retired_graphs[k] for k in ("_decode", "_round"))
         store, host = self.prefix_store, self._kv_host
         tier = store if isinstance(store, PagedPrefixTier) else None
         lookups = self._prefix_hits + self._prefix_misses
@@ -1637,8 +1807,8 @@ class GenerationServer:
             "kv_pool_occupancy_peak": self._occupancy_peak,
             "failed_requests": len(self._failures),
             "draining": self._draining,
-            "decode_graph_captures": exe.captures,
-            "decode_graph_replays": exe.replays,
+            "decode_graph_captures": exe.captures + old_exe[0],
+            "decode_graph_replays": exe.replays + old_exe[1],
             "decode_graph_capture_s": round(exe.capture_s, 6),
             "decode_graph_pool_bytes": exe.pool_bytes,
             **self._sched.stats(),
@@ -1651,9 +1821,10 @@ class GenerationServer:
             "delivered_steps_total": self._delivered_total,
             "persistent_exits": dict(self._persistent_exits),
             "delivered_lane_steps": self._delivered_lane_steps,
-            "persistent_steps_executed": rnd.executed_total if rnd else 0,
-            "persistent_graph_captures": rnd.captures if rnd else 0,
-            "persistent_graph_replays": rnd.replays if rnd else 0,
+            "persistent_steps_executed": (rnd.executed_total + old_rnd[2]
+                                          if rnd else 0),
+            "persistent_graph_captures": rnd.captures + old_rnd[0] if rnd else 0,
+            "persistent_graph_replays": rnd.replays + old_rnd[1] if rnd else 0,
             "prefix_hits": self._prefix_hits,
             "prefix_misses": self._prefix_misses,
             "prefix_tokens_reused": self._prefix_tokens_reused,
@@ -1676,8 +1847,13 @@ class GenerationServer:
             "kv_layout": self._kv_layout,
             "kv_pool_shards": pool.shards if pool else 1,
             "tp_degree": self._tp,
-            "tp_degraded": 0,  # no mesh shrink without fault detection
-            "tp_shrinks": 0,
+            "tp_degraded": int(self._tp < self._tp_initial),
+            "tp_shrinks": self._tp_shrinks,
+            "recoveries": self._recoveries,
+            "quarantined": self._quarantined_n,
+            "device_stalls": self._stalls,
+            "checkpoints": self._checkpoints,
+            "checkpoint_rounds": self._ckpt_every,
             "kv_pool_shard_occupancy": self._pool_shard_occupancy(),
             "kv_pool_shard_occupancy_peak": list(self._shard_peak),
             **self._telemetry_stats(),
@@ -1805,8 +1981,10 @@ class GenerationServer:
                                          "re-admit")
                     continue
                 return  # strict FIFO: nothing admits past it
-            if self._draining:
-                return  # queued work never started: _finish_drain fails it
+            if self._draining and not self._queue[0].replays:
+                # Queued work that never started: _finish_drain fails it.
+                # Crash-recovery replays started: they admit and finish.
+                return
             directive = self._sched.directive(
                 live_lanes=sum(r is not None for r in self._slot_req),
                 pending_tokens=self._cold_cost(self._queue[0]))
@@ -1829,29 +2007,50 @@ class GenerationServer:
             it = iter(free)
             for (_seg, _m, pad_len), pairs in hit_groups.items():
                 reqs, hits = zip(*pairs)
+                self._admit_current = list(reqs)
                 self._fill_slots([next(it) for _ in reqs], list(reqs), pad_len,
                                  list(hits))
             for pad_len, reqs in groups.items():
+                self._admit_current = list(reqs)
                 self._fill_slots([next(it) for _ in reqs], reqs, pad_len)
+            self._admitting = []
+            self._admit_current = []
 
     def _take(self, n_free: int) -> list:
         """Pop one pass's admitted set: the FIFO prefix of the queue that
         fits ``n_free`` lanes and, paged, whose block reservations succeed;
         the first request the pool cannot hold stays at the head and ends
         the pass. Each lookup pins its hit, and a failed reservation undoes
-        the lookup wholly. Returns ``[(request, hit or None)]``."""
-        take = []
+        the lookup wholly. Returns ``[(request, hit or None)]``, which is
+        also ``_admitting``: a request leaves the queue and joins it in one
+        step, so a fault anywhere before its lane finds it there. While a
+        request is reserved, a fault blames it alone. Draining, only
+        crash-recovery replays are taken."""
+        take = self._admitting = []
         while self._queue and len(take) < n_free:
             req = self._queue[0]
+            if self._draining and not req.replays:
+                break
+            self._admit_current = [req]
             hit = self._prefix_lookup_raw(req)
-            if self.paged and not self._reserve_lane_blocks(req, hit):
+            try:
+                reserved = not self.paged or self._reserve_lane_blocks(req, hit)
+            except BaseException:
+                if self.prefix_store is not None:
+                    self.prefix_store.unlookup(hit)
+                raise
+            self._admit_current = []
+            if not reserved:
                 if self.prefix_store is not None:
                     self.prefix_store.unlookup(hit)
                 break
             self._count_prefix(hit)
             self._queue.popleft()
             self._sched.note_queue_delay(time.perf_counter() - req.t_submit)
-            self._ledger_to(req, PHASE_PREFILL)  # admission granted
+            if req.state != PHASE_RECOVERY:
+                # Admission granted; a replay stays in recovery until its
+                # first token.
+                self._ledger_to(req, PHASE_PREFILL)
             take.append((req, hit))
         return take
 
@@ -1955,9 +2154,11 @@ class GenerationServer:
         ev = {"batched": n} if n >= 2 else {}
         if hits:
             ev["prefix_reused"] = m
+        self._inj.fire("prefill")
         with obs.span(name, **attrs) as sp:
             tokens = torch.from_numpy(tokens).to(self.device)
             if hits:
+                self._inj.fire("store_gather")
                 caches = self.prefix_store.materialize(hits[0], self.max_len,
                                                        n=n)
                 _c, last_logits, _pos = prefill_suffix(
@@ -1974,6 +2175,7 @@ class GenerationServer:
                                  self.top_p).cpu().numpy()
         t_first = time.perf_counter()
         self._sched.note_prefill(n * pad_len, sp.duration_s)
+        self._inj.fire("admission_commit")
         self._commit(slots, reqs, caches)
         if n >= 2:
             self._batch_prefills += 1
@@ -1991,10 +2193,14 @@ class GenerationServer:
         req.out.append(first)
         self._prefills += 1
         self._emitted += 1
-        self._ledger_to(req, PHASE_DECODE, now=t_first)
+        self._ledger_to(req, self._decode_state(), now=t_first)
         ttft = t_first - req.t_submit
         self._ttft.observe(ttft)
         self._h_ttft.observe(ttft)
+        if req.replays:
+            # A crash-recovery replay: its TTFT holds the recovery, and
+            # says so.
+            event_fields = {**event_fields, "replay": req.replays}
         self._emit("ttft", rid=req.rid, ttft_s=round(ttft, 6),
                    prompt_len=len(req.prompt), queued=len(self._queue),
                    **event_fields)
@@ -2003,6 +2209,8 @@ class GenerationServer:
         self._pos[b] = pos
         self._last[b] = first
         self._fresh_rows.add(b)  # overlap: override the in-flight row
+        # In a lane: no longer mid-admission for a crash unwind.
+        self._admitting = [(r, h) for r, h in self._admitting if r is not req]
         self._maybe_finish(b, [first])
 
     # ----- chunked admission -----------------------------------------------
@@ -2024,6 +2232,7 @@ class GenerationServer:
             return False
         req, hit = take[0]
         if hit is not None:
+            self._inj.fire("store_gather")
             caches = self.prefix_store.materialize(hit, self.max_len)
         else:
             caches = init_kv_caches(self.cfg, 1, self.max_len,
@@ -2101,6 +2310,10 @@ class GenerationServer:
         suffix, take, width = self._slice_geometry(p)
         last = p.offset + take >= len(p.req.prompt)
         first = None
+        # A fault in this chunk blames its request alone.
+        self._admit_current = [p.req]
+        self._inj.fire("sched_tick")
+        self._inj.fire("prefill")
         with obs.span("serving.prefill_chunk", trace_id=self._trace,
                       server=self._label, rid=p.req.rid, offset=p.offset,
                       chunk_len=take, padded_len=width, tokens=take) as sp:
@@ -2108,16 +2321,18 @@ class GenerationServer:
             if last:
                 first = int(self._sample_first(logits))
             else:
-                sp.fence(logits)
+                self._fence_stream(seam="fence")  # watchdog-bounded
         t_done = time.perf_counter()
         p.offset += take
         p.chunks += 1
         self._sched.chunks += 1
         self._c_sched_chunk.inc()
         self._sched.note_prefill(width, sp.duration_s)
-        if last:
-            self._commit_partial(p, first, t_done)
-        return last
+        if not last:
+            self._admit_current = []
+            return False
+        self._commit_partial(p, first, t_done)
+        return True
 
     def _sample_first(self, logits: torch.Tensor) -> int:
         return int(_next_token(logits, self.generator, self._do_sample,
@@ -2130,6 +2345,7 @@ class GenerationServer:
         lanes while it is head-of-line), the same way for the inline and
         the fused final slice."""
         req = p.req
+        self._inj.fire("admission_commit")
         b = next(i for i in range(self.max_batch) if self._slot_req[i] is None)
         self._commit([b], [req], p.caches)
         self._partial = None
@@ -2139,6 +2355,7 @@ class GenerationServer:
         self._finish_admission(b, req, first, len(req.prompt), t_first,
                                hit=p.hit, prefix_reused=p.reused,
                                chunked=p.chunks, fused=p.fused)
+        self._admit_current = []
 
     def _prepare_fused_chunk(self) -> Optional[tuple]:
         """Take the pending slice for a fused dispatch, advancing the
@@ -2153,7 +2370,11 @@ class GenerationServer:
         n = len(p.req.prompt)
         if p.offset >= n:
             return None  # the final slice is already in flight
+        # The slice's request joins the dispatch's blame cohort until its
+        # record is made.
+        self._fused_blame = p.req
         suffix, take, width = self._slice_geometry(p)
+        self._inj.fire("sched_tick")
         offset = p.offset
         p.offset += take
         p.chunks += 1
@@ -2170,6 +2391,7 @@ class GenerationServer:
             return
         with torchapi.allow_transfer("fused admission commit + first token"):
             first = self._sample_first(fc.logits)
+            self._admit_current = [fc.partial.req]
             self._commit_partial(fc.partial, first, time.perf_counter())
 
     def _maybe_finish(self, b: int, new_tokens: list) -> None:
@@ -2182,6 +2404,7 @@ class GenerationServer:
         if hit_eos or len(req.out) >= req.max_new_tokens:
             req.out = req.out[: req.max_new_tokens]
             self._results[req.rid] = np.asarray(req.out, np.int32)
+            req.done = True
             self._finish_trace(req, outcome="completed")
             self._slot_req[b] = None
             self._release_prefix(b)
@@ -2218,7 +2441,9 @@ class GenerationServer:
         """``n`` pool blocks, evicting (or, with a host tier, demoting)
         unpinned prefix-tier segments LRU first under pressure; None when
         live state holds everything. Every allocation for a lane comes
-        through here, so the tier always gives way before a preemption."""
+        through here, so the tier always gives way before a preemption.
+        The ``pool_alloc`` seam."""
+        self._inj.fire("pool_alloc")
         got = self.kv_pool.try_alloc(n)
         while got is None:
             tier = self.prefix_store
@@ -2368,7 +2593,7 @@ class GenerationServer:
             self._kv_host.pop(("spill", pre.req.rid))
             self._host_prefetches += 1
             self._c_kv_prefetch.inc()
-        self._ledger_to(pre.req, PHASE_DECODE)  # restored: decoding again
+        self._ledger_to(pre.req, self._decode_state())  # decoding again
         self._emit("kv_resume", rid=pre.req.rid, pos=pre.pos,
                    waiting=len(self._preempted), queued=len(self._queue),
                    prefetched=int(staged))
@@ -2447,27 +2672,29 @@ class GenerationServer:
     # ----- the round loop --------------------------------------------------
 
     def step(self) -> bool:
-        """One round of the server's loop: :meth:`_step_overlapped` by
-        default, :meth:`_step_lockstep` with ``overlap=False``. A requested
-        drain finishes here once nothing is in flight. Returns False when
-        the queue, the wait list, the lanes and the pipeline are empty."""
+        """One SUPERVISED round of the server's loop: :meth:`_step_overlapped`
+        by default, :meth:`_step_lockstep` with ``overlap=False`` or
+        persistent rounds. A fault :func:`.resilience.recoverable` takes
+        runs :meth:`_recover` in place of unwinding :meth:`run`; anything
+        else, or any fault under ``KATA_TPU_RECOVERY=0``, emits
+        ``fatal_error`` (the flight ring dumps on it) and propagates. A round
+        that completes resets the failure streaks and takes the periodic
+        checkpoint, inside the supervised region. A requested drain
+        finishes here once nothing is in flight. Returns False when the
+        queue, the wait list, the lanes and the pipeline are empty."""
         if self._draining and not self._drain_announced:
             self._drain_announced = True
             self._emit("drain_begin", reason=self._drain_reason,
                        queued=len(self._queue),
                        slots_busy=sum(r is not None for r in self._slot_req))
-        # Persistent rounds run lock-step: the host reads the delivered
-        # count at the fence before it can schedule the next round. Under
-        # strict the overlapped round is guarded against host syncs.
-        if self.overlap and not self._persistent:
-            if self.strict:
-                with torchapi.strict_mode(scope="serving.decode_dispatch",
-                                          device=self.device):
-                    alive = self._step_overlapped()
-            else:
-                alive = self._step_overlapped()
-        else:
-            alive = self._step_lockstep()
+        try:
+            alive = self._step_inner()
+            self._note_progress()
+        except BaseException as exc:
+            if not (self._supervised and resilience.recoverable(exc)):
+                self._emit_fatal(exc)
+                raise
+            alive = self._recover(exc)
         if self._draining and not self._drain_done and self._drain_idle():
             self._finish_drain()
             alive = False
@@ -2478,18 +2705,38 @@ class GenerationServer:
             self._watchdog.close()
         return alive
 
+    def _step_inner(self) -> bool:
+        """Persistent rounds run lock-step: the host reads the delivered
+        count at the fence before it can schedule the next round. Under
+        strict the overlapped round is guarded against host syncs."""
+        if self.overlap and not self._persistent:
+            if self.strict:
+                with torchapi.strict_mode(scope="serving.decode_dispatch",
+                                          device=self.device):
+                    return self._step_overlapped()
+            return self._step_overlapped()
+        return self._step_lockstep()
+
+    def _emit_fatal(self, exc: BaseException) -> None:
+        self._emit("fatal_error", error=f"{type(exc).__name__}: {exc}"[:200],
+                   queued=len(self._queue),
+                   slots_busy=sum(r is not None for r in self._slot_req))
+
     def _drain_idle(self) -> bool:
-        """Nothing in flight: no chunk, no busy lane, no chunked admission,
-        no preempted spill (spills are started work; the next admission
-        resumes them)."""
+        """Nothing in flight: no chunk, no busy lane, no chunked or other
+        mid-admission work, no preempted spill and no crash-recovery replay
+        in the queue (all started work, which finishes before the drain
+        closes)."""
         return (self._inflight is None and not self._preempted
-                and self._partial is None
-                and all(r is None for r in self._slot_req))
+                and self._partial is None and not self._admitting
+                and all(r is None for r in self._slot_req)
+                and not any(r.replays for r in self._queue))
 
     def _finish_drain(self) -> None:
         """Fail everything that never started, with the JAX server's
-        messages. Every submitted request is now in the results or in
-        :meth:`failures`."""
+        messages, drop the checkpoint (its final ``checkpoint`` event) and
+        close the drain. Every submitted request is now in the results or
+        in :meth:`failures`."""
         failed = 0
         while self._preempted:
             self._fail_preempted(f"drained mid-flight ({self._drain_reason})")
@@ -2498,25 +2745,421 @@ class GenerationServer:
             self._fail_request(self._queue.popleft(), "drained",
                                f"drained before start ({self._drain_reason})")
             failed += 1
+        self._ckpt = {}
+        self._emit("checkpoint", round=self._rounds, lanes=0, tokens=0,
+                   final=True)
         self._emit("drain", reason=self._drain_reason,
                    completed=len(self._results), failed=failed)
         self._drain_done = True
 
     def _fail_preempted(self, error: str) -> None:
-        """Fail the oldest preempted request, its host-tier accounting
-        released with it."""
-        pre = self._preempted.popleft()
-        if self._kv_host is not None:
-            self._kv_host.pop(("spill", pre.req.rid))
-        self._fail_request(pre.req, "drained", error)
+        """Fail the oldest preempted request."""
+        self._fail_request(self._preempted.popleft().req, "drained", error)
 
-    def _fail_request(self, req: _Request, reason: str, error: str) -> None:
+    def _fail_request(self, req: _Request, reason: str, error: str = "") -> None:
         """A request's terminal failure: :meth:`failures`, a
-        ``request_failed`` event and its ``request_trace``."""
-        self._failures[req.rid] = error
+        ``request_failed`` event and its ``request_trace``; never retried.
+        Its host-tier accounting and any staged upload of its spill go
+        with it."""
+        req.done = True
+        self._failures[req.rid] = error or reason
+        if self._kv_host is not None:
+            self._kv_host.pop(("spill", req.rid))
+        stage = self._stage
+        if stage is not None and stage.rid == req.rid:
+            self._stage = None
+            if stage.done is not None:  # held until its upload completes
+                self._h2d_inflight.append(stage)
         self._emit("request_failed", rid=req.rid, reason=reason,
-                   error=error[:200], emitted=len(req.out))
+                   error=(error or reason)[:200], emitted=len(req.out))
         self._finish_trace(req, outcome="failed", reason=reason)
+
+    # ----- recovery supervisor ----------------------------------------------
+
+    def _decode_state(self) -> str:
+        """The ledger phase of decoding: ``decode_degraded`` once a shrink
+        left the server below its first degree."""
+        return (PHASE_DECODE_DEGRADED if self._tp < self._tp_initial
+                else PHASE_DECODE)
+
+    def _note_progress(self) -> None:
+        """A round completed: reset the backoff streak and every lane's
+        implication count, then take the periodic checkpoint when the
+        cadence says so."""
+        self._fail_streak = 0
+        for req in self._slot_req:
+            if req is not None:
+                req.fails = 0
+        if (self._ckpt_every
+                and self._rounds - self._ckpt_round >= self._ckpt_every):
+            with self._clock.section(LOOP_PHASE_HOST):
+                self._checkpoint()
+
+    def _checkpoint(self) -> None:
+        """Snapshot every live lane's KV rows to the host with the state a
+        restore needs (the preemption spill's rows when paged, the lane's
+        slot slice when slotted), then wait, watchdog-bounded, for the
+        copies. Under overlap the host's ``pos``/``out`` are the retired
+        state and the rows may hold the chunk in flight past ``pos``, which
+        decode overwrites before it reads them. A sanctioned sync at the
+        checkpoint cadence, never a round's."""
+        entries: dict[int, _CkptEntry] = {}
+        tokens = 0
+        bs = self.kv_block
+        with torchapi.allow_transfer("recovery checkpoint spill"):
+            for b in range(self.max_batch):
+                req = self._slot_req[b]
+                if req is None or req.done:
+                    continue
+                pos = int(self._pos[b])
+                if self.paged:
+                    rows = pool_gather_rows(
+                        self.kv_pool.arena, table_tensor(
+                            self._lane_blocks[b][: -(-pos // bs)], self.device),
+                        bs)
+                else:  # a copy: the host rows must not alias the arena
+                    rows = map_rows(self.arena,
+                                    lambda a, b=b: a[:, b:b + 1].clone())
+                entries[req.rid] = _CkptEntry(
+                    req=req, out=list(req.out), pos=pos,
+                    last=int(self._last[b]), kv=rows_to_host(rows))
+                tokens += pos
+            self._fence_stream(seam="checkpoint")
+        self._ckpt = entries
+        self._ckpt_round = self._rounds
+        self._checkpoints += 1
+        self._emit("checkpoint", round=self._rounds, lanes=len(entries),
+                   tokens=tokens)
+
+    def _recover(self, exc: BaseException) -> bool:
+        """Rebuild after a failed round, as the JAX server does. A
+        PERMANENT fault first shrinks the mesh (:meth:`_degrade_mesh`) or,
+        with no rung left, fails the whole load (:meth:`_fail_all`). The
+        blamed set is the running fill's requests when the fault was in
+        one (a reservation's, a chunk's), else every lane resident, the
+        chunk in flight's and a slice riding it; a blamed request that
+        reaches ``quarantine_after`` consecutive faults fails on its own.
+        Then the device state is reset in place and every other implicated
+        request is restored from the checkpoint or requeued, strict FIFO,
+        to replay from its prompt; a fault inside the restore resets once
+        more and replays them all. The backoff doubles with the streak,
+        to at most 5 s."""
+        err = f"{type(exc).__name__}: {exc}"[:200]
+        self._fail_streak += 1
+        self._recoveries += 1
+        self._c_recover.inc()
+        if isinstance(exc, DeviceStallError):
+            self._stalls += 1
+            self._c_stall.inc()
+        if resilience.classify(exc) == resilience.PERMANENT:
+            if not self._degrade_mesh(exc):
+                return self._fail_all(err)
+        blamed = {r.rid for r in self._admit_current if not r.done}
+        if not blamed:
+            cohort = [r for r in self._slot_req if r is not None]
+            if self._inflight is not None:
+                cohort += [r for _b, r in self._inflight.slots]
+            for fc in (self._fused_ret,
+                       self._inflight.fused if self._inflight else None):
+                if fc is not None:
+                    cohort.append(fc.partial.req)
+            if self._fused_blame is not None:
+                cohort.append(self._fused_blame)
+            blamed = {r.rid for r in cohort if not r.done}
+        lost = self._unfinished()
+        # A blamed request still queued (a reservation's fault) joins the
+        # lost set, so that its quarantine streak counts.
+        for req in [r for r in self._queue
+                    if r.rid in blamed and r.rid not in lost]:
+            self._queue.remove(req)
+            lost[req.rid] = req
+        self._release_prefix_state()
+        quarantined = 0
+        survivors: list[_Request] = []
+        for rid in sorted(lost):
+            req = lost[rid]
+            if rid in blamed:
+                req.fails += 1
+            if req.fails >= self._quarantine_k:
+                self._fail_request(req, "quarantined", err)
+                self._ckpt.pop(rid, None)
+                self._quarantined_n += 1
+                self._c_quarantine.inc()
+                quarantined += 1
+            else:
+                self._ledger_to(req, PHASE_RECOVERY)
+                survivors.append(req)
+        self._reset_device_state()
+        restored = 0
+        replay: list[_Request] = []
+        lanes = iter(range(self.max_batch))
+        try:
+            with torchapi.allow_transfer("crash recovery restore"):
+                for req in survivors:  # rid order
+                    entry = self._ckpt.get(req.rid)
+                    if entry is not None and self._restore_lane(next(lanes),
+                                                                entry):
+                        restored += 1
+                    else:
+                        req.out = []
+                        req.replays += 1
+                        replay.append(req)
+        except BaseException as exc2:
+            if not (self._supervised and resilience.recoverable(exc2)):
+                raise
+            if (resilience.classify(exc2) == resilience.PERMANENT
+                    and not self._degrade_mesh(exc2)):
+                # No rung left: the survivors not in a lane go back to the
+                # queue first, so that _fail_all fails every one of them.
+                in_lane = {r.rid for r in self._slot_req if r is not None}
+                self._queue.extendleft(reversed(
+                    [r for r in survivors if r.rid not in in_lane]))
+                return self._fail_all(f"{type(exc2).__name__}: {exc2}"[:200])
+            # The half-restored state is not to be trusted: reset once more
+            # and replay every survivor from its prompt.
+            self._reset_device_state()
+            counted = {r.rid for r in replay}
+            restored = 0
+            for req in survivors:
+                if req.rid not in counted:
+                    req.replays += 1
+                req.out = []
+                self._ledger_to(req, PHASE_RECOVERY)
+            replay = list(survivors)
+        if replay:
+            self._queue.extendleft(reversed(replay))
+        if self.paged:
+            self._preempted = deque(sorted(self._preempted,
+                                           key=lambda p: p.req.rid))
+        backoff = (min(self._backoff_s * 2 ** (self._fail_streak - 1), 5.0)
+                   if self._backoff_s > 0 else 0.0)
+        self._emit("recovery", error=err, restored=restored,
+                   requeued=len(replay), quarantined=quarantined,
+                   streak=self._fail_streak, backoff_s=round(backoff, 4))
+        if backoff:
+            time.sleep(backoff)
+        return (bool(self._queue) or bool(self._preempted)
+                or any(r is not None for r in self._slot_req))
+
+    def _unfinished(self) -> dict[int, _Request]:
+        """The unfinished requests a failed round takes down: lane
+        residents, the chunk in flight's, and those mid-admission."""
+        lost: dict[int, _Request] = {}
+        reqs = [r for r in self._slot_req if r is not None]
+        if self._inflight is not None:
+            reqs += [r for _b, r in self._inflight.slots]
+        reqs += [r for r, _h in self._admitting]
+        for req in reqs:
+            if not req.done:
+                lost[req.rid] = req
+        return lost
+
+    def _release_prefix_state(self) -> None:
+        """Release every lane's prefix pin and cancel the mid-admission
+        lookups against a slotted server's store (a paged tier is rebuilt
+        with its pool), then strip the hits from ``_admitting`` so that
+        nothing releases them twice."""
+        store = self.prefix_store
+        if isinstance(store, PrefixStore):
+            for hit in self._slot_prefix:
+                if hit is not None:
+                    store.release(hit)
+            for _req, hit in self._admitting:
+                if hit is not None:
+                    store.cancel(hit)
+        self._slot_prefix = [None] * self.max_batch
+        self._admitting = [(r, None) for r, _h in self._admitting]
+
+    def _degrade_mesh(self, exc: BaseException) -> bool:
+        """The shrink after a PERMANENT fault: the next rung of
+        :func:`.tp_serving.shrink_ladder` over the survivors (an injected
+        ``chip_loss`` loses one shard, ``ici_error`` none), the params
+        re-split from the host copy at the new degree, the decode kernel's
+        callable and graphs built anew (one new capture), and a slotted
+        server's own prefix store rebuilt empty (an injected one is
+        disabled). The caller's pass then resets the pool, re-partitioned
+        for the blocks layout, and restores or replays. False, after a
+        ``chip_loss_fatal`` event, when no rung exists: a server at one
+        shard, degraded mode off, the ``tp_min`` floor, or a real CUDA
+        error, which takes the one card and every shard on it."""
+        if isinstance(exc, ChipLossFault):
+            reason, survivors = f"chip_loss:{exc.device_index}", self._tp - 1
+        elif isinstance(exc, IciFault):
+            reason, survivors = "ici_error", self._tp
+        else:
+            reason, survivors = "cuda_error", 0
+        if self._tp <= 1 or not self._degraded_ok or survivors == 0:
+            why = "degraded_disabled" if not self._degraded_ok else "single_chip"
+            self._emit("chip_loss_fatal", reason=reason, tp=self._tp, why=why)
+            return False
+        new_tp = tp_serving.shrink_ladder(self._tp, survivors, self._tp_min)
+        if new_tp is None:
+            self._emit("chip_loss_fatal", reason=reason, tp=self._tp,
+                       why=f"tp_min_floor:{self._tp_min}", survivors=survivors)
+            return False
+        t0 = time.perf_counter()
+        old_tp = self._tp
+        self._release_prefix_state()
+        if isinstance(self.prefix_store, PrefixStore):
+            if self._prefix_injected:
+                self._emit("prefix_store_disabled", reason="tp_degraded")
+                self.prefix_store = None
+            else:
+                self.prefix_store = PrefixStore(
+                    self.cfg, self.prefix_store.capacity_tokens,
+                    self.prefill_buckets, kv_quant=self.kv_quant,
+                    device=self.device, label=self._label)
+        self._tp = new_tp
+        with torchapi.allow_transfer("degraded-mode shrink: the params "
+                                     "re-split from the host copy"):
+            params = _tree_to(self._params_host, self.device)
+            self._mesh = (ServingMesh.for_config(self.cfg, new_tp, self.device)
+                          if new_tp > 1 else None)
+            self.params = (tp_serving_params(params, self.cfg, self._mesh)
+                           if self._mesh is not None else params)
+            self._build_decode()
+        self._shard_peak = self._shard_peak[:new_tp]
+        self._tp_shrinks += 1
+        # The scheduler's rates were measured at the old degree.
+        self._sched.reset_estimates()
+        self._emit("tp_degraded", reason=reason, old_tp=old_tp, tp=new_tp,
+                   survivors=survivors, tp_min=self._tp_min,
+                   resplit_s=round(time.perf_counter() - t0, 6))
+        return True
+
+    def _fail_all(self, err: str) -> bool:
+        """No degraded configuration exists: every unfinished request (lane
+        residents, the chunk in flight's, mid-admission work, preempted
+        spills, the queue) fails loudly (``chip_lost``) BEFORE the device
+        state is reset, so that when the reset itself raises (the card's
+        context is gone) none vanish; its error then propagates after a
+        ``fatal_error`` event. Results already banked stay."""
+        lost = self._unfinished()
+        for req in [p.req for p in self._preempted] + list(self._queue):
+            if not req.done:
+                lost[req.rid] = req
+        self._preempted.clear()
+        self._queue.clear()
+        self._release_prefix_state()
+        self._ckpt = {}
+        for rid in sorted(lost):
+            self._fail_request(lost[rid], "chip_lost", err)
+        try:
+            self._reset_device_state()
+        except BaseException as exc:
+            self._emit_fatal(exc)
+            raise
+        self._emit("recovery", error=err, restored=0, requeued=0,
+                   quarantined=0, failed=len(lost), streak=self._fail_streak,
+                   backoff_s=0.0)
+        return False
+
+    def _reset_device_state(self) -> None:
+        """The device state after a failed round, IN PLACE (the JAX server
+        builds a fresh pool or arena; here the decode graphs hold their
+        addresses): the card quiesced (the chunk in flight, the resume
+        uploads' side stream), the pool's free list, counts and tables as
+        new and its blocks zeroed, or the slotted arena zeroed, and the
+        host mirrors of device work cleared. A paged prefix tier dies with
+        its pool's contents: its traffic counts fold into the server's and
+        its demoted segments leave the host tier. Host-side request state
+        (queue, results, failures, checkpoint, preempted spills) stays. The
+        host mirrors clear first: when the card's context is gone and the
+        device part raises, the server holds no lane of a failed load."""
+        self._slot_req = [None] * self.max_batch
+        self._inflight = None
+        self._fresh_rows.clear()
+        self._partial = None
+        self._fuse_pending = False
+        self._fused_ret = None
+        self._fused_blame = None
+        self._persistent_fut = None
+        self._admitting = []
+        self._admit_current = []
+        if self.paged:
+            self._lane_blocks = [[] for _ in range(self.max_batch)]
+            self._bt_host[:] = SCRATCH_BLOCK
+            self._plans.clear()
+        if self.device.type == "cuda":
+            with torchapi.allow_transfer("crash recovery: the card quiesced "
+                                         "before the in-place reset"):
+                torch.cuda.synchronize(self.device)
+        if self.paged:
+            self.kv_pool.reset(shards=self._kv_shards())
+            self._stage = None
+            self._h2d_inflight = []
+            tier = self.prefix_store
+            if isinstance(tier, PagedPrefixTier):
+                self._host_demotions += tier.demotions
+                self._host_prefetches += tier.prefetches
+                if self._kv_host is not None:
+                    self._kv_host.drop_unpinned()
+                self.prefix_store = PagedPrefixTier(
+                    self.kv_pool, self.cfg, self.prefill_buckets,
+                    host_tier=self._kv_host, label=self._label,
+                    on_demote=self._c_kv_demote.inc,
+                    on_prefetch=self._c_kv_prefetch.inc)
+        else:
+            for t in cache_leaves(self.arena):
+                t.zero_()
+        self._note_kv_replicated()
+
+    def _restore_lane(self, b: int, entry: _CkptEntry) -> bool:
+        """Re-land one checkpointed request in lane ``b``: its KV rows
+        verbatim, its tokens cut back to the snapshot, decode resuming at
+        the snapshot's ``pos``/``last`` (the preemption restore's argument:
+        greedy output does not change). False when the pool cannot hold the
+        rows now; the caller requeues it to replay instead."""
+        req = entry.req
+        rows = rows_to_device(entry.kv, self.device)
+        if self.paged:
+            blocks = self._alloc_blocks(-(-entry.pos // self.kv_block))
+            if blocks is None:
+                return False
+            pool_scatter_rows(self.kv_pool.arena, rows,
+                              table_tensor(blocks, self.device), self.kv_block)
+            self._set_lane_table(b, blocks)
+        else:
+            _write_slots(self.arena, rows, torch.as_tensor(
+                [b], dtype=torch.long, device=self.device))
+        req.out = list(entry.out)
+        self._slot_req[b] = req
+        self._slot_prefix[b] = None
+        self._pos[b] = entry.pos
+        self._last[b] = entry.last
+        self._fresh_rows.add(b)
+        self._ledger_to(req, self._decode_state())  # restored: decoding
+        return True
+
+    def _fence_wait(self, wait, seam: str = "fence", inject: bool = True):
+        """One blocking device-to-host wait through the watchdog fence
+        (:func:`.resilience.fence_with_timeout`): the injector's seam first
+        (``inject=False`` skips it: recovery machinery is no seam), then the
+        wait, on a worker thread that makes the server's card current when
+        ``fence_timeout_s`` is set. A sanctioned region of strict mode, as
+        the retire it wraps."""
+        fn = wait
+        if self._fence_timeout_s > 0 and self.device.type == "cuda":
+            device = self.device
+
+            def fn():
+                torch.cuda.set_device(device)
+                return wait()
+        with torchapi.allow_transfer("watchdog fence (a retire or a "
+                                     "checkpoint's wait)"):
+            return resilience.fence_with_timeout(
+                fn, timeout_s=self._fence_timeout_s, seam=seam,
+                injector=self._inj if inject else None, server=self._label,
+                trace=self._trace)
+
+    def _fence_stream(self, seam: str) -> None:
+        """Wait, watchdog-bounded and crossing no seam, for everything queued
+        on the current stream (nothing to wait for on the CPU)."""
+        if self.device.type != "cuda":
+            return
+        done = torch.cuda.Event()
+        done.record()
+        self._fence_wait(done.synchronize, seam=seam, inject=False)
 
     def _decode_budget(self) -> Optional[np.ndarray]:
         """Per-lane upper bounds on the tokens still to come, which arm the
@@ -2558,7 +3201,9 @@ class GenerationServer:
         trimmed. Returns ``(toks, last, pos)`` on the device, not yet
         waited for, except a persistent round's, which has finished. The
         device ledger stamps the dispatch right before the chunk's call
-        (a graph replay on the card) with the signature's analytic cost."""
+        (a graph replay on the card) with the signature's analytic cost.
+        The ``decode_dispatch`` seam."""
+        self._inj.fire("decode_dispatch")
         if not self._decode_attn_emitted:
             self._decode_attn_emitted = True
             self._emit(
@@ -2589,6 +3234,7 @@ class GenerationServer:
             out, logits = self._decode.fused(
                 lambda: self._run_slice(p, suffix, offset, take), tok, pos, **kw)
             self._fused_ret = _FusedChunk(partial=p, last=is_last, logits=logits)
+            self._fused_blame = None  # the record carries the blame now
             return out
         if self._persistent:
             window = self._persistent_window()
@@ -2656,7 +3302,8 @@ class GenerationServer:
                 toks, last, pos = self._dispatch_decode(
                     self._host_tensor(self._last), self._host_tensor(self._pos))
             with self._clock.section(LOOP_PHASE_RETIRE):
-                host = DeviceFence(toks=toks, last=last, pos=pos).wait()
+                host = self._fence_wait(
+                    DeviceFence(toks=toks, last=last, pos=pos).wait)
         dur = sp.duration_s
         fut, self._persistent_fut = self._persistent_fut, None
         delivered = None if fut is None else fut[0]
@@ -2798,7 +3445,7 @@ class GenerationServer:
         (their rows join the next dispatch through ``_fresh_rows``). ITL is
         the retire-to-retire cadence over the dispatch's steps, anchored at
         this chunk's dispatch when the pipeline was empty."""
-        host = fl.fence.wait()
+        host = self._fence_wait(fl.fence.wait)
         now = time.perf_counter()
         round_s = now - max(fl.t_dispatch, self._t_last_retire)
         self._t_last_retire = now

@@ -31,10 +31,14 @@ under ``"blocks"`` (paged pools only) the pool's token axis splits into
 per-shard sub-pools of whole blocks. With every shard on one device a
 split is a view of the one physical tensor and a replicated leaf is that
 tensor itself, so the KV state is placed once, unsplit. JAX's placement
-specs of the KV state (``kv_cache_spec``, ``kv_rows_spec``), its
-overlapped sum across shards and its degraded mesh shrink
-(``KATA_TPU_TP_MIN``, ``KATA_TPU_DEGRADED``) act only across devices or
-after a fault, and are not ported.
+specs of the KV state (``kv_cache_spec``, ``kv_rows_spec``) and its
+overlapped sum across shards act only across devices, and are not ported.
+
+Degraded mode (:func:`shrink_ladder`, :func:`tp_min_from_env`,
+:func:`degraded_enabled`): after a permanent fault that names a shard
+(an injected ``chip_loss``, or ``ici_error``) the server halves its degree
+over the survivors, floored at ``KATA_TPU_TP_MIN``, and re-splits its
+parameters at the new degree; ``KATA_TPU_DEGRADED=0`` turns the shrink off.
 """
 from __future__ import annotations
 
@@ -44,15 +48,17 @@ from typing import Optional
 
 import torch
 
-from ..constants import ENV_KV_LAYOUT, ENV_TP
+from ..constants import ENV_DEGRADED, ENV_KV_LAYOUT, ENV_TP, ENV_TP_MIN
 from ..ops import collectives
 
 KV_LAYOUT_HEADS = "heads"
 KV_LAYOUT_BLOCKS = "blocks"
 KV_LAYOUTS = (KV_LAYOUT_HEADS, KV_LAYOUT_BLOCKS)
 
-__all__ = ["ENV_KV_LAYOUT", "ENV_TP", "KV_LAYOUTS", "ServingMesh",
-           "allocation_chips", "kv_heads_shardable", "tp_from_env"]
+__all__ = ["ENV_DEGRADED", "ENV_KV_LAYOUT", "ENV_TP", "ENV_TP_MIN",
+           "KV_LAYOUTS", "ServingMesh", "allocation_chips", "degraded_enabled",
+           "kv_heads_shardable", "shrink_ladder", "tp_from_env",
+           "tp_min_from_env"]
 
 # TPU families: (chips per host, whether the type's suffix counts
 # TensorCores, two a chip), the JAX package's topology/slice.py FAMILIES.
@@ -118,6 +124,36 @@ def tp_from_env(env: Optional[dict] = None, *,
                      reason=f"insufficient_devices:{device_count}", **extra)
             tp = 1
     return max(1, tp)
+
+
+def degraded_enabled(env: Optional[dict] = None) -> bool:
+    """Is the mesh shrink after a permanent fault allowed?
+    ``KATA_TPU_DEGRADED=0`` turns it off; any other value, or none, on."""
+    env = os.environ if env is None else env
+    return env.get(ENV_DEGRADED, "1") != "0"
+
+
+def tp_min_from_env(*, label: str = "", trace: str = "") -> int:
+    """The shrink ladder's floor, ``KATA_TPU_TP_MIN`` (default 1, at least
+    1); a malformed value degrades to 1 with one ``tp_min_invalid``
+    event."""
+    from . import resilience
+
+    return max(1, resilience.env_int(ENV_TP_MIN, 1, event="tp_min_invalid",
+                                     server=label, trace=trace))
+
+
+def shrink_ladder(tp: int, survivors: int, tp_min: int = 1) -> Optional[int]:
+    """The degree after a permanent fault at degree ``tp``: halve until the
+    rung fits the ``survivors`` and stays at or above ``tp_min`` (tp=4 ->
+    2 -> 1); None when no rung is left, and the load fails loudly."""
+    floor = max(1, int(tp_min))
+    t = tp // 2
+    while t >= floor:
+        if t <= survivors:
+            return t
+        t //= 2
+    return None
 
 
 def allocation_chips(env: Optional[dict] = None) -> str:

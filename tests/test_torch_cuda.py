@@ -1768,3 +1768,60 @@ def test_hbm_fields_follow_the_allocator(cuda_device):
     st = srv.stats()
     assert st["devledger"]["hbm_stats_available"] == 1
     assert 0 < st["mfu"] <= 1 and 0 < st["device_busy_frac"] <= 1
+
+
+@pytest.mark.cuda
+def test_real_oom_classifies_transient(cuda_device):
+    """An allocation past the card's memory raises ``torch.cuda.
+    OutOfMemoryError``, which the supervisor's triage calls TRANSIENT (the
+    JAX server's ``RESOURCE_EXHAUSTED``)."""
+    from kata_xpu_device_plugin_tpu_torch.guest import resilience
+
+    free, total = torch.cuda.mem_get_info()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda_device)
+    assert resilience.classify(err.value) == resilience.TRANSIENT
+    assert resilience.recoverable(err.value)
+
+
+@pytest.mark.cuda
+def test_graph_pools_are_released_across_rebuilds(cuda_device):
+    """Ten cycles of requests: in the first a shrink (tp=4 -> 2, an
+    injected chip loss) rebuilds the decode graph, in the last eight a
+    forced rebuild does, and each cycle's requests capture the new graph:
+    after ``empty_cache()`` the card's reserved bytes do not grow from one
+    cycle to the next (each dropped graph's pool is freed), and every cycle
+    after the shrink gives the same tokens."""
+    import gc
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.guest.resilience import (
+        FaultInjector,
+        FaultSpec,
+    )
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    srv = GenerationServer(
+        params, cfg, max_batch=4, max_len=512, prefill_buckets=(128, 256),
+        chunk=4, kv_pool_tokens=4096, kv_block_size=16, tp=4,
+        kv_layout="blocks", recovery_backoff_s=0.0,
+        fault_injector=FaultInjector([FaultSpec("decode_dispatch", 1,
+                                                "chip_loss", 1)]))
+    prompts = [np.arange(1, n, dtype=np.int32) for n in (40, 90, 130)]
+    reserved, outs = [], []
+    for cycle in range(10):
+        if cycle > 1:
+            srv._build_decode()  # what a shrink does to the graphs
+        rids = [srv.submit(p, 24) for p in prompts]
+        res = srv.run()
+        outs.append([res[r].tolist() for r in rids])
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    st = srv.stats()
+    assert st["tp_degree"] == 2 and st["tp_shrinks"] == 1
+    assert st["decode_graph_captures"] == 9
+    assert all(o == outs[1] for o in outs[1:])
+    assert max(reserved[2:]) <= reserved[1], reserved

@@ -95,6 +95,30 @@ def test_pool_refuses_what_is_not_ported_or_too_small(models):
         tarena.KVPool(tcfg, 64, 0, device="cpu")
 
 
+@pytest.mark.parametrize("shards", [None, 2], ids=["same", "reshard"])
+def test_pool_reset_in_place_is_a_fresh_jax_pool(models, shards):
+    """``reset`` (crash recovery's in-place rebuild, where JAX builds a new
+    pool) leaves the pool's tensors where they are, zeroed, and its
+    accounting that of a fresh JAX pool, re-partitioned into ``shards``
+    sub-pools when given (a blocks-layout shrink from 4 shards to 2)."""
+    jcfg, _, _, tcfg = models
+    pool = tarena.KVPool(tcfg, 64, BS, kv_quant=True, shards=4, device="cpu")
+    ptrs = [t.data_ptr() for t in tarena.cache_leaves(pool.arena)]
+    got = pool.try_alloc(5)
+    pool.ref(got[:2])
+    for t in tarena.cache_leaves(pool.arena):
+        t.fill_(3)
+    pool.reset(shards=shards)
+    twin = jarena.KVPool(jcfg, 64, BS, kv_quant=True, shards=shards or 4)
+    assert [t.data_ptr() for t in tarena.cache_leaves(pool.arena)] == ptrs
+    assert not any(a.any() for a in pool_to_numpy(pool.arena))
+    assert pool.stats() == twin.stats()
+    for n in (3, 4, 2):
+        assert pool.try_alloc(n) == twin.try_alloc(n)
+    with pytest.raises(ValueError, match="shards"):
+        pool.reset(shards=3)
+
+
 def _random_caches(jcfg, n, length, quantized, seed):
     """A contiguous cache pair ``[L, n, length, KV, D]`` of random rows, as
     a JAX pytree."""

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from kata_xpu_device_plugin_tpu.guest.serving import GenerationServer as JaxServer
+from kata_xpu_device_plugin_tpu_torch.guest import resilience as tres
 from kata_xpu_device_plugin_tpu_torch.guest import serving as tserving
 from kata_xpu_device_plugin_tpu_torch.guest.serving import (
     GenerationServer,
@@ -132,7 +133,8 @@ UNPORTED = {
     "draft": ((None, None), "11b"), "spec_opt_in": (True, "11b"),
     "strict": (True, "9a"), "tripwire": (True, "9a"),
     "heartbeat_rounds": (2, "9a"), "watchdog": (True, "9a"),
-    "fault_injector": (object(), "9b"), "fence_timeout_s": (5.0, "9b"),
+    "fault_injector": (tres.FaultInjector([tres.FaultSpec("prefill", 0)]),
+                       "9b"), "fence_timeout_s": (5.0, "9b"),
     "quarantine_after": (2, "9b"), "recovery_backoff_s": (0.0, "9b"),
     "degraded": (True, "9b"),
 }
@@ -158,9 +160,21 @@ def test_unported_modes_raise(models, kwarg):
     they build, and sampled persistent decode raises the JAX server's
     ``ValueError`` (its rounds are greedy only), as does the host KV tier
     on this slotted server (it needs a paged pool). The telemetry
-    arguments of item 9a are ported: they build and arm what they name."""
+    arguments of item 9a and the crash-tolerance arguments of item 9b are
+    ported: they build and arm what they name."""
     _, _, tp, tcfg = models
-    if UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9a":
+    if UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9b":
+        srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
+        ((name, value),) = kwarg.items()
+        armed = {"checkpoint_rounds": srv.stats()["checkpoint_rounds"],
+                 "fault_injector": srv._inj, "fence_timeout_s":
+                 srv._fence_timeout_s, "quarantine_after": srv._quarantine_k,
+                 "recovery_backoff_s": srv._backoff_s,
+                 "degraded": srv._degraded_ok}[name]
+        assert armed is value or armed == value
+        if name == "fault_injector":
+            assert srv._inj.armed
+    elif UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9a":
         srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
         stats = srv.stats()
         (name,) = kwarg
@@ -217,18 +231,18 @@ def test_server_takes_every_argument_of_the_jax_server(models):
 
 
 # JAX stats keys the port does not compute yet, by the ROADMAP item that
-# brings them: resilience (9b).
+# brings them (resilience, 9b, brought all of its own).
 STATS_NOT_YET = {
-    "9b": {"checkpoint_rounds", "checkpoints", "device_stalls", "quarantined",
-           "recoveries"},
+    "9b": set(),
 }
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
 def test_stats_have_the_jax_keys(models, paged):
     """The port's ``stats()`` keys include the JAX server's, less the
-    named keys of item 9b; the occupancy keys it shares take the JAX values
-    mid-run, after one lock-step round of the same requests."""
+    named keys of items not ported (none left); the occupancy and
+    resilience keys it shares take the JAX values mid-run, after one
+    lock-step round of the same requests."""
     jcfg, jp, tp, tcfg = models
     kw = dict(KW, kv_quant=True, overlap=False)
     if paged:
@@ -245,7 +259,8 @@ def test_stats_have_the_jax_keys(models, paged):
     for k in ("tokens_per_round", "slots_busy", "queued", "batch_occupancy",
               "kv_slot_utilization", "kv_layout", "kv_pool_shards",
               "tp_degree", "tp_degraded", "tp_shrinks",
-              "kv_pool_shard_occupancy"):
+              "kv_pool_shard_occupancy", "recoveries", "quarantined",
+              "device_stalls", "checkpoints", "checkpoint_rounds"):
         assert a[k] == b[k], (k, a[k], b[k])
     assert a["slots_busy"] == 2 and a["queued"] == len(LENGTHS) - 2
 

@@ -1,8 +1,8 @@
 """PyTorch port, serving and training telemetry against the JAX package's:
 the port's server and JAX's on the same weights and requests, with
-``heartbeat_rounds=2`` and a sink each, over five configurations (slotted;
+``heartbeat_rounds=2`` and a sink each, over six configurations (slotted;
 paged with the prefix cache and the host tier; persistent; ``slo_chunked``
-fused; ``tp=2`` blocks). The event streams carry the same names in the same
+fused; ``tp=2`` blocks; paged under a fault schedule with checkpoints). The event streams carry the same names in the same
 order with equal deterministic fields; the request traces agree and their
 phases sum to their wall time; the daemon's ``HeartbeatAggregator`` and
 ``tools/obs_report.py`` read the port's stream as JAX's; tokens do not
@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 from kata_xpu_device_plugin_tpu import obs as jobs
+from kata_xpu_device_plugin_tpu.guest import resilience as jres
 from kata_xpu_device_plugin_tpu.guest.serving import GenerationServer as JaxServer
 from kata_xpu_device_plugin_tpu_torch import obs as tobs
+from kata_xpu_device_plugin_tpu_torch.guest import resilience as tres
 from kata_xpu_device_plugin_tpu_torch.guest.serving import GenerationServer
 from tools.obs_report import build_report, check_schema
 
@@ -36,15 +38,19 @@ SERVERS = {
     "slo_chunked_fused": dict(sched_policy="slo_chunked", itl_slo_ms=0,
                               prefill_chunk=8),
     "tp2_blocks": dict(POOL, tp=2, kv_layout="blocks"),
+    # A transient fault at each of four seams and a fence hang, after the
+    # warm-up request (``faults`` becomes each package's injector).
+    "faulted": dict(POOL, checkpoint_rounds=2, recovery_backoff_s=0.0,
+                    faults=(("decode_dispatch", 5), ("prefill", 3),
+                            ("admission_commit", 4), ("pool_alloc", 9),
+                            ("fence", 7, "hang"))),
 }
 LENGTHS = (10, 12, 9, 11, 8)
 BUDGET = 16
 
-# JAX event names of modes the port does not have yet (items 9b, 11b).
-NOT_PORTED = {"checkpoint", "recovery", "chip_loss_fatal", "fatal_error",
-              "fence_timeout_disabled", "quarantine_k_invalid",
-              "recovery_backoff_invalid", "tp_degraded", "spec_disabled",
-              "spec_round", "tp_overlap_disabled"}
+# JAX event names of modes the port does not have yet (item 11b) and of
+# the overlapped sum across devices.
+NOT_PORTED = {"spec_disabled", "spec_round", "tp_overlap_disabled"}
 # The tripwire's compiles are each package's own (JAX: an XLA compile of a
 # shape the warm-up drain never ran, such as a prefill batch of 3; the
 # eager port: a decode signature or graph never built), so its breach
@@ -121,6 +127,17 @@ def _capture(pkg, fn, path):
     return result, pkg.read_events(path)
 
 
+def _server_kw(name: str, res) -> dict:
+    """The config's server arguments, its fault schedule as an injector of
+    ``res`` (the JAX or the port's resilience module)."""
+    kw = dict(BASE, **SERVERS[name])
+    faults = kw.pop("faults", None)
+    if faults is not None:
+        kw["fault_injector"] = res.FaultInjector(
+            [res.FaultSpec(*f) for f in faults])
+    return kw
+
+
 def _watchdog(pkg):
     """The watchdog with its rules that read times (ITL burn, tokens/s
     regression, dispatch gaps) switched off: they fire on when a run is
@@ -137,14 +154,14 @@ def streams(model, tmp_path_factory):
     d = tmp_path_factory.mktemp("streams")
     prompts = _prompts(tcfg.vocab_size)
     out = {}
-    for name, extra in SERVERS.items():
-        kw = dict(BASE, **extra)
+    for name in SERVERS:
         runs = {}
         for side, pkg, make in (
                 ("jax", jobs, lambda: JaxServer(jp, jcfg, watchdog=_watchdog(
-                    jobs), **kw)),
+                    jobs), **_server_kw(name, jres))),
                 ("torch", tobs, lambda: GenerationServer(
-                    tp, tcfg, device="cpu", watchdog=_watchdog(tobs), **kw))):
+                    tp, tcfg, device="cpu", watchdog=_watchdog(tobs),
+                    **_server_kw(name, tres)))):
             def run(make=make):
                 srv = make()
                 return _drive(srv, prompts), srv.stats()
@@ -171,6 +188,10 @@ def test_event_stream_matches_jax(streams, name):
     names = {e["name"] for e in tev}
     assert {"serving_config", "serving_heartbeat", "request_trace", "ttft",
             "decode_attn_backend", "serving.decode_chunk"} <= names
+    if name == "faulted":
+        assert {"fault_injected", "device_stall", "recovery",
+                "checkpoint"} <= names
+        assert runs["torch"][2]["recoveries"] == runs["jax"][2]["recoveries"] >= 4
     assert runs["torch"][2]["heartbeats"] == runs["jax"][2]["heartbeats"] > 1
 
 
@@ -241,7 +262,8 @@ def test_tokens_equal_telemetry_off_and_strict(streams, model, name):
     _, _, tp, tcfg = model
     prompts = _prompts(tcfg.vocab_size)
     srv = GenerationServer(tp, tcfg, device="cpu", **dict(
-        BASE, **SERVERS[name], heartbeat_rounds=0, tripwire=False, strict=True))
+        _server_kw(name, tres), heartbeat_rounds=0, tripwire=False,
+        strict=True))
     for w, g in zip(streams[name]["torch"][0], _drive(srv, prompts)):
         np.testing.assert_array_equal(g, w)
     st = srv.stats()
@@ -325,6 +347,11 @@ BAD_ENV = {
     "KATA_TPU_HEARTBEAT_ROUNDS": ("often", dict(heartbeat_rounds=None)),
     "KATA_TPU_TP": ("two", {}),
     "KATA_TPU_DECODE_ATTN": ("flash", {}),
+    "KATA_TPU_FENCE_TIMEOUT_S": ("soon", {}),
+    "KATA_TPU_QUARANTINE_K": ("three", {}),
+    "KATA_TPU_RECOVERY_BACKOFF_S": ("brief", {}),
+    "KATA_TPU_CHECKPOINT_ROUNDS": ("every-so-often", {}),
+    "KATA_TPU_TP_MIN": ("one", {}),
 }
 
 
@@ -379,9 +406,6 @@ def test_export_metrics_gives_the_jax_families(model):
 
     want = families(generate_latest(jmetrics.DEFAULT_REGISTRY.registry)
                     .decode(), "fam_jax")
-    for fam in ("crash_recoveries", "requests_quarantined", "fence_stalls"):
-        for suffix in ("", "_created"):  # crash recovery's (item 9b)
-            del want[f"kata_tpu_serving_{fam}{suffix}"]
     got = families(tobs.DEFAULT_REGISTRY.exposition(), "fam_port")
     assert set(got) == set(want)
     for name, (kind, labels) in want.items():
