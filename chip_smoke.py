@@ -151,6 +151,21 @@ Phases, each printing one JSON line:
    decode kernel, each layer of the first decode step held against the
    plain version, and the token-match fraction against the run without
    the opt-in (which launches the dense kernel no time);
+8a. spec — speculative decoding and ring/cycle KV arenas (PERF.md
+   configuration 13, :func:`phase_spec`): full-width Gemma-2B with n-gram
+   drafts (k=4), a 2-layer self draft and the target as its own draft
+   beside the plain lock-step server (tok/s, rounds, acceptance, token
+   match; every request's first parting must be a bf16 flip by the two
+   tokens' plain logit gap, :func:`token_partings`; in an untimed second
+   run the perfect draft's drafts must equal the verify's greedy tokens
+   at 0.9 of their positions), the verify round's plain attention timed,
+   ``generate_speculative`` against ``generate``; Gemma-2-2B (26 layers)
+   and Mistral-7B (4 of 32) at max_len 8192 over four prompts of
+   4200-6000 tokens with ``ring_kv``, and with ``ring_kv`` and k=4, beside
+   the full arena (arena bytes and ratio, token match, partings that must
+   be flips), one decode step a prompt over the ring against the full
+   arena, ``generate(ring_kv=True)`` and ``decode(ring=True,
+   return_state=True)``;
 9. families — Gemma-2-2B (26 layers, max_len 8192, four prompts of
    4200-6000 tokens), Qwen2-7B (28 layers), Gemma-3-4B (6 of 34 layers,
    its cycles cut with it) and Mistral-7B (4 of 32 layers, max_len 8192,
@@ -1402,6 +1417,21 @@ def warm_server(srv) -> dict:
     return srv.stats()
 
 
+def counted_kernels() -> dict:
+    """The serving kernels' wrappers whose launches a phase counts, by
+    their names in the kernels line."""
+    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
+        decode_attention,
+        paged_decode_attention,
+        paged_decode_shard_stats,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
+
+    return {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
+            "paged_decode_shard": paged_decode_shard_stats,
+            "dense_decode": decode_attention}
+
+
 def run_requests(srv, prompts, budgets, waves=None, after_warm=None):
     """Warm the server (:func:`warm_server`), submit every request, reset
     the serving kernels' launch counts, drain the server, read the counts.
@@ -1416,16 +1446,7 @@ def run_requests(srv, prompts, budgets, waves=None, after_warm=None):
     flash kernel and no decode kernel."""
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.ops.decode_attn import (
-        decode_attention,
-        paged_decode_attention,
-        paged_decode_shard_stats,
-    )
-    from kata_xpu_device_plugin_tpu_torch.ops.flash import flash_forward
-
-    kernels = {"flash_fwd": flash_forward, "paged_decode": paged_decode_attention,
-               "paged_decode_shard": paged_decode_shard_stats,
-               "dense_decode": decode_attention}
+    kernels = counted_kernels()
     base = warm_server(srv)
     if after_warm is not None:
         after_warm()
@@ -2406,6 +2427,73 @@ def first_difference_margin(params, cfg, prompts, outs, other) -> dict:
         return {"request": i, "index": j, "tokens": [int(a[j]), int(b[j])],
                 "plain_top2_margin": float(top[0] - top[1])}
     return None
+
+
+def token_partings(params, cfg, prompts, outs, other, quantized: bool) -> dict:
+    """Where each request of ``outs`` first parts from ``other`` (the
+    reference server's tokens): the index, both tokens, and the plain
+    path's gap between the two, ``logits[ref] - logits[got]``, beside the
+    logit RMS there and the gap's noise. The plain path is the lock-step
+    server's step that chose the token: the prompt and the shared tokens
+    but the last prefilled into a cache (int8 when ``quantized``, else
+    bf16), then the last one decoded over it with the plain attention. The
+    noise is the largest distance of the same two tokens' gap through an
+    equally valid bf16 path: :func:`plain_fp32_p` in place of the plain
+    attention, or the servers' own prefill (the flash kernel) before the
+    plain step. A parting is a bf16 argmax flip, not a wrong token, when
+    the gap lies within LOGIT_BOUND["decode"] x the RMS or
+    :data:`NOISE_FACTOR` x its noise; ``all_flips`` says whether every
+    parting is one."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        CUDA_PAD,
+        forward,
+        prefill,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    ref_attn = attention.reference_attention
+
+    def step_logits(toks, fn, prefill_fn):
+        n = toks.shape[1]
+        pad = -(-(n - 1) // CUDA_PAD) * CUDA_PAD
+        head = torch.nn.functional.pad(toks[:, :-1], (0, pad - (n - 1)))
+        caches, _l, _p = prefill(params, head, cfg, pad + 1, attn_fn=prefill_fn,
+                                 kv_quantized=quantized, true_len=n - 1)
+        at = torch.full((1,), n - 1, dtype=torch.int32, device="cuda")
+        return forward(params, toks[:, -1:], cfg, attn_fn=fn,
+                       positions=at[:, None], kv_caches=caches,
+                       cache_offset=at)[0][0, -1].float()
+
+    rows = []
+    for i, (a, b) in enumerate(zip(outs, other)):
+        n = min(len(a), len(b))
+        diff = np.flatnonzero(np.asarray(a[:n]) != np.asarray(b[:n]))
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        got, ref = int(a[j]), int(b[j])
+        ctx = np.concatenate([prompts[i], b[:j]]).astype(np.int64)
+        toks = torch.from_numpy(ctx)[None].to("cuda")
+        logits, *alts = (step_logits(toks, fn, pre) for fn, pre in (
+            (ref_attn, ref_attn), (plain_fp32_p, plain_fp32_p),
+            (ref_attn, None)))
+        gap = float(logits[ref] - logits[got])
+        alt_gaps = [float(x[ref] - x[got]) for x in alts]
+        noise = max(abs(gap - g) for g in alt_gaps)
+        rms = float(logits.square().mean().sqrt())
+        top = torch.topk(logits, 2).values
+        rows.append({"request": i, "index": j, "tokens": [got, ref],
+                     "gap": round(gap, 5), "gap_x_rms": round(gap / rms, 5),
+                     "alt_gaps": [round(g, 5) for g in alt_gaps],
+                     "gap_noise": round(noise, 5), "logit_rms": round(rms, 5),
+                     "plain_top2_margin": round(float(top[0] - top[1]), 5),
+                     "flip": gap <= max(LOGIT_BOUND["decode"] * rms,
+                                        NOISE_FACTOR * noise)})
+    return {"parted": len(rows), "all_flips": all(r["flip"] for r in rows),
+            "partings": rows}
 
 
 def chunked_first_logits(params, cfg, firsts, quantized: bool) -> dict:
@@ -3824,6 +3912,404 @@ def phase_generate_qwen2(seed: int = 0) -> dict:
     return out
 
 
+# ----- speculative decoding and ring / cycle KV arenas -------------------------
+
+# Drafts a verify round of configuration 13 (``speculative_k``).
+SPEC_K = 4
+
+
+def spec_requests(vocab: int, seed: int = 0):
+    """Configuration 13's requests: 8 repetitive prompts (a random 64-token
+    segment repeated out to 512-1000 tokens) and 8 random ones of 64-1000
+    tokens, budgets 64-128, interleaved."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for i in range(16):
+        if i % 2 == 0:
+            seg = rng.integers(0, vocab, 64).astype(np.int32)
+            prompts.append(np.resize(seg, int(rng.integers(512, 1001))))
+        else:
+            prompts.append(rng.integers(0, vocab, int(rng.integers(64, 1001)))
+                           .astype(np.int32))
+    budgets = rng.integers(64, 129, 16)
+    return prompts, budgets
+
+
+def spec_serve(srv, prompts, budgets, counts: dict) -> tuple:
+    """Warm the server, then serve the requests with the launch counters set
+    to 0 just before and read just after (added into ``counts``). Returns
+    the outputs, the wall time, this run's launches and the stats with the
+    run's rounds, tokens and drafts alone."""
+    import torch
+
+    kernels = counted_kernels()
+    base = warm_server(srv)
+    d0 = (srv._drafts_offered, srv._drafts_accepted)
+    rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    for k, n in launches.items():
+        counts[k] = counts.get(k, 0) + n
+    outs = [res[r] for r in rids]
+    for out, b in zip(outs, budgets):
+        if len(out) != int(b) or not ((out >= 0) & (out < srv.cfg.vocab_size)).all():
+            raise AssertionError(f"{len(out)} tokens for a budget of {b}, or "
+                                 "a token out of the vocabulary")
+    st = srv.stats()
+    st = {**st, **{k: st[k] - base[k] for k in ("rounds", "tokens_emitted",
+                                                "prefills")}}
+    offered = srv._drafts_offered - d0[0]
+    if srv.speculative_k:
+        st["draft_acceptance"] = round(
+            (srv._drafts_accepted - d0[1]) / offered, 4) if offered else 0.0
+    return outs, wall, launches, st
+
+
+def verify_attention_ms(cfg, B: int, max_len: int) -> dict:
+    """One layer's plain attention at a verify round's shape (``[B, k+1]``
+    queries at per-lane offsets over the int8 arena, dequantized as the
+    server's verify does), by CUDA events; times the layers, a round."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    S = SPEC_K + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    q = randn(B, S, cfg.n_heads, cfg.head_dim)
+    ck = quantize_kv(randn(B, max_len, cfg.n_kv_heads, cfg.head_dim))
+    cv = quantize_kv(randn(B, max_len, cfg.n_kv_heads, cfg.head_dim))
+    pos = torch.from_numpy(np.linspace(100, max_len - S - 1, B).astype(
+        np.int32)).cuda()
+
+    def one():
+        attention.cache_attention(q, dequantize_kv(ck, q.dtype),
+                                  dequantize_kv(cv, q.dtype), q_offset=pos)
+
+    ms = time_ms(one, 20)
+    return {"shape": dict(B=B, S=S, H=cfg.n_heads, KV=cfg.n_kv_heads,
+                          D=cfg.head_dim, keys=max_len),
+            "layer_ms": round(ms, 5), "round_ms": round(ms * cfg.n_layers, 4)}
+
+
+def spec_library_checks(params, cfg, seed: int = 0) -> dict:
+    """``generate_speculative`` (n-gram, k=4) at the model's widths on the
+    card against greedy ``generate`` on the same 2 prompts (one repetitive):
+    the token match, and each request's first parting, which must be a
+    flip (:func:`token_partings`)."""
+    import numpy as np
+
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        generate,
+        generate_speculative,
+    )
+
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, cfg.vocab_size, 64)
+    prompt = np.stack([np.resize(seg, 256),
+                       rng.integers(0, cfg.vocab_size, 256)]).astype(np.int32)
+    t0 = time.perf_counter()
+    spec = generate_speculative(params, prompt, cfg, 48, k=SPEC_K)
+    spec_s = time.perf_counter() - t0
+    greedy = generate(params, prompt, cfg, 48).cpu().numpy()
+    part = token_partings(params, cfg, list(prompt), list(spec), list(greedy),
+                          False)
+    if not part["all_flips"]:
+        raise AssertionError(f"generate_speculative parts from generate: {part}")
+    return {"tokens_match": float((spec == greedy).mean()),
+            "wall_s": round(spec_s, 4), "partings": part}
+
+
+def ring_checks(params, cfg, prompts, max_len: int) -> dict:
+    """For each prompt, one decode step from one prefill over the full int8
+    arena and over its fold (the ring, or the cycle arena), logits within
+    LOGIT_BOUND["decode"] x the RMS (the same keys, summed in slot order);
+    on the first prompt, ``generate(..., ring_kv=True)`` against the full
+    arena's ``generate`` (32 steps; a parting must be a flip) and the public ``decode(..., ring=True,
+    return_state=True)`` from a folded prefill against
+    ``generate(ring_kv=True)``'s tokens (the same calls: equal)."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        CUDA_PAD,
+        decode,
+        fold_prefill,
+        forward,
+        generate,
+        prefill,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+
+    def padded(prompt):
+        p = prompt[None].astype(np.int32)
+        S = p.shape[1]
+        pad = -(-S // CUDA_PAD) * CUDA_PAD
+        return p, S, pad, torch.nn.functional.pad(
+            torch.from_numpy(p).long().cuda(), (0, pad - S))
+
+    steps = []
+    for prompt in prompts:
+        p, S, pad, toks = padded(prompt)
+        full, last, pos = prefill(params, toks, cfg, max_len, true_len=S,
+                                  kv_quantized=True)
+        folded = fold_prefill(full, pos, cfg, max_len)
+        at = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+        step = {}
+        for name, caches, ring_kv in (("full", full, False),
+                                      ("ring", folded, True)):
+            step[name] = forward(params, last[:, None], cfg,
+                                 attn_fn=reference_attention,
+                                 positions=at[:, None], kv_caches=caches,
+                                 cache_offset=at, ring=ring_kv)[0]
+        err = float((step["ring"] - step["full"]).abs().max())
+        rms = float(step["full"].square().mean().sqrt())
+        steps.append({"prompt_len": S, "logit_err": round(err, 6),
+                      "logit_rms": round(rms, 5)})
+        if not err <= LOGIT_BOUND["decode"] * rms:
+            raise AssertionError(f"ring decode step {err} from the full "
+                                 f"arena's (logit RMS {rms}, prompt of {S})")
+        del full, folded
+    p, S, pad, toks = padded(prompts[0])
+    ring = generate(params, p, cfg, 32, max_len=max_len, ring_kv=True).cpu().numpy()
+    full_toks = generate(params, p, cfg, 32, max_len=max_len).cpu().numpy()
+    part = token_partings(params, cfg, [prompts[0]], list(ring),
+                          list(full_toks), False)
+    if not part["all_flips"]:
+        raise AssertionError(f"generate(ring_kv=True) parts from the full arena: "
+                             f"{part}")
+    caches, last, pos = prefill(params, toks, cfg, pad, true_len=S)
+    caches = fold_prefill(caches, pos, cfg, max_len)
+    out, caches, last2, pos2 = decode(
+        params, caches, last, torch.full((1,), pos, dtype=torch.int32,
+                                         device="cuda"), cfg, 16,
+        return_state=True, ring=True)
+    same = bool((out.cpu().numpy() == ring[:, 1:17]).all())
+    if not same or int(pos2[0]) != S + 16:
+        raise AssertionError("decode(ring=True, return_state=True) is not "
+                             "generate(ring_kv=True)'s continuation")
+    return {"steps": steps,
+            "generate_ring_vs_full_match": float((ring == full_toks).mean()),
+            "partings": part, "decode_ring_equal_to_generate": same}
+
+
+def ring_serve(name: str, layers, seed: int, counts: dict) -> list:
+    """Configuration 13 (c)/(d): ``name`` at its published widths (``layers``
+    the depth cut) over 4 prompts of 4200-6000 tokens, budgets 32, slotted
+    (4 lanes, ``max_len`` 8192, int8 KV): the full arena, ``ring_kv=True``
+    and ``ring_kv=True`` with ``speculative_k`` 4. Tokens against the full
+    arena (a parting must be a flip), tok/s, arena bytes and their ratio.
+    Returns the failures."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        init_params,
+    )
+
+    cfg, reduced = family_config(name, layers)
+    params = fuse_decoder_params(
+        init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16))
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(4200, 6001, 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    budgets = np.full(4, 32)
+    max_len = 8192
+    kw = dict(max_batch=4, max_len=max_len, chunk=8,
+              prefill_buckets=tuple(b for b in LONG_BUCKETS if b <= max_len))
+    rows, outs = {}, {}
+    for run, extra in (("full", {}), ("ring", dict(ring_kv=True)),
+                       ("ring_spec", dict(ring_kv=True, speculative_k=SPEC_K,
+                                          spec_opt_in=True))):
+        srv = GenerationServer(params, cfg, **kw, **extra)
+        outs[run], wall, launches, st = spec_serve(srv, prompts, budgets, counts)
+        if launches.get("paged_decode") or "flash_fwd" not in launches:
+            raise AssertionError(f"{name} {run}: launches {launches}")
+        rows[run] = dict(tok_s=round(int(budgets.sum()) / wall, 2),
+                         wall_s=round(wall, 4), rounds=st["rounds"],
+                         arena_bytes=st["arena_bytes"], launches=launches,
+                         decode_backend_reason=st["decode_backend_reason"],
+                         **({"draft_acceptance": st["draft_acceptance"]}
+                            if "draft_acceptance" in st else {}))
+        del srv
+        torch.cuda.empty_cache()
+    failures = []
+    for run in ("ring", "ring_spec"):
+        rows[run]["token_match_vs_full"] = token_match(outs[run], outs["full"],
+                                                       budgets)
+        part = token_partings(params, cfg, prompts, outs[run], outs["full"],
+                              True)
+        rows[run]["partings"] = part
+        if not part["all_flips"]:
+            failures.append(f"{name} {run}: {part}")
+        rows[run]["arena_ratio"] = round(
+            rows[run]["arena_bytes"] / rows["full"]["arena_bytes"], 5)
+    try:
+        lib = ring_checks(params, cfg, prompts, max_len)
+    except AssertionError as e:
+        lib = {"failed": str(e)[:300]}
+        failures.append(f"{name}: {e}")
+    emit("spec_ring", model=name, reduced=reduced, max_len=max_len,
+         prompt_lens=lens.tolist(), window_cycle=list(cfg.window_cycle),
+         config=dict(kw, kv_quant="int8"), **rows, library=lib)
+    del params
+    torch.cuda.empty_cache()
+    return failures
+
+
+@contextlib.contextmanager
+def recording_verify(srv, log: list):
+    """While inside, each greedy verify round of ``srv`` also records, for
+    every draft position of its live lanes, whether the target's greedy
+    token differs from the draft, and the gap of the verify logits between
+    the greedy token and the draft token over the logits' RMS there (read
+    after the run). The server imports ``verify_step`` at each round, so
+    the module attribute is what it calls; the wrapper adds a gather and a
+    reduction over the logits to every round, so a timed run goes without
+    it."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models import speculative
+
+    real = speculative.verify_step
+
+    def verify_step(params, caches, toks, pos, cfg, attn_fn=None, ring=False):
+        logits, caches = speculative.verify_logits_step(
+            params, caches, toks, pos, cfg, attn_fn=attn_fn, ring=ring)
+        lg, drafts = logits[:, :-1], toks[:, 1:].long()
+        greedy = torch.argmax(logits, -1).to(torch.int32)
+        live = [b for b, r in enumerate(srv._slot_req) if r is not None]
+        gap = lg.max(-1).values - lg.gather(-1, drafts[..., None])[..., 0]
+        log.append(((greedy[:, :-1] != drafts)[live],
+                    (gap / lg.square().mean(-1).sqrt())[live]))
+        return greedy, caches
+
+    speculative.verify_step = verify_step
+    try:
+        yield
+    finally:
+        speculative.verify_step = real
+
+
+def draft_agreement(log: list) -> dict:
+    """Over every draft position :func:`recording_verify` saw: the share
+    where the target's greedy token is the draft, and the largest gap over
+    the logit RMS of a disagreement."""
+    import torch
+
+    dis = torch.cat([d.reshape(-1) for d, _r in log])
+    rel = torch.cat([r.reshape(-1) for _d, r in log])
+    return {"positions": int(dis.numel()),
+            "agree": round(1 - int(dis.sum()) / max(int(dis.numel()), 1), 4),
+            "max_disagreement_gap_x_rms": round(float(rel[dis].max()), 5)
+            if bool(dis.any()) else 0.0}
+
+
+def phase_spec(params, cfg, seed: int = 0) -> dict:
+    """Configuration 13. (a) n-gram speculation on full-width Gemma-2B
+    (slotted, 8 lanes, max_len 2048, int8 KV, k=4) on 16 requests, beside
+    the plain lock-step greedy server: tok/s, rounds, draft acceptance,
+    token match, the verify round's plain attention ms;
+    ``generate_speculative`` against ``generate``. (b) the same server
+    with ``self_draft(params, cfg, 2)``, then with the target as its own
+    draft on 4 requests over a bf16 arena, the draft's dtype, beside the
+    plain lock-step server over a bf16 arena: the raw acceptance of each,
+    and, from a second, untimed run of the perfect draft
+    (:func:`recording_verify`), the share of its draft positions whose
+    draft is the verify's greedy token, which must be 0.9 or more. Each
+    request's first parting from its plain server must be a bf16 flip
+    (:func:`token_partings`). (c) Gemma-2-2B (26 layers) and (d)
+    Mistral-7B (4 of 32 layers) with ``ring_kv`` (:func:`ring_serve`).
+    Launches: the prefills' flash forward (row 1), the plain comparison
+    servers' paged decode (row 5); verify spans, drafts and ring reads take
+    the plain attention (the JAX rule)."""
+    import numpy as np
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import self_draft
+
+    counts: dict = {}
+    prompts, budgets = spec_requests(cfg.vocab_size, seed)
+    base = dict(max_batch=8, **SERVE_KW)
+    rows, plain = {}, {}
+    for key, quantized, n in (("plain_lockstep", True, 16),
+                              ("plain_lockstep_bf16", False, 4)):
+        outs, wall, launches, st = spec_serve(
+            GenerationServer(params, cfg, overlap=False, kv_quant=quantized,
+                             **base), prompts[:n], budgets[:n], counts)
+        if not launches.get("paged_decode"):
+            raise AssertionError(f"the plain server left the paged kernel: "
+                                 f"{launches}")
+        plain[quantized] = outs
+        rows[key] = dict(requests=n, rounds=st["rounds"], launches=launches,
+                         tok_s=round(int(budgets[:n].sum()) / wall, 2))
+    failures = []
+    # A draft's arena is bf16, as in the JAX server: only over a bf16 target
+    # arena is the target its own perfect draft (over an int8 one the two
+    # read differently rounded keys). Its drafts are the target's one-token
+    # steps and the verify a [B, k+1] span: in bf16 on the card the two
+    # round differently, so a near-tie flips.
+    perfect = dict(draft=(params, cfg), kv_quant=False)
+    for run, extra, n in (("ngram", {}, 16),
+                          ("self_draft_2", dict(draft=self_draft(params, cfg, 2)), 16),
+                          ("perfect_draft", perfect, 4)):
+        srv = GenerationServer(params, cfg, speculative_k=SPEC_K,
+                               spec_opt_in=True, **base, **extra)
+        outs, wall, launches, st = spec_serve(srv, prompts[:n], budgets[:n],
+                                              counts)
+        del srv
+        if launches.get("paged_decode") or "flash_fwd" not in launches:
+            failures.append(f"{run}: launches {launches}")
+        quantized = extra.get("kv_quant", True)
+        part = token_partings(params, cfg, prompts[:n], outs, plain[quantized],
+                              quantized)
+        if not part["all_flips"]:
+            failures.append(f"{run} parts from the plain server: {part}")
+        rows[run] = dict(
+            requests=n, tok_s=round(int(budgets[:n].sum()) / wall, 2),
+            wall_s=round(wall, 4), rounds=st["rounds"],
+            tokens_per_round=round((st["tokens_emitted"] - st["prefills"])
+                                   / max(st["rounds"], 1), 3),
+            draft_acceptance=st["draft_acceptance"], kv_quant=st["kv_quant"],
+            ttft_p50_s=st["ttft_s"]["p50"], itl_p50_s=st["decode_token_s"]["p50"],
+            token_match_vs_plain=token_match(outs, plain[quantized],
+                                             budgets[:n]),
+            partings=part, launches=launches)
+    log: list = []
+    srv = GenerationServer(params, cfg, speculative_k=SPEC_K, spec_opt_in=True,
+                           **base, **perfect)
+    with recording_verify(srv, log):
+        spec_serve(srv, prompts[:4], budgets[:4], {})
+    del srv
+    agreement = rows["perfect_draft"]["draft_agreement"] = draft_agreement(log)
+    if agreement["agree"] < 0.9:
+        failures.append(f"perfect draft: {agreement}")
+    emit("spec", model="gemma_2b", k=SPEC_K, config=dict(base, kv_quant="int8"),
+         prompt_lens=[len(p) for p in prompts], budgets=budgets.tolist(),
+         **rows, verify_attention=verify_attention_ms(cfg, 8, SERVE_KW["max_len"]),
+         library=spec_library_checks(params, cfg, seed))
+    failures += ring_serve("gemma2_2b", None, seed, counts)
+    failures += ring_serve("mistral_7b", 4, seed, counts)
+    if failures:
+        raise AssertionError("spec: " + "; ".join(failures))
+    return counts
+
+
 def train_flops_per_step(cfg, B: int, S: int) -> float:
     """Model FLOPs of one train step, the JAX package's bench convention
     (``bench.py`` ``measure_train``): 6 x matmul parameters x tokens
@@ -4272,6 +4758,7 @@ def main(argv: list[str]) -> int:
     launches["resilience"] = timed_phase("resilience", phase_resilience,
                                          params, cfg, smi)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
+    launches["spec"] = timed_phase("spec", phase_spec, params, cfg)
     del params
     torch.cuda.empty_cache()
     for name, n in timed_phase("families", phase_families,

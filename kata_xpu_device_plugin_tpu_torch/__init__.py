@@ -2,7 +2,8 @@
 
 The JAX package beside it stays the reference this package is tested
 against; this package imports ``torch`` and numpy only. Its entry points
-(``models.init_params``, ``models.generate``, ``guest.GenerationServer``)
+(``models.init_params``, ``models.generate``,
+``models.generate_speculative``, ``guest.GenerationServer``)
 run on ``cuda`` unless the caller passes ``device="cpu"``; with no device
 given and no CUDA present they raise. The attention hot spots are CUDA
 C++ kernels for Hopper (``csrc/``), built by ``ops._build`` at first use;

@@ -56,6 +56,11 @@ ENV_FUSED = "KATA_TPU_FUSED"
 # persistent=True on a sampling server raises.
 ENV_PERSISTENT = "KATA_TPU_PERSISTENT"
 
+# Speculative decoding's opt-in: "1" arms a GenerationServer built with
+# speculative_k > 0; otherwise it degrades to plain decoding with a
+# ``spec_disabled`` event. An explicit spec_opt_in= wins.
+ENV_SPEC_OPT_IN = "KATA_TPU_SPEC"
+
 # Shared-prefix KV cache for GenerationServer: a slotted server's store of
 # that many tokens, or, on a paged server, any value > 0 turns on the
 # prefix tier inside the pool. A malformed or negative value degrades to

@@ -11,7 +11,8 @@ issues more slowly than the card runs them. Replaying a captured graph
 issues the whole chunk in one call.
 
 A :class:`DecodeGraph` serves one static signature of one server: the
-chunk's step count, slotted or paged, the budget mask armed or not,
+chunk's step count, slotted, ring (or cycle arena) or paged, the budget
+mask armed or not,
 ``eos_id``, and greedy or sampled (:class:`Sampling`: ``top_k``,
 ``top_p``, the server's generator, and the temperature as a static device
 scalar). Its static inputs are ``tok [B]``, ``pos [B]``, ``budget
@@ -84,13 +85,16 @@ class Sampling(NamedTuple):
 def serve_decode(params, arena, tok, pos, cfg, steps: int,
                  decode_kernel_fn=None, block_tables=None, block_size: int = 0,
                  paged_len: int = 0, budget=None, eos_id: Optional[int] = None,
-                 sampling: Optional[Sampling] = None):
+                 sampling: Optional[Sampling] = None, ring: bool = False):
     """One fixed-``steps`` ragged decode chunk over the arena (in place),
     through ``decode_kernel_fn``, or the plain attention when it is None.
     With ``block_tables`` the arena is the block pool and each lane decodes
     through its table. ``budget [B]`` (with ``eos_id``) arms the freeze
-    mask. Greedy, or sampled with ``sampling``. Returns ``(tokens [B,
-    steps], last [B], pos [B])``."""
+    mask. Greedy, or sampled with ``sampling``. ``ring``: the arena is a
+    ring or cycle arena; each step's slots (``pos % W``) and the slots'
+    positions are computed on the device from ``pos``, so a graph of the
+    chunk replays them. Returns ``(tokens [B, steps], last [B], pos
+    [B])``."""
     skw = {}
     if sampling is not None:
         skw = dict(do_sample=True, generator=sampling.generator,
@@ -101,7 +105,7 @@ def serve_decode(params, arena, tok, pos, cfg, steps: int,
         attn_fn=attention.reference_attention, return_state=True,
         decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
         block_size=block_size, paged_len=paged_len, budget=budget,
-        eos_id=eos_id, **skw,
+        eos_id=eos_id, ring=ring, **skw,
     )
     return toks, last, pos
 
@@ -158,7 +162,7 @@ class DecodeGraph:
                  decode_kernel_fn=None, table_width: int = 0,
                  block_size: int = 0, paged_len: int = 0,
                  budget: bool = False, eos_id: Optional[int] = None,
-                 sampling: Optional[Sampling] = None):
+                 sampling: Optional[Sampling] = None, ring: bool = False):
         self.params, self.arena, self.cfg = params, arena, cfg
         self.steps = steps
         self.device = torch.device(device)
@@ -166,7 +170,8 @@ class DecodeGraph:
         # them (a checked kernel call) runs in both.
         self.decode_kernel_fn = decode_kernel_fn
         self._kw = dict(block_size=block_size, paged_len=paged_len,
-                        eos_id=eos_id if budget else None, sampling=sampling)
+                        eos_id=eos_id if budget else None, sampling=sampling,
+                        ring=ring)
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0

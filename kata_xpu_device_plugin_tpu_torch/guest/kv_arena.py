@@ -151,9 +151,16 @@ def pool_materialize(pool, table: torch.Tensor, length: int,
 
 def map_rows(rows, fn):
     """``fn`` applied to every tensor of a cache or rows pair, the pair's
-    structure (QTensor or plain) kept."""
-    return tuple(QTensor(*map(fn, c)) if isinstance(c, QTensor) else fn(c)
-                 for c in rows)
+    structure (QTensor or plain) kept; a cycle arena's tuple of pairs maps
+    pair by pair."""
+    def one(c):
+        if isinstance(c, QTensor):
+            return QTensor(*map(fn, c))
+        if isinstance(c, tuple):
+            return tuple(one(x) for x in c)
+        return fn(c)
+
+    return tuple(one(c) for c in rows)
 
 
 def rows_to_host(rows):

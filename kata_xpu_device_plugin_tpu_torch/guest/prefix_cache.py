@@ -193,10 +193,16 @@ class PrefixHit:
 
 def cache_leaves(caches) -> list:
     """The tensors of a cache pair ``(k, v)``, QTensor payloads and scales
-    alike, in a fixed order."""
+    alike, in a fixed order; of a cycle arena's tuple of pairs, pair by
+    pair."""
     out = []
     for c in caches:
-        out.extend(c if isinstance(c, QTensor) else (c,))
+        if isinstance(c, QTensor):
+            out.extend(c)
+        elif isinstance(c, tuple):
+            out.extend(cache_leaves(c))
+        else:
+            out.append(c)
     return out
 
 

@@ -124,10 +124,38 @@ unfinished request fails loudly (``chip_lost``). Neither moves decode off
 its backend. Anything else propagates after a ``fatal_error`` event.
 Recovered greedy outputs equal fault-free ones.
 
-Arguments of the JAX server that select modes not ported yet (a
-caller's training-layout ``mesh``, speculative decoding, ring caches)
-raise ``NotImplementedError`` naming their ROADMAP item when set to
-anything but their no-op value.
+Speculative decoding, as in the JAX server (``speculative_k=k``, armed by
+``spec_opt_in=True`` or ``KATA_TPU_SPEC=1``, else it degrades to plain
+decoding with a ``spec_disabled`` event): each round drafts ``k`` tokens a
+lane, from the lane's own history (n-gram) or from a draft model
+(``draft=(draft_params, draft_cfg)``, with an arena of its own at the
+lanes' positions), verifies them in one ``[max_batch, k+1]`` forward
+(:mod:`..models.speculative`) and accepts the longest prefix the target's
+greedy choices reproduce, or, sampling, by the rejection scheme on the
+device. Greedy tokens equal the plain server's. Rounds run lock-step, and
+verify spans and the draft's decode take the plain attention (a span at an
+offset takes no kernel, the JAX rule). ``stats()["draft_acceptance"]`` is
+the accepted share of the drafts offered.
+
+``ring_kv=True`` (a config with a sliding window) makes the slotted arena
+a ring of ``window`` slots a lane (position p at slot ``p % window``), or,
+with a window cycle (Gemma-2, Gemma-3), the cycle arena: rings for the
+local layers, ``max_len`` for the global ones
+(:func:`..models.transformer.init_cycle_kv_caches`). Under speculation
+each ring carries ``speculative_k`` margin slots, so that a verify span
+never evicts a key a live window still sees. Admission prefills into a
+prompt-length cache and folds it into the lane's ring rows. Ring reads take
+the plain attention (the kernels take no slot positions), in the
+overlapped loop's decode graph too, where the slots and their positions
+are computed on the card from the lanes' positions. Ring and speculative
+servers admit one request a prefill, as the JAX server does, and refuse
+(or, from the environment, degrade away from) the paged pool, the prefix
+cache (ring and draft servers), chunked admission, ``decode_steps > 1``,
+persistent rounds and ``tp > 1``; speculative servers refuse host
+checkpoints.
+
+A caller's training-layout ``mesh`` (not ported yet) raises
+``NotImplementedError`` naming its ROADMAP item when set.
 """
 from __future__ import annotations
 
@@ -165,6 +193,7 @@ from ..constants import (
     ENV_RECOVERY,
     ENV_RECOVERY_BACKOFF_S,
     ENV_SCHED_POLICY,
+    ENV_SPEC_OPT_IN,
     ENV_TRACE_CTX,
 )
 from ..models.transformer import (
@@ -172,6 +201,8 @@ from ..models.transformer import (
     _next_token,
     _sampling_args,
     check_supported,
+    fold_prefill,
+    init_cycle_kv_caches,
     init_kv_caches,
     prefill_batch,
     prefill_suffix,
@@ -182,7 +213,7 @@ from ..obs.trace import DeviceFence
 from ..ops import attention
 from ..ops.quant import QTensor
 from . import resilience, tp_serving
-from .decode_graph import DecodeGraph, PersistentRound, Sampling
+from .decode_graph import DecodeGraph, PersistentRound, Sampling, serve_decode
 from .kv_arena import (
     RESERVED_BLOCKS,
     SCRATCH_BLOCK,
@@ -324,7 +355,12 @@ def resolve_tp(tp: Optional[int], cfg: DecoderConfig, ring_kv: bool = False,
             raise ValueError(f"tp={tp} is incompatible with this server "
                              f"({reason})")
         return tp
-    tp = tp_serving.tp_from_env(label=label, trace=trace)
+    if ring_kv or speculative:
+        # Named before the devices are counted: the JAX server's order of
+        # reasons.
+        tp = tp_serving.env_degree(label=label, trace=trace)
+    else:
+        tp = tp_serving.tp_from_env(label=label, trace=trace)
     reason = tp_conflict(cfg, tp, ring_kv, speculative)
     if reason is not None:
         emit("tp_disabled", reason=reason, tp=tp)
@@ -420,21 +456,26 @@ def resolve_fused(fused: Optional[bool], sched_policy: str,
 
 
 def resolve_persistent(persistent: Optional[bool], do_sample: bool,
-                       emit=_no_emit) -> bool:
+                       emit=_no_emit, mode: Optional[str] = None) -> bool:
     """Whether rounds are persistent: explicit argument >
-    ``KATA_TPU_PERSISTENT`` ("1" on; malformed degrades to off) > off. The
-    round is greedy only: on a sampling server an explicit
-    ``persistent=True`` raises and the env value degrades. Each degrade
-    emits ``persistent_disabled``."""
+    ``KATA_TPU_PERSISTENT`` ("1" on; malformed degrades to off) > off. A
+    server whose ``mode`` is ``"speculative"`` (lock-step rounds driven by
+    the host) or ``"ring_kv"`` cannot, and the round is greedy only, so
+    on a sampling server either: there an explicit ``persistent=True``
+    raises and the env value degrades. Each degrade emits
+    ``persistent_disabled``."""
     explicit = persistent is not None
     on = (bool(persistent) if explicit
           else _env_flag(ENV_PERSISTENT, emit, "persistent_disabled") is True)
-    if on and do_sample:
+    reason = mode or ("sampling" if do_sample else None)
+    if on and reason is not None:
         if explicit:
+            why = ("persistent rounds are greedy only" if reason == "sampling"
+                   else "persistent rounds are not modeled for it")
             raise ValueError(
-                "persistent=True is incompatible with this server (sampling): "
-                "persistent rounds are greedy only")
-        emit("persistent_disabled", reason="sampling")
+                f"persistent=True is incompatible with this server ({reason}): "
+                f"{why}")
+        emit("persistent_disabled", reason=reason)
         return False
     return on
 
@@ -520,8 +561,8 @@ PHASES = (PHASE_QUEUE, PHASE_PREFILL, PHASE_DECODE, PHASE_DECODE_DEGRADED,
           PHASE_PREEMPTED, PHASE_RECOVERY)
 
 # Scrape-time gauges of stats() (the JAX server's names; a server's label
-# tells instances apart). draft_acceptance reads 0 until speculative
-# decoding is ported.
+# tells instances apart). draft_acceptance reads 0 on a server that does
+# not speculate.
 _PROM_STATS = (
     ("rounds", "Device rounds dispatched"),
     ("prefills", "Prompt prefills performed"),
@@ -819,14 +860,37 @@ def _merge_rows(dev_vals: torch.Tensor, host_vals: torch.Tensor,
 
 def _write_slots(arena, batch_caches, slots: torch.Tensor) -> None:
     """Copy the N rows of one admission prefill (leaves ``[L, N, S, ...]``)
-    into arena slots ``slots`` at positions ``0 .. S-1``, in place. Rows
-    past S keep an earlier request's values: decode writes position p
-    before it attends to it and masks everything past p, so they are never
-    read."""
-    for a, c in zip(arena, batch_caches):
-        pairs = zip(a, c) if isinstance(a, QTensor) else ((a, c),)
-        for dst, src in pairs:
-            dst[:, slots, : src.shape[2]] = src
+    into arena slots ``slots`` at positions ``0 .. S-1``, in place; a cycle
+    arena pair by pair. Rows past S keep an earlier request's values:
+    decode writes position p before it attends to it and masks everything
+    past p, so they are never read."""
+    for dst, src in zip(cache_leaves(arena), cache_leaves(batch_caches)):
+        dst[:, slots, : src.shape[2]] = src
+
+
+def _check_spec_ring(cfg: DecoderConfig, speculative_k: int, draft, top_k: int,
+                     top_p: float, ring_kv: bool) -> None:
+    """The JAX server's refusals of a speculative or ring config."""
+    if speculative_k < 0:
+        raise ValueError(f"speculative_k must be >= 0, got {speculative_k}")
+    if draft is not None and not speculative_k:
+        raise ValueError(
+            "draft=(draft_params, draft_cfg) requires speculative_k > 0")
+    if draft is not None and draft[1].vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"draft vocab {draft[1].vocab_size} != target vocab "
+            f"{cfg.vocab_size} — draft tokens would be meaningless")
+    if speculative_k and (top_k or top_p):
+        raise ValueError(
+            "speculative serving supports greedy (temperature=0, exact token "
+            "identity) and plain temperature sampling (the lossless rejection "
+            "scheme, models.speculative.sample_accept_row); top_k/top_p "
+            "truncation is not modeled in the acceptance math — disable them "
+            "with speculative_k")
+    if ring_kv and not any(w > 0 for w in cfg.window_cycle):
+        raise ValueError(
+            "ring_kv needs a sliding-window config (cfg.sliding_window > 0 or "
+            "a windowed attn_windows cycle)")
 
 
 class GenerationServer:
@@ -883,6 +947,17 @@ class GenerationServer:
     ``kv_host_tokens`` (else ``KATA_TPU_KV_HOST_TOKENS``) sizes the host
     tier of a paged server: explicit values < 0, or > 0 on a slotted
     server, raise; env values degrade to 0.
+
+    ``speculative_k`` > 0 speculates (module doc) once opted in by
+    ``spec_opt_in=True`` (else ``KATA_TPU_SPEC=1``; otherwise it degrades
+    with ``spec_disabled``); ``draft=(draft_params, draft_cfg)`` (a model
+    of the same vocabulary, on this device) drafts in place of n-gram
+    lookup. ``ring_kv=True`` (a config with a sliding window) makes the
+    arena rings (module doc). Both refuse what the JAX server refuses:
+    ``speculative_k < 0``, a draft without ``speculative_k`` or of another
+    vocabulary, ``top_k``/``top_p`` with ``speculative_k``, ``ring_kv``
+    without a window; explicit knobs they cannot take raise, env ones
+    degrade with JAX's events and reasons.
 
     ``tp`` (else ``KATA_TPU_TP`` and the topology env) serves across that
     many shards of the server's device (module doc); ``kv_layout`` (else
@@ -954,32 +1029,45 @@ class GenerationServer:
                  watchdog: Any = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        _check_spec_ring(cfg, speculative_k, draft, top_k, top_p, ring_kv)
         # Label and trace first: every degrade event below carries them.
         # The trace is the daemon's per-allocation id when injected.
         self._label = f"server{next(GenerationServer._instance_ids)}"
         self._trace = (os.environ.get(ENV_TRACE_CTX, "").strip()
                        or obs.new_trace())
+        # A valid speculative config arms only when opted in; otherwise the
+        # server decodes plainly and says so (the JAX server's rule).
+        if speculative_k:
+            opted = (os.environ.get(ENV_SPEC_OPT_IN, "") == "1"
+                     if spec_opt_in is None else bool(spec_opt_in))
+            if not opted:
+                self._emit("spec_disabled", reason="opt_in_required",
+                           speculative_k=speculative_k)
+                speculative_k, draft = 0, None
+        self.speculative_k = speculative_k
+        self.draft = draft
+        self.ring_kv = bool(ring_kv)
+        self._cycle = self.ring_kv and len(cfg.window_cycle) > 1
+        # Windowed rings carry speculative_k margin slots: a verify span of
+        # k+1 rows then never evicts a key a live window still sees.
+        self._ring_margin = speculative_k if ring_kv else 0
+        speculative = bool(speculative_k) or draft is not None
+        # The mode a knob conflicts with, in the JAX server's order: the ring
+        # first for chunked admission, speculation first for multi-step
+        # decode and persistent rounds.
+        self._mode = ("ring_kv" if ring_kv else
+                      "speculative" if speculative else None)
+        spec_first = "speculative" if speculative else self._mode
         self._init_resilience(
             fault_injector, fence_timeout_s, quarantine_after,
-            recovery_backoff_s, checkpoint_rounds,
-            speculative=bool(speculative_k) or draft is not None)
-        self._tp = resolve_tp(tp, cfg, ring_kv,
-                              bool(speculative_k) or draft is not None,
+            recovery_backoff_s, checkpoint_rounds, speculative=speculative)
+        self._tp = resolve_tp(tp, cfg, ring_kv, speculative,
                               emit=self._emit, label=self._label,
                               trace=self._trace)
-        unported = {
-            "mesh= (a caller's training-layout mesh, ROADMAP Queue 1 item 12b)":
-                mesh is not None,
-            "speculative_k (ROADMAP Queue 1 item 11b)": speculative_k,
-            "draft (speculative decoding, ROADMAP Queue 1 item 11b)":
-                draft is not None,
-            "spec_opt_in (speculative decoding, ROADMAP Queue 1 item 11b)":
-                spec_opt_in,
-            "ring_kv (ROADMAP Queue 1 item 11b)": ring_kv,
-        }
-        for what, value in unported.items():
-            if value:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (a caller's training-layout mesh, ROADMAP Queue 1 item "
+                "12b) is not ported yet")
         # Degraded mode: the shrink ladder's floor and the kill switch.
         if tp_min is not None:
             if int(tp_min) < 1:
@@ -1003,6 +1091,12 @@ class GenerationServer:
             raise ValueError(
                 f"params live on {params['embed'].device}, the server runs on "
                 f"{self.device}")
+        if draft is not None:
+            check_supported(draft[1])
+            if draft[0]["embed"].device != self.device:
+                raise ValueError(
+                    f"draft params live on {draft[0]['embed'].device}, the "
+                    f"server runs on {self.device}")
         self.cfg = cfg
         # The shards of a tensor-parallel server (every one on this device);
         # params split across them by the serving rules. The unsplit params
@@ -1047,7 +1141,25 @@ class GenerationServer:
         self._steady_reshards = 0
         policy, chunk_tokens, slo_ms = resolve_sched(
             sched_policy, prefill_chunk, itl_slo_ms, self._emit)
+        if policy == POLICY_SLO and self._mode is not None:
+            # A chunk resumes through prefill_suffix: the ring folds and a
+            # draft's arena have no chunk-resume path (the JAX server's set).
+            if sched_policy is not None:
+                raise ValueError(
+                    "sched_policy='slo_chunked' is incompatible with this "
+                    f"server ({self._mode})")
+            self._emit("sched_disabled", reason=self._mode)
+            policy = POLICY_FIFO
         self._decode_steps = resolve_decode_steps(decode_steps, self._emit)
+        if self._decode_steps > 1 and spec_first is not None:
+            # Speculative rounds are lock-step; a ring fold cannot take the
+            # frozen lanes' rewrites across the wrap.
+            if decode_steps is not None:
+                raise ValueError(
+                    f"decode_steps={self._decode_steps} is incompatible with "
+                    f"this server ({spec_first})")
+            self._emit("decode_steps_invalid", reason=spec_first)
+            self._decode_steps = 1
         # Steps of one dispatch: ITL, the budget gate and the paged
         # lookahead key off this, never off ``chunk`` alone.
         self._dispatch_steps = chunk * self._decode_steps
@@ -1059,8 +1171,8 @@ class GenerationServer:
         self._fuse_pending = False
         self._fused_ret: Optional[_FusedChunk] = None
         self._fused_admissions = 0
-        self._persistent = resolve_persistent(persistent, self._do_sample,
-                                              self._emit)
+        self._persistent = resolve_persistent(
+            persistent, self._do_sample, self._emit, mode=spec_first)
         self._hb_every = self._resolve_heartbeat(heartbeat_rounds)
         # A persistent round's step cap, a static of its executable: the
         # heartbeat cadence bounds it (the host surfaces telemetry at least
@@ -1102,6 +1214,15 @@ class GenerationServer:
             host_tokens = 0
         self._kv_host = (HostKVTier(host_tokens, self.kv_block)
                          if host_tokens > 0 else None)
+        self._drafts_offered = 0
+        self._drafts_accepted = 0
+        self._spec_signatures: set = set()
+        # Ring and draft admissions fold or mirror one request's prefill:
+        # one request a forward, as in the JAX server.
+        self._can_batch_prefill = not self.ring_kv and draft is None
+        self.draft_arena = (init_kv_caches(draft[1], max_batch, max_len,
+                                           device=self.device)
+                            if draft is not None else None)
         if self.paged:
             self.arena = None  # the pool is the arena: no slot grid
             self.kv_pool = KVPool(cfg, self._pool_tokens, self.kv_block,
@@ -1121,8 +1242,12 @@ class GenerationServer:
             self._bt_host = np.full((max_batch, self._nb_max), SCRATCH_BLOCK,
                                     np.int32)
             self._plans: dict[int, list[int]] = {}
+        elif self._cycle:
+            self.arena = init_cycle_kv_caches(
+                cfg, max_batch, max_len, device=self.device,
+                quantized=self.kv_quant, margin=self._ring_margin)
         else:
-            self.arena = init_kv_caches(cfg, max_batch, max_len,
+            self.arena = init_kv_caches(cfg, max_batch, self._arena_len(),
                                         device=self.device,
                                         quantized=self.kv_quant)
         self.prefix_store = self._make_prefix_store(prefix_cache_tokens,
@@ -1282,7 +1407,7 @@ class GenerationServer:
             eos_id=self.eos_id,
             sampling=Sampling(self.generator, self._temp_dev, self.top_k,
                               self.top_p) if self._do_sample else None,
-            **paged_kw)
+            ring=self.ring_kv, **paged_kw)
         self._round = PersistentRound(
             self.params, arena, self.cfg, batch=self.max_batch,
             cap=self._persistent_cap, device=self.device,
@@ -1297,6 +1422,12 @@ class GenerationServer:
         tokens, explicit = _resolve_tokens(tokens, ENV_PREFIX_CACHE_TOKENS,
                                            self._emit, "prefix_store_disabled")
         if injected is None and tokens <= 0:
+            return None
+        if self.ring_kv or self.draft is not None:
+            # Cold admission instead: a ring folds a prefix's rows per lane,
+            # and a draft's arena would miss its own prefix KV.
+            self._emit("prefix_store_disabled",
+                       reason="ring_kv" if self.ring_kv else "draft")
             return None
         if not self.prefill_buckets:
             if explicit or injected is not None:
@@ -1349,12 +1480,16 @@ class GenerationServer:
         return False
 
     def _pool_conflict(self, pool_tokens: int, prefix_store) -> Optional[str]:
-        """Why this server cannot run paged, or None. An injected prefix
-        store is one: the pool's own tier is the paged prefix path. (The
-        JAX server's other conflicts, ring caches and speculation, are
-        modes that raise before this is asked.)"""
+        """Why this server cannot run paged, or None, the JAX server's
+        reasons: a ring (a block gather would re-lay the band out),
+        speculation (a draft's second arena, verify spans), an injected
+        prefix store (the pool's own tier is the paged prefix path)."""
         if self.kv_block < 1:
             return f"bad_block_size:{self.kv_block}"
+        if self.ring_kv:
+            return "ring_kv"
+        if self.speculative_k or self.draft is not None:
+            return "speculative"
         if prefix_store is not None:
             return "injected_prefix_store"
         shards = self._kv_shards()
@@ -1364,6 +1499,14 @@ class GenerationServer:
             # request, or the oldest request could wait forever.
             return f"pool_too_small:{pool_tokens}"
         return None
+
+    def _arena_len(self) -> int:
+        """A lane's arena length: the first window of the cycle plus the
+        speculative margin under ``ring_kv`` (the JAX server's reading; a
+        cycle arena's global layers hold ``max_len``), else ``max_len``."""
+        if self.ring_kv:
+            return self.cfg.window_cycle[0] + self._ring_margin
+        return self.max_len
 
     def _kv_shards(self) -> int:
         """The pool's sub-pools: the degree under the blocks layout, else
@@ -1529,10 +1672,13 @@ class GenerationServer:
         pool and counts 0; the host tier is host memory and stays out)."""
         store = self.prefix_store
         stage = self._stage
+        draft_params, draft_arena = (self.draft[0], self.draft_arena
+                                     ) if self.draft is not None else ({}, ())
         return {
-            "params": _storage_bytes(self.params),
-            "kv_arena": _storage_bytes(self.kv_pool.arena if self.paged
-                                       else self.arena),
+            # A self draft's layers view the target's: counted once.
+            "params": _storage_bytes([self.params, draft_params]),
+            "kv_arena": _storage_bytes([self.kv_pool.arena if self.paged
+                                        else self.arena, draft_arena]),
             "prefix_store": (_storage_bytes(store.arena)
                              if isinstance(store, PrefixStore) else 0),
             "resume_stage": _storage_bytes(stage.rows) if stage else 0,
@@ -1651,9 +1797,7 @@ class GenerationServer:
                              f"(have {attention.DECODE_ATTN_BACKENDS})")
         if choice == BACKEND_REFERENCE:
             return choice, "forced"
-        # The JAX server's other reasons, ring caches and speculation, are
-        # modes that raise before this is asked.
-        conflict = attention.decode_kernel_conflict(self.cfg)
+        conflict = self._decode_attn_conflict()
         if conflict is not None:
             if explicit:
                 raise ValueError(
@@ -1665,6 +1809,17 @@ class GenerationServer:
         if self.device.type != "cuda":
             return BACKEND_REFERENCE, "cpu_backend"
         return BACKEND_PAGED, ""
+
+    def _decode_attn_conflict(self) -> Optional[str]:
+        """Why this server cannot decode through the paged kernel, or None,
+        in the JAX server's order: a ring (the kernel takes no slot
+        positions), speculation (verify spans), then the masks the kernel
+        does not model (a sliding window, the attention-logit softcap)."""
+        if self.ring_kv:
+            return "ring_kv"
+        if self.speculative_k or self.draft is not None:
+            return "speculative"
+        return attention.decode_kernel_conflict(self.cfg)
 
     # ----- public API ------------------------------------------------------
 
@@ -1787,9 +1942,10 @@ class GenerationServer:
             "slots_busy": len(busy),
             "queued": len(self._queue),
             "batch_occupancy": round(len(busy) / self.max_batch, 4),
-            # Mean cache fill of the busy lanes: positions over max_len.
+            # Mean cache fill of the busy lanes: positions over the arena
+            # length (a ring's, its first window plus the margin).
             "kv_slot_utilization": round(float(np.mean(
-                [min(1.0, self._pos[b] / self.max_len) for b in busy])), 4)
+                [min(1.0, self._pos[b] / self._arena_len()) for b in busy])), 4)
             if busy else 0.0,
             "ttft_s": self._ttft.summary(),
             "decode_token_s": self._tok_lat.summary(),
@@ -1856,8 +2012,19 @@ class GenerationServer:
             "checkpoint_rounds": self._ckpt_every,
             "kv_pool_shard_occupancy": self._pool_shard_occupancy(),
             "kv_pool_shard_occupancy_peak": list(self._shard_peak),
+            **self._spec_stats(),
             **self._telemetry_stats(),
         }
+
+    def _spec_stats(self) -> dict:
+        """``draft_acceptance`` on a speculative server (the JAX server's
+        key, absent otherwise): accepted drafts over drafts offered, 0.0
+        before the first round."""
+        if not self.speculative_k:
+            return {}
+        return {"draft_acceptance": (
+            round(self._drafts_accepted / self._drafts_offered, 4)
+            if self._drafts_offered else 0.0)}
 
     def _telemetry_stats(self) -> dict:
         """The telemetry keys of :meth:`stats`, the JAX server's: the trace
@@ -2006,15 +2173,24 @@ class GenerationServer:
                                       []).append((req, hit))
             it = iter(free)
             for (_seg, _m, pad_len), pairs in hit_groups.items():
-                reqs, hits = zip(*pairs)
-                self._admit_current = list(reqs)
-                self._fill_slots([next(it) for _ in reqs], list(reqs), pad_len,
-                                 list(hits))
+                for part in self._prefill_groups(pairs):
+                    reqs, hits = zip(*part)
+                    self._admit_current = list(reqs)
+                    self._fill_slots([next(it) for _ in reqs], list(reqs),
+                                     pad_len, list(hits))
             for pad_len, reqs in groups.items():
-                self._admit_current = list(reqs)
-                self._fill_slots([next(it) for _ in reqs], reqs, pad_len)
+                for part in self._prefill_groups(reqs):
+                    self._admit_current = list(part)
+                    self._fill_slots([next(it) for _ in part], part, pad_len)
             self._admitting = []
             self._admit_current = []
+
+    def _prefill_groups(self, group: list) -> list:
+        """One admission group's prefill forwards: the whole group in one,
+        or, on a ring or draft server, one request a forward."""
+        if self._can_batch_prefill:
+            return [list(group)]
+        return [[x] for x in group]
 
     def _take(self, n_free: int) -> list:
         """Pop one pass's admitted set: the FIFO prefix of the queue that
@@ -2176,7 +2352,18 @@ class GenerationServer:
         t_first = time.perf_counter()
         self._sched.note_prefill(n * pad_len, sp.duration_s)
         self._inj.fire("admission_commit")
+        if self.ring_kv:
+            caches = fold_prefill(caches, int(true_lens[0]), self.cfg,
+                                  self.max_len, self._ring_margin)
         self._commit(slots, reqs, caches)
+        if self.draft is not None:
+            # The draft prefills the same prompt into its own arena rows, so
+            # its cache tracks the lane's positions from the first round.
+            d_params, d_cfg = self.draft
+            d_caches, _l, _p = prefill_batch(
+                d_params, tokens, d_cfg, pad_len, torch.from_numpy(true_lens))
+            _write_slots(self.draft_arena, d_caches, torch.as_tensor(
+                slots, dtype=torch.long, device=self.device))
         if n >= 2:
             self._batch_prefills += 1
         for i, (b, req) in enumerate(zip(slots, reqs)):
@@ -2706,10 +2893,11 @@ class GenerationServer:
         return alive
 
     def _step_inner(self) -> bool:
-        """Persistent rounds run lock-step: the host reads the delivered
-        count at the fence before it can schedule the next round. Under
-        strict the overlapped round is guarded against host syncs."""
-        if self.overlap and not self._persistent:
+        """Persistent and speculative rounds run lock-step: the host reads
+        the delivered count, or the accepted drafts, before it can schedule
+        the next round. Under strict the overlapped round is guarded
+        against host syncs."""
+        if self.overlap and not self.speculative_k and not self._persistent:
             if self.strict:
                 with torchapi.strict_mode(scope="serving.decode_dispatch",
                                           device=self.device):
@@ -3102,6 +3290,9 @@ class GenerationServer:
         else:
             for t in cache_leaves(self.arena):
                 t.zero_()
+        if self.draft_arena is not None:
+            for t in cache_leaves(self.draft_arena):
+                t.zero_()
         self._note_kv_replicated()
 
     def _restore_lane(self, b: int, entry: _CkptEntry) -> bool:
@@ -3257,9 +3448,15 @@ class GenerationServer:
         (:func:`..obs.devledger.decode_cost`): every lane for ``steps``
         steps, plus an admission slice ``slice_width`` rows wide. The
         signature does not know the lanes' positions: each row is costed
-        over half the arena's keys (at the served models' widths the
+        over half the arena's keys, or, in a ring layer, its whole ring
+        (the mean over the layers; at the served models' widths the
         attention is a few percent of a decode step's FLOPs)."""
         keys = self.max_len / 2
+        if self.ring_kv:
+            keys = float(np.mean([
+                w + self._ring_margin if w > 0 else self.max_len / 2
+                for w in (self.cfg.layer_window(i)
+                          for i in range(self.cfg.n_layers))]))
         return obs.devledger.decode_cost(
             self.cfg, lanes=self.max_batch, steps=steps, keys=keys,
             kv_quant=self.kv_quant, prefill_tokens=slice_width,
@@ -3292,6 +3489,8 @@ class GenerationServer:
             return (bool(self._queue) or bool(self._preempted)
                     or self._partial is not None)
         self._lanes_peak = max(self._lanes_peak, len(active))
+        if self.speculative_k:
+            return self._verify_round(active)
         with obs.span("serving.decode_chunk", trace_id=self._trace,
                       server=self._label,
                       tokens=len(active) * self._dispatch_steps,
@@ -3344,6 +3543,103 @@ class GenerationServer:
         # the next round's admission pass.
         with self._clock.section(LOOP_PHASE_HOST):
             self._stage_resume_prefetch()
+        return True
+
+    def _verify_round(self, active: list) -> bool:
+        """One speculative round (:meth:`_step_speculative`) in a
+        ``serving.verify_round`` span, whose token transfer fences it; the
+        accepted tokens then give ITL (the span over the tokens a lane
+        gained) and a ``spec_round`` event, as in the JAX server."""
+        before = self._emitted
+        with obs.span("serving.verify_round", trace_id=self._trace,
+                      server=self._label, slots_busy=len(active),
+                      queued=len(self._queue)) as sp:
+            alive = self._step_speculative(active)
+        accepted = self._emitted - before
+        if accepted:
+            tok_lat = sp.duration_s / (accepted / len(active))
+            self._tok_lat.observe(tok_lat)
+            self._h_tok_lat.observe(tok_lat)
+            self._emit("spec_round", accepted=accepted,
+                       offered=self.speculative_k * len(active),
+                       dur_s=round(sp.duration_s, 6))
+        return alive
+
+    def _step_speculative(self, active: list) -> bool:
+        """One speculative round over every lane: ``k`` drafts a lane, from
+        its request's history (n-gram) or from a ``k+1``-step decode of the
+        draft over its arena (keep k: the cache-hole argument of
+        :func:`..models.speculative.draft_propose`), verified in ONE
+        ``[max_batch, k+1]`` forward at the lanes' positions; greedy,
+        each lane accepts the longest draft prefix the target's own choices
+        reproduce, then its correction, so the tokens are the plain greedy
+        server's. Sampling, the rejection scheme runs on the device
+        (:func:`..models.speculative.sample_accept_device`) and only token
+        ids and counts come to the host. Lanes without a request verify
+        harmlessly in their own rows."""
+        from ..models.speculative import (
+            accept_drafts,
+            draft_sample_propose,
+            ngram_propose,
+            sample_accept_device,
+            verify_logits_step,
+            verify_step,
+        )
+
+        k = self.speculative_k
+        sampling = self._do_sample
+        signature = ("verify", sampling, self.draft is not None)
+        if signature not in self._spec_signatures:
+            self._spec_signatures.add(signature)
+            torchapi.note_compile("speculative signature")
+        cur = self._last.copy()
+        cur_dev = self._to_device(cur)
+        pos_dev = self._to_device(self._pos)
+        q_dev = None
+        if self.draft is not None and sampling:
+            d_params, d_cfg = self.draft
+            drafts_dev, q_dev, _c = draft_sample_propose(
+                d_params, self.draft_arena, cur_dev, pos_dev, d_cfg, k,
+                self._temp_dev, self.generator)
+            drafts = drafts_dev.cpu().numpy()
+        elif self.draft is not None:
+            d_params, d_cfg = self.draft
+            toks_dev, _l, _p = serve_decode(d_params, self.draft_arena, cur_dev,
+                                            pos_dev, d_cfg, k + 1)
+            drafts = toks_dev.cpu().numpy()[:, :k]
+        else:
+            drafts = np.zeros((self.max_batch, k), np.int32)
+            for b in active:
+                req = self._slot_req[b]
+                hist = np.concatenate(
+                    [req.prompt, np.asarray(req.out[:-1], np.int32)])
+                drafts[b] = ngram_propose(hist, int(cur[b]), k)
+        toks = self._to_device(np.concatenate([cur[:, None], drafts], axis=1),
+                               torch.int64)
+        if sampling:
+            logits, _c = verify_logits_step(self.params, self.arena, toks,
+                                            pos_dev, self.cfg, ring=self.ring_kv)
+            tok_acc, counts = sample_accept_device(
+                self._to_device(drafts), q_dev, logits, self._temp_dev,
+                self.generator, k, has_q=q_dev is not None)
+            tok_acc, counts = tok_acc.cpu().numpy(), counts.cpu().numpy()
+        else:
+            greedy, _c = verify_step(self.params, self.arena, toks, pos_dev,
+                                     self.cfg, ring=self.ring_kv)
+            greedy = greedy.cpu().numpy()
+        self._rounds += 1
+        for b in active:
+            if sampling:
+                accepted = tok_acc[b, : counts[b]].tolist()
+            else:
+                accepted = accept_drafts(drafts[b], greedy[b], k)
+            self._slot_req[b].out.extend(accepted)
+            self._last[b] = accepted[-1]
+            self._pos[b] += len(accepted)
+            self._emitted += len(accepted)
+            self._drafts_offered += k
+            self._drafts_accepted += len(accepted) - 1
+            self._maybe_finish(b, accepted)
         return True
 
     def _note_round(self, dur_s: float, busy: int,

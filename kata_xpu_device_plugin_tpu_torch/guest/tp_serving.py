@@ -57,7 +57,7 @@ KV_LAYOUTS = (KV_LAYOUT_HEADS, KV_LAYOUT_BLOCKS)
 
 __all__ = ["ENV_DEGRADED", "ENV_KV_LAYOUT", "ENV_TP", "ENV_TP_MIN",
            "KV_LAYOUTS", "ServingMesh", "allocation_chips", "degraded_enabled",
-           "kv_heads_shardable", "shrink_ladder", "tp_from_env",
+           "kv_heads_shardable", "shrink_ladder", "env_degree", "tp_from_env",
            "tp_min_from_env"]
 
 # TPU families: (chips per host, whether the type's suffix counts
@@ -91,16 +91,14 @@ def local_device_count() -> int:
     return max(1, torch.cuda.device_count()) if torch.cuda.is_available() else 1
 
 
-def tp_from_env(env: Optional[dict] = None, *,
-                device_count: Optional[int] = None, label: str = "",
-                trace: str = "") -> int:
-    """The serving degree from the env (the module doc's ladder); always at
-    least 1. Every degrade emits one ``serving/tp_disabled`` event with its
-    reason, ``server=label`` and (when given) the allocation ``trace``."""
+def env_degree(env: Optional[dict] = None, *, label: str = "",
+               trace: str = "") -> int:
+    """The degree the env asks for (the module doc's ladder), devices not
+    yet counted; a malformed value emits one ``serving/tp_disabled`` event
+    and falls to the topology's chips."""
     from .. import obs
 
     env = os.environ if env is None else env
-    extra = {"trace": trace} if trace else {}
     raw = env.get(ENV_TP, "").strip()
     tp = None
     if raw:
@@ -110,20 +108,32 @@ def tp_from_env(env: Optional[dict] = None, *,
             tp = None
         if tp is None or tp < 0:
             obs.emit("serving", "tp_disabled", server=label,
-                     reason=f"bad_env:{raw[:32]}", **extra)
+                     reason=f"bad_env:{raw[:32]}",
+                     **({"trace": trace} if trace else {}))
             tp = None
         elif tp == 0:
             tp = 1
-    if tp is None:
-        tp = _topology_chips(env)
+    return max(1, _topology_chips(env) if tp is None else tp)
+
+
+def tp_from_env(env: Optional[dict] = None, *,
+                device_count: Optional[int] = None, label: str = "",
+                trace: str = "") -> int:
+    """The serving degree from the env (:func:`env_degree`); always at
+    least 1. Every degrade emits one ``serving/tp_disabled`` event with its
+    reason, ``server=label`` and (when given) the allocation ``trace``."""
+    from .. import obs
+
+    tp = env_degree(env, label=label, trace=trace)
     if tp > 1:
         if device_count is None:
             device_count = local_device_count()
         if tp > device_count:
             obs.emit("serving", "tp_disabled", server=label, tp=tp,
-                     reason=f"insufficient_devices:{device_count}", **extra)
+                     reason=f"insufficient_devices:{device_count}",
+                     **({"trace": trace} if trace else {}))
             tp = 1
-    return max(1, tp)
+    return tp
 
 
 def degraded_enabled(env: Optional[dict] = None) -> bool:

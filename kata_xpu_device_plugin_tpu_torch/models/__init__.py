@@ -12,6 +12,7 @@ from .gemma import (
 from .llama import llama3_8b, llama3_train_test, llama31_8b
 from .mistral import mistral_7b, mistral_test_config
 from .qwen2 import qwen2_7b, qwen2_test_config
+from .speculative import draft_propose, generate_speculative, self_draft
 from .transformer import (
     DecoderConfig,
     forward,
@@ -25,10 +26,12 @@ from .transformer import (
 )
 
 __all__ = [
-    "DecoderConfig", "forward", "fuse_decoder_params", "gemma2_2b",
+    "DecoderConfig", "draft_propose", "forward", "fuse_decoder_params",
+    "gemma2_2b",
     "gemma2_9b", "gemma2_test_config", "gemma3_4b", "gemma3_test_config",
-    "gemma_2b", "gemma_7b", "generate", "init_params", "llama3_8b",
+    "gemma_2b", "gemma_7b", "generate", "generate_speculative",
+    "init_params", "llama3_8b",
     "llama3_train_test", "llama31_8b", "mistral_7b", "mistral_test_config",
     "prefill", "prefill_batch", "qwen2_7b", "qwen2_test_config",
-    "sample_token", "tiny_test_config",
+    "sample_token", "self_draft", "tiny_test_config",
 ]

@@ -9,7 +9,10 @@ that eager PyTorch needs. KV caches are stacked ``[L, B, max_len, KV, D]``
 tensors (or int8 :class:`..ops.quant.QTensor` pairs) updated IN PLACE —
 the functional JAX version returns fresh arrays; writing in place saves a
 copy of the cache per step. The functions that return caches return the
-same tensors they were given.
+same tensors they were given. A windowed config may decode over ring
+caches of the window's slots instead (``ring=True``; the cycle arena of
+:func:`init_cycle_kv_caches` for a window cycle), whose reads take the
+plain attention masked by the slots' absolute positions.
 
 Every dense family of the JAX package is modelled: qkv biases (Qwen2),
 per-head QK-norm and rope cycles (Gemma-3), post-sublayer norms and window
@@ -323,14 +326,17 @@ def _cache_write_full(cache, x: torch.Tensor, offset) -> None:
         put(cache, x)
 
 
-def _cache_write_rows(cache, x: torch.Tensor, idx: torch.Tensor) -> None:
+def _cache_write_rows(cache, x: torch.Tensor, idx: torch.Tensor,
+                      wrap: int = 0) -> None:
     """Ragged write: row b's S vectors land at positions ``idx[b] ..
     idx[b]+S-1``, each clamped to max_len-1 (a lane past its budget
-    scribbles on its own last entry, which is never read)."""
+    scribbles on its own last entry, which is never read). ``wrap > 0``:
+    a ring of ``wrap`` slots instead, position p landing at slot ``p %
+    wrap`` (a span across the wrap scatters in two pieces)."""
     B, S = x.shape[:2]
     max_len = (cache.q if isinstance(cache, QTensor) else cache).shape[1]
     span = idx.long()[:, None] + torch.arange(S, device=x.device)[None, :]
-    cols = torch.clamp(span, max=max_len - 1)
+    cols = span % wrap if wrap else torch.clamp(span, max=max_len - 1)
     rows = torch.arange(B, device=x.device)[:, None]
     if isinstance(cache, QTensor):
         qt = quantize_kv(x)
@@ -440,7 +446,8 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
            positions: torch.Tensor, kv_cache=None, cache_offset=None,
            prefill: bool = False, decode_kernel_fn=None, block_tables=None,
            view_tables=None, block_size: int = 0,
-           paged_len: int = 0, index: int = 0, mesh=None) -> torch.Tensor:
+           paged_len: int = 0, index: int = 0, mesh=None,
+           ring: bool = False) -> torch.Tensor:
     """Decoder block ``index`` (its window and rope come from the config's
     cycles), x ``[B, S, d]``. With a cache: ``prefill=True``
     writes the fresh k/v at 0 and attends over them alone (self-attention,
@@ -452,6 +459,14 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     cache (a single-token step goes through ``decode_kernel_fn`` when the
     server built one), and a scalar one (an int or a 0-dim tensor) is
     lock-step decode: every row writes and attends at the same position.
+
+    ``ring=True``: the cache pair holds a ring of ``W`` slots (this layer's
+    window plus any speculative margin), position p at slot ``p % W``, and
+    the attention is the plain version masked by the slots' absolute
+    positions (:func:`ring_positions`): the kernels take no slot positions,
+    as in the JAX package. ``W`` must cover ``window + S - 1``: a span's
+    later writes must not evict a key an earlier query of the span still
+    sees. Lock-step (a scalar offset) ring decode is single-token.
 
     Tensor-parallel (``mesh``, a :class:`..guest.tp_serving.ServingMesh`;
     ``layer`` the list of the shards' layer dicts): q/k/v and gate/up are
@@ -495,6 +510,35 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
         _cache_write_full(ck, k, 0)
         _cache_write_full(cv, v, 0)
         outs = attend(k, v, q_offset=None)
+    elif kv_cache is not None and ring:
+        from ..ops.attention import reference_attention
+
+        ck, cv = kv_cache
+        W = (ck.q if isinstance(ck, QTensor) else ck).shape[1]
+        if W < window + S - 1:
+            raise ValueError(
+                f"ring cache has {W} slots but this layer needs window "
+                f"{window} + span {S} - 1 — an undersized ring would evict "
+                "keys still inside a live window")
+        if torch.is_tensor(cache_offset) and cache_offset.ndim == 1:
+            # Ragged: row b writes its S vectors at its own slots.
+            _cache_write_rows(ck, k, cache_offset, wrap=W)
+            _cache_write_rows(cv, v, cache_offset, wrap=W)
+            k_pos = ring_positions(cache_offset.long()[:, None] + (S - 1), W)
+        else:
+            if S != 1:
+                raise ValueError("lockstep ring decode is single-token")
+            if not torch.is_tensor(cache_offset):
+                cache_offset = torch.full((), int(cache_offset),
+                                          dtype=torch.int64, device=x.device)
+            _cache_write_full(ck, k, cache_offset % W)
+            _cache_write_full(cv, v, cache_offset % W)
+            k_pos = ring_positions(cache_offset.long(), W)
+        outs = _per_shard(mesh, reference_attention, q,
+                          dequantize_kv(ck, x.dtype), dequantize_kv(cv, x.dtype),
+                          causal=True, q_offset=cache_offset, k_positions=k_pos,
+                          window=window,
+                          logits_softcap=cfg.attn_logits_softcap)
     elif kv_cache is not None and block_tables is not None:
         # Paged ragged decode. A block index past the table (a finished
         # lane overrunning its budget, a dead lane's stale position) clamps
@@ -580,12 +624,15 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn], positions, kv_caches, cache_offset,
             prefill: bool, decode_kernel_fn, remat: bool = False,
             block_tables=None, block_size: int = 0,
-            paged_len: int = 0) -> torch.Tensor:
+            paged_len: int = 0, ring: bool = False) -> torch.Tensor:
     """The decoder stack up to (not including) the final norm. ``remat``
     (training, no caches) checkpoints each layer: its activations are
     recomputed in the backward instead of kept. Tensor-parallel serving
     params (:func:`tp_serving_params`) run every layer across their
-    shards."""
+    shards. ``ring``: the windowed layers' caches are rings
+    (:func:`_layer`); with a window cycle of P > 1 positions
+    ``kv_caches`` is then the cycle arena (:func:`init_cycle_kv_caches`),
+    layer i reading entry ``i // P`` of position ``i % P``'s pair."""
     check_supported(cfg)
     if attn_fn is None:
         from ..ops.attention import flash_attention
@@ -605,6 +652,8 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     mesh = params.get("mesh")
     trees = params["shards"] if mesh is not None else [params["layers"]]
     per_shard = [{k: _unbind(v) for k, v in t.items()} for t in trees]
+    P = len(cfg.window_cycle)
+    cycle_arena = ring and P > 1
     for i in range(cfg.n_layers):
         shard_layers = [{k: v[i] for k, v in t.items()} for t in per_shard]
         layer = shard_layers if mesh is not None else shard_layers[0]
@@ -614,13 +663,16 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                 use_reentrant=False)
             continue
         cache = None
-        if kv_caches is not None:
+        if cycle_arena:
+            pair = kv_caches[i % P]
+            cache = (_index(pair[0], i // P), _index(pair[1], i // P))
+        elif kv_caches is not None:
             cache = (_index(kv_caches[0], i), _index(kv_caches[1], i))
         x = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
                    prefill=prefill, decode_kernel_fn=decode_kernel_fn,
                    block_tables=block_tables, view_tables=view_tables,
                    block_size=block_size, paged_len=paged_len, index=i,
-                   mesh=mesh)
+                   mesh=mesh, ring=ring and cfg.layer_window(i) > 0)
     return x
 
 
@@ -643,7 +695,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn] = None, positions=None, kv_caches=None,
             cache_offset=None, prefill: bool = False, decode_kernel_fn=None,
             remat: bool = False, block_tables=None, block_size: int = 0,
-            paged_len: int = 0):
+            paged_len: int = 0, ring: bool = False):
     """tokens ``[B, S]`` → fp32 logits ``[B, S, vocab]``; with ``kv_caches``
     also returns the caches (written in place). ``block_tables [B, NB]``
     (with ``block_size`` and ``paged_len``) switches the cache branch to
@@ -654,11 +706,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     the flash kernels (or an error) on CUDA, where a decode step needs
     ``decode_kernel_fn`` or an explicit plain ``attn_fn``. ``remat=True``
     wraps each layer in ``torch.utils.checkpoint`` (the JAX package's
-    ``jax.checkpoint``); it applies only without caches."""
+    ``jax.checkpoint``); it applies only without caches. ``ring=True``
+    decodes over ring caches, or over the cycle arena of a window cycle
+    (:func:`_hidden`)."""
     x = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
                 cache_offset, prefill, decode_kernel_fn, remat,
                 block_tables=block_tables, block_size=block_size,
-                paged_len=paged_len)
+                paged_len=paged_len, ring=ring)
     logits = unembed(params, x, cfg)
     return (logits, kv_caches) if kv_caches is not None else logits
 
@@ -754,11 +808,12 @@ def _sampling_args(temperature, top_k: int, generator,
     return do_sample
 
 
-def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int, *,
-                   device, dtype=None, quantized: bool = False):
-    """Stacked caches ``[L, B, max_len, KV, D]``; ``quantized=True`` makes
-    int8 :class:`QTensor` caches with fp32 scales ``[L, B, max_len, KV, 1]``."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def _kv_stack(cfg: DecoderConfig, layers: int, batch: int, length: int, *,
+              device, dtype=None, quantized: bool = False):
+    """One cache pair ``[layers, batch, length, KV, D]``, zeros; int8
+    :class:`QTensor` pairs with fp32 scales ``[..., 1]`` when
+    ``quantized``."""
+    shape = (layers, batch, length, cfg.n_kv_heads, cfg.head_dim)
     if quantized:
         def one():
             return QTensor(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -768,6 +823,106 @@ def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int, *,
     dtype = dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int, *,
+                   device, dtype=None, quantized: bool = False):
+    """Stacked caches ``[L, B, max_len, KV, D]``; ``quantized=True`` makes
+    int8 :class:`QTensor` caches with fp32 scales ``[L, B, max_len, KV, 1]``."""
+    return _kv_stack(cfg, cfg.n_layers, batch, max_len, device=device,
+                     dtype=dtype, quantized=quantized)
+
+
+def init_cycle_kv_caches(cfg: DecoderConfig, batch: int, max_len: int, *,
+                         device, dtype=None, quantized: bool = False,
+                         margin: int = 0) -> tuple:
+    """The cycle arena of a window cycle of P positions (Gemma-2's
+    alternating local and global layers), zeros: a tuple of P cache pairs,
+    pair p ``[L/P, B, len_p, KV, D]`` holding layers ``p, p+P, ...``, where
+    ``len_p`` is position p's window plus ``margin`` when it is windowed
+    (a ring, :func:`ring_caches_from_prefill`) and ``max_len`` when it is
+    global. This is the JAX package's cycle tuple leaf for leaf: its
+    ``[L/P, B, len_i, KV, D]`` stacks are these pairs, and layer i of the
+    model is entry ``i // P`` of pair ``i % P``, so every layer keeps its
+    own length. ``margin`` adds speculative verification's safety slots to
+    each ring."""
+    P = len(cfg.window_cycle)
+    return tuple(
+        _kv_stack(cfg, cfg.n_layers // P, batch,
+                  w + margin if w > 0 else max_len, device=device,
+                  dtype=dtype, quantized=quantized)
+        for w in cfg.window_cycle)
+
+
+def ring_positions(pos: torch.Tensor, window: int) -> torch.Tensor:
+    """The absolute position each slot of a ``window``-slot ring holds after
+    positions up to ``pos`` were written (slot = position % window): the
+    latest position ≡ s (mod window) at or below ``pos``, negative for a
+    slot never written. ``pos`` is a 0-dim tensor (``[window]`` out) or
+    ``[B, 1]`` (``[B, window]`` out)."""
+    s = torch.arange(window, dtype=pos.dtype, device=pos.device)
+    return pos - torch.remainder(pos - s, window)
+
+
+def _map_pair(fn, caches) -> tuple:
+    """``fn`` on every tensor of a cache pair, QTensor payload and scale
+    alike, the structure kept."""
+    return tuple(QTensor(*map(fn, c)) if isinstance(c, QTensor) else fn(c)
+                 for c in caches)
+
+
+def ring_caches_from_prefill(caches, pos, window: int) -> tuple:
+    """Fold a prefill's cache pair (leaves ``[L, B, S, ...]``, positions 0
+    .. pos-1 written) into a ring of ``window`` slots: slot s takes the
+    latest position ≡ s (mod window) below ``pos``, and a slot with no such
+    position is zero (its ring position is negative: never attended). A
+    gather and a select: bit-exact, int8 payloads with their scales."""
+    ref = (caches[0].q if isinstance(caches[0], QTensor) else caches[0])
+    pos = torch.as_tensor(pos, dtype=torch.int64).to(ref.device)
+    src = ring_positions(pos - 1, window)  # [window]
+    valid = src >= 0
+    idx = src.clamp_min(0)
+
+    def fold(c):
+        g = c.index_select(2, idx)
+        mask = valid.reshape((1, 1, window) + (1,) * (g.ndim - 3))
+        return torch.where(mask, g, torch.zeros_like(g))
+
+    return _map_pair(fold, caches)
+
+
+def cycle_ring_caches_from_prefill(caches, pos, cfg: DecoderConfig,
+                                   max_len: int, margin: int = 0) -> tuple:
+    """Split a prefill's cache pair (leaves ``[L, B, S, ...]``) into the
+    cycle arena (:func:`init_cycle_kv_caches`): position p's layers
+    (``p::P``) fold into a ring of ``w_p + margin`` slots when windowed
+    (:func:`ring_caches_from_prefill`) or pad with zeros to ``max_len``
+    when global."""
+    P = len(cfg.window_cycle)
+    arena = []
+    for p, w in enumerate(cfg.window_cycle):
+        sub = _map_pair(lambda a, p=p: a[p::P], caches)
+        if w > 0:
+            arena.append(ring_caches_from_prefill(sub, pos, w + margin))
+        else:
+            def pad(c):
+                full = c.new_zeros(c.shape[:2] + (max_len,) + c.shape[3:])
+                full[:, :, :c.shape[2]] = c
+                return full
+
+            arena.append(_map_pair(pad, sub))
+    return tuple(arena)
+
+
+def fold_prefill(caches, pos, cfg: DecoderConfig, max_len: int,
+                 margin: int = 0) -> tuple:
+    """A prefill's cache pair folded for ``ring_kv``: the cycle arena
+    (:func:`cycle_ring_caches_from_prefill`) for a window cycle, else a
+    ring of the window plus ``margin`` slots
+    (:func:`ring_caches_from_prefill`)."""
+    if len(cfg.window_cycle) > 1:
+        return cycle_ring_caches_from_prefill(caches, pos, cfg, max_len, margin)
+    return ring_caches_from_prefill(caches, pos, cfg.window_cycle[0] + margin)
 
 
 def _last_logits(params, x, rows_at, cfg) -> torch.Tensor:
@@ -866,7 +1021,7 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
                  block_size: int = 0, paged_len: int = 0,
                  do_sample: bool = False, top_k: int = 0, temperature=None,
                  generator: Optional[torch.Generator] = None,
-                 top_p: float = 0.0):
+                 top_p: float = 0.0, ring: bool = False):
     """Decode of ``steps`` tokens after ``tok [B]`` (a Python loop in place
     of ``lax.scan``), greedy, or sampled from ``generator`` with
     ``do_sample`` (:func:`sample_token`). ``pos`` is a ``[B]`` tensor of per-lane
@@ -875,7 +1030,8 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
     same position, which stays a device scalar through the loop.
     ``budget [B]`` (ragged only) arms the freeze mask: a lane that has
     emitted its budget (or ``eos_id``) pins its token and position, so
-    later steps rewrite the same k/v. Returns ``[B, steps]`` tokens, with
+    later steps rewrite the same k/v. ``ring``: the caches are rings or a
+    cycle arena (:func:`forward`). Returns ``[B, steps]`` tokens, with
     ``return_state`` also ``(caches, last_token, pos)``."""
     B = tok.shape[0]
     dev = tok.device
@@ -891,7 +1047,7 @@ def _decode_scan(params: Params, caches, tok: torch.Tensor, pos,
             positions=pos[:, None] if ragged else pos.expand(B, 1),
             kv_caches=caches, cache_offset=pos,
             decode_kernel_fn=decode_kernel_fn, block_tables=block_tables,
-            block_size=block_size, paged_len=paged_len)
+            block_size=block_size, paged_len=paged_len, ring=ring)
         nxt = _next_token(logits[:, -1, :], generator, do_sample, temperature,
                           top_k, top_p)
         if rem is not None:
@@ -1013,12 +1169,61 @@ def _decode_while(params: Params, caches, tok: torch.Tensor, pos: torch.Tensor,
     return state["out"], caches, state["tok"], state["pos"], state["delivered"]
 
 
+def decode(params: Params, caches, tok: torch.Tensor, pos, cfg: DecoderConfig,
+           steps: int, attn_fn: Optional[AttnFn] = None,
+           temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+           generator: Optional[torch.Generator] = None,
+           return_state: bool = False, ring: bool = False,
+           decode_kernel_fn=None):
+    """Decode ``steps`` tokens after ``tok [B]`` from ``caches`` (written
+    in place). Returns ``[B, steps]``, with ``return_state=True``
+    ``(tokens, caches, last_token, pos)`` so that a caller can continue.
+    ``pos`` is a scalar (every row at one position, lock-step) or a ``[B]``
+    tensor of per-row positions (ragged). Greedy by default;
+    ``temperature``/``top_k``/``top_p`` sample from ``generator``.
+
+    ``ring=True``: ``caches`` are rings of the window's slots
+    (:func:`ring_caches_from_prefill`), or, with a window cycle, the cycle
+    arena (:func:`cycle_ring_caches_from_prefill`); a ring wraps, so no
+    length bound applies, and its reads take the plain attention whatever
+    ``attn_fn`` is. Without a ring, ``pos + steps`` must fit the caches.
+    On CUDA with neither ``attn_fn`` nor ``decode_kernel_fn`` given, a
+    config with a sliding window or an attention-logit softcap decodes
+    with the plain attention (the JAX rule :func:`generate` follows);
+    otherwise the default dispatch takes the dense decode kernel under
+    ``KATA_TPU_DECODE_KERNEL=1`` or raises."""
+    if not ring:
+        c0 = caches[0]
+        cache_len = (c0.q if isinstance(c0, QTensor) else c0).shape[2]
+        if steps > cache_len:
+            raise ValueError(f"steps={steps} exceeds cache max_len={cache_len}")
+        if not torch.is_tensor(pos) or pos.ndim == 0:
+            start = int(pos)
+            if start + steps > cache_len:
+                raise ValueError(f"pos={start} + steps={steps} overruns cache "
+                                 f"max_len={cache_len}")
+    do_sample = _sampling_args(temperature, top_k, generator, top_p)
+    dev = tok.device
+    if (dev.type == "cuda" and attn_fn is None and decode_kernel_fn is None):
+        from ..ops.attention import decode_kernel_conflict, reference_attention
+
+        if decode_kernel_conflict(cfg) is not None:
+            attn_fn = reference_attention
+    temp = (torch.full((), float(temperature), dtype=torch.float32, device=dev)
+            if do_sample else None)
+    return _decode_scan(params, caches, tok, pos, cfg, steps, attn_fn,
+                        return_state=return_state,
+                        decode_kernel_fn=decode_kernel_fn, do_sample=do_sample,
+                        top_k=top_k, temperature=temp, generator=generator,
+                        top_p=top_p, ring=ring)
+
+
 def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
              max_len: int = 0, attn_fn: Optional[AttnFn] = None,
              kv_quantized: bool = False, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             device=None) -> torch.Tensor:
+             device=None, ring_kv: bool = False) -> torch.Tensor:
     """Generation: :func:`prefill` then :func:`_decode_scan`, greedy by
     default; ``temperature``/``top_k``/``top_p`` sample instead, from
     ``generator`` (a ``torch.Generator`` on ``device``; sampling without one
@@ -1035,17 +1240,30 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     config with a sliding window or an attention-logit softcap decodes
     with the plain attention, which models both (the decode kernels do
     not: the JAX package's rule). Outputs are those of the unpadded run.
-    An explicit ``attn_fn`` runs everywhere, kernels or not."""
+    An explicit ``attn_fn`` runs everywhere, kernels or not.
+
+    ``ring_kv=True`` (a config with a sliding window) prefills the prompt
+    into caches of its own (padded) length, then folds them into rings of
+    the window's slots (:func:`ring_caches_from_prefill`), or, with a
+    window cycle, into the cycle arena, whose global layers keep
+    ``max_len`` (:func:`cycle_ring_caches_from_prefill`); decode then wraps
+    in the rings, so ``max_len`` bounds only global layers."""
     do_sample = _sampling_args(temperature, top_k, generator, top_p)
     device = resolve_device(device)
     if params["embed"].device != device:
         raise ValueError(
             f"params live on {params['embed'].device}, generate runs on {device}"
         )
+    if ring_kv and not any(w > 0 for w in cfg.window_cycle):
+        raise ValueError(
+            "ring_kv needs a sliding-window config (cfg.sliding_window > 0 "
+            "or a windowed attn_windows cycle) — a global-attention model "
+            "must keep its whole prefix")
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=device)
     B, S = prompt.shape
     max_len = max_len or S + steps
-    if S + steps > max_len:
+    if ((not ring_kv or any(w == 0 for w in cfg.window_cycle))
+            and S + steps > max_len):
         raise ValueError(f"prompt_len={S} + steps={steps} overruns max_len={max_len}")
     decode_kernel_fn, true_len, lockstep = None, None, False
     decode_attn_fn = attn_fn
@@ -1077,10 +1295,12 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     if do_sample:
         temp = torch.full((), float(temperature), dtype=torch.float32,
                           device=device)
-    caches, last_logits, pos = prefill(params, prompt, cfg, max_len,
-                                       attn_fn=attn_fn, return_logits=True,
-                                       kv_quantized=kv_quantized,
-                                       true_len=true_len)
+    caches, last_logits, pos = prefill(
+        params, prompt, cfg, prompt.shape[1] if ring_kv else max_len,
+        attn_fn=attn_fn, return_logits=True, kv_quantized=kv_quantized,
+        true_len=true_len)
+    if ring_kv:
+        caches = fold_prefill(caches, pos, cfg, max_len)
     last = _next_token(last_logits, generator, do_sample, temp, top_k, top_p)
     if steps == 0:
         return torch.zeros((B, 0), dtype=torch.int32, device=device)
@@ -1089,5 +1309,5 @@ def generate(params: Params, prompt, cfg: DecoderConfig, steps: int,
     rest = _decode_scan(params, caches, last, pos, cfg, steps - 1,
                         decode_attn_fn, decode_kernel_fn=decode_kernel_fn,
                         do_sample=do_sample, top_k=top_k, temperature=temp,
-                        generator=generator, top_p=top_p)
+                        generator=generator, top_p=top_p, ring=ring_kv)
     return torch.cat([last[:, None], rest], dim=1)

@@ -30,6 +30,7 @@ def reference_attention(
     q_offset=None,
     window: int = 0,
     logits_softcap: float = 0.0,
+    k_positions=None,
 ) -> torch.Tensor:
     """Plain GQA attention: q's H heads fold into ``[KV, H/KV]`` groups so
     K/V are never repeated. Products of the input dtype are summed in fp32
@@ -39,13 +40,20 @@ def reference_attention(
     ``q_offset`` is a scalar or a ``[B]`` tensor of per-row offsets (ragged
     decode). ``window > 0`` (causal only) keeps the keys in
     ``(p - window, p]``; ``logits_softcap > 0`` caps the logits to
-    ``tanh(l / c) · c`` before the mask."""
+    ``tanh(l / c) · c`` before the mask. ``k_positions`` (causal only,
+    ``[Sk]`` or ``[B, Sk]``) gives the keys' absolute positions in place of
+    ``arange(Sk)``: a ring KV buffer holds its band out of order (slot =
+    position % slots), and a negative entry marks an unwritten slot, which
+    is always masked."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if H % KV:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KV}")
     if window and not causal:
         raise ValueError("sliding window implies causal attention")
+    if k_positions is not None and not causal:
+        raise ValueError("k_positions (ring-buffer slot positions) requires "
+                         "causal=True")
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
@@ -55,19 +63,31 @@ def reference_attention(
     if causal:
         dev = q.device
         q_pos = torch.arange(Sq, device=dev)
-        k_pos = torch.arange(Sk, device=dev)
-        if torch.is_tensor(q_offset) and q_offset.ndim == 1:
-            qp = q_pos[None, :] + q_offset.to(dev)[:, None]  # [B, Sq]
-            mask = k_pos[None, None, :] <= qp[:, :, None]  # [B, Sq, Sk]
+        k_pos = (torch.arange(Sk, device=dev) if k_positions is None
+                 else k_positions.to(dev))
+
+        def band(qp, kp):  # the causal bound, the window, unwritten slots
+            m = kp <= qp
             if window > 0:
-                mask &= k_pos[None, None, :] > qp[:, :, None] - window
-            mask = mask[:, None, None]
+                m &= kp > qp - window
+            if k_positions is not None:
+                m &= kp >= 0
+            return m
+
+        ragged = torch.is_tensor(q_offset) and q_offset.ndim == 1
+        if ragged or (k_positions is not None and k_pos.ndim == 2):
+            if ragged:
+                qp = q_pos[None, :] + q_offset.to(dev)[:, None]  # [B, Sq]
+            elif q_offset is not None:
+                qp = (q_pos + q_offset)[None, :].expand(B, Sq)
+            else:
+                qp = q_pos[None, :].expand(B, Sq)
+            kp = k_pos if k_pos.ndim == 2 else k_pos[None, :]
+            mask = band(qp[:, :, None], kp[:, None, :])[:, None, None]
         else:
             if q_offset is not None:
                 q_pos = q_pos + q_offset
-            mask = k_pos[None, :] <= q_pos[:, None]  # [Sq, Sk]
-            if window > 0:
-                mask &= k_pos[None, :] > q_pos[:, None] - window
+            mask = band(q_pos[:, None], k_pos[None, :])  # [Sq, Sk]
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(), v.float())

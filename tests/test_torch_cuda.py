@@ -1825,3 +1825,116 @@ def test_graph_pools_are_released_across_rebuilds(cuda_device):
     assert st["decode_graph_captures"] == 9
     assert all(o == outs[1] for o in outs[1:])
     assert max(reserved[2:]) <= reserved[1], reserved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [True, False], ids=["int8-kv", "bf16-kv"])
+@pytest.mark.parametrize("cycle", [False, True], ids=["ring", "cycle"])
+def test_ring_decode_graph_replay_is_bit_equal_to_eager(cuda_device, cycle,
+                                                        kv_quant):
+    """A ``ring_kv`` server's second decode chunk (capture, then the first
+    replay) over a ring of 64 slots (``cycle``: the cycle arena of a (64,
+    0) window cycle, a ring and a 512-slot global arena) against the same
+    chunk run eagerly on a clone of the arena: tokens, last, pos and every
+    arena byte equal. The lanes sit past the window, so the chunk's writes
+    wrap; the slots and their positions come from the captured ``pos`` on
+    the card. Then every later chunk a replay."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+    from kata_xpu_device_plugin_tpu_torch.guest.kv_arena import map_rows
+    from kata_xpu_device_plugin_tpu_torch.guest.prefix_cache import cache_leaves
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512,
+                  sliding_window=0 if cycle else 64,
+                  attn_windows=(64, 0) if cycle else ())
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    srv = GenerationServer(params, cfg, max_batch=4, max_len=512,
+                           prefill_buckets=(128, 256), chunk=4,
+                           kv_quant=kv_quant, overlap=False, ring_kv=True)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 40)
+    srv.step()  # admission, then the warm-up chunk
+    exe = srv._decode
+    assert (exe.captures, exe.replays) == (0, 0)
+    assert srv.stats()["decode_backend_reason"] == "ring_kv"
+    clone = map_rows(srv.arena, torch.clone)
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(cuda_device)
+
+    tok, pos = dev(srv._last), dev(srv._pos)
+    want = serve_decode(params, clone, tok, pos, cfg, exe.steps, None,
+                        **exe._kw)
+    got = exe(tok, pos)
+    torch.cuda.synchronize()
+    assert (exe.captures, exe.replays) == (1, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(cache_leaves(srv.arena), cache_leaves(clone)):
+        assert torch.equal(_bits(a), _bits(c))
+    rounds = srv.stats()["rounds"]
+    srv.run()
+    stats = srv.stats()
+    assert stats["decode_graph_replays"] == 1 + stats["rounds"] - rounds
+
+
+# Where a speculative server's tokens part from the plain server's on the
+# card, the plain path's logit gap between the two tokens there must be
+# within the serving decode bound (chip_smoke.py LOGIT_BOUND["decode"],
+# 0.35 x the logit RMS): an argmax flip between two bf16 summation orders,
+# not a wrong token.
+FLIP_BOUND_X_RMS = 0.35
+
+
+@pytest.mark.cuda
+def test_speculative_server_tokens_against_plain(cuda_device):
+    """bf16 on the card: a ``[B, k+1]`` verify product and k+1 one-token
+    products sum in different orders, so tokens may part on an argmax
+    flip. The speculative server (n-gram, then the target as its own
+    draft) against the plain lock-step server on the same requests: equal
+    tokens, or, for every request that parts, a first parting where the
+    plain logits put the plain server's token at most
+    :data:`FLIP_BOUND_X_RMS` x the logit RMS above the speculative
+    server's; the perfect draft accepts
+    at least 0.9 of its drafts."""
+    from dataclasses import replace
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    rng = np.random.default_rng(5)
+    seg = rng.integers(0, 512, 16).astype(np.int32)
+    prompts = [np.tile(seg, 8), np.tile(seg, 6),
+               rng.integers(0, 512, 100).astype(np.int32),
+               rng.integers(0, 512, 140).astype(np.int32)]
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              kv_quant=False, overlap=False)
+
+    def serve(**extra):
+        srv = GenerationServer(params, cfg, **kw, **extra)
+        rids = [srv.submit(p, 32) for p in prompts]
+        res = srv.run()
+        return [res[r] for r in rids], srv.stats()
+
+    plain, _ = serve()
+    for extra in (dict(speculative_k=3, spec_opt_in=True),
+                  dict(speculative_k=3, spec_opt_in=True, draft=(params, cfg))):
+        outs, st = serve(**extra)
+        assert st["decode_backend_reason"] == "speculative"
+        if extra.get("draft") is not None:
+            assert st["draft_acceptance"] >= 0.9, st["draft_acceptance"]
+        for i, (a, b) in enumerate(zip(outs, plain)):
+            diff = np.flatnonzero(a != b)
+            if not len(diff):
+                continue
+            j = int(diff[0])
+            ctx = np.concatenate([prompts[i], b[:j]]).astype(np.int64)
+            toks = torch.from_numpy(ctx)[None].to(cuda_device)
+            _c, logits, _p = transformer.prefill(
+                params, toks, cfg, len(ctx),
+                attn_fn=attention.reference_attention, return_logits=True)
+            lg = logits[0].float()
+            gap = float(lg[int(b[j])] - lg[int(a[j])])
+            rms = float(lg.square().mean().sqrt())
+            assert gap <= FLIP_BOUND_X_RMS * rms, (i, j, gap, rms)

@@ -160,10 +160,33 @@ def test_unported_modes_raise(models, kwarg):
     they build, and sampled persistent decode raises the JAX server's
     ``ValueError`` (its rounds are greedy only), as does the host KV tier
     on this slotted server (it needs a paged pool). The telemetry
-    arguments of item 9a and the crash-tolerance arguments of item 9b are
-    ported: they build and arm what they name."""
+    arguments of item 9a, the crash-tolerance arguments of item 9b and
+    the speculative and ring arguments of item 11b are ported: they build
+    and arm what they name (a draft with the ``speculative_k`` it needs,
+    a ring on the config with a window it needs; the suite sets
+    ``KATA_TPU_SPEC=1``, which opts speculation in)."""
     _, _, tp, tcfg = models
-    if UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9b":
+    if UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "11b":
+        from dataclasses import replace
+
+        from kata_xpu_device_plugin_tpu_torch.models import self_draft
+
+        (name,) = kwarg
+        if name == "ring_kv":
+            wcfg = replace(tcfg, sliding_window=8)
+            srv = GenerationServer(tp, wcfg, device="cpu", **KW, **kwarg)
+            assert srv.ring_kv and srv.arena[0].shape[2] == 8
+            assert srv.stats()["decode_backend_reason"] == "ring_kv"
+        else:
+            kw = {"speculative_k": 2, "spec_opt_in": True, **kwarg}
+            if name == "draft":
+                kw["draft"] = self_draft(tp, tcfg, 1)
+            srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kw)
+            assert srv.speculative_k == 2
+            assert srv.stats()["draft_acceptance"] == 0.0
+            assert srv.stats()["decode_backend_reason"] == "speculative"
+            assert (srv.draft is not None) == (name == "draft")
+    elif UNPORTED.get(next(iter(kwarg)), (None, ""))[1] == "9b":
         srv = GenerationServer(tp, tcfg, device="cpu", **KW, **kwarg)
         ((name, value),) = kwarg.items()
         armed = {"checkpoint_rounds": srv.stats()["checkpoint_rounds"],

@@ -1,8 +1,9 @@
 """PyTorch port, serving and training telemetry against the JAX package's:
 the port's server and JAX's on the same weights and requests, with
-``heartbeat_rounds=2`` and a sink each, over six configurations (slotted;
-paged with the prefix cache and the host tier; persistent; ``slo_chunked``
-fused; ``tp=2`` blocks; paged under a fault schedule with checkpoints). The event streams carry the same names in the same
+``heartbeat_rounds=2`` and a sink each, over seven configurations
+(slotted; paged with the prefix cache and the host tier; persistent;
+``slo_chunked`` fused; ``tp=2`` blocks; paged under a fault schedule with
+checkpoints; speculative with n-gram drafts). The event streams carry the same names in the same
 order with equal deterministic fields; the request traces agree and their
 phases sum to their wall time; the daemon's ``HeartbeatAggregator`` and
 ``tools/obs_report.py`` read the port's stream as JAX's; tokens do not
@@ -44,13 +45,16 @@ SERVERS = {
                     faults=(("decode_dispatch", 5), ("prefill", 3),
                             ("admission_commit", 4), ("pool_alloc", 9),
                             ("fence", 7, "hang"))),
+    # Lock-step verify rounds: verify_round spans and spec_round events in
+    # place of decode chunks.
+    "speculative": dict(speculative_k=3, spec_opt_in=True),
 }
 LENGTHS = (10, 12, 9, 11, 8)
 BUDGET = 16
 
-# JAX event names of modes the port does not have yet (item 11b) and of
-# the overlapped sum across devices.
-NOT_PORTED = {"spec_disabled", "spec_round", "tp_overlap_disabled"}
+# JAX event names of the overlapped sum across devices, which the port does
+# not have.
+NOT_PORTED = {"tp_overlap_disabled"}
 # The tripwire's compiles are each package's own (JAX: an XLA compile of a
 # shape the warm-up drain never ran, such as a prefill batch of 3; the
 # eager port: a decode signature or graph never built), so its breach
@@ -186,8 +190,10 @@ def test_event_stream_matches_jax(streams, name):
     for j, t in zip(jev, tev):
         assert _deterministic(t) == _deterministic(j), (j["name"], j, t)
     names = {e["name"] for e in tev}
-    assert {"serving_config", "serving_heartbeat", "request_trace", "ttft",
-            "decode_attn_backend", "serving.decode_chunk"} <= names
+    assert {"serving_config", "serving_heartbeat", "request_trace",
+            "ttft"} <= names
+    assert ({"serving.verify_round", "spec_round"} if name == "speculative"
+            else {"decode_attn_backend", "serving.decode_chunk"}) <= names
     if name == "faulted":
         assert {"fault_injected", "device_stall", "recovery",
                 "checkpoint"} <= names

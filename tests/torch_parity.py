@@ -20,6 +20,12 @@ from kata_xpu_device_plugin_tpu.ops import quant as jquant
 from kata_xpu_device_plugin_tpu_torch.models import bridge
 from kata_xpu_device_plugin_tpu_torch.ops import quant as tquant
 
+# The parity tests' forwards are tiny and the suite runs several xdist
+# workers at once: more than one torch thread a worker only contends with
+# the other workers and with JAX's compiles. Every worker imports this
+# module when it collects the port's tests.
+torch.set_num_threads(1)
+
 
 def gemma_tiny(**overrides):
     """Gemma-2B's flags (MQA, GeGLU, embedding scale, tied unembedding) at
@@ -106,3 +112,28 @@ def pool_to_numpy(arena) -> list:
         for t in (c if isinstance(c, tuple) else (c,)):
             out.append(t.numpy() if hasattr(t, "numpy") else np.asarray(t))
     return out
+
+
+def numpy_pair(jcfg, seed: int = 0):
+    """``(jax_params, torch_params, torch_cfg)`` like :func:`build_pair`,
+    with every leaf drawn by numpy from ``seed`` in the shapes JAX's
+    ``init_params`` gives (matrices normal / sqrt(fan_in), vectors such as
+    norms and biases 0.3 x normal, so no term sits at a constant): the
+    same arrays on both sides without compiling JAX's initializer, whose
+    compile is most of a small test's time."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: jt.init_params(k, jcfg),
+                            jax.random.PRNGKey(0))
+
+    def leaf(sd):
+        x = rng.standard_normal(sd.shape).astype(np.float32)
+        scale = 1.0 / np.sqrt(sd.shape[-2]) if len(sd.shape) >= 2 else 0.3
+        if sd.shape and sd.shape[-1] == jcfg.d_model and len(sd.shape) == 2 \
+                and sd.shape[0] == jcfg.vocab_size:
+            scale = 1.0 / np.sqrt(jcfg.d_model)  # the embedding [vocab, d]
+        return (x * scale).astype(np.dtype(sd.dtype))
+
+    tree = jax.tree.map(leaf, shapes)
+    tcfg = bridge.config_from_fields(dataclasses.asdict(jcfg))
+    tparams = bridge.params_from_numpy(tree, tcfg, "cpu")
+    return jax.tree.map(jnp.asarray, tree), tparams, tcfg
