@@ -206,6 +206,22 @@ Phases, each printing one JSON line:
    Gemma-2-2B, 4 of its 26 layers, S=8192, sp=4, 3 steps (local layers,
    window 4096, 9 pairs each; global layers 10).
 
+After ``spec``, the MoE, LoRA and W8A8 phases (PERF.md configurations 14-16;
+``scripts/torch_moe_lora_phase.py`` runs them alone):
+8b. w8a8 — Gemma-2B int8 fused served with W8A8 off and on (tok/s, the
+   token match) and JAX's op bound at the ``wqkv`` and ``w_down`` shapes;
+8c. kv_gate — the int8-KV gate's evidence at Gemma-2B width, its verdict
+   printed, not asserted (its thresholds were set on a tiny model);
+8d. lora — Gemma-2B with rank-8 adapters: fresh adapters bit-equal to the
+   base server, 4 ``make_lora_train_step`` steps at S=1024 (loss falls,
+   bases unchanged, flash backward launches = steps x layers), trained
+   against merged within the serving bound, QLoRA over the int8 fused base
+   served with ``graph_check``;
+8e. moe — Mixtral-8x7B, 4 of 32 layers at published widths, served (paged,
+   int8 KV, 16 lanes) with bf16 and then int8 experts: launches,
+   ``graph_check`` (MoE dispatch in the replay), ``crosscheck``, tok/s,
+   TTFT/ITL and the ledger's ``mfu``.
+
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
 server (slotted and paged, overlapped and lock-step; at least 48 steps,
@@ -1536,7 +1552,8 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
     (lock-step), then the second chunk is run eagerly on a clone of the
     arena and through the server's graph (its capture, then its first
     replay) on the live arena, from the same inputs. Tokens, ``last``,
-    ``pos`` and every byte of the arena must be equal. A sampling server's
+    ``pos`` and every byte of the arena must be equal (a sampled or MoE
+    paged server's scratch block aside: below). A sampling server's
     generator is set back (``get_state``/``set_state``) to its state before
     the eager chunk ahead of each replay, so the replay draws the same
     numbers; one more replay without that must draw fresh ones."""
@@ -1597,10 +1614,12 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
     # The second replay rewrote the rows the first wrote, with equal values.
     # A paged server's dead lanes all write the scratch block, which nothing
     # reads: greedy, they write equal values there; sampled, each draws its
-    # own tokens, so which of the duplicate writes lands is not fixed. A
-    # sampled paged check holds every byte but the scratch block's.
+    # own tokens, and in an MoE model they compete for expert capacity
+    # (some of their copies are dropped, some not), so their k/v differ and
+    # which of the duplicate writes lands is not fixed. A sampled or MoE
+    # paged check holds every byte but the scratch block's.
     scratch = None
-    if gen is not None and srv.paged:
+    if (gen is not None or cfg.moe) and srv.paged:
         bs = srv.kv_block
         scratch = slice(SCRATCH_BLOCK * bs, (SCRATCH_BLOCK + 1) * bs)
         scratch_equal = all(torch.equal(_bits(a[:, :, scratch]),
@@ -4712,6 +4731,508 @@ def seq_crosscheck(model: str = "llama3_8b", n_layers: int = 2, sp: int = 4,
     return row
 
 
+# ----- mixture of experts, LoRA, W8A8, the int8-KV gate ----------------------
+
+MIXTRAL_LAYERS = 4  # of 32: 11.6 GB of bf16 weights, the experts 11.3 of it
+# The new phases' servers beat every 4 rounds (the default is 32): a run of
+# 16 requests takes fewer than 32 rounds, and stats()'s mfu is that of the
+# last heartbeat interval.
+HEARTBEAT_ROUNDS = 4
+# The LoRA merge check over 2 layers: adapted against merged logits within
+# this share of the trained adapters' own effect (adapted against base),
+# and that effect at least this multiple of the noise floor.
+MERGE_GAP_OF_EFFECT = 0.5
+EFFECT_OVER_NOISE = 3.0
+
+
+def serve_launch_row(srv, prompts, budgets, lens) -> tuple:
+    """:func:`run_requests` and :func:`serve_row` of one server: the
+    outputs, the row, the launches."""
+    outs, wall, launches, stats = run_requests(srv, prompts, budgets)
+    row = serve_row(stats, wall, budgets, lens, launches)
+    row.update(mfu=stats["mfu"], device_busy_frac=stats["device_busy_frac"],
+               decode_backend=stats["decode_backend"], kv_quant=stats["kv_quant"])
+    return outs, row, launches
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, n in more.items():
+        total[k] = total.get(k, 0) + n
+
+
+# The MoE layer against its token-by-token reference: each token's largest
+# |error| within this share of its largest |output| (four bf16 ulps at the
+# top of its range).
+MOE_LAYER_TOL = 2.0 ** -5
+
+
+def moe_layer_check(params, cfg, prompts, buckets, max_len: int) -> dict:
+    """The MoE layer on the card against the plain ``reference_moe`` (token
+    by token: no capacity, no dispatch, no combine) on one layer's real
+    inputs, recorded as the model runs: the last layer's MoE input in a
+    batched prefill of ``prompts`` (the longest prompt's tokens), and in
+    the decode step after it (one token a lane). ``moe_ffn`` runs at a
+    capacity factor of E/K, where a buffer holds every token and nothing
+    drops. Both sides take the same routing and the same bf16 products and
+    part only by the rounding of differently ordered fp32 sums; a copy
+    sent to a wrong slot, dropped or weighed wrongly moves its token by the
+    size of its output. ``ok`` within :data:`MOE_LAYER_TOL`."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        forward,
+        map_leaf,
+        prefill_batch,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import moe
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+
+    lens = [len(p) for p in prompts]
+    pad = next(b for b in buckets if b >= max(lens))
+    toks = torch.zeros((len(prompts), pad), dtype=torch.int32, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :lens[i]] = torch.from_numpy(np.asarray(p, np.int32))
+    seen, real = [], moe.moe_ffn
+
+    def recording(p, x, c):
+        seen.append(x.detach().clone())
+        return real(p, x, c)
+
+    moe.moe_ffn = recording  # the layer imports it at each call
+    try:
+        caches, logits, pos = prefill_batch(
+            params, toks, cfg, max_len, torch.tensor(lens, dtype=torch.int32),
+            kv_quantized=True)
+        first = torch.argmax(logits, -1).to(torch.int32)
+        forward(params, first[:, None], cfg, attn_fn=reference_attention,
+                positions=pos[:, None], kv_caches=caches, cache_offset=pos)
+    finally:
+        moe.moe_ffn = real
+    L = cfg.n_layers
+    if len(seen) != 2 * L:
+        raise AssertionError(f"moe_layer: {len(seen)} MoE calls, want {2 * L}")
+    last = L - 1
+    layer = params["layers"]
+    mp = {"router": layer["router"][last]}
+    mp.update({k: map_leaf(lambda t: t[last], layer[f"moe_{k}"])
+               for k in ("w_gate", "w_in", "w_out")})
+    mcfg = replace(cfg.moe_cfg(),
+                   capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    longest = int(np.argmax(lens))
+    row = {"layer": last, "capacity_factor": mcfg.capacity_factor,
+           "tol_x_token_max": MOE_LAYER_TOL}
+    for what, x in (("prefill", seen[last][longest, :lens[longest]]),
+                    ("decode", seen[L + last].reshape(-1, cfg.d_model))):
+        got, _ = moe.moe_ffn(mp, x, mcfg)
+        want = moe.reference_moe(mp, x, mcfg).float()
+        err = (got.float() - want).abs().amax(-1)
+        top = want.abs().amax(-1).clamp_min(2.0 ** -30)
+        row[what] = {"tokens": x.shape[0], "max_abs_err": float(err.max()),
+                     "max_err_over_token_max": float((err / top).max())}
+    row["ok"] = all(row[w]["max_err_over_token_max"] <= MOE_LAYER_TOL
+                    for w in ("prefill", "decode"))
+    return row
+
+
+def phase_moe(seed: int = 0, profile: bool = False) -> dict:
+    """Configuration 14 (PERF.md): Mixtral-8x7B at its published widths with
+    4 of its 32 layers, random bf16 weights from ``seed``, served by the
+    default paged server (overlapped, graphed, int8 KV, 16 lanes, tile 16):
+    16 requests of 64-1000 prompt tokens and 64-128 new ones, with bf16
+    experts, then the same with int8 weights (``quantize_decoder_params``:
+    the attention projections and the expert stacks, per-expert scales).
+    Each run asserts the flash and paged launches as the serve phase counts
+    them and ``0 < mfu <= 1``; ``graph_check`` (a chunk's replay, MoE
+    dispatch included, bit-equal to eager), a ``crosscheck`` (every
+    layer's kernel call against the plain version, logits within the
+    serving bound or twice the noise floor; both paths run the same MoE
+    layer, and routing flips put the noise floor past the logit RMS, so
+    this holds the attention kernels alone) and :func:`moe_layer_check`
+    (the MoE layer against ``reference_moe``) on each. Printed: tok/s,
+    TTFT/ITL, the ledger's ``mfu``, the token match int8 against bf16.
+    ``profile`` adds a profiled window of decode rounds of each (16 lanes
+    busy)."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.serving import _tensor_leaves
+    from kata_xpu_device_plugin_tpu_torch.models import init_params, mixtral_8x7b
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import quantize_decoder_params
+
+    cfg = mixtral_8x7b(n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_len = 2048
+    buckets = (128, 256, 512, 1024)
+    kw = dict(max_batch=16, max_len=max_len, prefill_buckets=buckets, chunk=8,
+              kv_pool_tokens=16 * max_len + 32, kv_block_size=16,
+              heartbeat_rounds=HEARTBEAT_ROUNDS)
+    prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed)
+    launches, outs, failures = {}, {}, []
+    for experts in ("bf16", "int8"):
+        if experts == "int8":
+            params = quantize_decoder_params(params)
+            torch.cuda.empty_cache()
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in _tensor_leaves(params))
+        srv = GenerationServer(params, cfg, **kw)
+        outs[experts], row, run = serve_launch_row(srv, prompts, budgets, lens)
+        del srv
+        add_launches(launches, run)
+        if not 0 < row["mfu"] <= 1:
+            failures.append(f"{experts}: mfu {row['mfu']}")
+        gc_row = graph_check(params, cfg, kw, seed=seed)
+        cc = crosscheck(params, cfg, prompts[int(lens.argmax())], buckets, max_len)
+        try:
+            assert_family_crosscheck(cc, cfg.n_layers)
+        except AssertionError as e:
+            failures.append(f"{experts}: {e}")
+        layer_row = moe_layer_check(params, cfg, prompts, buckets, max_len)
+        if not layer_row["ok"]:
+            failures.append(f"{experts}: MoE layer against reference_moe {layer_row}")
+        emit("moe", model="mixtral_8x7b", experts=experts,
+             reduced=f"n_layers={MIXTRAL_LAYERS} of {mixtral_8x7b().n_layers}",
+             num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+             capacity_factor=cfg.moe_capacity_factor, config=dict(kw),
+             weight_bytes=weight_bytes, init_s=round(init_s, 3),
+             prompt_lens=lens.tolist(), **row,
+             graph_check=gc_row["outputs_bit_equal"] and gc_row["arena_bit_equal"],
+             crosscheck={k: v for k, v in cc.items() if k != "logit_bound_x_rms"},
+             moe_layer=layer_row,
+             token_match_vs_bf16=(token_match(outs["int8"], outs["bf16"], budgets)
+                                  if experts == "int8" else None))
+        if profile:
+            profile_rounds(params, cfg, kw, np.random.default_rng(seed), lanes=16,
+                           model=f"mixtral_8x7b, {experts} experts")
+    del params
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("moe: " + "; ".join(failures))
+    return launches
+
+
+def first_logits(params, cfg, prompt, buckets, max_len: int, attn_fn=None):
+    """The served prefill's first-token logits of one request (the flash
+    path unless ``attn_fn`` is given, an int8 cache), ``[1, vocab]`` fp32."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import prefill_batch
+
+    n = len(prompt)
+    pad = next(b for b in buckets if b >= n)
+    toks = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    toks[0, :n] = torch.from_numpy(np.asarray(prompt, np.int32))
+    _, logits, _ = prefill_batch(params, toks, cfg, max_len,
+                                 torch.tensor([n], dtype=torch.int32),
+                                 attn_fn=attn_fn, kv_quantized=True)
+    return logits
+
+
+def first_layers(params, n: int):
+    """The params of a model's first ``n`` layers (views, no copy)."""
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import map_leaf
+
+    out = dict(params)
+    out["layers"] = {k: map_leaf(lambda t: t[:n], v)
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def phase_lora(seed: int = 0) -> dict:
+    """Configuration 15 (PERF.md): Gemma-2B at full width, random bf16
+    weights (the training layout: separate wq/wk/wv), ``apply_lora`` rank 8
+    on the default targets (wq, wk, wv, wo). A fresh adapter's server must
+    give the base server's tokens bit for bit (16 requests, the serve
+    phase's). Then 4 ``make_lora_train_step`` steps (lr 1e-3) at B=1,
+    S=1024 on one batch: the loss falls, the bases and the embedding keep
+    their bytes, each flash kernel launches steps x layers times. Then the
+    trained adapters served beside ``merge_lora`` of them (bf16 weights,
+    the token match printed), and first-token logits of four requests,
+    adapted against merged: asserted within the serving bound over the
+    first 2 layers and within half the adapters' effect there (adapted
+    against base), an effect that must be 3x the noise floor (flash
+    against ``plain_fp32_p`` attention, adapted); printed over all 18
+    beside that noise floor (the merge's bf16 rounding of every weight,
+    0.2%, is a perturbation that 18 random layers carry to the logit RMS,
+    as they carry a different bf16 attention to half of it; PERF.md).
+    Then QLoRA: the int8 fused base with fresh adapters on ("wqkv", "wo")
+    served (tokens equal to the int8 base server's) and its
+    ``graph_check``."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        gemma_2b,
+        init_params,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+    from kata_xpu_device_plugin_tpu_torch.ops.lora import (
+        apply_lora,
+        make_lora_train_step,
+        merge_lora,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import quantize_decoder_params
+
+    cfg = gemma_2b()
+    base = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    adapted = apply_lora(base, gen, rank=8)
+    kw = dict(SERVE_KW, **PAGED_KW, heartbeat_rounds=HEARTBEAT_ROUNDS)
+    prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed, skip=100)
+    launches, failures, rows = {}, [], {}
+    served = {}
+    for name, tree in (("base", base), ("fresh_lora", adapted)):
+        served[name], rows[name], run = serve_launch_row(
+            GenerationServer(tree, cfg, **kw), prompts, budgets, lens)
+        add_launches(launches, run)
+    fresh = token_match(served["fresh_lora"], served["base"], budgets)
+    if fresh["requests_identical"] != len(budgets):
+        failures.append(f"fresh adapters changed the base model's tokens {fresh}")
+
+    # Fine-tuning: only the adapters move.
+    targets = ("wq", "wk", "wv", "wo")
+    kept = {k: _bits(adapted["layers"][k].base).clone() for k in targets}
+    embed_bits = _bits(base["embed"]).clone()
+    init_state, step = make_lora_train_step(cfg, lr=1e-3)
+    state = init_state(adapted)
+    batch = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, 1024))
+    kernels = (flash.flash_forward, flash.flash_bwd_dq, flash.flash_bwd_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, stamps = [], []
+    for _ in range(4):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        stamps.append(time.perf_counter())
+    train_launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                              (fn.launches for fn in kernels)))
+    add_launches(launches, train_launches)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        failures.append(f"LoRA loss not finite and falling: {losses}")
+    want = 4 * cfg.n_layers
+    if any(n != want for n in train_launches.values()):
+        failures.append(f"LoRA train launches {train_launches}, want {want} each")
+    trained = state["params"]
+    base_kept = all(torch.equal(_bits(trained["layers"][k].base), kept[k])
+                    for k in targets) and torch.equal(_bits(trained["embed"]),
+                                                      embed_bits)
+    if not base_kept:
+        failures.append("a LoRA step changed a frozen weight")
+
+    # Trained adapters against their merge.
+    merged = merge_lora(trained)
+    for name, tree in (("trained_lora", trained), ("merged", merged)):
+        served[name], rows[name], run = serve_launch_row(
+            GenerationServer(tree, cfg, **kw), prompts, budgets, lens)
+        add_launches(launches, run)
+    merge_rows = []
+    shallow = replace(cfg, n_layers=2)
+    bk = (SERVE_KW["prefill_buckets"], SERVE_KW["max_len"])
+    for i in range(4):
+        la = first_logits(trained, cfg, prompts[i], *bk)
+        lm = first_logits(merged, cfg, prompts[i], *bk)
+        ln = first_logits(trained, cfg, prompts[i], *bk, attn_fn=plain_fp32_p)
+        la2 = first_logits(first_layers(trained, 2), shallow, prompts[i], *bk)
+        lm2 = first_logits(first_layers(merged, 2), shallow, prompts[i], *bk)
+        lb2 = first_logits(first_layers(base, 2), shallow, prompts[i], *bk)
+        ln2 = first_logits(first_layers(trained, 2), shallow, prompts[i], *bk,
+                           attn_fn=plain_fp32_p)
+        rms2 = float(lm2.square().mean().sqrt())
+        row = {"logit_err_2": float((la2 - lm2).abs().max()), "logit_rms_2": rms2,
+               "adapter_effect_2": float((la2 - lb2).abs().max()),
+               "noise_err_2": float((ln2 - la2).abs().max()),
+               "logit_err": float((la - lm).abs().max()),
+               "logit_rms": float(lm.square().mean().sqrt()),
+               "noise_err": float((ln - la).abs().max())}
+        merge_rows.append(row)
+        # The merge must carry the adapters' effect: the adapted-merged gap
+        # is held to a share of that effect, and the effect must stand
+        # clear of the noise, so a dropped delta on either side fails.
+        if not (row["logit_err_2"] <= LOGIT_BOUND["prefill"] * rms2
+                and row["logit_err_2"] <= MERGE_GAP_OF_EFFECT * row["adapter_effect_2"]
+                and row["adapter_effect_2"] >= EFFECT_OVER_NOISE * row["noise_err_2"]):
+            failures.append(f"adapted vs merged logits at 2 layers {row}")
+    del merged, trained, state, adapted
+    torch.cuda.empty_cache()
+
+    # QLoRA: the int8 fused base with adapters on the fused projections.
+    qbase = quantize_decoder_params(fuse_decoder_params(base))
+    del base
+    torch.cuda.empty_cache()
+    qlora = apply_lora(qbase, gen, rank=8, targets=("wqkv", "wo"))
+    for name, tree in (("int8_base", qbase), ("qlora", qlora)):
+        served[name], rows[name], run = serve_launch_row(
+            GenerationServer(tree, cfg, **kw), prompts, budgets, lens)
+        add_launches(launches, run)
+    q_fresh = token_match(served["qlora"], served["int8_base"], budgets)
+    if q_fresh["requests_identical"] != len(budgets):
+        failures.append(f"fresh QLoRA adapters changed the int8 model {q_fresh}")
+    gc_row = graph_check(qlora, cfg, kw, seed=seed)
+    emit("lora", model="gemma_2b", rank=8, alpha=16.0, targets=list(targets),
+         config=dict(kw), servers={k: {f: r[f] for f in SIDE_KEYS + ("mfu",)}
+                                   for k, r in rows.items()},
+         fresh_vs_base=fresh,
+         train=dict(B=1, S=1024, lr=1e-3, losses=losses,
+                    step_s=[b - a for a, b in zip([t0] + stamps, stamps)],
+                    launches=train_launches, base_bytes_unchanged=base_kept),
+         trained_vs_merged=dict(tokens=token_match(served["trained_lora"],
+                                                   served["merged"], budgets),
+                                first_logits=merge_rows),
+         qlora_targets=["wqkv", "wo"], qlora_fresh_vs_int8=q_fresh,
+         qlora_graph_check=gc_row["outputs_bit_equal"] and gc_row["arena_bit_equal"])
+    del qlora, qbase
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("lora: " + "; ".join(failures))
+    return launches
+
+
+def phase_w8a8(params, cfg, seed: int = 0) -> dict:
+    """Configuration 16 (PERF.md): Gemma-2B int8 (fused, then quantized)
+    served by the default paged server with W8A8 off, then on
+    (``set_w8a8``, before the server is built: a graph keeps the mode it
+    was captured under), the serve phase's 16 requests: tok/s, TTFT/ITL,
+    the token match. Then JAX's op bound (``|out - ref| <= 0.05 x max|ref|
+    + 1e-3``, W8A8 against weight-only) at the ``wqkv`` and ``w_down``
+    shapes, 8 and 16 rows, through ``torch._int_mm`` (rows padded)."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops import quant
+
+    qparams = quant.quantize_decoder_params(params)
+    kw = dict(SERVE_KW, **PAGED_KW, heartbeat_rounds=HEARTBEAT_ROUNDS)
+    prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed, skip=100)
+    launches, rows, outs, bounds, failures = {}, {}, {}, [], []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    try:
+        for mode in ("weight_only", "w8a8"):
+            quant.set_w8a8(mode == "w8a8")
+            outs[mode], rows[mode], run = serve_launch_row(
+                GenerationServer(qparams, cfg, **kw), prompts, budgets, lens)
+            add_launches(launches, run)
+        for name in ("wqkv", "w_down"):
+            w = qparams["layers"][name]
+            w = quant.QTensor(w.q[0], w.scale[0])
+            for rows_n in (8, 16):
+                x = torch.randn((rows_n, w.q.shape[0]), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                quant.set_w8a8(False)
+                ref = quant.weight_matmul(x, w).float()
+                quant.set_w8a8(True)
+                out = quant.weight_matmul(x, w).float()
+                err = float((out - ref).abs().max())
+                bound = 0.05 * float(ref.abs().max()) + 1e-3
+                bounds.append(dict(weight=name, shape=list(w.q.shape), rows=rows_n,
+                                   max_abs_err=err, bound=bound))
+                if not err <= bound:
+                    failures.append(f"W8A8 {name} at {rows_n} rows: {err} > {bound}")
+        timings = w8a8_op_timings(qparams, gen)
+    finally:
+        quant.set_w8a8(False)
+    emit("w8a8", model="gemma_2b", weights="int8 fused", config=dict(kw),
+         servers={m: {f: r[f] for f in SIDE_KEYS + ("mfu",)}
+                  for m, r in rows.items()},
+         token_match=token_match(outs["w8a8"], outs["weight_only"], budgets),
+         op_bound=bounds, op_ms=timings,
+         tok_s_ratio=rows["w8a8"]["tok_s"] / rows["weight_only"]["tok_s"])
+    del qparams
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("w8a8: " + "; ".join(failures))
+    return launches
+
+
+def w8a8_op_timings(qparams, gen) -> list:
+    """Where a W8A8 matmul's time goes at a decode shape (16 rows) and a
+    prefill one (1024), Gemma-2B's ``wqkv`` and ``w_down``, each by CUDA
+    graph replay: the weight-only int8 matmul, the W8A8 one, its
+    ``torch._int_mm`` alone on a row-major weight (the layout the port
+    keeps) and on a column-major copy, and a bf16 ``mm`` on a bf16 copy."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import quant
+
+    out = []
+    for name in ("wqkv", "w_down"):
+        w = qparams["layers"][name]
+        w = quant.QTensor(w.q[0], w.scale[0])
+        col = w.q.t().contiguous().t()
+        wb = quant.dequantize(w, torch.bfloat16)
+        for rows_n in (16, 1024):
+            x = torch.randn((rows_n, w.q.shape[0]), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            xq = quant.quantize(x, dim=-1).q
+            xp = torch.cat([xq, xq.new_zeros((max(0, 32 - rows_n), xq.shape[1]))])
+            row = dict(weight=name, shape=list(w.q.shape), rows=rows_n)
+            quant.set_w8a8(False)
+            row["weight_only_ms"] = graph_ms(lambda: quant.weight_matmul(x, w), 20)
+            quant.set_w8a8(True)
+            row["w8a8_ms"] = graph_ms(lambda: quant.weight_matmul(x, w), 20)
+            row["int_mm_row_major_ms"] = graph_ms(lambda: torch._int_mm(xp, w.q), 20)
+            row["int_mm_col_major_ms"] = graph_ms(lambda: torch._int_mm(xp, col), 20)
+            row["bf16_mm_ms"] = graph_ms(lambda: x @ wb, 20)
+            out.append(row)
+    return out
+
+
+def phase_kv_gate(params, cfg, seed: int = 0) -> dict:
+    """The int8-KV gate's evidence (``scripts/torch_eval_kv_quant.py``) at
+    Gemma-2B's width on the random weights: four prompts of 128-512
+    tokens, 12 greedy steps over an int8 and a bf16 cache through the
+    flash and paged decode kernels. The thresholds (0.7 agreement, 0.5
+    logit drift) were set on the JAX package's tiny test model, not for
+    this model on random weights: the verdict is printed, not asserted;
+    the evidence must be finite and in range."""
+    import importlib.util
+
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import CUDA_PAD
+    from kata_xpu_device_plugin_tpu_torch.ops import attention, decode_attn, flash
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_eval_kv_quant", os.path.join(HERE, "scripts", "torch_eval_kv_quant.py"))
+    gate_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate_mod)
+    lengths = [CUDA_PAD * (i + 1) for i in range(4)]
+    steps = 12
+    max_len = -(-(lengths[-1] + steps) // CUDA_PAD) * CUDA_PAD
+    kernel_fn = attention.make_decode_attn_fn(cfg, arena_len=max_len, device="cuda")
+    prompts = gate_mod.default_prompts(cfg.vocab_size, 4, seed, lengths)
+    kernels = {"flash_fwd": flash.flash_forward,
+               "paged_decode": decode_attn.paged_decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    result = gate_mod.evaluate_kv_quant(params, cfg, prompts, steps=steps,
+                                        max_len=max_len, decode_kernel_fn=kernel_fn)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    verdict = gate_mod.gate(result)
+    emit("kv_gate", model="gemma_2b", weights="random bf16",
+         thresholds=dict(min_greedy_match=gate_mod.DEFAULT_MIN_GREEDY_MATCH,
+                         max_logit_err=gate_mod.DEFAULT_MAX_LOGIT_ERR),
+         gate="pass" if verdict else "fail", asserted=False, launches=launches,
+         **{k: v for k, v in result.items()})
+    # 2 prefills and 2 x (1 + steps) decode steps a prompt, every layer.
+    want = {"flash_fwd": 2 * 4 * cfg.n_layers,
+            "paged_decode": 2 * 4 * (1 + steps) * cfg.n_layers}
+    if (launches != want or not 0.0 <= result["greedy_match"] <= 1.0
+            or not math.isfinite(result["logit_max_abs_err"])):
+        raise AssertionError(f"kv_gate evidence {result}, launches {launches}, "
+                             f"want {want}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -4759,7 +5280,12 @@ def main(argv: list[str]) -> int:
                                          params, cfg, smi)
     launches["generate"] = timed_phase("generate", phase_generate, params, cfg)
     launches["spec"] = timed_phase("spec", phase_spec, params, cfg)
+    launches["w8a8"] = timed_phase("w8a8", phase_w8a8, params, cfg)
+    launches["kv_gate"] = timed_phase("kv_gate", phase_kv_gate, params, cfg)
     del params
+    torch.cuda.empty_cache()
+    launches["lora"] = timed_phase("lora", phase_lora)
+    launches["moe"] = timed_phase("moe", phase_moe, profile=profile)
     torch.cuda.empty_cache()
     for name, n in timed_phase("families", phase_families,
                                profile=profile).items():

@@ -162,3 +162,9 @@ ENV_RECOVERY = "KATA_TPU_RECOVERY"
 # shrink ladder (default 1; malformed: 1, with a ``tp_min_invalid`` event).
 ENV_DEGRADED = "KATA_TPU_DEGRADED"
 ENV_TP_MIN = "KATA_TPU_TP_MIN"
+
+# W8A8: "1" at process start turns int8-weight matmuls into int8 x int8
+# dots with per-row activation scales (ops/quant.py; read once at import,
+# harnesses switch it with ops.quant.set_w8a8). MoE experts stay
+# weight-only int8.
+ENV_W8A8 = "KATA_TPU_W8A8"

@@ -827,12 +827,13 @@ def _tensor_leaves(tree) -> list:
 
 
 def _tree_to(tree, device: torch.device, copy: bool = False):
-    """A params tree (dicts, lists, tuples and QTensors of tensors) with
-    every tensor on ``device``; ``copy`` copies even where it already is."""
+    """A params tree (dicts, lists, tuples and the int8 and LoRA wrappers of
+    tensors) with every tensor on ``device``; ``copy`` copies even where it
+    already is."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device, copy=copy)
-    if isinstance(tree, QTensor):
-        return QTensor(*(_tree_to(t, device, copy) for t in tree))
+    if hasattr(tree, "_fields"):  # QTensor, LoRAWeight
+        return type(tree)(*(_tree_to(t, device, copy) for t in tree))
     if isinstance(tree, dict):
         return {k: _tree_to(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -4,10 +4,13 @@ The caller turns the JAX parameter tree into numpy
 (``jax.tree.map(np.asarray, params)``); this module never imports JAX. Both
 layouts are accepted (separate ``wq/wk/wv``/``w_gate``/``w_up``/``bq/bk/bv``
 or fused ``wqkv``/``w_gateup``/``bqkv``), with the leaves the config's
-flags add (post-sublayer norms, qkv biases, QK-norms), and int8 leaves are
-recognised by duck typing: any
-object with ``.q`` and ``.scale`` becomes a :class:`..ops.quant.QTensor`.
-Matrices keep the JAX layout ``[L, d_in, d_out]``; nothing is transposed.
+flags add (post-sublayer norms, qkv biases, QK-norms; an MoE config's
+``router`` and expert stacks ``moe_w_gate``/``moe_w_in``/``moe_w_out`` in
+place of the dense FFN). Wrapped leaves are recognised by duck typing: any
+object with ``.q`` and ``.scale`` becomes a :class:`..ops.quant.QTensor`,
+any with ``.base``, ``.a``, ``.b`` and ``.scale`` a
+:class:`..ops.lora.LoRAWeight` (its base possibly int8). Matrices keep the
+JAX layout ``[L, d_in, d_out]``; nothing is transposed.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.lora import LoRAWeight
 from ..ops.quant import QTensor
 from .transformer import DecoderConfig, check_supported
 
@@ -52,6 +56,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _leaf(a, device):
+    if all(hasattr(a, f) for f in ("base", "a", "b", "scale")):
+        return LoRAWeight(_leaf(a.base, device), _tensor(a.a, device),
+                          _tensor(a.b, device), _tensor(a.scale, device))
     if hasattr(a, "q") and hasattr(a, "scale"):
         return QTensor(_tensor(a.q, device), _tensor(a.scale, device))
     return _tensor(a, device)
@@ -62,8 +69,12 @@ def params_from_numpy(tree: dict, cfg: DecoderConfig, device) -> dict:
     check_supported(cfg)
     layers = tree["layers"]
     fused = "wqkv" in layers
-    need = (("wqkv", "w_gateup") if fused else ("wq", "wk", "wv", "w_gate", "w_up"))
-    need += ("attn_norm", "wo", "mlp_norm", "w_down")
+    need = ("wqkv",) if fused else ("wq", "wk", "wv")
+    if cfg.moe:
+        need += ("router", "moe_w_gate", "moe_w_in", "moe_w_out")
+    else:
+        need += (("w_gateup",) if fused else ("w_gate", "w_up")) + ("w_down",)
+    need += ("attn_norm", "wo", "mlp_norm")
     if cfg.post_norms:
         need += ("post_attn_norm", "post_mlp_norm")
     if cfg.qkv_bias:

@@ -43,7 +43,6 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.attention import NEG_INF, cache_attention
-from ..ops.quant import QTensor
 from .transformer import (
     CUDA_PAD,
     AttnFn,
@@ -53,6 +52,7 @@ from .transformer import (
     _next_token,
     forward,
     greedy_token,
+    map_leaf,
     prefill,
 )
 
@@ -228,13 +228,9 @@ def self_draft(params: Params, cfg: DecoderConfig,
             f"self-draft depth {n_layers} must be a multiple of the "
             f"attn_windows cycle length {cycle}")
 
-    def cut(a):
-        if isinstance(a, QTensor):
-            return QTensor(a.q[:n_layers], a.scale[:n_layers])
-        return a[:n_layers]
-
     draft_params = dict(params)
-    draft_params["layers"] = {k: cut(v) for k, v in params["layers"].items()}
+    draft_params["layers"] = {k: map_leaf(lambda t: t[:n_layers], v)
+                              for k, v in params["layers"].items()}
     return draft_params, replace(cfg, n_layers=n_layers)
 
 

@@ -14,11 +14,12 @@ caches of the window's slots instead (``ring=True``; the cycle arena of
 :func:`init_cycle_kv_caches` for a window cycle), whose reads take the
 plain attention masked by the slots' absolute positions.
 
-Every dense family of the JAX package is modelled: qkv biases (Qwen2),
+Every family of the JAX package is modelled: qkv biases (Qwen2),
 per-head QK-norm and rope cycles (Gemma-3), post-sublayer norms and window
-cycles (Gemma-2), sliding windows (Mistral). MoE raises
-``NotImplementedError``. Greedy decoding and sampling (temperature, top-k,
-top-p) draw from an explicit ``torch.Generator`` on the device.
+cycles (Gemma-2), sliding windows (Mistral), and the mixture-of-experts
+FFN in every layer (Mixtral, :mod:`..ops.moe`), on one device. Greedy
+decoding and sampling (temperature, top-k, top-p) draw from an explicit
+``torch.Generator`` on the device.
 """
 from __future__ import annotations
 
@@ -87,6 +88,37 @@ class DecoderConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def moe(self) -> bool:
+        return self.moe_num_experts > 0
+
+    def moe_cfg(self):
+        from ..ops.moe import MoEConfig
+
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         num_experts=self.moe_num_experts,
+                         capacity_factor=self.moe_capacity_factor,
+                         top_k=self.moe_top_k)
+
+    def num_params(self) -> int:
+        """Every parameter, as the JAX package counts them (an MoE layer:
+        the router and every expert)."""
+        embed = self.vocab_size * self.d_model
+        attn = self.d_model * (self.q_dim + 2 * self.kv_dim) + self.q_dim * self.d_model
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        if self.qk_norm:
+            attn += 2 * self.head_dim
+        if self.moe:
+            mlp = self.d_model * self.moe_num_experts  # router
+            mlp += self.moe_num_experts * 3 * self.d_model * self.d_ff
+        else:
+            mlp = 3 * self.d_model * self.d_ff
+        norms = (4 if self.post_norms else 2) * self.d_model
+        per_layer = attn + mlp + norms
+        unembed = 0 if self.tie_embeddings else embed
+        return embed + self.n_layers * per_layer + self.d_model + unembed
+
+    @property
     def window_cycle(self) -> tuple:
         """The per-layer window cycle (length 1 when uniform)."""
         return self.attn_windows or (self.sliding_window,)
@@ -108,12 +140,11 @@ class DecoderConfig:
 
 
 def check_supported(cfg: DecoderConfig) -> None:
-    """Raise on a config the port does not model (MoE, ROADMAP Queue 1 item
-    11b) or one the JAX package refuses: a depth the window cycle does not
-    divide, a rope cycle of another length than the window cycle."""
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "MoE (moe_num_experts) is not ported yet (ROADMAP Queue 1 item 11b)")
+    """Raise on a config the JAX package refuses: a depth the window cycle
+    does not divide, a rope cycle of another length than the window cycle,
+    an MoE top-k outside ``[1, num_experts]``."""
+    if cfg.moe:
+        cfg.moe_cfg()
     if cfg.activation not in ("geglu", "swiglu"):
         raise ValueError(f"unknown activation {cfg.activation!r}")
     P = len(cfg.window_cycle)
@@ -159,7 +190,7 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
     def zeros(*shape):
         return torch.zeros(shape, device=device, dtype=dtype)
 
-    L, d = cfg.n_layers, cfg.d_model
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     layers = {
         "attn_norm": ones(L, d),
         "wq": dense((L, d, cfg.q_dim), d),
@@ -167,10 +198,21 @@ def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
         "wv": dense((L, d, cfg.kv_dim), d),
         "wo": dense((L, cfg.q_dim, d), cfg.q_dim),
         "mlp_norm": ones(L, d),
-        "w_gate": dense((L, d, cfg.d_ff), d),
-        "w_up": dense((L, d, cfg.d_ff), d),
-        "w_down": dense((L, cfg.d_ff, d), cfg.d_ff),
     }
+    if cfg.moe:  # expert-major stacks, the router [L, d, E]
+        E = cfg.moe_num_experts
+        layers.update({
+            "router": dense((L, d, E), d),
+            "moe_w_gate": dense((L, E, d, f), d),
+            "moe_w_in": dense((L, E, d, f), d),
+            "moe_w_out": dense((L, E, f, d), f),
+        })
+    else:
+        layers.update({
+            "w_gate": dense((L, d, f), d),
+            "w_up": dense((L, d, f), d),
+            "w_down": dense((L, f, d), f),
+        })
     if cfg.post_norms:
         layers["post_attn_norm"] = ones(L, d)
         layers["post_mlp_norm"] = ones(L, d)
@@ -195,12 +237,16 @@ def fuse_decoder_params(params: Params) -> Params:
     """Inference layout: ``wqkv [L, d, q+2kv]`` and ``w_gateup [L, d, 2f]``
     replace the separate projections (one matmul each instead of three and
     two), and ``bqkv [L, q+2kv]`` the qkv biases. The separate tensors are
-    dropped from the result."""
+    dropped from the result. An MoE tree (``router``: no dense FFN to fuse)
+    comes back unchanged, as in JAX; int8 and LoRA leaves raise."""
     layers = params["layers"]
-    if "wqkv" in layers:
+    if "wqkv" in layers or "router" in layers:
         return params
-    if any(isinstance(v, QTensor) for v in layers.values()):
-        raise ValueError("fuse before quantizing: fusing concatenates raw matrices")
+    if any(isinstance(v, tuple) for v in layers.values()):
+        raise ValueError(
+            "fuse_decoder_params first: fusing concatenates raw weight "
+            "matrices, not int8 QTensors or LoRA adapters — quantize/adapt "
+            "after fusing (or merge_lora before)")
     fused = {k: v for k, v in layers.items()
              if k not in ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv")}
     fused["wqkv"] = torch.cat([layers["wq"], layers["wk"], layers["wv"]], dim=2)
@@ -289,18 +335,26 @@ def unembed(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor
 # ----- forward pass --------------------------------------------------------
 
 
+def map_leaf(fn, leaf):
+    """``fn`` on every tensor of a leaf: a tensor, or a wrapper of tensors
+    (an int8 :class:`QTensor`, a LoRA adapter, nested), the wrapper kept."""
+    if isinstance(leaf, tuple):
+        return type(leaf)(*(map_leaf(fn, t) for t in leaf))
+    return fn(leaf)
+
+
 def _index(leaf, i: int):
-    if isinstance(leaf, QTensor):
-        return QTensor(leaf.q[i], leaf.scale[i])
-    return leaf[i]
+    return map_leaf(lambda t: t[i], leaf)
 
 
 def _unbind(leaf) -> list:
-    """Per-layer views of a stacked leaf. One ``unbind`` per leaf: its
-    backward stacks the layers' gradients once, where indexing layer by
-    layer would add each into a fresh full-size zero tensor."""
-    if isinstance(leaf, QTensor):
-        return [QTensor(q, s) for q, s in zip(leaf.q.unbind(0), leaf.scale.unbind(0))]
+    """Per-layer views of a stacked leaf (a tensor or a wrapper whose every
+    tensor carries the leading ``[L]`` axis). One ``unbind`` per tensor:
+    its backward stacks the layers' gradients once, where indexing layer
+    by layer would add each into a fresh full-size zero tensor."""
+    if isinstance(leaf, tuple):
+        parts = [_unbind(t) for t in leaf]
+        return [type(leaf)(*p) for p in zip(*parts)]
     return list(leaf.unbind(0))
 
 
@@ -475,7 +529,11 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     every shard's view reads; each shard attends with its own query heads
     (``decode_kernel_fn`` then returns the shards' outputs as a list);
     ``wo`` and ``w_down`` are row-parallel, each followed by the sum
-    across shards; norms are replicated."""
+    across shards; norms are replicated.
+
+    Returns ``(x, aux)``: ``aux`` is the MoE layer's load-balancing term
+    (:func:`..ops.moe.moe_ffn`, over exactly this call's ``B x S`` tokens),
+    None for a dense layer."""
     B, S, _ = x.shape
     shards = layer if mesh is not None else [layer]
     tp = len(shards)
@@ -605,26 +663,43 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
         attn_proj = rms_norm(attn_proj, shards[0]["post_attn_norm"], cfg.norm_eps)
     x = x + attn_proj
     h = rms_norm(x, shards[0]["mlp_norm"], cfg.norm_eps)
-    acts = []
-    for sh in shards:
-        if "w_gateup" in sh:
-            gu = weight_matmul(h, sh["w_gateup"])
-            f = gu.shape[-1] // 2
-            acts.append(_gate_act(gu[..., :f], cfg.activation) * gu[..., f:])
-        else:
-            acts.append(_gate_act(weight_matmul(h, sh["w_gate"]), cfg.activation)
-                        * weight_matmul(h, sh["w_up"]))
-    mlp_out = _row_parallel(mesh, acts, shards, "w_down")
+    aux = None
+    if cfg.moe:
+        from ..ops.moe import moe_ffn
+
+        if mesh is not None:
+            raise NotImplementedError(_MOE_TP)
+        moe_params = {"router": layer["router"], "w_gate": layer["moe_w_gate"],
+                      "w_in": layer["moe_w_in"], "w_out": layer["moe_w_out"]}
+        y, aux = moe_ffn(moe_params, h, cfg.moe_cfg())
+        mlp_out = y.to(x.dtype)
+    else:
+        acts = []
+        for sh in shards:
+            if "w_gateup" in sh:
+                gu = weight_matmul(h, sh["w_gateup"])
+                f = gu.shape[-1] // 2
+                acts.append(_gate_act(gu[..., :f], cfg.activation) * gu[..., f:])
+            else:
+                acts.append(_gate_act(weight_matmul(h, sh["w_gate"]),
+                                      cfg.activation)
+                            * weight_matmul(h, sh["w_up"]))
+        mlp_out = _row_parallel(mesh, acts, shards, "w_down")
     if "post_mlp_norm" in shards[0]:
         mlp_out = rms_norm(mlp_out, shards[0]["post_mlp_norm"], cfg.norm_eps)
-    return x + mlp_out
+    return x + mlp_out, aux
+
+
+_MOE_TP = ("MoE under tensor parallelism (experts split across shards, the "
+           "expert-parallel form) is not ported: ROADMAP item 12b")
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn], positions, kv_caches, cache_offset,
             prefill: bool, decode_kernel_fn, remat: bool = False,
             block_tables=None, block_size: int = 0,
-            paged_len: int = 0, ring: bool = False) -> torch.Tensor:
+            paged_len: int = 0, ring: bool = False,
+            return_aux: bool = False):
     """The decoder stack up to (not including) the final norm. ``remat``
     (training, no caches) checkpoints each layer: its activations are
     recomputed in the backward instead of kept. Tensor-parallel serving
@@ -632,7 +707,9 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     shards. ``ring``: the windowed layers' caches are rings
     (:func:`_layer`); with a window cycle of P > 1 positions
     ``kv_caches`` is then the cycle arena (:func:`init_cycle_kv_caches`),
-    layer i reading entry ``i // P`` of position ``i % P``'s pair."""
+    layer i reading entry ``i // P`` of position ``i % P``'s pair.
+    ``return_aux``: also the mean over layers of the MoE load-balancing
+    terms (fp32 0 for a dense config)."""
     check_supported(cfg)
     if attn_fn is None:
         from ..ops.attention import flash_attention
@@ -654,13 +731,15 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     per_shard = [{k: _unbind(v) for k, v in t.items()} for t in trees]
     P = len(cfg.window_cycle)
     cycle_arena = ring and P > 1
+    auxes = []
     for i in range(cfg.n_layers):
         shard_layers = [{k: v[i] for k, v in t.items()} for t in per_shard]
         layer = shard_layers if mesh is not None else shard_layers[0]
         if remat and kv_caches is None:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, cfg, attn_fn, x, layer, positions, index=i,
                 use_reentrant=False)
+            auxes.append(aux)
             continue
         cache = None
         if cycle_arena:
@@ -668,12 +747,17 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             cache = (_index(pair[0], i // P), _index(pair[1], i // P))
         elif kv_caches is not None:
             cache = (_index(kv_caches[0], i), _index(kv_caches[1], i))
-        x = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
-                   prefill=prefill, decode_kernel_fn=decode_kernel_fn,
-                   block_tables=block_tables, view_tables=view_tables,
-                   block_size=block_size, paged_len=paged_len, index=i,
-                   mesh=mesh, ring=ring and cfg.layer_window(i) > 0)
-    return x
+        x, aux = _layer(cfg, attn_fn, x, layer, positions, cache, cache_offset,
+                        prefill=prefill, decode_kernel_fn=decode_kernel_fn,
+                        block_tables=block_tables, view_tables=view_tables,
+                        block_size=block_size, paged_len=paged_len, index=i,
+                        mesh=mesh, ring=ring and cfg.layer_window(i) > 0)
+        auxes.append(aux)
+    if not return_aux:
+        return x
+    if cfg.moe:
+        return x, torch.stack(auxes).mean()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def tp_serving_params(params: Params, cfg: DecoderConfig, mesh) -> Params:
@@ -684,6 +768,8 @@ def tp_serving_params(params: Params, cfg: DecoderConfig, mesh) -> Params:
     takes params runs them tensor-parallel."""
     from ..parallel.sharding import shard_serving_params
 
+    if cfg.moe:
+        raise NotImplementedError(_MOE_TP)
     trees = shard_serving_params(params, cfg, mesh.tp)
     out = {k: v for k, v in params.items() if k != "layers"}
     out["shards"] = [t["layers"] for t in trees]
@@ -695,9 +781,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn] = None, positions=None, kv_caches=None,
             cache_offset=None, prefill: bool = False, decode_kernel_fn=None,
             remat: bool = False, block_tables=None, block_size: int = 0,
-            paged_len: int = 0, ring: bool = False):
+            paged_len: int = 0, ring: bool = False, return_aux: bool = False):
     """tokens ``[B, S]`` → fp32 logits ``[B, S, vocab]``; with ``kv_caches``
-    also returns the caches (written in place). ``block_tables [B, NB]``
+    also returns the caches (written in place); ``return_aux=True`` appends
+    the per-layer mean of the MoE load-balancing terms (0 for a dense
+    config), as in JAX. ``block_tables [B, NB]``
     (with ``block_size`` and ``paged_len``) switches the cache branch to
     paged decode: ``kv_caches`` is the shared block pool
     (``guest.kv_arena.KVPool.arena``, leaves ``[L, 1, NT, ...]``) and each
@@ -709,12 +797,17 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     ``jax.checkpoint``); it applies only without caches. ``ring=True``
     decodes over ring caches, or over the cycle arena of a window cycle
     (:func:`_hidden`)."""
-    x = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
-                cache_offset, prefill, decode_kernel_fn, remat,
-                block_tables=block_tables, block_size=block_size,
-                paged_len=paged_len, ring=ring)
-    logits = unembed(params, x, cfg)
-    return (logits, kv_caches) if kv_caches is not None else logits
+    out = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
+                  cache_offset, prefill, decode_kernel_fn, remat,
+                  block_tables=block_tables, block_size=block_size,
+                  paged_len=paged_len, ring=ring, return_aux=return_aux)
+    x, aux = out if return_aux else (out, None)
+    res = (unembed(params, x, cfg),)
+    if kv_caches is not None:
+        res += (kv_caches,)
+    if return_aux:
+        res += (aux,)
+    return res[0] if len(res) == 1 else res
 
 
 # ----- loss / training -----------------------------------------------------
@@ -731,13 +824,19 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                     attn_fn: Optional[AttnFn] = None,
                     remat: bool = False) -> torch.Tensor:
     """Mean cross-entropy of predicting ``tokens[:, 1:]`` from
-    ``tokens[:, :-1]``. As in the JAX package, the forward runs on the FULL
-    sequence and the last position's logits are dropped (value-identical
-    for dense configs under the causal mask), so a flash-length batch stays
-    one. MoE configs are not ported, so there is no auxiliary term."""
-    logits = forward(params, tokens, cfg, attn_fn=attn_fn, remat=remat)
+    ``tokens[:, :-1]``, plus ``cfg.moe_aux_weight`` x the MoE
+    load-balancing term for an MoE config. As in the JAX package, the
+    forward runs on the FULL sequence and the last position's logits are
+    dropped (value-identical for dense configs under the causal mask; for
+    MoE the last token also competes for expert capacity and counts in the
+    aux term, as in JAX), so a flash-length batch stays one."""
+    logits, aux = forward(params, tokens, cfg, attn_fn=attn_fn, remat=remat,
+                          return_aux=True)
     targets = tokens[:, 1:]
-    return token_nll_sum(logits[:, :-1], targets) / targets.numel()
+    loss = token_nll_sum(logits[:, :-1], targets) / targets.numel()
+    if cfg.moe:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 # ----- KV cache / generation ----------------------------------------------

@@ -69,11 +69,31 @@ def enabled() -> bool:
 
 def matmul_params(cfg) -> int:
     """Parameters that take part in a matmul for every token: the layers'
-    projections (a gated MLP) and the unembedding; the embedding gather is
-    excluded (the JAX package's bench convention)."""
+    projections (a gated MLP, none for an MoE layer: :func:`moe_cost`) and
+    the unembedding; the embedding gather is excluded (the JAX package's
+    bench convention)."""
     per_layer = (cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
-                 + cfg.q_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+                 + cfg.q_dim * cfg.d_model)
+    if not cfg.moe_num_experts:
+        per_layer += 3 * cfg.d_model * cfg.d_ff
     return cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+
+
+def moe_cost(cfg, tokens: int) -> tuple[float, float]:
+    """``(flops, weight bytes)`` of the MoE FFNs of one forward call over
+    ``tokens`` tokens (0 and 0 for a dense config): a layer's router
+    ``2·T·d·E`` and its experts' MLPs over every capacity slot, filled or
+    not, ``2·E·C·3·d·f``; every expert's weights and the router read."""
+    from ..ops.moe import capacity
+
+    E = cfg.moe_num_experts
+    if not E or not tokens:
+        return 0.0, 0.0
+    d, f = cfg.d_model, cfg.d_ff
+    C = capacity(cfg.moe_cfg(), tokens)
+    flops = cfg.n_layers * (2.0 * tokens * d * E + 2.0 * E * C * 3 * d * f)
+    nbytes = cfg.n_layers * (d * E + E * 3 * d * f) * getattr(cfg.dtype, "itemsize", 2)
+    return flops, float(nbytes)
 
 
 def decode_cost(cfg, *, lanes: int, steps: int, keys: float,
@@ -84,14 +104,18 @@ def decode_cost(cfg, *, lanes: int, steps: int, keys: float,
     each attending ``keys`` keys, plus an admission slice of
     ``prefill_tokens`` rows that attend ``prefill_keys`` keys each. FLOPs:
     2 x matmul parameters x tokens, plus 4 x heads x head_dim per (row,
-    key) for QK^T and PV over every layer. Bytes: the weights once a step
-    and the KV rows read."""
+    key) for QK^T and PV over every layer; an MoE config adds each forward
+    call's experts (:func:`moe_cost`: a decode step is one call of
+    ``lanes`` tokens, the admission slice another). Bytes: the weights
+    once a step and the KV rows read."""
     p = matmul_params(cfg)
     tokens = lanes * steps + prefill_tokens
     per_key = 4 * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    step_moe, moe_bytes = moe_cost(cfg, lanes)
     flops = 2.0 * p * tokens + per_key * (lanes * steps * keys
                                           + prefill_tokens * prefill_keys)
-    wbytes = p * getattr(cfg.dtype, "itemsize", 2)
+    flops += steps * step_moe + moe_cost(cfg, prefill_tokens)[0]
+    wbytes = p * getattr(cfg.dtype, "itemsize", 2) + moe_bytes
     row = cfg.head_dim * (1 if kv_quant else 2) + (4 if kv_quant else 0)
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * row
     nbytes = (steps + (1 if prefill_tokens else 0)) * wbytes + kv * (

@@ -27,24 +27,32 @@ import torch
 
 from .. import resolve_device
 from ..models import transformer as tfm
+from ..ops.lora import LoRAWeight
 from ..ops.quant import QTensor
 from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_SEQ, Mesh
 
 
-def leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict, in a fixed (sorted-key) order."""
+def leaves(tree) -> list:
+    """The leaves of a nested dict whose nodes may also be tuples (the int8
+    and LoRA wrappers), in JAX's tree order: dict keys sorted, tuple fields
+    in order."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in leaves(v)]
     return [tree]
 
 
-def _rebuild(tree, flat: list[torch.Tensor]):
-    """A nested dict of the same shape as ``tree`` over ``flat``'s tensors."""
+def _rebuild(tree, flat: list):
+    """A tree of the same shape as ``tree`` (:func:`leaves`) over ``flat``."""
     it = iter(flat)
 
     def node(t):
         if isinstance(t, dict):
             return {k: node(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple):
+            kids = [node(v) for v in t]
+            return type(t)(*kids) if hasattr(t, "_fields") else tuple(kids)
         return next(it)
 
     return node(tree)
@@ -57,8 +65,10 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamW:
-    """``optax.adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay)``,
-    optionally after ``optax.clip_by_global_norm``, updating in place.
+    """``optax.adamw(schedule, b1, b2, eps=1e-8, weight_decay)``, optionally
+    after ``optax.clip_by_global_norm``, updating in place. ``b1``/``b2``
+    default to 0.9/0.95, the JAX package's ``make_optimizer``; its LoRA
+    step uses optax's own defaults, 0.9/0.999.
 
     What optax does, matched here: the schedule is read at the step count
     BEFORE its increment (a warmup schedule's first update has lr 0 and
@@ -68,14 +78,16 @@ class AdamW:
     ``norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` would add
     1e-6 to the norm and always scale)."""
 
-    b1, b2, eps = 0.9, 0.95, 1e-8
+    eps = 1e-8
 
     def __init__(self, lr: float = 3e-4, weight_decay: float = 0.01,
                  warmup_steps: int = 0, total_steps: int = 0,
-                 min_lr_ratio: float = 0.1, grad_clip: float = 0.0):
+                 min_lr_ratio: float = 0.1, grad_clip: float = 0.0,
+                 b1: float = 0.9, b2: float = 0.95):
         if total_steps and total_steps <= warmup_steps:
             raise ValueError(f"total_steps {total_steps} must exceed "
                              f"warmup_steps {warmup_steps}")
+        self.b1, self.b2 = b1, b2
         self.lr, self.weight_decay = lr, weight_decay
         self.warmup_steps, self.total_steps = warmup_steps, total_steps
         self.min_lr_ratio, self.grad_clip = min_lr_ratio, grad_clip
@@ -281,14 +293,30 @@ SERVING_RULES: tuple[tuple[str, Optional[int]], ...] = (
 
 
 def _layout_axis(axis: Optional[int], value: Any) -> Any:
-    """A weight rule's axis expanded to its serving layout: an int8
-    :class:`..ops.quant.QTensor`'s payload takes the rule's axis and its
-    scale ``[..., 1, out]`` the same axis where that is the out axis (the
-    reduced in axis stays whole), as JAX's ``_layout_spec`` does."""
+    """A weight rule's axis expanded to its serving layout, as JAX's
+    ``_layout_spec`` does: an int8 :class:`..ops.quant.QTensor`'s payload
+    takes the rule's axis and its scale ``[..., 1, out]`` the same axis
+    where that is the out axis (the reduced in axis stays whole); a
+    :class:`..ops.lora.LoRAWeight`'s base follows its rule, ``a [..., in,
+    r]`` takes the axis where it is the in axis, ``b [..., r, out]`` where
+    it is the out axis, and ``scale`` stays whole, so a row-parallel sum
+    carries ``x@a@b`` too."""
+    if isinstance(value, LoRAWeight):
+        last = value.a.ndim - 1
+        return LoRAWeight(base=_layout_axis(axis, value.base),
+                          a=axis if axis == last - 1 else None,
+                          b=axis if axis == last else None, scale=None)
     if isinstance(value, QTensor):
         last = value.q.ndim - 1
         return QTensor(q=axis, scale=axis if axis == last else None)
     return axis
+
+
+def _ref_tensor(value: Any) -> torch.Tensor:
+    """The weight tensor of a leaf: itself, or a wrapper's payload."""
+    while isinstance(value, tuple):
+        value = value[0]
+    return value
 
 
 def match_partition_rules(rules, params: Any) -> Any:
@@ -299,7 +327,7 @@ def match_partition_rules(rules, params: Any) -> Any:
     (a silently replicated weight matrix would defeat the split)."""
 
     def axis_for(path: str, value: Any) -> Optional[int]:
-        t = value.q if isinstance(value, QTensor) else value
+        t = _ref_tensor(value)
         if t.numel() == 1:
             return None
         for pattern, axis in rules:
@@ -366,8 +394,9 @@ def _split(t: torch.Tensor, axis: Optional[int], tp: int,
 def shard_serving_params(params: dict, cfg, tp: int) -> list:
     """``tp`` per-shard parameter trees by :data:`SERVING_RULES`: every
     layer leaf is cut along its rule's axis (an int8 QTensor's payload and
-    scale alike, the scale whole where its axis is the reduced one), a
-    fused ``wqkv``/``bqkv``/``w_gateup`` part by part, so that shard ``s``
+    scale alike, the scale whole where its axis is the reduced one; a LoRA
+    adapter by :func:`_layout_axis`), a fused ``wqkv``/``bqkv``/
+    ``w_gateup`` part by part, so that shard ``s``
     holds heads ``[s·H/tp, (s+1)·H/tp)`` of q and its slice of k, v and the
     MLP; replicated leaves are the same tensors in every tree. Raises when
     a split axis does not divide ``tp``."""
@@ -379,13 +408,16 @@ def shard_serving_params(params: dict, cfg, tp: int) -> list:
     for name, leaf in params["layers"].items():
         axis = specs["layers"][name]
         parts = _FUSED_PARTS[name](cfg) if name in _FUSED_PARTS else ()
-        if isinstance(leaf, QTensor):
-            qs = _split(leaf.q, axis.q, tp, parts)
-            ss = _split(leaf.scale, axis.scale, tp,
-                        parts if axis.scale is not None else ())
-            cut = [QTensor(a, b) for a, b in zip(qs, ss)]
-        else:
-            cut = _split(leaf, axis, tp, parts)
+        cut = _cut(leaf, axis, tp, parts)
         for s in range(tp):
             trees[s]["layers"][name] = cut[s]
     return trees
+
+
+def _cut(leaf: Any, axis: Any, tp: int, parts: tuple) -> list:
+    """:func:`_split` of a leaf, a wrapper field by field (``axis`` the
+    same wrapper of axes, :func:`_layout_axis`)."""
+    if isinstance(leaf, tuple):
+        fields = [_cut(t, a, tp, parts) for t, a in zip(leaf, axis)]
+        return [type(leaf)(*f) for f in zip(*fields)]
+    return _split(leaf, axis, tp, parts)

@@ -1938,3 +1938,139 @@ def test_speculative_server_tokens_against_plain(cuda_device):
             gap = float(lg[int(b[j])] - lg[int(a[j])])
             rms = float(lg.square().mean().sqrt())
             assert gap <= FLIP_BOUND_X_RMS * rms, (i, j, gap, rms)
+
+
+# ----- mixture of experts, LoRA, W8A8 ----------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [2, 4])
+def test_moe_dispatch_in_a_graph_is_bit_equal_to_eager(cuda_device, top_k):
+    """``moe_ffn`` (routing, the sort dispatch, the counts by scatter, the
+    expert MLPs and the ordered combine) captured in a CUDA graph: no host
+    sync breaks the capture, and two replays give the eager output and aux
+    bit for bit, at K = 2 and at K = 4 (where an atomic combine would
+    not)."""
+    from kata_xpu_device_plugin_tpu_torch.ops import moe
+
+    cfg = moe.MoEConfig(d_model=512, d_ff=1024, num_experts=8, top_k=top_k,
+                        capacity_factor=1.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.init_moe_params(cfg, gen, dtype=torch.bfloat16)
+    x = torch.randn(2, 24, 512, device=cuda_device, generator=gen).to(torch.bfloat16)
+    want, aux = moe.moe_ffn(p, x, cfg)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe.moe_ffn(p, x, cfg)  # warm on the side stream before capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, got_aux = moe.moe_ffn(p, x, cfg)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(got_aux), _bits(aux))
+
+
+def _small_mixtral():
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.models import mixtral_8x7b
+
+    return replace(mixtral_8x7b(), n_layers=2, d_model=1024, n_heads=8,
+                   n_kv_heads=2, d_ff=512, vocab_size=512)
+
+
+def _chunk_replay_equals_eager(params, cfg, dev, paged: bool):
+    """The server's second decode chunk by capture and first replay against
+    the same chunk eager on a clone of the arena: tokens, last, pos and
+    every arena byte equal; the paged kernel launched once a layer step."""
+    from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
+
+    kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
+              overlap=False)
+    if paged:
+        kw.update(kv_pool_tokens=4096, kv_block_size=16)
+    srv = GenerationServer(params, cfg, **kw)
+    rng = np.random.default_rng(3)
+    for n in (100, 130, 200, 60):
+        srv.submit(rng.integers(0, 512, n), 40)
+    srv.step()
+    exe = srv._decode
+    srv._ensure_blocks()
+    arena = srv.kv_pool.arena if paged else srv.arena
+    clone = [t.clone() for t in _leaves(arena)]
+    eager_arena = tuple(quant.QTensor(*clone[2 * i: 2 * i + 2]) for i in range(2))
+
+    def to_dev(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(dev)
+
+    extra = {"block_tables": to_dev(srv._bt_host)} if paged else {}
+    tok, pos = to_dev(srv._last), to_dev(srv._pos)
+    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+                        exe.decode_kernel_fn, **extra, **exe._kw)
+    d0 = decode_attn.paged_decode_attention.launches
+    got = exe(tok, pos, **extra)
+    torch.cuda.synchronize()
+    assert (exe.captures, exe.replays) == (1, 1)
+    assert decode_attn.paged_decode_attention.launches - d0 == exe.steps * cfg.n_layers
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for a, c in zip(_leaves(arena), clone):
+        assert torch.equal(_bits(a), _bits(c))
+    srv.run()
+    return srv.stats()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_experts", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slotted", "paged"])
+def test_moe_decode_graph_replay_is_bit_equal_to_eager(cuda_device, paged,
+                                                       int8_experts):
+    """A Mixtral-shaped server (head_dim 128, 8 experts, top-2): its decode
+    chunk's graph holds the MoE dispatch, and replay equals eager."""
+    cfg = _small_mixtral()
+    params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    if int8_experts:
+        params = quant.quantize_decoder_params(params)
+    stats = _chunk_replay_equals_eager(params, cfg, cuda_device, paged)
+    assert stats["decode_graph_captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qlora", [False, True], ids=["lora", "qlora"])
+def test_lora_decode_graph_replay_is_bit_equal_to_eager(cuda_device, qlora):
+    """A fused Gemma-shaped tree with adapters on ``wqkv`` and ``wo`` (their
+    ``b`` drawn non-zero), plain and over an int8 base: replay equals
+    eager."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.ops import lora
+
+    cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+    params = transformer.fuse_decoder_params(
+        init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16))
+    if qlora:
+        params = quant.quantize_decoder_params(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    params = lora.apply_lora(params, gen, targets=("wqkv", "wo"))
+    for k in ("wqkv", "wo"):
+        params["layers"][k].b.normal_(0.0, 0.05, generator=gen)
+    _chunk_replay_equals_eager(params, cfg, cuda_device, paged=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 24, 40])
+def test_int_mm_with_padded_rows_equals_the_cpu_dot(cuda_device, rows):
+    """``quant.int8_matmul`` on the card (``torch._int_mm``, rows padded to
+    its minimum and sliced back) against the exact int32 dot on the CPU,
+    at the Gemma-2B ``wqkv`` and ``w_down`` shapes."""
+    rng = np.random.default_rng(rows)
+    for k, n in ((2048, 2560), (16384, 2048)):
+        a = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+        got = quant.int8_matmul(a.to(cuda_device), b.to(cuda_device))
+        assert got.dtype == torch.int32 and got.shape == (rows, n)
+        assert torch.equal(got.cpu(), quant.int8_matmul(a, b))

@@ -353,8 +353,10 @@ def test_init_params_makes_the_family_leaves():
 
 def test_check_supported_refuses_what_jax_refuses():
     base = tt.tiny_test_config(n_layers=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.check_supported(dataclasses.replace(base, moe_num_experts=4))
+    # MoE is ported; JAX's MoEConfig still refuses top_k > num_experts.
+    with pytest.raises(ValueError, match="top_k"):
+        tt.check_supported(dataclasses.replace(base, moe_num_experts=2,
+                                               moe_top_k=3))
     with pytest.raises(ValueError, match="not divisible"):
         tt.check_supported(dataclasses.replace(base, attn_windows=(4, 4, 0)))
     with pytest.raises(ValueError, match="one entry per"):

@@ -150,19 +150,19 @@ def test_building_blocks_keep_the_jax_conventions():
     ("moe_num_experts", 4),
 ])
 def test_unported_flags_raise(flag, value):
-    """MoE is the one family flag still unported: it raises. The others
-    are ported now; each builds and runs a forward (the families' parity
-    with the JAX package is in test_torch_families.py)."""
+    """Every family flag is ported now, MoE last: each builds and runs a
+    forward, and none raises (the families' parity with the JAX package is
+    in test_torch_families.py, MoE's in test_torch_moe.py)."""
     tcfg = bridge.config_from_fields(
         {**dataclasses.asdict(CONFIGS["tiny"]()), flag: value})
-    if flag == "moe_num_experts":
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tt.init_params(tcfg, device="cpu")
-        return
     params = tt.init_params(tcfg, device="cpu")
-    logits = tt.forward(params, torch.zeros((1, 5), dtype=torch.int64), tcfg)
+    logits, aux = tt.forward(params, torch.zeros((1, 5), dtype=torch.int64),
+                             tcfg, return_aux=True)
     assert logits.shape == (1, 5, tcfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
+    if flag == "moe_num_experts":
+        assert params["layers"]["moe_w_gate"].shape[:2] == (tcfg.n_layers, 4)
+        assert "w_gate" not in params["layers"] and float(aux) > 0
 
 
 def test_bridge_refuses_mismatched_trees():
