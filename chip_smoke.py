@@ -222,6 +222,26 @@ After ``spec``, the MoE, LoRA and W8A8 phases (PERF.md configurations 14-16;
    ``graph_check`` (MoE dispatch in the replay), ``crosscheck``, tok/s,
    TTFT/ITL and the ledger's ``mfu``.
 
+After ``moe``, training at scale, every shard on the one card (PERF.md
+configurations 17-20; ``scripts/torch_train_scale_phase.py`` runs them
+alone). Each first loss is held against the unsharded step's from the same
+weights within :func:`rounding_bound`, and each kernel's launches are exact
+a local block, with no operand copied:
+8f. fsdp_tp — Llama-3-8B, 8 of 32 layers, over fsdp 2 x model 2 through
+   ``fit`` with a sharded checkpoint at step 2 and a ``fit`` that resumes
+   from it (step 3's loss bit for bit), 32 launches of each kernel a step;
+   then one step over seq 2 x fsdp 2 x model 2 at S=4096 through K1;
+8g. pipeline — Llama-3-8B, 4 layers, ``make_pp_train_step`` on
+   ``composed_mesh(2, 2, 2)``, 4 microbatches of 2, 3 steps, beside the
+   flat step over fsdp 4 x model 2 on the same weights and batch;
+8h. ep_moe — Mixtral-8x7B, 1 layer, experts over the model axis of fsdp 1
+   x model 2 at a capacity that drops nothing (a routing-flip term joins
+   the bound), then each shard's drops at the default factor;
+8i. lora_mesh — Gemma-2B rank-8 LoRA over fsdp 2 x model 2 beside the
+   unsharded LoRA step, the bases unchanged;
+8j. local_blocks — the flash kernels at those phases' local-block shapes
+   against their plain versions, timed beside SDPA and the bound.
+
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
 server (slotted and paged, overlapped and lock-step; at least 48 steps,
@@ -5233,6 +5253,671 @@ def phase_kv_gate(params, cfg, seed: int = 0) -> dict:
     return launches
 
 
+# ----- training at scale: FSDP x TP, the pipeline, expert parallelism, LoRA ----
+
+BF16_U = 2.0 ** -8  # bf16's unit roundoff: half an ulp, relative
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BLOCK_KERNELS = ("flash_fwd_block", "flash_bwd_dq_block", "flash_bwd_dkv_block")
+
+
+def kernel_counters() -> dict:
+    """The six flash wrappers' launch counters by kernel name."""
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    return {"flash_fwd": flash.flash_forward, "flash_bwd_dq": flash.flash_bwd_dq,
+            "flash_bwd_dkv": flash.flash_bwd_dkv,
+            "flash_fwd_block": flash.flash_block_forward,
+            "flash_bwd_dq_block": flash.flash_block_bwd_dq,
+            "flash_bwd_dkv_block": flash.flash_block_bwd_dkv}
+
+
+def reset_counts() -> None:
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    flash._kernel_operand.copies = 0
+
+
+def set_counts(counts: dict) -> None:
+    """The counters as :func:`read_counts` read them."""
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    for name, fn in kernel_counters().items():
+        fn.launches = counts[name]
+    flash._kernel_operand.copies = counts["operand_copies"]
+
+
+def read_counts() -> dict:
+    from kata_xpu_device_plugin_tpu_torch.ops import flash
+
+    out = {name: fn.launches for name, fn in kernel_counters().items()}
+    out["operand_copies"] = flash._kernel_operand.copies
+    return out
+
+
+def expect_counts(phase: str, counts: dict, want: dict) -> None:
+    """Every flash counter at exactly its expected count (0 where not
+    named), and no operand copied for a launch."""
+    full = {name: want.get(name, 0) for name in kernel_counters()}
+    full["operand_copies"] = 0
+    if counts != full:
+        raise AssertionError(f"{phase} launches {counts}, want {full}")
+
+
+def _base_weight(w):
+    """The float weight a site's partial products use: a LoRA adapter's
+    base (its delta is zero in the first step), a tensor itself."""
+    from kata_xpu_device_plugin_tpu_torch.ops.lora import LoRAWeight
+
+    if isinstance(w, LoRAWeight):
+        w = w.base
+    if isinstance(w, tuple):
+        raise TypeError("the rounding bound takes float weights")
+    return w
+
+
+def rounding_bound(params, tokens, cfg, tp: int) -> dict:
+    """How far the sharded step's first loss may lie from the unsharded
+    step's, from the same fp32 weights and tokens: the probabilistic
+    rounding-error model (each bf16 rounding an independent error of at
+    most u = 2^-8 of the value it rounds, zero mean: Higham and Mary, SIAM
+    J. Sci. Comput. 41(5), 2019), taken to first order through the
+    unsharded forward (through the kernels) and its backward.
+
+    The two programs differ only in where bf16 roundings fall; the fsdp
+    gathers, the vocab-parallel lookup and the batch and head cut of the
+    attention (the forward kernel computes each (row, head) alone, its
+    tiles fixed by the head width) change no value. At a linear site ``y =
+    x @ w`` (every projection, an MoE expert's products) the sharded side
+    may round the ``tp`` partial products ``P_m`` (the contraction cut in
+    ``tp``) and their sum, the unsharded side rounds ``y`` once, a GEMM
+    over another number of rows may accumulate in another order, and an
+    elementwise op reading ``y`` may round a perturbed input the other
+    way: per element a difference of variance at most ``u^2 (sum_m P_m^2
+    + 4 y^2) / 3``. Summed over the sites with the backward's ``dL/dy``,
+    ``sigma^2 = sum g^2 var``, and the bound is ``6 sigma`` plus 2^-20 of
+    the loss for the fp32 softmax of the vocab-parallel loss (its sums
+    reordered). Returns the unsharded loss, sigma, the bound and the
+    forward's per-token nll (for the routing term of an MoE model)."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models import transformer as tfm
+    from kata_xpu_device_plugin_tpu_torch.ops import moe as moe_mod
+
+    sums = []
+    real_wm, real_ee = tfm.weight_matmul, moe_mod._expert_einsum
+
+    def site(y, x, w, mm):
+        if not y.requires_grad:
+            return y
+        with torch.no_grad():
+            w = _base_weight(w)
+            var = 4.0 * y.float().square()
+            for xm, wm_ in zip(x.tensor_split(tp, dim=-1),
+                               w.tensor_split(tp, dim=-2)):
+                var += mm(xm, wm_).float().square()
+            var = (var * (BF16_U ** 2 / 3.0)).to(torch.bfloat16)
+        y.register_hook(lambda g: sums.append(
+            (g.float().square() * var.float()).sum()))
+        return y
+
+    def wm(x, w):
+        return site(real_wm(x, w), x, w, real_wm)
+
+    def ee(x, w):
+        return site(real_ee(x, w), x, w, real_ee)
+
+    emb = params["embed"].detach().requires_grad_()
+    view = {**params, "embed": emb}
+    tfm.weight_matmul, moe_mod._expert_einsum = wm, ee
+    try:
+        with torch.enable_grad():
+            logits, aux = tfm.forward(view, tokens, cfg, return_aux=True)
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+            del logits, logp
+            loss = nll.mean()
+            if cfg.moe:
+                loss = loss + cfg.moe_aux_weight * aux
+            torch.autograd.grad(loss, [emb])
+    finally:
+        tfm.weight_matmul, moe_mod._expert_einsum = real_wm, real_ee
+    # The variances were stored in bf16: 1.01 covers their rounding.
+    sigma = math.sqrt(1.01 * float(torch.stack(sums).sum()))
+    lv = float(loss.detach())
+    return {"loss": lv, "sites": len(sums), "sigma": sigma,
+            "bound": 6.0 * sigma + 2.0 ** -20 * abs(lv), "nll": nll.detach()}
+
+
+def held_to(phase: str, name: str, got: float, bound: dict) -> dict:
+    """``got`` against the unsharded loss within ``bound``."""
+    diff = got - bound["loss"]
+    row = {f"{name}_loss": got, "unsharded_loss": bound["loss"],
+           f"{name}_diff": diff, "bound": bound["bound"],
+           "diff_over_bound": abs(diff) / bound["bound"]}
+    if not (math.isfinite(got) and abs(diff) <= bound["bound"]):
+        raise AssertionError(f"{phase}: {name} loss {got} against the "
+                             f"unsharded {bound['loss']}, bound {bound['bound']}")
+    return row
+
+
+def batch_tokens(cfg, B: int, S: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def step_timer():
+    """``(on_step, stamps)`` for ``fit``: each step's end, synchronized."""
+    import torch
+
+    stamps = []
+
+    def on_step(_s, _loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    return on_step, stamps
+
+
+def train_mfu(cfg, B: int, S: int, step_s: float) -> tuple:
+    """The device ledger's matmul parameters (``obs.devledger.
+    matmul_params``: the model counted once, whatever its cut) in the
+    bench convention ``6 P tokens`` plus causal attention, over the step's
+    seconds and the bf16 peak: ``(flops, mfu)``."""
+    from kata_xpu_device_plugin_tpu_torch.obs import devledger
+
+    flops = (6.0 * devledger.matmul_params(cfg) * B * S
+             + 6 * cfg.n_layers * B * S * S * cfg.n_heads * cfg.head_dim)
+    return flops, flops / step_s / PEAK_BF16_FLOPS
+
+
+def phase_fsdp_tp(n_layers: int = 8, seed: int = 0, seq_layers: int = 8,
+                  profile: bool = False) -> dict:
+    """Configuration 17 (PERF.md): Llama-3-8B at its published widths, 8 of
+    32 layers, ``make_train_step(cfg, mesh=build_mesh({"data": 1, "fsdp":
+    2, "model": 2}))`` on one batch of B=2 windows of 2048 tokens (seen
+    every step), driven by ``fit`` with a ``TrainCheckpointer`` every 2
+    steps: a run of 3 steps (its checkpoint at step 2), then ``fit`` to
+    step 4 over the same directory, which resumes from step 2: its step 3
+    must give the first run's step-3 loss bit for bit. One checkpoint (33.6
+    GB) is written: the card's machine takes 45 GiB of writes a call.
+    First the unsharded forward from the same weights (the loss of the
+    unsharded step's first step) and :func:`rounding_bound`; the sharded
+    first loss within it. Launch counts reset just before the runs and
+    read just after: each kernel 8 layers x 4 local blocks a step, no
+    operand copied. Then one step over ``{"fsdp": 2, "model": 2, "seq":
+    2}`` at S=4096 (the ring per batch and head shard through K1), its
+    loss within its own bound of the unsharded loss. ``profile`` adds a
+    profiled fifth step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import init_params
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        TokenBatchLoader,
+        build_mesh,
+        fit,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = models.llama3_8b(n_layers=n_layers)
+    B, S = 2, 2048
+    shape = {"data": 1, "fsdp": 2, "model": 2}
+    toks = batch_tokens(cfg, B, S, seed)
+    whole = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    reset_counts()
+    bound = rounding_bound(whole, torch.from_numpy(toks).cuda(), cfg,
+                           tp=shape["model"])
+    unsharded_counts = read_counts()
+    del whole
+    torch.cuda.empty_cache()
+
+    init_state, step = make_train_step(cfg, make_optimizer(),
+                                       mesh=build_mesh(shape))
+    ckpt_dir = tempfile.mkdtemp(prefix="fsdp_tp_ckpt_")
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        for name, steps, every in (("first", 3, 2), ("resumed", 4, 0)):
+            loader = TokenBatchLoader(toks.reshape(-1), batch=B, seq_len=S - 1,
+                                      shuffle=False)
+            on_step, stamps = step_timer()
+            t0 = time.perf_counter()
+            state, losses = fit(init_state, step, loader, steps=steps,
+                                seed=seed, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                on_step=on_step)
+            runs[name] = {"losses": losses, "t0": t0, "stamps": stamps}
+            if profile and name == "resumed":
+                # Profiled outside the counted runs: the counts as they were.
+                counts_before = read_counts()
+                profiled(f"llama3_8b fsdp2 x model2 step 5, B={B}, S={S}",
+                         lambda: step(state, toks))
+                set_counts(counts_before)
+            del state
+            torch.cuda.empty_cache()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, n))
+                         for n in os.listdir(ckpt_dir))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    first, resumed = runs["first"], runs["resumed"]
+    losses = first["losses"] + resumed["losses"][1:]
+    # Step 3 of the first run follows step 2's checkpoint write: its span
+    # is the write and a step.
+    spans = [b - a for a, b in zip(first["stamps"], first["stamps"][1:])]
+    step_s = ([spans[0]]
+              + [b - a for a, b in zip(resumed["stamps"], resumed["stamps"][1:])])
+    p50 = float(np.median(step_s))
+    flops, mfu = train_mfu(cfg, B, S, p50)
+    per_step = n_layers * 4
+    n_steps = 3 + 2
+    row = {"model": "llama3_8b", "n_layers": n_layers,
+           "reduced": f"n_layers={n_layers} (from 32; one card's memory)",
+           "mesh": shape, "B": B, "S": S, "losses": losses,
+           **held_to("fsdp_tp", "sharded_first", losses[0], bound),
+           "bound_sites": bound["sites"], "sigma": bound["sigma"],
+           "first_step_s": first["stamps"][0] - first["t0"],
+           "resume_first_step_s": resumed["stamps"][0] - resumed["t0"],
+           "step_s": step_s, "step_p50_s": p50, "tokens_per_s": B * S / p50,
+           "model_flops_per_step": flops, "mfu": mfu, "peak_mem_bytes": peak,
+           "checkpoint_bytes": ckpt_bytes, "disk_free_gb": free_gb,
+           "checkpoint_write_and_step_s": spans[1],
+           "step3_loss": first["losses"][2],
+           "resumed_step3_loss": resumed["losses"][0],
+           "resume_bit_equal": resumed["losses"][0] == first["losses"][2],
+           "launches": counts, "steps_launched": n_steps,
+           "launches_per_step": per_step, "unsharded_launches": unsharded_counts}
+    emit("fsdp_tp", **row)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fsdp_tp loss not finite and falling: {losses}")
+    if not row["resume_bit_equal"]:
+        raise AssertionError(f"fsdp_tp resume: {resumed['losses'][0]!r} != "
+                             f"{first['losses'][2]!r}")
+    expect_counts("fsdp_tp", counts, {k: n_steps * per_step for k in FLASH_KERNELS})
+    expect_counts("fsdp_tp unsharded", unsharded_counts,
+                  {k: n_layers for k in FLASH_KERNELS})
+    out = {k: counts[k] for k in FLASH_KERNELS}
+
+    # seq x fsdp x model at S=4096: the ring per (batch, head) shard.
+    cfg_s = models.llama3_8b(n_layers=seq_layers)
+    S2 = 4096
+    toks2 = torch.from_numpy(batch_tokens(cfg_s, B, S2, seed + 1)).cuda()
+    whole = init_params(cfg_s, seed=seed, device="cuda", dtype=torch.float32)
+    bound2 = rounding_bound(whole, toks2, cfg_s, tp=2)
+    del whole
+    torch.cuda.empty_cache()
+    mesh2 = build_mesh({"fsdp": 2, "model": 2, "seq": 2})
+    init2, step2 = make_train_step(cfg_s, make_optimizer(), mesh=mesh2)
+    state = init2(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t2 = time.perf_counter()
+    state, loss2 = step2(state, toks2)
+    loss2 = float(loss2)
+    seq_s = time.perf_counter() - t2
+    counts2 = read_counts()
+    peak2 = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    rings, pairs = 2 * 2, 3  # (batch, head) shards; live pairs of a ring of 2
+    want2 = seq_layers * rings * pairs
+    emit("fsdp_tp_seq", model="llama3_8b", n_layers=seq_layers,
+         mesh={"fsdp": 2, "model": 2, "seq": 2}, B=B, S=S2, S_loc=S2 // 2,
+         **held_to("fsdp_tp_seq", "sharded", loss2, bound2),
+         bound_sites=bound2["sites"], step_s=seq_s, peak_mem_bytes=peak2,
+         launches=counts2, launches_per_step=want2)
+    expect_counts("fsdp_tp_seq", counts2, {k: want2 for k in BLOCK_KERNELS})
+    for k in BLOCK_KERNELS:
+        out[k] = counts2[k]
+    return out
+
+
+def phase_pipeline(n_layers: int = 4, steps: int = 3, seed: int = 0) -> dict:
+    """Configuration 18 (PERF.md): Llama-3-8B at its published widths, 4 of
+    32 layers, ``make_pp_train_step`` on ``composed_mesh(2, 2, 2)`` with
+    M=4 microbatches of mb=2 windows of 2048 tokens (one batch, seen every
+    step), then the flat step over ``{"data": 1, "fsdp": 4, "model": 2}``
+    from the same weights on the same 8 windows (JAX's
+    ``tests/test_composed.py`` pairing). The first losses within
+    :func:`rounding_bound` (tp=2 on both sides) of the unsharded loss, the
+    later ones printed beside each other; launches: the composed step M x
+    layers x 4 local blocks a kernel a step, the flat one layers x 8."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import init_params
+    from kata_xpu_device_plugin_tpu_torch.obs import devledger
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        build_mesh,
+        composed_mesh,
+        make_optimizer,
+        make_pp_train_step,
+        make_train_step,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves, local
+
+    cfg = models.llama3_8b(n_layers=n_layers)
+    M, mb, S = 4, 2, 2048
+    toks = torch.from_numpy(batch_tokens(cfg, M * mb, S, seed)).cuda()
+    params = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    bound = rounding_bound(params, toks, cfg, tp=2)
+    del params
+    torch.cuda.empty_cache()
+    rows = {}
+    for name in ("composed", "flat"):
+        if name == "composed":
+            init_state, step = make_pp_train_step(
+                cfg, composed_mesh(2, 2, 2), 2, M, make_optimizer())
+            batch = toks.reshape(M, mb, S)
+            want = M * n_layers * 4
+        else:
+            init_state, step = make_train_step(
+                cfg, make_optimizer(),
+                mesh=build_mesh({"data": 1, "fsdp": 4, "model": 2}))
+            batch = toks
+            want = n_layers * 8
+        state = init_state(seed)
+        if name == "composed":  # the ledger counts the model once
+            mm = sum(local(state["params"]["layers"][k]).numel()
+                     for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+            mm += local(state["params"]["unembed"]).numel()
+            if mm != devledger.matmul_params(cfg):
+                raise AssertionError(f"pipeline: matmul params {mm} != ledger's "
+                                     f"{devledger.matmul_params(cfg)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, stamps = [], [time.perf_counter()]
+        for _ in range(steps):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            stamps.append(time.perf_counter())
+        counts = read_counts()
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        rows[name] = {"losses": losses,
+                      "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "params": n_params, "launches": counts,
+                      "launches_per_step": want}
+        del state
+        torch.cuda.empty_cache()
+        expect_counts(f"pipeline {name}", counts,
+                      {k: steps * want for k in FLASH_KERNELS})
+        held_to(f"pipeline {name}", name, losses[0], bound)
+    comp, flat = rows["composed"], rows["flat"]
+    p50 = float(np.median(comp["step_s"][1:]))
+    flops, mfu = train_mfu(cfg, M * mb, S, p50)
+    emit("pipeline", model="llama3_8b", n_layers=n_layers,
+         reduced=f"n_layers={n_layers} (from 32; the phase's memory and time)",
+         mesh={"pipe": 2, "fsdp": 2, "model": 2}, M=M, mb=mb, S=S, steps=steps,
+         flat_mesh={"data": 1, "fsdp": 4, "model": 2},
+         unsharded_loss=bound["loss"], bound=bound["bound"],
+         loss_diffs=[a - b for a, b in zip(comp["losses"], flat["losses"])],
+         step_p50_s=p50, tokens_per_s=M * mb * S / p50,
+         model_flops_per_step=flops, mfu=mfu, composed=comp, flat=flat)
+    for r in rows.values():
+        if not all(math.isfinite(x) for x in r["losses"]) or \
+                not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"pipeline loss not finite and falling: {rows}")
+    return {k: comp["launches"][k] + flat["launches"][k] for k in FLASH_KERNELS}
+
+
+def _sharded_top_e(records: list, mesh, B: int, S: int, K: int):
+    """The routed experts ``[B·S, K]`` of one ``moe_ffn_sharded`` call,
+    from its shards' ``_route`` records in grid order, placed back by the
+    dispatch's own token cut."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import moe as moe_mod
+
+    ea = moe_mod.expert_axis_for(mesh)
+    names = tuple(mesh.axis_names)
+    all_axes = tuple(a for a in names if a != ea) + (ea,)
+    b_axes, s_axes = moe_mod._assign_token_axes((B, S), all_axes, mesh, ea)
+    out = torch.empty((B, S, K), dtype=torch.int64, device=records[0].device)
+    for rec, c in zip(records, moe_mod._product([mesh.shape[a] for a in names])):
+        coords = dict(zip(names, c))
+        bi, nb = moe_mod._radix(coords, b_axes, mesh)
+        si, ns = moe_mod._radix(coords, s_axes, mesh)
+        out[bi * B // nb:(bi + 1) * B // nb,
+            si * S // ns:(si + 1) * S // ns] = rec.reshape(B // nb, S // ns, K)
+    return out.reshape(B * S, K)
+
+
+def phase_ep_moe(steps: int = 2, seed: int = 0) -> dict:
+    """Configuration 19 (PERF.md): Mixtral-8x7B at its published widths, 1
+    of 32 layers (27 GB of fp32 state), B=2 windows of 1024 tokens, experts
+    over the model axis of ``{"fsdp": 1, "model": 2}``
+    (``moe_ffn_sharded``: 4 experts a shard, the two all-to-alls per
+    layer), ``steps`` steps at a capacity factor of E/K = 4, where no copy
+    can drop. The first loss within :func:`rounding_bound` (the experts'
+    products are sites too) plus a routing term: a token whose top-2 set
+    differs between the two sides (counted from both sides' routers) may
+    move its nll by up to the larger of the two, so ``flips/N x 2 max
+    nll``. Then one forward at the default factor 2: each shard's drops."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import init_params
+    from kata_xpu_device_plugin_tpu_torch.ops import moe as moe_mod
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        build_mesh,
+        make_optimizer,
+        make_train_step,
+        spmd,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
+
+    E, K = 8, 2
+    cfg = models.mixtral_8x7b(n_layers=1, moe_capacity_factor=E / K)
+    B, S = 2, 1024
+    toks = torch.from_numpy(batch_tokens(cfg, B, S, seed)).cuda()
+    mesh = build_mesh({"fsdp": 1, "model": 2})
+    real_route, real_dispatch = moe_mod._route, moe_mod._dispatch
+    routes, drops = [], []
+
+    def route(params, tokens, c):
+        gates, top_e, probs = real_route(params, tokens, c)
+        routes.append(top_e.detach())
+        return gates, top_e, probs
+
+    def dispatch(tokens, top_e, gates, n_exp, cap):
+        out = real_dispatch(tokens, top_e, gates, n_exp, cap)
+        drops.append(int((out[3] - cap).clamp(min=0).sum()))
+        return out
+
+    params = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    moe_mod._route = route
+    try:
+        bound = rounding_bound(params, toks, cfg, tp=2)
+    finally:
+        moe_mod._route = real_route
+    plain_top = routes[0]
+    del params
+    torch.cuda.empty_cache()
+    init_state, step = make_train_step(cfg, make_optimizer(), mesh=mesh)
+    state = init_state(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    routes.clear()
+    reset_counts()
+    losses, stamps = [], [time.perf_counter()]
+    moe_mod._route, moe_mod._dispatch = route, dispatch
+    try:
+        for i in range(steps):
+            state, loss = step(state, toks)
+            losses.append(float(loss))
+            stamps.append(time.perf_counter())
+            if i == 0:
+                top = _sharded_top_e(routes[:2], mesh, B, S, K)
+                no_drop = list(drops)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        # One forward at the default factor: each shard's drops.
+        drops.clear()
+        with torch.no_grad():
+            spmd.next_token_loss(state["params"], toks,
+                                 models.mixtral_8x7b(n_layers=1), mesh,
+                                 moe_mesh=mesh)
+        default_drops = list(drops)
+    finally:
+        moe_mod._route, moe_mod._dispatch = real_route, real_dispatch
+    del state
+    torch.cuda.empty_cache()
+    flips = int((plain_top.sort(dim=-1).values
+                 != top.sort(dim=-1).values).any(dim=-1).sum())
+    n_tok = B * (S - 1)
+    route_term = flips / n_tok * 2 * float(bound["nll"].max())
+    routed = {**bound, "bound": bound["bound"] + route_term}
+    want = 1 * 2  # 1 layer x 2 head shards (the batch uncut)
+    row = {"model": "mixtral_8x7b", "n_layers": 1,
+           "reduced": "n_layers=1 (from 32; one card's memory: 27 GB of "
+                      "fp32 state)", "mesh": {"fsdp": 1, "model": 2},
+           "B": B, "S": S, "steps": steps, "losses": losses,
+           "capacity_factor": E / K,
+           **held_to("ep_moe", "sharded_first", losses[0], routed),
+           "first_order_bound": bound["bound"], "routing_flips": flips,
+           "routing_term": route_term, "drops_no_drop_factor": no_drop,
+           "drops_default_factor_per_shard": default_drops,
+           "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+           "peak_mem_bytes": peak, "params": n_params, "launches": counts,
+           "launches_per_step": want}
+    emit("ep_moe", **row)
+    if any(no_drop):
+        raise AssertionError(f"ep_moe: drops at factor {E / K}: {no_drop}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ep_moe losses not finite: {losses}")
+    expect_counts("ep_moe", counts, {k: steps * want for k in FLASH_KERNELS})
+    return {k: counts[k] for k in FLASH_KERNELS}
+
+
+def phase_lora_mesh(steps: int = 2, seed: int = 0) -> dict:
+    """Configuration 20 (PERF.md): Gemma-2B at full width (18 layers),
+    fp32 base, rank-8 adapters on wq/wk/wv/wo, ``make_lora_train_step``
+    unsharded and over ``{"fsdp": 2, "model": 2}`` from the same adapted
+    tree, ``steps`` steps each on B=2 windows of 2048 tokens. Gemma-2B's
+    one KV head does not divide the model axis, so attention runs over
+    all heads a batch shard (2 local blocks a layer). The first losses
+    (b = 0: the base model) within :func:`rounding_bound`; the base pieces
+    bit-equal to the base after the steps."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import init_params
+    from kata_xpu_device_plugin_tpu_torch.ops.lora import (
+        LoRAWeight,
+        apply_lora,
+        make_lora_train_step,
+    )
+    from kata_xpu_device_plugin_tpu_torch.parallel import build_mesh
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import local
+
+    cfg = models.gemma_2b()
+    B, S = 2, 2048
+    toks = torch.from_numpy(batch_tokens(cfg, B, S, seed)).cuda()
+    base = init_params(cfg, seed=seed, device="cuda", dtype=torch.float32)
+    bound = rounding_bound(base, toks, cfg, tp=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    adapted = apply_lora(base, gen, rank=8)
+    mesh = build_mesh({"fsdp": 2, "model": 2})
+    rows = {}
+    for name in ("unsharded", "mesh"):
+        init_state, step = make_lora_train_step(
+            cfg, lr=1e-3, mesh=mesh if name == "mesh" else None)
+        state = init_state(adapted if name == "mesh" else {
+            **adapted, "layers": {k: (LoRAWeight(v.base, v.a.clone(),
+                                                 v.b.clone(), v.scale)
+                                      if isinstance(v, LoRAWeight) else v)
+                                  for k, v in adapted["layers"].items()}})
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, stamps = [], [time.perf_counter()]
+        for _ in range(steps):
+            state, loss = step(state, toks)
+            losses.append(float(loss))
+            stamps.append(time.perf_counter())
+        counts = read_counts()
+        base_equal = all(
+            torch.equal(local(state["params"]["layers"][k].base),
+                        base["layers"][k])
+            for k in ("wq", "wk", "wv", "wo"))
+        rows[name] = {"losses": losses, "launches": counts,
+                      "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+                      "base_unchanged": base_equal}
+        del state
+        want = cfg.n_layers * (2 if name == "mesh" else 1)
+        expect_counts(f"lora_mesh {name}", counts,
+                      {k: steps * want for k in FLASH_KERNELS})
+        held_to(f"lora_mesh {name}", name, losses[0], bound)
+        if not base_equal:
+            raise AssertionError(f"lora_mesh {name}: the base moved")
+    torch.cuda.empty_cache()
+    emit("lora_mesh", model="gemma_2b", n_layers=cfg.n_layers, rank=8,
+         mesh={"fsdp": 2, "model": 2}, B=B, S=S, steps=steps,
+         unsharded_loss=bound["loss"], bound=bound["bound"],
+         loss_diffs=[a - b for a, b in zip(rows["mesh"]["losses"],
+                                           rows["unsharded"]["losses"])],
+         launches_per_step={"unsharded": cfg.n_layers, "mesh": 2 * cfg.n_layers},
+         unsharded_run=rows["unsharded"], mesh_run=rows["mesh"])
+    return {k: rows["mesh"]["launches"][k] + rows["unsharded"]["launches"][k]
+            for k in FLASH_KERNELS}
+
+
+LOCAL_BLOCKS = (  # (name, B, S, H, KV, D, launches a step, path)
+    ("llama3_8b fsdp2 x model2 block", 1, 2048, 16, 4, 128, 32,
+     "fsdp_tp; pipeline (x4 microbatches: 64)"),
+    ("llama3_8b fsdp4 x model2 block", 2, 2048, 16, 4, 128, 32,
+     "pipeline's flat step"),
+    ("mixtral_8x7b model2 block", 2, 1024, 16, 4, 128, 2, "ep_moe"),
+    ("gemma_2b fsdp2 block", 1, 2048, 8, 1, 256, 36, "lora_mesh"),
+)
+
+
+def phase_local_blocks() -> dict:
+    """Each new local-block shape's forward (with the lse) and backward
+    kernels against their plain versions, timed beside SDPA and the bound
+    (``flash_case``/``bwd_case``), and the K1 pair of the seq x fsdp x
+    model step (a full pair below the diagonal and the diagonal, S_loc =
+    2048 at 16 heads over 4). Returns the cases by kernel."""
+    rows = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": [],
+            "flash_fwd_block": [], "flash_bwd_dq_block": [],
+            "flash_bwd_dkv_block": []}
+    for name, B, S, H, KV, D, per_step, path in LOCAL_BLOCKS:
+        f = flash_case(name, B, S, H, KV, D, lse=True, timed=True)
+        b = bwd_case(name, B, S, H, KV, D, timed=True)
+        rows["flash_fwd"].append(f)
+        rows["flash_bwd_dq"].append(b["dq"])
+        rows["flash_bwd_dkv"].append(b["dkv"])
+        emit("local_block", case=name, B=B, S=S, H=H, KV=KV, D=D,
+             launches_a_step=per_step, path=path,
+             **{f"fwd_{k}": f[k] for k in ("ms", "library_ms", "bound_ms",
+                                           "plain_ms")},
+             **{f"dq_{k}": b["dq"][k] for k in ("ms", "library_ms", "bound_ms")},
+             **{f"dkv_{k}": b["dkv"][k] for k in ("ms", "bound_ms")})
+    for q_off in (2048, 0):
+        got = block_case(f"llama3_8b seq2 x fsdp2 x model2 pair q_off={q_off}",
+                         2048, 16, 4, 128, q_off, 0, timed=True)
+        for k, r in zip(("flash_fwd_block", "flash_bwd_dq_block",
+                         "flash_bwd_dkv_block"), got):
+            rows[k].append(r)
+    return rows
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -5287,6 +5972,14 @@ def main(argv: list[str]) -> int:
     launches["lora"] = timed_phase("lora", phase_lora)
     launches["moe"] = timed_phase("moe", phase_moe, profile=profile)
     torch.cuda.empty_cache()
+    launches["fsdp_tp"] = timed_phase("fsdp_tp", phase_fsdp_tp, profile=profile)
+    torch.cuda.empty_cache()
+    for name, fn in (("pipeline", phase_pipeline), ("ep_moe", phase_ep_moe),
+                     ("lora_mesh", phase_lora_mesh)):
+        launches[name] = timed_phase(name, fn)
+        torch.cuda.empty_cache()
+    for name, cases in timed_phase("local_blocks", phase_local_blocks).items():
+        checks[name] += cases
     for name, n in timed_phase("families", phase_families,
                                profile=profile).items():
         launches[f"family_{name}"] = n

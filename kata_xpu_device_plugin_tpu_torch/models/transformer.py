@@ -169,67 +169,71 @@ def tiny_test_config(**overrides) -> DecoderConfig:
 
 
 def init_params(cfg: DecoderConfig, *, seed: int = 0, device=None,
-                dtype=torch.float32) -> Params:
+                dtype=torch.float32, place: Optional[Callable] = None) -> Params:
     """Stacked-layer parameters with the JAX package's distributions:
     matrices normal / sqrt(fan_in), norm scales at ones (``rms_norm``
     multiplies by 1 + scale, so a fresh model scales by 2), qkv biases at
     zeros. Drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    target device."""
+    target device. ``place(path, tensor)``, when given, takes each leaf as
+    soon as it is drawn (``path`` dotted, e.g. ``layers.wq``) and returns
+    what the tree holds instead, so a caller that cuts the leaf into
+    pieces never holds more than one whole leaf."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    place = place or (lambda _path, t: t)
 
-    def dense(shape, fan_in):
+    def dense(path, shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device, dtype=dtype)
-        return w / float(np.sqrt(fan_in))
+        return place(path, w / float(np.sqrt(fan_in)))
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dtype)
+    def ones(path, *shape):
+        return place(path, torch.ones(shape, device=device, dtype=dtype))
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device, dtype=dtype)
+    def zeros(path, *shape):
+        return place(path, torch.zeros(shape, device=device, dtype=dtype))
 
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     layers = {
-        "attn_norm": ones(L, d),
-        "wq": dense((L, d, cfg.q_dim), d),
-        "wk": dense((L, d, cfg.kv_dim), d),
-        "wv": dense((L, d, cfg.kv_dim), d),
-        "wo": dense((L, cfg.q_dim, d), cfg.q_dim),
-        "mlp_norm": ones(L, d),
+        "attn_norm": ones("layers.attn_norm", L, d),
+        "wq": dense("layers.wq", (L, d, cfg.q_dim), d),
+        "wk": dense("layers.wk", (L, d, cfg.kv_dim), d),
+        "wv": dense("layers.wv", (L, d, cfg.kv_dim), d),
+        "wo": dense("layers.wo", (L, cfg.q_dim, d), cfg.q_dim),
+        "mlp_norm": ones("layers.mlp_norm", L, d),
     }
     if cfg.moe:  # expert-major stacks, the router [L, d, E]
         E = cfg.moe_num_experts
         layers.update({
-            "router": dense((L, d, E), d),
-            "moe_w_gate": dense((L, E, d, f), d),
-            "moe_w_in": dense((L, E, d, f), d),
-            "moe_w_out": dense((L, E, f, d), f),
+            "router": dense("layers.router", (L, d, E), d),
+            "moe_w_gate": dense("layers.moe_w_gate", (L, E, d, f), d),
+            "moe_w_in": dense("layers.moe_w_in", (L, E, d, f), d),
+            "moe_w_out": dense("layers.moe_w_out", (L, E, f, d), f),
         })
     else:
         layers.update({
-            "w_gate": dense((L, d, f), d),
-            "w_up": dense((L, d, f), d),
-            "w_down": dense((L, f, d), f),
+            "w_gate": dense("layers.w_gate", (L, d, f), d),
+            "w_up": dense("layers.w_up", (L, d, f), d),
+            "w_down": dense("layers.w_down", (L, f, d), f),
         })
     if cfg.post_norms:
-        layers["post_attn_norm"] = ones(L, d)
-        layers["post_mlp_norm"] = ones(L, d)
+        layers["post_attn_norm"] = ones("layers.post_attn_norm", L, d)
+        layers["post_mlp_norm"] = ones("layers.post_mlp_norm", L, d)
     if cfg.qkv_bias:
-        layers["bq"] = zeros(L, cfg.q_dim)
-        layers["bk"] = zeros(L, cfg.kv_dim)
-        layers["bv"] = zeros(L, cfg.kv_dim)
+        layers["bq"] = zeros("layers.bq", L, cfg.q_dim)
+        layers["bk"] = zeros("layers.bk", L, cfg.kv_dim)
+        layers["bv"] = zeros("layers.bv", L, cfg.kv_dim)
     if cfg.qk_norm:
-        layers["q_norm"] = ones(L, cfg.head_dim)
-        layers["k_norm"] = ones(L, cfg.head_dim)
+        layers["q_norm"] = ones("layers.q_norm", L, cfg.head_dim)
+        layers["k_norm"] = ones("layers.k_norm", L, cfg.head_dim)
     params = {
-        "embed": dense((cfg.vocab_size, d), d),
+        "embed": dense("embed", (cfg.vocab_size, d), d),
         "layers": layers,
-        "final_norm": ones(d),
+        "final_norm": ones("final_norm", d),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = dense((d, cfg.vocab_size), d)
+        params["unembed"] = dense("unembed", (d, cfg.vocab_size), d)
     return params
 
 
@@ -312,7 +316,13 @@ def _gate_act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def embed(params: Params, tokens: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """Token embedding; Gemma scales by sqrt(d_model) rounded to the model
     dtype first (bf16 45.25 at d_model 2048)."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    return embed_rows(params["embed"][tokens], cfg)
+
+
+def embed_rows(rows: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """Looked-up embedding rows in the model dtype, scaled as :func:`embed`
+    scales them."""
+    x = rows.to(cfg.dtype)
     if cfg.scale_embeddings:
         s = torch.full((), float(np.sqrt(np.float32(cfg.d_model))),
                        dtype=torch.float32, device=x.device).to(cfg.dtype)
@@ -324,9 +334,16 @@ def unembed(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor
     """Final norm, then the (tied) unembedding with fp32 logits from
     operands of the model dtype, then the optional final softcap."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    proj = (params["embed"].t() if cfg.tie_embeddings
-            else params["unembed"]).to(cfg.dtype)
-    logits = matmul_f32(x, proj)
+    proj = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+    return project_logits(x, proj, cfg)
+
+
+def project_logits(x: torch.Tensor, proj: torch.Tensor,
+                   cfg: DecoderConfig) -> torch.Tensor:
+    """fp32 logits of the normed ``x`` against ``proj [d, V']`` (the whole
+    unembedding or a vocab shard of it), both taken in the model dtype,
+    then the optional final softcap."""
+    logits = matmul_f32(x, proj.to(cfg.dtype))
     if cfg.logits_softcap:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
@@ -475,9 +492,12 @@ def _per_shard(mesh, fn: AttnFn, q, k, v, **kw) -> list:
     """Attention of each shard's query heads, ``[B, S, H/tp, D]`` each: a
     shard attends with its own KV heads (``mesh.kv_heads``), or, when its
     query heads straddle KV heads, runs every head and keeps its own.
-    Without a mesh, the one full attention."""
+    Without a mesh, the one full attention; a training mesh
+    (:class:`..parallel.spmd.LayerShards`) cuts the attention itself."""
     if mesh is None:
         return [fn(q, k, v, **kw)]
+    if hasattr(mesh, "attend"):
+        return mesh.attend(fn, q, k, v, **kw)
     outs = []
     for s in range(mesh.tp):
         hs, kvs = mesh.q_heads(s), mesh.kv_heads(s)
@@ -501,7 +521,7 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
            prefill: bool = False, decode_kernel_fn=None, block_tables=None,
            view_tables=None, block_size: int = 0,
            paged_len: int = 0, index: int = 0, mesh=None,
-           ring: bool = False) -> torch.Tensor:
+           ring: bool = False, moe_mesh=None) -> torch.Tensor:
     """Decoder block ``index`` (its window and rope come from the config's
     cycles), x ``[B, S, d]``. With a cache: ``prefill=True``
     writes the fresh k/v at 0 and attends over them alone (self-attention,
@@ -531,9 +551,17 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     ``wo`` and ``w_down`` are row-parallel, each followed by the sum
     across shards; norms are replicated.
 
+    A training mesh (:class:`..parallel.spmd.LayerShards`, ``layer`` the
+    list of its model shards' layer dicts, each gathered over fsdp) runs
+    the same column- and row-parallel products; it calls ``attn_fn`` once
+    on the whole q, k and v (the attention cuts its own blocks) and its
+    MoE layer keeps its experts split over the shards.
+
     Returns ``(x, aux)``: ``aux`` is the MoE layer's load-balancing term
-    (:func:`..ops.moe.moe_ffn`, over exactly this call's ``B x S`` tokens),
-    None for a dense layer."""
+    (:func:`..ops.moe.moe_ffn`, over exactly this call's ``B x S`` tokens;
+    with ``moe_mesh`` and a token count that divides over it,
+    :func:`..ops.moe.moe_ffn_sharded`, as JAX dispatches), None for a dense
+    layer."""
     B, S, _ = x.shape
     shards = layer if mesh is not None else [layer]
     tp = len(shards)
@@ -665,13 +693,23 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     h = rms_norm(x, shards[0]["mlp_norm"], cfg.norm_eps)
     aux = None
     if cfg.moe:
-        from ..ops.moe import moe_ffn
+        from ..ops import moe as moe_mod
 
-        if mesh is not None:
+        if mesh is not None and not hasattr(mesh, "attend"):
             raise NotImplementedError(_MOE_TP)
-        moe_params = {"router": layer["router"], "w_gate": layer["moe_w_gate"],
-                      "w_in": layer["moe_w_in"], "w_out": layer["moe_w_out"]}
-        y, aux = moe_ffn(moe_params, h, cfg.moe_cfg())
+        moe_params = {"router": shards[0]["router"]}
+        for n in ("w_gate", "w_in", "w_out"):
+            parts = [sh[f"moe_{n}"] for sh in shards]
+            moe_params[n] = parts if tp > 1 else parts[0]
+        if moe_mesh is not None and moe_mod.dispatch_shardable(
+                h.shape[:2], cfg.moe_num_experts, moe_mesh):
+            y, aux = moe_mod.moe_ffn_sharded(moe_params, h, cfg.moe_cfg(),
+                                             moe_mesh)
+        else:
+            if tp > 1:  # the experts whole: the one global dispatch
+                for n in ("w_gate", "w_in", "w_out"):
+                    moe_params[n] = torch.cat(moe_params[n], dim=0)
+            y, aux = moe_mod.moe_ffn(moe_params, h, cfg.moe_cfg())
         mlp_out = y.to(x.dtype)
     else:
         acts = []
@@ -690,8 +728,8 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     return x + mlp_out, aux
 
 
-_MOE_TP = ("MoE under tensor parallelism (experts split across shards, the "
-           "expert-parallel form) is not ported: ROADMAP item 12b")
+_MOE_TP = ("MoE under tensor-parallel serving (the serving shards splitting "
+           "the experts) is not ported: ROADMAP item 12b")
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
@@ -699,7 +737,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             prefill: bool, decode_kernel_fn, remat: bool = False,
             block_tables=None, block_size: int = 0,
             paged_len: int = 0, ring: bool = False,
-            return_aux: bool = False):
+            return_aux: bool = False, moe_mesh=None):
     """The decoder stack up to (not including) the final norm. ``remat``
     (training, no caches) checkpoints each layer: its activations are
     recomputed in the backward instead of kept. Tensor-parallel serving
@@ -738,7 +776,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         if remat and kv_caches is None:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, cfg, attn_fn, x, layer, positions, index=i,
-                use_reentrant=False)
+                moe_mesh=moe_mesh, use_reentrant=False)
             auxes.append(aux)
             continue
         cache = None
@@ -751,7 +789,8 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                         prefill=prefill, decode_kernel_fn=decode_kernel_fn,
                         block_tables=block_tables, view_tables=view_tables,
                         block_size=block_size, paged_len=paged_len, index=i,
-                        mesh=mesh, ring=ring and cfg.layer_window(i) > 0)
+                        mesh=mesh, ring=ring and cfg.layer_window(i) > 0,
+                        moe_mesh=moe_mesh)
         auxes.append(aux)
     if not return_aux:
         return x
@@ -781,7 +820,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
             attn_fn: Optional[AttnFn] = None, positions=None, kv_caches=None,
             cache_offset=None, prefill: bool = False, decode_kernel_fn=None,
             remat: bool = False, block_tables=None, block_size: int = 0,
-            paged_len: int = 0, ring: bool = False, return_aux: bool = False):
+            paged_len: int = 0, ring: bool = False, return_aux: bool = False,
+            moe_mesh=None):
     """tokens ``[B, S]`` → fp32 logits ``[B, S, vocab]``; with ``kv_caches``
     also returns the caches (written in place); ``return_aux=True`` appends
     the per-layer mean of the MoE load-balancing terms (0 for a dense
@@ -796,11 +836,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     wraps each layer in ``torch.utils.checkpoint`` (the JAX package's
     ``jax.checkpoint``); it applies only without caches. ``ring=True``
     decodes over ring caches, or over the cycle arena of a window cycle
-    (:func:`_hidden`)."""
+    (:func:`_hidden`). ``moe_mesh``: the mesh whose expert axis
+    (:func:`..ops.moe.expert_axis_for`) splits the MoE experts, as in
+    JAX."""
     out = _hidden(params, tokens, cfg, attn_fn, positions, kv_caches,
                   cache_offset, prefill, decode_kernel_fn, remat,
                   block_tables=block_tables, block_size=block_size,
-                  paged_len=paged_len, ring=ring, return_aux=return_aux)
+                  paged_len=paged_len, ring=ring, return_aux=return_aux,
+                  moe_mesh=moe_mesh)
     x, aux = out if return_aux else (out, None)
     res = (unembed(params, x, cfg),)
     if kv_caches is not None:
@@ -822,7 +865,7 @@ def token_nll_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def next_token_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
                     attn_fn: Optional[AttnFn] = None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, moe_mesh=None) -> torch.Tensor:
     """Mean cross-entropy of predicting ``tokens[:, 1:]`` from
     ``tokens[:, :-1]``, plus ``cfg.moe_aux_weight`` x the MoE
     load-balancing term for an MoE config. As in the JAX package, the
@@ -831,7 +874,7 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
     MoE the last token also competes for expert capacity and counts in the
     aux term, as in JAX), so a flash-length batch stays one."""
     logits, aux = forward(params, tokens, cfg, attn_fn=attn_fn, remat=remat,
-                          return_aux=True)
+                          return_aux=True, moe_mesh=moe_mesh)
     targets = tokens[:, 1:]
     loss = token_nll_sum(logits[:, :-1], targets) / targets.numel()
     if cfg.moe:

@@ -35,6 +35,13 @@ def all_reduce_max(parts: list) -> torch.Tensor:
     return out
 
 
+def reduce_scatter(parts: list, dim: int = 0) -> list:
+    """``lax.psum_scatter(tiled=True)``: shard j receives piece j (of n
+    along ``dim``) of the sum over shards, added in ascending shard order
+    as :func:`all_reduce_sum` adds."""
+    pieces = [p.chunk(len(parts), dim=dim) for p in parts]
+    return [all_reduce_sum([pc[j] for pc in pieces]) for j in range(len(parts))]
+
 
 def ppermute(parts: list) -> list:
     """The ring's neighbour hop (``lax.ppermute`` with the permutation

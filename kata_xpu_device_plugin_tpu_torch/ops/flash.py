@@ -263,7 +263,13 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     Anything else (never the transformer's own views) is copied."""
     ok = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
           and t.data_ptr() % 16 == 0)
-    return t if ok else t.contiguous()
+    if ok:
+        return t
+    _kernel_operand.copies += 1
+    return t.contiguous()
+
+
+_kernel_operand.copies = 0  # operands copied for a launch, all kernels
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -109,12 +109,16 @@ def lora_trainable_mask(params: Any) -> Any:
     ``b``, False everywhere else (bases, scales, other leaves)."""
     from ..parallel.sharding import _rebuild, leaves
 
+    def fill(node, value: bool):  # one entry a leaf (a Sharded one's pieces)
+        return _rebuild(node, [value] * len(leaves(node)))
+
     def false(node):
-        return _rebuild(node, [False] * len(leaves(node)))
+        return fill(node, False)
 
     def mask_node(node):
         if isinstance(node, LoRAWeight):
-            return LoRAWeight(false(node.base), True, True, False)
+            return LoRAWeight(false(node.base), fill(node.a, True),
+                              fill(node.b, True), false(node.scale))
         return false(node)
 
     return {k: ({kk: mask_node(vv) for kk, vv in v.items()} if k == "layers"
@@ -148,20 +152,41 @@ def make_lora_train_step(cfg, lr: float = 1e-4, attn_fn: Any = None,
     eps 1e-8, weight decay 1e-4). ``init_state(params)`` gives
     ``{"params", "opt", "step"}``; ``step(state, tokens)`` gives ``(state,
     loss)`` on the params' device. ``attn_fn`` defaults to
-    ``flash_attention`` (the kernels on the card). A ``mesh`` (multi-card
-    fine-tuning) is not ported: ROADMAP item 12b."""
+    ``flash_attention`` (the kernels on the card).
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`): ``init_state`` cuts the
+    adapted tree into its pieces by ``parallel.sharding.param_specs``
+    (each base by its rule, a QLoRA base as a QTensor of pieces, ``a`` on
+    its in axis and ``b`` on its out axis, ``scale`` whole), the AdamW
+    moments mirror the adapter pieces, and the step runs the sharded
+    program (``parallel.spmd``; ``attn_fn`` then defaults by mesh, the
+    kernels per local block on the card)."""
     from ..models.transformer import next_token_loss
     from ..parallel.sharding import AdamW, _tokens_on
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "LoRA fine-tuning over a mesh is not ported: ROADMAP item 12b")
     optimizer = AdamW(lr, weight_decay=1e-4, b1=0.9, b2=0.999)
+    if mesh is not None:
+        from ..parallel import spmd
+        from ..parallel.sharding import mesh_attention
+
+        if attn_fn is None:
+            attn_fn = mesh_attention(cfg, mesh)
+
+        def loss_fn(params, tokens):
+            return spmd.next_token_loss(params, tokens, cfg, mesh,
+                                        attn_fn=attn_fn)
+    else:
+        def loss_fn(params, tokens):
+            return next_token_loss(params, tokens, cfg, attn_fn=attn_fn)
 
     def as_tree(ts: list) -> dict:
         return {f"{i:06d}": t for i, t in enumerate(ts)}
 
     def init_state(params: dict) -> dict:
+        if mesh is not None:
+            from ..parallel.sharding import shard_params
+
+            params = shard_params(params, mesh)
         trainable, _ = split_trainable(params)
         if not trainable:
             raise ValueError("no LoRA adapters in params: apply_lora first")
@@ -169,12 +194,14 @@ def make_lora_train_step(cfg, lr: float = 1e-4, attn_fn: Any = None,
                 "step": 0}
 
     def step(state: dict, tokens):
+        from ..parallel.sharding import leaves
+
         params = state["params"]
-        tokens = _tokens_on(tokens, params["embed"].device)
+        tokens = _tokens_on(tokens, leaves(params["embed"])[0].device)
         trainable, rebuild = split_trainable(params)
         xs = [t.detach().requires_grad_() for t in trainable]
         with torch.enable_grad():
-            loss = next_token_loss(rebuild(xs), tokens, cfg, attn_fn=attn_fn)
+            loss = loss_fn(rebuild(xs), tokens)
             grads = list(torch.autograd.grad(loss, xs))
         optimizer.update(as_tree(trainable), grads, state["opt"])
         state["step"] += 1

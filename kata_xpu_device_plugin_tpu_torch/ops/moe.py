@@ -21,19 +21,25 @@
   atomics land), so a replay is bit-equal to eager; at K <= 2 it equals
   JAX's scatter-add bit for bit.
 
-The expert-parallel form (JAX ``moe_ffn_sharded``, ``expert_mesh``) needs
-an expert mesh across devices and is not ported (ROADMAP item 12b).
+The expert-parallel form (JAX ``moe_ffn_sharded``): tokens cut over every
+axis of a mesh, experts over its expert axis (``expert``, or ``model`` on
+a training mesh), the capacity buffers exchanged by
+``collectives.all_to_all``. Every shard is on the mesh's one device and
+runs in turn.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
+from . import collectives
 from .quant import QTensor, bmm_f32
+
+AXIS_EXPERT = "expert"  # parallel.mesh.AXIS_EXPERT (ops does not import parallel)
 
 Params = dict
 
@@ -174,6 +180,194 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig):
     frac_routed = counts.float() / (T * K)
     aux = E * torch.sum(frac_routed * probs.mean(dim=0))
     return y.reshape(shape), aux
+
+
+def moe_param_specs() -> Params:
+    """The specs of an expert tree (JAX ``moe_param_specs``): the router
+    whole, the expert stacks cut on their expert dim over ``expert``."""
+    return {"router": (), "w_gate": (AXIS_EXPERT,), "w_in": (AXIS_EXPERT,),
+            "w_out": (AXIS_EXPERT,)}
+
+
+def expert_axis_for(mesh) -> str:
+    """The mesh axis experts split over: ``expert`` when the mesh has one,
+    else ``model`` (a training mesh's tensor axis doubles as the expert
+    axis, as in JAX)."""
+    if mesh is None or AXIS_EXPERT in mesh.axis_names:
+        return AXIS_EXPERT
+    return "model"
+
+
+def _assign_token_axes(lead, axes, mesh, expert_axis: str):
+    """Each mesh axis (of size > 1) placed on the batch or the sequence dim
+    of a ``[B, S, d]`` activation (JAX's rule): data-like axes prefer the
+    batch, ``seq`` and the expert axis the sequence, either falling back to
+    the other dim when its size does not divide. ``(b_axes, s_axes)``, or
+    None when no placement covers every axis."""
+    b_rem, s_rem = lead
+    b_axes, s_axes = [], []
+    for a in axes:
+        n = mesh.shape[a]
+        if n == 1:
+            continue
+        prefer_s = a == expert_axis or a == "seq"
+        for dim in (("s", "b") if prefer_s else ("b", "s")):
+            if dim == "b" and b_rem % n == 0:
+                b_axes.append(a)
+                b_rem //= n
+                break
+            if dim == "s" and s_rem % n == 0:
+                s_axes.append(a)
+                s_rem //= n
+                break
+        else:
+            return None
+    return tuple(b_axes), tuple(s_axes)
+
+
+def dispatch_shardable(tokens_shape, num_experts: int, mesh,
+                       expert_axis: Optional[str] = None) -> bool:
+    """Whether :func:`moe_ffn_sharded` takes this token shape (``(B, S)``,
+    the layout-aligned check, or a flat count) on ``mesh``."""
+    expert_axis = expert_axis or expert_axis_for(mesh)
+    if num_experts % mesh.shape[expert_axis]:
+        return False
+    all_axes = tuple(a for a in mesh.axis_names if a != expert_axis) + (
+        expert_axis,)
+    if isinstance(tokens_shape, (tuple, list, torch.Size)):
+        return _assign_token_axes(tuple(tokens_shape), all_axes, mesh,
+                                  expert_axis) is not None
+    return tokens_shape % math.prod(mesh.shape.values()) == 0
+
+
+def _radix(coords: dict, axes, mesh) -> tuple[int, int]:
+    """``(index, count)`` of a device along a dim cut over ``axes`` (the
+    first axis major, as a spec's axis tuple orders them)."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def _expert_shards(w: Any, ep: int) -> list:
+    """An expert stack as its ``ep`` shards: a list already cut (a training
+    mesh's model shards) as it is, a whole stack (or QTensor) chunked on
+    its expert dim."""
+    if isinstance(w, list):
+        if len(w) != ep:
+            raise ValueError(f"{len(w)} expert shards for an axis of {ep}")
+        return w
+    if isinstance(w, QTensor):
+        return [QTensor(q, sc) for q, sc in zip(w.q.chunk(ep), w.scale.chunk(ep))]
+    return list(w.chunk(ep))
+
+
+def moe_ffn_sharded(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh,
+                    expert_axis: Optional[str] = None):
+    """The data-sharded MoE FFN (JAX ``moe_ffn_sharded``, the GShard
+    layout): ``(y, aux)``. Tokens are cut over every mesh axis (a ``[B,
+    S, d]`` activation by :func:`_assign_token_axes`, else the flat tokens
+    over all axes in mesh order), so each shard routes and dispatches its
+    own ``T_loc = T / n`` tokens at the capacity ``ceil(T_loc·K/E·factor)``
+    (where tokens drop this differs from :func:`moe_ffn`, as JAX's does);
+    experts are cut over ``expert_axis`` (``params`` may hold each expert
+    stack as the list of its shards). Within each group of shards that
+    differ only along the expert axis, two ``collectives.all_to_all``
+    exchanges move the ``[E, C, d]`` buffers to the experts' owners and
+    back. ``aux`` comes from the GLOBAL routing fractions: counts and
+    probability sums added over every shard in order. The combine is
+    :func:`_combine`'s, order-free."""
+    expert_axis = expert_axis or expert_axis_for(mesh)
+    names = tuple(mesh.axis_names)
+    all_axes = tuple(a for a in names if a != expert_axis) + (expert_axis,)
+    n_total = math.prod(mesh.shape[a] for a in all_axes)
+    ep = mesh.shape[expert_axis]
+    shape = x.shape
+    d = cfg.d_model
+    T = math.prod(shape[:-1])
+    E, K = cfg.num_experts, cfg.top_k
+    if E % ep:
+        raise ValueError(f"{E} experts not divisible by {expert_axis}={ep}")
+    placement = (_assign_token_axes(tuple(shape[:2]), all_axes, mesh,
+                                    expert_axis) if x.ndim == 3 else None)
+    if x.ndim == 3 and placement is None and T % n_total:
+        raise ValueError(f"tokens {tuple(shape[:-1])} not divisible by mesh "
+                         f"size {n_total}")
+    if placement is None and T % n_total:
+        raise ValueError(f"token count {T} not divisible by mesh size {n_total}")
+    t_loc = T // n_total
+    cap = capacity(cfg, t_loc)
+    experts = {n: _expert_shards(params[n], ep)
+               for n in ("w_gate", "w_in", "w_out")}
+
+    # Every shard's coordinates, in mesh order, and its token block.
+    grid = [dict(zip(names, c)) for c in _product([mesh.shape[a] for a in names])]
+    flat = x.reshape(-1, d)
+
+    def block(c):
+        if placement is None:
+            i, _ = _radix(c, all_axes, mesh)
+            return flat[i * t_loc:(i + 1) * t_loc]
+        (bi, nb), (si, ns) = (_radix(c, placement[0], mesh),
+                              _radix(c, placement[1], mesh))
+        B, S = shape[0] // nb, shape[1] // ns
+        return x[bi * B:(bi + 1) * B, si * S:(si + 1) * S].reshape(-1, d)
+
+    routed = {}
+    for i, c in enumerate(grid):
+        tok = block(c)
+        gates, top_e, probs = _route(params, tok, cfg)
+        expert_in, slot, weight, counts, order = _dispatch(tok, top_e, gates,
+                                                           E, cap)
+        routed[i] = (expert_in, slot, weight, counts, order, top_e, probs)
+    # The exchange, group by group: shard j of a group receives its experts'
+    # buffers from every shard of the group, [E/ep, ep·C, d].
+    groups = {}
+    for i, c in enumerate(grid):
+        key = tuple(c[a] for a in names if a != expert_axis)
+        groups.setdefault(key, []).append((c[expert_axis], i))
+    expert_out = {}
+    for members in groups.values():
+        members.sort()
+        ids = [i for _, i in members]
+        recv = collectives.all_to_all([routed[i][0] for i in ids],
+                                      split_dim=0, concat_dim=1)
+        outs = [_expert_mlp({n: experts[n][j] for n in experts}, buf)
+                for j, buf in enumerate(recv)]
+        back = collectives.all_to_all(outs, split_dim=1, concat_dim=0)
+        expert_out.update(zip(ids, back))
+    ys = {}
+    for i in range(len(grid)):
+        _, slot, weight, _, order, top_e, _ = routed[i]
+        ys[i] = _combine(expert_out[i], slot, weight, order, top_e)
+    counts_g = collectives.all_reduce_sum([routed[i][3] for i in range(len(grid))])
+    probs_g = collectives.all_reduce_sum(
+        [routed[i][6].sum(dim=0) for i in range(len(grid))])
+    aux = E * torch.sum((counts_g.float() / (T * K)) * (probs_g / T))
+    if placement is None:
+        order_ = sorted(range(len(grid)),
+                        key=lambda i: _radix(grid[i], all_axes, mesh)[0])
+        y = torch.cat([ys[i] for i in order_], dim=0)
+        return y.reshape(shape), aux
+    b_axes, s_axes = placement
+    nb = _radix(grid[0], b_axes, mesh)[1]
+    ns = _radix(grid[0], s_axes, mesh)[1]
+    tiles = {}
+    for i, c in enumerate(grid):
+        tiles[(_radix(c, b_axes, mesh)[0], _radix(c, s_axes, mesh)[0])] = ys[i]
+    B, S = shape[0] // nb, shape[1] // ns
+    rows = [torch.cat([tiles[(bi, si)].reshape(B, S, d) for si in range(ns)],
+                      dim=1) for bi in range(nb)]
+    return torch.cat(rows, dim=0), aux
+
+
+def _product(sizes: list) -> list:
+    """Every coordinate tuple over ``sizes``, the last axis fastest."""
+    out = [()]
+    for n in sizes:
+        out = [c + (i,) for c in out for i in range(n)]
+    return out
 
 
 def reference_moe(params: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

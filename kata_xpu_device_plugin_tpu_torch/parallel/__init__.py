@@ -1,35 +1,68 @@
 """Training (counterpart of ``kata_xpu_device_plugin_tpu/parallel``): the
-AdamW train step, the deterministic resumable loader, checkpoints and the
-``fit`` loop; meshes (every shard on one device) and sequence parallelism
-over a ``seq`` axis, by ring attention (the K1 block kernels) or Ulysses.
-FSDP, tensor and pipeline parallelism for training are not ported yet."""
+AdamW train step over dp x fsdp x tp (x seq) meshes, sequence parallelism
+(ring attention over the K1 block kernels, or Ulysses), the GPipe pipeline
+and the composed pp x fsdp x tp step, the deterministic resumable loader,
+sharded checkpoints and the ``fit`` loop. Every shard of a mesh sits on
+its one device (:mod:`.mesh`)."""
 from .checkpoint import TrainCheckpointer
-from .loader import TokenBatchLoader
+from .composed import (
+    composed_mesh,
+    init_pp_params,
+    make_pp_loss,
+    make_pp_train_step,
+    shard_microbatches,
+    to_pp_params,
+)
+from .flash_spmd import make_sharded_attention
+from .loader import TokenBatchLoader, make_loader
 from .mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     AXIS_MODEL,
+    AXIS_PIPE,
     AXIS_SEQ,
     MESH_AXES,
     Mesh,
     build_mesh,
     default_mesh_shape,
     mesh_1d,
+    pipe_mesh,
     seq_mesh,
+)
+from .pipeline import (
+    make_pipeline,
+    make_transformer_pipeline,
+    sequential_reference,
+    stack_stage_params,
 )
 from .ring import make_ring_attention
 from .sharding import (
+    BATCH_SPEC,
+    PARAM_RULES,
     AdamW,
     batch_spec,
+    init_sharded_params,
     make_optimizer,
     make_train_step,
+    param_shardings,
     shard_batch,
+    shard_params,
 )
 from .trainer import fit
 from .ulysses import make_ulysses_attention
 
-__all__ = ["AXIS_DATA", "AXIS_FSDP", "AXIS_MODEL", "AXIS_SEQ", "AdamW",
-           "MESH_AXES", "Mesh", "TokenBatchLoader", "TrainCheckpointer",
-           "batch_spec", "build_mesh", "default_mesh_shape", "fit",
-           "make_optimizer", "make_ring_attention", "make_train_step",
-           "make_ulysses_attention", "mesh_1d", "seq_mesh", "shard_batch"]
+__all__ = [
+    "composed_mesh", "init_pp_params", "make_pp_loss", "make_pp_train_step",
+    "shard_microbatches", "to_pp_params",
+    "AXIS_DATA", "AXIS_FSDP", "AXIS_MODEL", "AXIS_SEQ", "build_mesh",
+    "default_mesh_shape", "seq_mesh",
+    "AXIS_PIPE", "make_pipeline", "make_transformer_pipeline", "pipe_mesh",
+    "sequential_reference", "stack_stage_params",
+    "make_ring_attention", "make_sharded_attention", "make_ulysses_attention",
+    "BATCH_SPEC", "batch_spec", "PARAM_RULES", "init_sharded_params",
+    "make_optimizer", "make_train_step", "param_shardings", "shard_batch",
+    "shard_params",
+    "TrainCheckpointer", "TokenBatchLoader", "make_loader", "fit",
+    # the port's own
+    "AdamW", "MESH_AXES", "Mesh", "mesh_1d",
+]

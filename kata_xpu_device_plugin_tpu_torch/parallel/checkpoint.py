@@ -1,13 +1,20 @@
-"""Train-state checkpoints for one device (counterpart of
-``TrainCheckpointer`` in ``kata_xpu_device_plugin_tpu/parallel/checkpoint.py``,
-on ``torch.save``/``torch.load`` instead of orbax; the sharded form waits
-for the FSDP slice).
+"""Train-state checkpoints (counterpart of ``TrainCheckpointer`` in
+``kata_xpu_device_plugin_tpu/parallel/checkpoint.py``, on
+``torch.save``/``torch.load`` instead of orbax), whole or sharded.
 
 One file per step, ``step_<n>.pt`` in one directory. A write goes to a
 temporary file that is renamed into place only when complete, so a kill
 mid-save leaves the previous step as ``latest``. Writes are synchronous:
 :meth:`TrainCheckpointer.wait` and :meth:`TrainCheckpointer.close` are
 no-ops kept for the JAX package's call pattern.
+
+A sharded state (:class:`.sharding.Sharded` leaves, the LoRA and int8
+wrappers) is written piece by piece, each piece its own tensor with its
+spec and cuts beside it: no whole tensor is assembled to save. A restore
+fills ``state_like``'s layout, as orbax's ``StandardRestore`` does: a leaf
+saved with the same cuts is copied piece by piece (bit-equal), any other
+is assembled from its saved pieces and cut into the live ones (the same
+values under another mesh).
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import re
 from typing import Any, Optional
 
 import torch
+
+from .sharding import Sharded, cut_pieces
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -41,7 +50,7 @@ class TrainCheckpointer:
         ``max_to_keep``."""
         final = self._path(step)
         tmp = f"{final}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
+        torch.save(_encode(state), tmp)
         with open(tmp, "rb") as f:
             os.fsync(f.fileno())
         os.replace(tmp, final)
@@ -76,16 +85,65 @@ class TrainCheckpointer:
         """Nothing is held open."""
 
 
+_SHARDED, _TUPLE = "__sharded__", "__tuple__"
+
+
+def _encode(state: Any) -> Any:
+    """The state as dicts, lists, tensors and scalars (what ``torch.load``
+    reads with ``weights_only``): a Sharded leaf as its spec, cuts, shape
+    and pieces; a wrapper as its fields."""
+    if isinstance(state, dict):
+        return {k: _encode(v) for k, v in state.items()}
+    if isinstance(state, Sharded):
+        return {_SHARDED: {"spec": list(state.spec), "cuts": list(state.cuts),
+                           "shape": list(state.shape),
+                           "pieces": list(state.pieces)}}
+    if isinstance(state, tuple):
+        return {_TUPLE: [_encode(v) for v in state]}
+    return state
+
+
+def _assemble(saved: dict) -> torch.Tensor:
+    """The whole tensor of a saved Sharded leaf."""
+    live = Sharded(saved["spec"], saved["cuts"], saved["pieces"], saved["shape"])
+    return live.select()
+
+
 def _fill(live: Any, saved: Any, path: str) -> Any:
     if isinstance(live, dict):
         if not isinstance(saved, dict) or set(saved) != set(live):
             raise ValueError(f"checkpoint tree differs from the state at {path}")
         return {k: _fill(live[k], saved[k], f"{path}.{k}") for k in live}
+    if isinstance(live, tuple):
+        if not (isinstance(saved, dict) and _TUPLE in saved
+                and len(saved[_TUPLE]) == len(live)):
+            raise ValueError(f"checkpoint tree differs from the state at {path}")
+        return type(live)(*(_fill(a, b, f"{path}[{i}]")
+                            for i, (a, b) in enumerate(zip(live, saved[_TUPLE]))))
+    sharded = isinstance(saved, dict) and _SHARDED in saved
+    if isinstance(live, Sharded):
+        if sharded and (tuple(saved[_SHARDED]["cuts"]) == live.cuts
+                        and tuple(saved[_SHARDED]["shape"]) == live.shape):
+            pieces = saved[_SHARDED]["pieces"]  # the same cut: piece by piece
+        else:
+            whole = _assemble(saved[_SHARDED]) if sharded else saved
+            _check(whole, live.shape, live.dtype, path)
+            pieces = cut_pieces(whole, live.cuts)
+        for i, (p, q) in enumerate(zip(live.pieces, pieces)):
+            _check(q, p.shape, p.dtype, f"{path}#{i}")
+            with torch.no_grad():
+                p.copy_(q)
+        return live
     if isinstance(live, torch.Tensor):
-        if (not isinstance(saved, torch.Tensor) or saved.shape != live.shape
-                or saved.dtype != live.dtype):
-            raise ValueError(f"checkpoint tensor differs from the state at {path}")
+        saved = _assemble(saved[_SHARDED]) if sharded else saved
+        _check(saved, live.shape, live.dtype, path)
         with torch.no_grad():
             live.copy_(saved)
         return live
     return saved
+
+
+def _check(saved: Any, shape, dtype, path: str) -> None:
+    if (not isinstance(saved, torch.Tensor) or saved.shape != shape
+            or saved.dtype != dtype):
+        raise ValueError(f"checkpoint tensor differs from the state at {path}")

@@ -97,3 +97,19 @@ class TokenBatchLoader:
                 )
         self.epoch = state["epoch"]
         self.step_in_epoch = state["step_in_epoch"]
+
+
+def make_loader(tokens: Any, batch: int, seq_len: int, mesh: Any = None,
+                seed: int = 0, shuffle: bool = True,
+                host_count: Optional[int] = None,
+                host_index: Optional[int] = None) -> TokenBatchLoader:
+    """A :class:`TokenBatchLoader` (JAX ``make_loader``). Every shard of
+    this package's mesh is on one device of one process, so the process
+    takes whole batches (``mesh`` places nothing; the step cuts the batch
+    itself); a multi-process stride (``host_count > 1``) is not ported:
+    ROADMAP item 10."""
+    del mesh
+    if (host_count or 1) > 1 or (host_index or 0) > 0:
+        raise NotImplementedError(
+            "a loader strided over processes is not ported: ROADMAP item 10")
+    return TokenBatchLoader(tokens, batch, seq_len, seed=seed, shuffle=shuffle)

@@ -5,7 +5,9 @@ The axis names and the default factorization are the JAX package's:
 - ``data``  — pure data parallelism;
 - ``fsdp``  — data parallelism with parameter and optimizer sharding;
 - ``model`` — tensor parallelism (heads, MLP hidden);
-- ``seq``   — sequence parallelism (ring or Ulysses attention).
+- ``seq``   — sequence parallelism (ring or Ulysses attention);
+- ``pipe``  — pipeline stages (:mod:`.pipeline`, :mod:`.composed`);
+- ``expert`` — expert parallelism (:mod:`..ops.moe`).
 
 A :class:`Mesh` of this package is a shape over ONE device, as
 :class:`..guest.tp_serving.ServingMesh` is for serving: the algorithm of
@@ -29,6 +31,8 @@ AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_MODEL = "model"
 AXIS_SEQ = "seq"
+AXIS_PIPE = "pipe"
+AXIS_EXPERT = "expert"
 
 MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
 
@@ -108,3 +112,28 @@ def mesh_1d(n: int, axis_name: str,
 def seq_mesh(n_seq: int, devices: Optional[Sequence] = None) -> Mesh:
     """The 1-D mesh of sequence-parallel ring attention."""
     return mesh_1d(n_seq, AXIS_SEQ, devices)
+
+
+def pipe_mesh(n_stages: int, devices: Optional[Sequence] = None) -> Mesh:
+    """The 1-D mesh of pipeline stages (JAX ``pipeline.pipe_mesh``)."""
+    return mesh_1d(n_stages, AXIS_PIPE, devices)
+
+
+def expert_mesh(n: int, devices: Optional[Sequence] = None) -> Mesh:
+    """The 1-D mesh of expert parallelism (JAX ``ops.moe.expert_mesh``)."""
+    return mesh_1d(n, AXIS_EXPERT, devices)
+
+
+def composed_mesh(pipe: int, fsdp: int, model: int,
+                  devices: Optional[Sequence] = None) -> Mesh:
+    """The ``(pipe, fsdp, model)`` mesh of the composed step (JAX
+    ``composed.composed_mesh``). Given devices must number at least
+    ``pipe·fsdp·model``, as in JAX; without them every shard sits on the
+    first CUDA device, as :func:`build_mesh` places a larger mesh."""
+    n = pipe * fsdp * model
+    if devices is not None:
+        devices = list(devices)
+        if len(devices) < n:
+            raise ValueError(f"need {n} devices, have {len(devices)}")
+    return Mesh((AXIS_PIPE, AXIS_FSDP, AXIS_MODEL), (pipe, fsdp, model),
+                _devices(devices)[0])

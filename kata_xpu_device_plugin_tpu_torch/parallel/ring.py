@@ -125,7 +125,9 @@ def _local_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def make_ring_attention(mesh: Mesh, axis: str = AXIS_SEQ,
-                        use_flash: Optional[bool] = None):
+                        use_flash: Optional[bool] = None, batch_axes=None,
+                        head_axis: Optional[str] = None,
+                        kv_head_axis: Optional[str] = None):
     """Returns ``ring_attn(q, k, v)`` on GLOBAL ``[B, S, H, D]`` tensors cut
     over ``axis`` in S: a drop-in ``attn_fn`` for the sequence-parallel
     model. ``use_flash=None`` takes the K1 block kernels on a CUDA tensor,
@@ -134,11 +136,20 @@ def make_ring_attention(mesh: Mesh, axis: str = AXIS_SEQ,
     fails): on the card the kernels run or the call fails. On a CPU tensor
     it, and ``use_flash=False`` anywhere, takes the einsum path (the plain
     reference). ``use_flash=True`` on the CPU runs the block path with the
-    kernels' plain versions. JAX's
-    ``flash_interpret`` (Pallas interpret mode) and its batch and head axes
-    (which place the shards' batch rows and heads across devices) have no
-    counterpart on one device."""
+    kernels' plain versions. JAX's ``flash_interpret`` (Pallas interpret
+    mode) has no counterpart.
+
+    ``batch_axes`` cuts the batch over those mesh axes and ``head_axis`` /
+    ``kv_head_axis`` the query / KV heads (a seq x fsdp x model mesh): each
+    (batch shard, head shard) block runs a ring of its own, as each group
+    of devices sharing those coordinates does under JAX's ``shard_map``."""
+    from .flash_spmd import _count, join
+
     n = mesh.shape[axis]
+    nb = _count(mesh, batch_axes)
+    nh, nkv = _count(mesh, head_axis), _count(mesh, kv_head_axis)
+    if nh != nkv:
+        raise ValueError(f"query heads cut {nh} ways but KV heads {nkv}")
 
     def ring_attn(q, k, v, causal: bool = True, q_offset=None, window: int = 0,
                   logits_softcap: float = 0.0):
@@ -148,12 +159,21 @@ def make_ring_attention(mesh: Mesh, axis: str = AXIS_SEQ,
         if S % n:
             raise ValueError(f"sequence length {S} does not divide into {n} "
                              f"{axis} shards")
+        if B % nb or H % nh or k.shape[2] % nkv:
+            raise ValueError(f"q {tuple(q.shape)} / kv heads {k.shape[2]} do "
+                             f"not divide over {nb} batch and {nh} head shards")
         engage = q.is_cuda if use_flash is None else use_flash
         if engage and q.is_cuda and not flash.supports(S // n, S // n, D):
             raise ValueError(f"no flash block kernel for {axis} shards of "
                              f"S_loc={S // n}, head_dim={D}")
-        return _local_ring_attention(q, k, v, n, use_flash=engage,
-                                     softcap=float(logits_softcap),
-                                     window=int(window))
+        rows = []
+        for qb, kb, vb in zip(q.chunk(nb, 0), k.chunk(nb, 0), v.chunk(nb, 0)):
+            rows.append(join(
+                [_local_ring_attention(qh, kh, vh, n, use_flash=engage,
+                                       softcap=float(logits_softcap),
+                                       window=int(window))
+                 for qh, kh, vh in zip(qb.chunk(nh, 2), kb.chunk(nh, 2),
+                                       vb.chunk(nh, 2))], 2))
+        return join(rows, 0)
 
     return ring_attn

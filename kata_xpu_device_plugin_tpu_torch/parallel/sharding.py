@@ -1,12 +1,25 @@
-"""The train step: AdamW as optax applies it, and ``make_train_step``
-(counterpart of ``make_optimizer``, ``make_train_step``, ``batch_spec``
-and ``shard_batch`` in ``kata_xpu_device_plugin_tpu/parallel/sharding.py``)
-on one device, optionally over a mesh with a ``seq`` axis (sequence
-parallelism: ring attention by default, every shard on the mesh's device,
-:mod:`.mesh`); FSDP, tensor and data parallelism for training are not
-ported yet. And the serving partition rules of tensor-parallel serving
+"""The train step: AdamW as optax applies it, the training layout and
+``make_train_step`` (counterpart of ``kata_xpu_device_plugin_tpu/parallel/
+sharding.py``: ``PARAM_RULES``, ``param_specs``, ``shard_params``,
+``init_sharded_params``, ``make_optimizer``, ``make_train_step``,
+``batch_spec``, ``shard_batch``) on one device or over a mesh of data,
+fsdp, model and seq axes, every shard on the mesh's device (:mod:`.mesh`).
+And the serving partition rules of tensor-parallel serving
 (:data:`SERVING_RULES`, :func:`shard_serving_params`), which split
 serving parameters into per-shard trees.
+
+The training layout. JAX gives each parameter a ``NamedSharding`` from
+:data:`PARAM_RULES` and lets GSPMD insert the collectives. Here a
+parameter cut by its rule is a :class:`Sharded` leaf: its pieces, one
+contiguous tensor per mesh coordinate of the axes its spec names, so the
+model is held once (an axis the spec does not name, ``data`` for every
+parameter, adds no copy: on one device the copies a replica would hold
+are the same tensor). The step runs the program GSPMD would produce,
+shard by shard (:mod:`.spmd`): a layer's weights are gathered over fsdp
+when it runs, products are column- or row-parallel over model, and
+autograd through the gathers hands each piece the sum of its shards'
+gradients (the reduce-scatter). AdamW updates the pieces, so its moments
+mirror them, and the clip's global norm counts every element once.
 
 The step contract is the JAX package's: ``init_state(seed)`` returns
 ``{"params", "opt", "step"}`` and ``step(state, tokens)`` returns
@@ -29,17 +42,109 @@ from .. import resolve_device
 from ..models import transformer as tfm
 from ..ops.lora import LoRAWeight
 from ..ops.quant import QTensor
-from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_SEQ, Mesh
+from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_SEQ, Mesh
+
+
+class Sharded:
+    """A tensor of ``shape`` held as its pieces: ``spec`` names, per dim,
+    the mesh axis that cuts it (None: whole), ``cuts`` the number of
+    pieces along each dim (the axis's size on the mesh), and ``pieces``
+    lists them row-major over ``cuts``, each the ``torch.tensor_split``
+    piece of its coordinates, contiguous and held once."""
+
+    __slots__ = ("spec", "cuts", "pieces", "shape")
+
+    def __init__(self, spec: tuple, cuts: tuple, pieces: list, shape):
+        self.spec, self.cuts = tuple(spec), tuple(cuts)
+        self.pieces, self.shape = list(pieces), torch.Size(shape)
+        if len(self.pieces) != math.prod(self.cuts):
+            raise ValueError(f"{len(self.pieces)} pieces for cuts {self.cuts}")
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={tuple(self.shape)}, spec={self.spec}, "
+                f"cuts={self.cuts})")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def with_pieces(self, pieces: list) -> "Sharded":
+        return Sharded(self.spec, self.cuts, pieces, self.shape)
+
+    def select(self, **coords: int) -> torch.Tensor:
+        """The tensor one shard sees: the pieces at ``coords`` (axis name
+        to index) along the axes named there, gathered over every other
+        cut (``collectives.all_gather``). No coordinates: the whole
+        tensor."""
+        from ..ops.collectives import all_gather
+
+        def rec(d: int, flat: int) -> torch.Tensor:
+            if d == len(self.cuts):
+                return self.pieces[flat]
+            n, axis = self.cuts[d], self.spec[d]
+            if n == 1:
+                return rec(d + 1, flat)
+            if axis in coords:
+                return rec(d + 1, flat * n + coords[axis])
+            return all_gather([rec(d + 1, flat * n + i) for i in range(n)],
+                              dim=d)
+
+        return rec(0, 0)
+
+    def stage(self, s: int) -> "Sharded":
+        """Entry ``s`` of the first dim when that dim is cut into pieces of
+        one (a stage-major leaf cut over ``pipe``): that piece row's
+        pieces, views without the dim, still cut over the other axes."""
+        n = self.cuts[0]
+        if n != self.shape[0]:
+            raise ValueError(f"the first dim of {self!r} is not cut into ones")
+        per = len(self.pieces) // n
+        return Sharded(self.spec[1:], self.cuts[1:],
+                       [p[0] for p in self.pieces[s * per:(s + 1) * per]],
+                       self.shape[1:])
+
+    def layers(self) -> list:
+        """Per-layer leaves of a layer-stacked leaf (its first dim uncut):
+        one ``unbind`` per piece, as ``models.transformer._unbind`` does."""
+        if self.cuts[0] != 1:
+            raise ValueError(f"the layer axis of {self!r} is cut")
+        per = [p.unbind(0) for p in self.pieces]
+        return [Sharded(self.spec[1:], self.cuts[1:], [u[i] for u in per],
+                        self.shape[1:]) for i in range(self.shape[0])]
+
+
+def local(leaf: Any, **coords: int) -> Any:
+    """:meth:`Sharded.select` of a leaf (no coordinates: its whole
+    tensor): a tensor as it is, a wrapper (QTensor, LoRAWeight) field by
+    field."""
+    if isinstance(leaf, Sharded):
+        return leaf.select(**coords)
+    if isinstance(leaf, tuple):
+        return type(leaf)(*(local(t, **coords) for t in leaf))
+    return leaf
+
+
+def layer_leaves(leaf: Any) -> list:
+    """Per-layer views of a stacked leaf, Sharded or not (wrappers field by
+    field)."""
+    if isinstance(leaf, Sharded):
+        return leaf.layers()
+    if isinstance(leaf, tuple):
+        parts = [layer_leaves(t) for t in leaf]
+        return [type(leaf)(*p) for p in zip(*parts)]
+    return list(leaf.unbind(0))
 
 
 def leaves(tree) -> list:
     """The leaves of a nested dict whose nodes may also be tuples (the int8
     and LoRA wrappers), in JAX's tree order: dict keys sorted, tuple fields
-    in order."""
+    in order; a :class:`Sharded` leaf gives its pieces in order."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]
     if isinstance(tree, tuple):
         return [t for v in tree for t in leaves(v)]
+    if isinstance(tree, Sharded):
+        return list(tree.pieces)
     return [tree]
 
 
@@ -53,6 +158,8 @@ def _rebuild(tree, flat: list):
         if isinstance(t, tuple):
             kids = [node(v) for v in t]
             return type(t)(*kids) if hasattr(t, "_fields") else tuple(kids)
+        if isinstance(t, Sharded):
+            return t.with_pieces([next(it) for _ in t.pieces])
         return next(it)
 
     return node(tree)
@@ -160,6 +267,217 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
                  grad_clip)
 
 
+# ----- the training layout ------------------------------------------------
+
+# JAX's PARAM_RULES as data: a leaf's dotted path to its spec, one entry a
+# dim, the mesh axis that cuts the dim or None. Layer-stacked leaves lead
+# with the uncut layer axis. The wide matrices cut their wide dim over
+# model and their d_model dim over fsdp; embed cuts vocab over model and
+# d_model over fsdp; the MoE experts cut over model (the expert axis of the
+# training mesh, ops.moe.expert_axis_for); norms are whole.
+PARAM_RULES: dict[str, tuple] = {
+    "embed": (AXIS_MODEL, AXIS_FSDP),
+    "unembed": (AXIS_FSDP, AXIS_MODEL),
+    "layers.attn_norm": (None, None),
+    "layers.mlp_norm": (None, None),
+    "layers.post_attn_norm": (None, None),
+    "layers.post_mlp_norm": (None, None),
+    "layers.q_norm": (None, None),
+    "layers.k_norm": (None, None),
+    "layers.wq": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.wk": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.wv": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.bq": (None, AXIS_MODEL),
+    "layers.bk": (None, AXIS_MODEL),
+    "layers.bv": (None, AXIS_MODEL),
+    "layers.bqkv": (None, AXIS_MODEL),
+    "layers.wo": (None, AXIS_MODEL, AXIS_FSDP),
+    "layers.w_gate": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.w_up": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.w_down": (None, AXIS_MODEL, AXIS_FSDP),
+    "layers.wqkv": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.w_gateup": (None, AXIS_FSDP, AXIS_MODEL),
+    "layers.router": (None, AXIS_FSDP, None),
+    "layers.moe_w_gate": (None, AXIS_MODEL, AXIS_FSDP, None),
+    "layers.moe_w_in": (None, AXIS_MODEL, AXIS_FSDP, None),
+    "layers.moe_w_out": (None, AXIS_MODEL, None, AXIS_FSDP),
+    "final_norm": (None,),
+}
+
+BATCH_SPEC = ((AXIS_DATA, AXIS_FSDP), None)  # tokens [batch, seq]
+
+
+def param_spec(path: str) -> tuple:
+    if path in PARAM_RULES:
+        return PARAM_RULES[path]
+    raise KeyError(f"no sharding rule for param {path!r}")
+
+
+def _tree_paths(params: Any, prefix: str = "") -> Any:
+    if isinstance(params, dict):
+        return {k: _tree_paths(v, f"{prefix}.{k}" if prefix else k)
+                for k, v in params.items()}
+    return prefix
+
+
+def _layout_spec(rule: tuple, value: Any) -> Any:
+    """A weight rule ``[..., in, out]`` expanded to the leaf's layout, as in
+    JAX: a :class:`QTensor`'s ``q`` keeps the rule and its scale ``[..., 1,
+    out]`` cuts the out axis alike; a :class:`LoRAWeight`'s base recurses,
+    ``a [..., in, r]`` keeps the in axis's cut, ``b [..., r, out]`` the out
+    axis's, and ``scale [...]`` the leading axes'."""
+    rule = tuple(rule)
+    if isinstance(value, LoRAWeight):
+        lead = rule[:-2]
+        return LoRAWeight(base=_layout_spec(rule, value.base),
+                          a=(*lead, rule[-2], None), b=(*lead, None, rule[-1]),
+                          scale=lead)
+    if isinstance(value, QTensor):
+        return QTensor(q=rule, scale=(*rule[:-2], None, rule[-1]))
+    return rule
+
+
+def param_specs(params: Any) -> Any:
+    """The spec of every leaf of ``params``: the training layout and the
+    inference layouts (fused wqkv/w_gateup, int8 QTensor, LoRA)."""
+
+    def node(value: Any, path: str) -> Any:
+        if isinstance(value, dict):
+            return {k: node(v, f"{path}.{k}" if path else k)
+                    for k, v in value.items()}
+        return _layout_spec(param_spec(path), value)
+
+    return node(params, "")
+
+
+def _axis_size(mesh: Mesh, entry) -> int:
+    """The pieces a spec entry cuts a dim into: the product of its axes'
+    sizes on the mesh (an axis the mesh lacks counts 1)."""
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(mesh.shape.get(a, 1) for a in names if a is not None)
+
+
+class Layout:
+    """Where a leaf's pieces lie (JAX's ``NamedSharding``): its spec and
+    the cuts the mesh gives it."""
+
+    __slots__ = ("spec", "cuts")
+
+    def __init__(self, spec: tuple, mesh: Mesh):
+        self.spec = tuple(spec)
+        if any(isinstance(e, tuple) for e in self.spec):
+            raise ValueError(f"a parameter dim is cut by one axis: {spec}")
+        self.cuts = tuple(_axis_size(mesh, e) for e in self.spec)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Layout) and self.spec == other.spec
+                and self.cuts == other.cuts)
+
+    def __repr__(self) -> str:
+        return f"Layout(spec={self.spec}, cuts={self.cuts})"
+
+    def cut(self, t: torch.Tensor, copy: bool = False) -> Any:
+        """``t`` as its pieces, each a contiguous copy; when nothing is cut,
+        ``t`` itself (a copy with ``copy``)."""
+        spec = self.spec + (None,) * (t.ndim - len(self.spec))
+        cuts = self.cuts + (1,) * (t.ndim - len(self.cuts))
+        if math.prod(cuts) == 1:
+            return t.detach().clone() if copy else t
+        return Sharded(spec, cuts, cut_pieces(t, cuts), t.shape)
+
+
+def cut_pieces(t: torch.Tensor, cuts: tuple) -> list:
+    """``t``'s pieces row-major over ``cuts`` (``torch.tensor_split`` per
+    dim), each a contiguous copy of its own, so no piece keeps ``t``
+    alive."""
+
+    def rec(x: torch.Tensor, d: int) -> list:
+        if d == t.ndim:
+            return [x.clone(memory_format=torch.contiguous_format)]
+        return [p for part in x.tensor_split(cuts[d], dim=d)
+                for p in rec(part, d + 1)]
+
+    with torch.no_grad():
+        return rec(t, 0)
+
+
+def _wrap_map(fn, layout: Any, leaf: Any) -> Any:
+    """``fn(layout, tensor)`` over a leaf and its layout, wrappers field by
+    field."""
+    if isinstance(leaf, tuple):
+        return type(leaf)(*(_wrap_map(fn, lo, t) for lo, t in zip(layout, leaf)))
+    return fn(layout, leaf)
+
+
+def _tree_map2(fn, layouts: Any, params: Any) -> Any:
+    if isinstance(params, dict):
+        return {k: _tree_map2(fn, layouts[k], v) for k, v in params.items()}
+    return _wrap_map(fn, layouts, params)
+
+
+def param_shardings(params: Any, mesh: Mesh) -> Any:
+    """The :class:`Layout` of every leaf of ``params`` on ``mesh``."""
+
+    def to_layout(spec):
+        if hasattr(spec, "_fields"):  # a QTensor or LoRAWeight of specs
+            return type(spec)(*(to_layout(s) for s in spec))
+        return Layout(spec, mesh)
+
+    def node(specs):
+        if isinstance(specs, dict):
+            return {k: node(v) for k, v in specs.items()}
+        return to_layout(specs)
+
+    return node(param_specs(params))
+
+
+def shard_params(params: Any, mesh: Mesh) -> Any:
+    """``params`` (whole tensors, or already sharded on another mesh) cut
+    into pieces on ``mesh``'s device by :data:`PARAM_RULES`: a tree of its
+    own, so a step that updates it in place leaves ``params`` as they
+    were."""
+
+    def place(layout, t):
+        t = local(t)  # a leaf already sharded: its whole tensor
+        return layout.cut(t.to(mesh.device), copy=True)
+
+    return _tree_map2(place, param_shardings(params, mesh), params)
+
+
+def init_sharded_params(cfg: tfm.DecoderConfig, mesh: Mesh, seed: int = 0,
+                        dtype=torch.float32) -> Any:
+    """``init_params(cfg, seed=seed)``'s values, born in the sharded layout
+    on the mesh's device: each leaf is cut as soon as it is drawn, so at
+    most one whole leaf exists at a time, never the whole model (JAX's
+    ``jit(..., out_shardings=...)``)."""
+
+    def place(path: str, t: torch.Tensor):
+        return Layout(param_spec(path), mesh).cut(t)
+
+    return tfm.init_params(cfg, seed=seed, device=mesh.device, dtype=dtype,
+                           place=place)
+
+
+def host_param_copy(params: Any) -> Any:
+    """A whole host copy of a (possibly sharded) param tree: every leaf
+    gathered and moved to the CPU, wrappers field by field."""
+
+    def node(v):
+        if isinstance(v, dict):
+            return {k: node(x) for k, x in v.items()}
+        return _wrap_map(lambda _l, t: local(t).detach().cpu(), v, v)
+
+    return node(params)
+
+
+def _opt_shardings(optimizer: "AdamW", params: Any, mesh: Mesh) -> dict:
+    """The optimizer state's layouts: the moments mirror the parameters'
+    pieces, the step count is a host integer."""
+    del optimizer
+    layouts = param_shardings(params, mesh)
+    return {"count": None, "mu": layouts, "nu": layouts}
+
+
 def _seq_size(mesh: Mesh) -> int:
     return mesh.shape.get(AXIS_SEQ, 1)
 
@@ -185,6 +503,36 @@ def shard_batch(tokens, mesh: Mesh) -> torch.Tensor:
     return _tokens_on(tokens, mesh.device)
 
 
+def heads_divide(cfg: tfm.DecoderConfig, mesh: Mesh) -> bool:
+    """Whether attention cuts its heads over the model axis: only when
+    both the query and the KV heads divide it (JAX's rule), or a shard's
+    query heads would lose their KV group."""
+    tp = mesh.shape.get(AXIS_MODEL, 1)
+    return tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+
+
+def mesh_attention(cfg: tfm.DecoderConfig, mesh: Mesh) -> Optional[Callable]:
+    """The attention a step over ``mesh`` takes by default (JAX
+    ``make_train_step``): a ``seq`` axis above 1, ring attention with the
+    batch over data x fsdp and the heads over model when they divide; any
+    other mesh on CUDA, :func:`.flash_spmd.make_sharded_attention` over the
+    same axes (the kernels per local block); on the CPU None, the plain
+    path."""
+    heads = AXIS_MODEL if heads_divide(cfg, mesh) else None
+    if _seq_size(mesh) > 1:
+        from .ring import make_ring_attention
+
+        return make_ring_attention(mesh, axis=AXIS_SEQ,
+                                   batch_axes=(AXIS_DATA, AXIS_FSDP),
+                                   head_axis=heads, kv_head_axis=heads)
+    if mesh.device.type == "cuda":
+        from .flash_spmd import make_sharded_attention
+
+        return make_sharded_attention(mesh, batch_axes=(AXIS_DATA, AXIS_FSDP),
+                                      head_axis=heads, kv_head_axis=heads)
+    return None
+
+
 def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
                     attn_fn: Optional[Callable] = None, remat: bool = False,
                     accum_steps: int = 1, aux_metrics: bool = False,
@@ -198,10 +546,16 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
 
     ``mesh`` (:mod:`.mesh`; JAX's second positional parameter, a keyword
     here so that the port's positional order stays) runs the step on the
-    mesh's device. A ``seq`` axis above 1 defaults ``attn_fn`` to ring
-    attention over it (:func:`.ring.make_ring_attention`: the K1 block
-    kernels on the card), as JAX does; a ``data``, ``fsdp`` or ``model``
-    axis above 1 raises ``NotImplementedError`` (ROADMAP item 12b).
+    mesh's device, over every mesh JAX takes: the parameters and the AdamW
+    moments are the pieces of :data:`PARAM_RULES` on the mesh
+    (``init_state`` draws ``init_params(cfg, seed)``'s values straight into
+    them, :func:`init_sharded_params`; a leaf no axis cuts stays one
+    tensor) and the step runs the sharded program (:mod:`.spmd`); MoE
+    layers dispatch over the mesh (``moe_ffn_sharded``, experts over
+    model). ``attn_fn`` then defaults by mesh (:func:`mesh_attention`):
+    ring attention over a ``seq`` axis above 1 (the K1 block kernels on the
+    card), the kernels per local block on other CUDA meshes, the plain
+    path on the CPU.
 
     ``accum_steps > 1`` splits ``tokens [accum_steps·B, S]`` into equal
     microbatches, one live at a time, and applies the mean of their
@@ -209,29 +563,35 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
     returns ``{"grad_norm"}``, the global norm of the (unclipped) mean
     gradient. The loss and the norm stay device scalars: the step never
     syncs with the host."""
+    from . import spmd
+
     optimizer = optimizer or make_optimizer()
     if mesh is not None:
-        wide = {a: n for a, n in mesh.shape.items() if a != AXIS_SEQ and n > 1}
-        if wide:
-            raise NotImplementedError(
-                f"training over mesh axes {wide} (data, FSDP or tensor "
-                "parallelism) is not ported: ROADMAP item 12b")
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's device "
                              f"{mesh.device}")
         device = mesh.device
-        if attn_fn is None and _seq_size(mesh) > 1:
-            from .ring import make_ring_attention
-
-            attn_fn = make_ring_attention(mesh, axis=AXIS_SEQ)
+        if attn_fn is None:
+            attn_fn = mesh_attention(cfg, mesh)
     device = resolve_device(device)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    moe_mesh = mesh if cfg.moe else None
 
     def init_state(seed: int = 0) -> dict:
-        params = tfm.init_params(cfg, seed=seed, device=device,
-                                 dtype=torch.float32)
+        if mesh is not None:
+            params = init_sharded_params(cfg, mesh, seed=seed)
+        else:
+            params = tfm.init_params(cfg, seed=seed, device=device,
+                                     dtype=torch.float32)
         return {"params": params, "opt": optimizer.init(params), "step": 0}
+
+    def loss_fn(params, mb):
+        if mesh is not None:
+            return spmd.next_token_loss(params, mb, cfg, mesh, attn_fn=attn_fn,
+                                        remat=remat, moe_mesh=moe_mesh)
+        return tfm.next_token_loss(params, mb, cfg, attn_fn=attn_fn,
+                                   remat=remat)
 
     def step(state: dict, tokens):
         tokens = _tokens_on(tokens, device)
@@ -239,15 +599,15 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"accum_steps={accum_steps}")
         params = state["params"]
-        # Gradients are taken against detached aliases of the parameters,
-        # so the state's tensors never require grad and update in place.
+        # Gradients are taken against detached aliases of the parameters
+        # (their pieces, when sharded), so the state's tensors never
+        # require grad and update in place.
         xs = [p.detach().requires_grad_() for p in leaves(params)]
         view = _rebuild(params, xs)
         grads, loss = None, None
         with torch.enable_grad():
             for mb in tokens.chunk(accum_steps):
-                lm = tfm.next_token_loss(view, mb, cfg, attn_fn=attn_fn,
-                                         remat=remat)
+                lm = loss_fn(view, mb)
                 gm = torch.autograd.grad(lm, xs)
                 lm = lm.detach()
                 if grads is None:

@@ -1,0 +1,198 @@
+"""The sharded training program on one device: what GSPMD makes of the JAX
+package's train step over a data x fsdp x model mesh, written out shard by
+shard (the forward half of ``kata_xpu_device_plugin_tpu/parallel/
+sharding.py``'s ``make_train_step``, and the stage body of its composed
+step).
+
+Parameters are the :class:`.sharding.Sharded` pieces of
+:data:`.sharding.PARAM_RULES`. A layer runs as GSPMD partitions it:
+
+- FSDP: each model shard gathers its weights over fsdp
+  (``collectives.all_gather``) when the layer runs; autograd through the
+  gather sums the batch shards' gradients into each piece (the
+  reduce-scatter);
+- TP: q/k/v and gate/up are column-parallel, wo and w_down row-parallel
+  with a sum over the model shards after each (``models.transformer
+  ._layer`` with a :class:`LayerShards`, the code tensor-parallel serving
+  runs); the attention cuts its own blocks (:mod:`.flash_spmd`,
+  :mod:`.ring`);
+- the vocabulary: the embedding is a vocab-parallel lookup (each model
+  shard masks the tokens outside its rows; the shards are summed) and the
+  loss a vocab-parallel cross-entropy (``all_reduce_max`` and
+  ``all_reduce_sum`` over the shards' fp32 logits; no ``[B, S, vocab]``
+  row is ever gathered).
+
+A batch shard's rows meet only their own rows: every product here is
+row-wise, so the rows of all (data x fsdp) batch shards go through one
+product, which is each shard's product side by side; the attention, where
+a kernel launch has a shape, runs per local block.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+import torch.utils.checkpoint
+
+from ..models import transformer as tfm
+from ..ops import collectives
+from .mesh import AXIS_MODEL, Mesh
+from .sharding import layer_leaves, local
+
+
+def model_size(mesh: Mesh) -> int:
+    return mesh.shape.get(AXIS_MODEL, 1)
+
+
+@dataclass(frozen=True)
+class LayerShards:
+    """The model axis of a training mesh as ``models.transformer._layer``
+    reads it (the counterpart of serving's ``ServingMesh``): ``tp`` shards,
+    a sum after each row-parallel product, and attention called once on
+    the whole q, k and v, its output cut into the ``tp`` feature slices
+    the row-parallel ``wo`` pieces take."""
+
+    tp: int
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        return collectives.all_reduce_sum(parts)
+
+    def attend(self, fn: Callable, q, k, v, **kw) -> list:
+        B, S, H, D = q.shape
+        out = fn(q, k, v, **kw).reshape(B, S, H * D)
+        return list(out.tensor_split(self.tp, dim=-1))
+
+
+def vocab_embed(table: Any, tokens: torch.Tensor, cfg, tp: int) -> torch.Tensor:
+    """The vocab-parallel lookup: model shard m holds rows ``[lo_m,
+    hi_m)`` of the table (gathered over fsdp), looks up the tokens in its
+    range, zeros elsewhere, and the shards' rows are summed. Exactly one
+    shard contributes to each token, so the fp32 sum is the row itself
+    and the result equals ``models.transformer.embed`` bit for bit."""
+    rows, lo = [], 0
+    for m in range(tp):
+        part = local(table, **{AXIS_MODEL: m})
+        hi = lo + part.shape[0]
+        inside = (tokens >= lo) & (tokens < hi)
+        idx = torch.where(inside, tokens - lo, torch.zeros_like(tokens))
+        rows.append(torch.where(inside[..., None], part[idx],
+                                torch.zeros((), dtype=part.dtype,
+                                            device=part.device)))
+        lo = hi
+    return tfm.embed_rows(collectives.all_reduce_sum(rows), cfg)
+
+
+def _vocab_logits(params: dict, x: torch.Tensor, cfg, tp: int) -> list:
+    """Each model shard's fp32 logits ``[..., V_m]`` of the final-normed
+    ``x`` (the tied table transposed, or the unembedding's column)."""
+    x = tfm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    out = []
+    for m in range(tp):
+        coords = {AXIS_MODEL: m}
+        proj = (local(params["embed"], **coords).t() if cfg.tie_embeddings
+                else local(params["unembed"], **coords))
+        out.append(tfm.project_logits(x, proj, cfg))
+    return out
+
+
+def vocab_nll_sum(params: dict, x: torch.Tensor, targets: torch.Tensor,
+                  cfg, tp: int) -> torch.Tensor:
+    """``models.transformer.token_nll_sum`` of the logits of ``x`` without
+    gathering them: the row maximum and the sum of exponentials reduce
+    over the model shards, and each target's logit comes from the shard
+    whose vocab range holds it. fp32 throughout."""
+    logits = _vocab_logits(params, x, cfg, tp)
+    top = collectives.all_reduce_max([l.amax(dim=-1) for l in logits]).detach()
+    total = collectives.all_reduce_sum(
+        [torch.exp(l - top[..., None]).sum(dim=-1) for l in logits])
+    lse = torch.log(total) + top
+    picked, lo = [], 0
+    targets = targets.long()
+    for l in logits:
+        hi = lo + l.shape[-1]
+        inside = (targets >= lo) & (targets < hi)
+        idx = torch.where(inside, targets - lo, torch.zeros_like(targets))
+        got = torch.gather(l, -1, idx[..., None])[..., 0]
+        picked.append(torch.where(inside, got, torch.zeros_like(got)))
+        lo = hi
+    return (lse - collectives.all_reduce_sum(picked)).sum()
+
+
+def run_layers(layers: dict, x: torch.Tensor, cfg, tp: int, attn_fn,
+               positions: torch.Tensor, first: int = 0, remat: bool = False,
+               moe_mesh: Optional[Mesh] = None) -> tuple:
+    """The stacked ``layers`` (pieces) over ``x``, layer ``first + i``'s
+    window and rope for the i-th: each layer gathers its model shards'
+    weights over fsdp and runs ``models.transformer._layer`` across
+    :class:`LayerShards`. ``remat`` checkpoints each layer, gathers
+    included, so neither its activations nor its gathered weights are
+    kept. Returns ``(x, [aux of each layer])``."""
+    shards = LayerShards(tp)
+    per_layer = {k: layer_leaves(v) for k, v in layers.items()}
+    n = len(next(iter(per_layer.values())))
+    auxes = []
+    for i in range(n):
+        def run(h, i=i):
+            layer = [{k: local(v[i], **{AXIS_MODEL: m})
+                      for k, v in per_layer.items()} for m in range(tp)]
+            return tfm._layer(cfg, attn_fn, h, layer, positions,
+                              index=first + i, mesh=shards, moe_mesh=moe_mesh)
+
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(run, x,
+                                                       use_reentrant=False)
+        else:
+            x, aux = run(x)
+        auxes.append(aux)
+    return x, auxes
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+
+
+def hidden(params: dict, tokens: torch.Tensor, cfg, mesh: Mesh,
+           attn_fn: Optional[Callable] = None, remat: bool = False,
+           moe_mesh: Optional[Mesh] = None) -> tuple:
+    """The decoder stack up to the final norm over sharded ``params``:
+    ``(x [B, S, d], aux)``, ``aux`` the mean of the MoE layers'
+    load-balancing terms (fp32 0 for a dense config)."""
+    tfm.check_supported(cfg)
+    if attn_fn is None:
+        from ..ops.attention import flash_attention
+
+        attn_fn = flash_attention
+    tp = model_size(mesh)
+    x = vocab_embed(params["embed"], tokens, cfg, tp)
+    x, auxes = run_layers(params["layers"], x, cfg, tp, attn_fn,
+                          _positions(tokens), remat=remat, moe_mesh=moe_mesh)
+    if cfg.moe:
+        return x, torch.stack(auxes).mean()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg, mesh: Mesh,
+            attn_fn: Optional[Callable] = None,
+            moe_mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """fp32 logits ``[B, S, vocab]`` of sharded ``params``: the model
+    shards' logits side by side (``models.transformer.forward``'s)."""
+    x, _ = hidden(params, tokens, cfg, mesh, attn_fn, moe_mesh=moe_mesh)
+    return collectives.all_gather(
+        _vocab_logits(params, x, cfg, model_size(mesh)), dim=-1)
+
+
+def next_token_loss(params: dict, tokens: torch.Tensor, cfg, mesh: Mesh,
+                    attn_fn: Optional[Callable] = None, remat: bool = False,
+                    moe_mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``models.transformer.next_token_loss`` over sharded ``params``: the
+    forward on the full sequence, the last position dropped, the
+    vocab-parallel cross-entropy, plus the MoE term."""
+    x, aux = hidden(params, tokens, cfg, mesh, attn_fn, remat, moe_mesh)
+    targets = tokens[:, 1:]
+    nll = vocab_nll_sum(params, x[:, :-1], targets, cfg, model_size(mesh))
+    loss = nll / targets.numel()
+    if cfg.moe:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss

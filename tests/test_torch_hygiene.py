@@ -116,7 +116,9 @@ def test_every_cuda_source_is_named_in_chip_smoke():
 
 def test_new_port_modules_are_under_the_import_guard():
     names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
-    assert {"guest/kv_arena.py", "guest/serving.py", "ops/decode_attn.py"} <= names
+    assert {"guest/kv_arena.py", "guest/serving.py", "ops/decode_attn.py",
+            "parallel/spmd.py", "parallel/flash_spmd.py", "parallel/pipeline.py",
+            "parallel/composed.py"} <= names
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):

@@ -28,6 +28,7 @@ from kata_xpu_device_plugin_tpu_torch.models import transformer as tt
 from kata_xpu_device_plugin_tpu_torch.ops import lora as tlora
 from kata_xpu_device_plugin_tpu_torch.ops import quant as tquant
 from kata_xpu_device_plugin_tpu_torch.parallel import sharding as tsh
+from kata_xpu_device_plugin_tpu_torch.parallel.mesh import build_mesh
 
 from .torch_parity import CONFIGS, numpy_pair
 
@@ -242,7 +243,12 @@ def test_refusals(model):
         tt.fuse_decoder_params(tquant.quantize_decoder_params(tp))
     with pytest.raises(ValueError, match="merge_lora"):
         tquant.quantize_decoder_params(tlora.apply_lora(tp, gen))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tlora.make_lora_train_step(tcfg, mesh=object())
+    # Over a mesh (once refused, ROADMAP item 12b) the step runs: the
+    # adapters are cut into pieces and take a finite first step.
+    mesh = build_mesh({"fsdp": 2, "model": 2}, devices=["cpu"])
+    init_mesh, step_mesh = tlora.make_lora_train_step(tcfg, mesh=mesh)
+    state = init_mesh(tlora.apply_lora(tp, gen))
+    state, loss = step_mesh(state, np.zeros((2, 16), np.int64))
+    assert np.isfinite(float(loss)) and state["step"] == 1
     with pytest.raises(ValueError, match="apply_lora first"):
         tlora.make_lora_train_step(tcfg)[0](tp)
