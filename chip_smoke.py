@@ -159,14 +159,15 @@ Phases, each printing one JSON line:
    tokens' plain logit gap, :func:`token_partings`; in an untimed second
    run the perfect draft's drafts must equal the verify's greedy tokens
    at 0.9 of their positions), the verify round's plain attention timed,
-   ``generate_speculative`` against ``generate``; Gemma-2-2B (26 layers)
-   and Mistral-7B (4 of 32) at max_len 8192 over four prompts of
+   ``generate_speculative`` against ``generate``; Gemma-2-2B (8 of 26
+   layers, cut to keep the script in its time limit) and
+   Mistral-7B (4 of 32) at max_len 8192 over four prompts of
    4200-6000 tokens with ``ring_kv``, and with ``ring_kv`` and k=4, beside
    the full arena (arena bytes and ratio, token match, partings that must
    be flips), one decode step a prompt over the ring against the full
    arena, ``generate(ring_kv=True)`` and ``decode(ring=True,
    return_state=True)``;
-9. families — Gemma-2-2B (26 layers, max_len 8192, four prompts of
+9. families — Gemma-2-2B (8 of 26 layers, max_len 8192, four prompts of
    4200-6000 tokens), Qwen2-7B (28 layers), Gemma-3-4B (6 of 34 layers,
    its cycles cut with it) and Mistral-7B (4 of 32 layers, max_len 8192,
    four long prompts) at their published widths, random bf16 weights, each
@@ -241,6 +242,34 @@ a local block, with no operand copied:
    unsharded LoRA step, the bases unchanged;
 8j. local_blocks — the flash kernels at those phases' local-block shapes
    against their plain versions, timed beside SDPA and the bound.
+
+Then serving over a caller's mesh, MoE under tensor parallelism, the HF
+conversion and the guest probe (PERF.md configurations 21-24;
+``scripts/torch_serve_mesh_phase.py`` runs them alone):
+8k. serve_mesh — ``GenerationServer(mesh=build_mesh({"fsdp": 2, "model":
+   2}))`` beside the unsharded server: Gemma-2B, all 18 layers, the paged
+   configuration's 32 requests (one KV head: ``kv_replicated``), and
+   Llama-3-8B, 8 of 32 layers, 16 requests (KV heads cut), then its
+   ``init_sharded_params`` tree served as it is, bit-equal in tokens to the
+   mesh server over the plain tree; launches (paged = rounds x chunk x
+   layers x 2), tok/s, TTFT, ITL, peak memory, ``graph_check``, partings
+   that must be flips, and the fsdp gathers' device time a step
+   (:func:`phase_serve_mesh`);
+8l. moe_tp — Mixtral-8x7B, 4 of 32 layers, configuration 14's server
+   (capacity factor 2.0) at tp=2 beside tp=1, bf16 then int8 experts:
+   launches, tok/s, TTFT, ITL, ``graph_check`` and the tp=2 layer against
+   ``moe_ffn`` with its capacity drops counted; partings that must be
+   flips from an untimed pair served at E/K, where no copy drops (at 2.0
+   a decode step's drops depend on the other lanes: a witness run with
+   one request's budget cut, printed) (:func:`phase_moe_tp`);
+8m. convert — Gemma-2B through ``to_hf_state_dict`` and ``from_hf`` in
+   memory, every leaf and the served tokens bit-equal; Llama-3-8B (2
+   layers) within the serving bound; seconds and peak host memory
+   (:func:`phase_convert`);
+8n. probe — ``guest.probe.run_ladder`` on the card, its three lines, every
+   check ``ok``;
+8o. mesh_shards — the flash forward and the paged decode kernel at those
+   servers' model-shard shapes against their plain versions, timed.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
@@ -2468,22 +2497,16 @@ def first_difference_margin(params, cfg, prompts, outs, other) -> dict:
     return None
 
 
-def token_partings(params, cfg, prompts, outs, other, quantized: bool) -> dict:
-    """Where each request of ``outs`` first parts from ``other`` (the
-    reference server's tokens): the index, both tokens, and the plain
-    path's gap between the two, ``logits[ref] - logits[got]``, beside the
-    logit RMS there and the gap's noise. The plain path is the lock-step
-    server's step that chose the token: the prompt and the shared tokens
-    but the last prefilled into a cache (int8 when ``quantized``, else
-    bf16), then the last one decoded over it with the plain attention. The
-    noise is the largest distance of the same two tokens' gap through an
-    equally valid bf16 path: :func:`plain_fp32_p` in place of the plain
-    attention, or the servers' own prefill (the flash kernel) before the
-    plain step. A parting is a bf16 argmax flip, not a wrong token, when
-    the gap lies within LOGIT_BOUND["decode"] x the RMS or
-    :data:`NOISE_FACTOR` x its noise; ``all_flips`` says whether every
-    parting is one."""
-    import numpy as np
+def plain_step_logits(p, cfg, toks, fn, prefill_fn, quantized: bool,
+                      record=None, force=None):
+    """fp32 logits of the lock-step server's step that chose the last
+    token of ``toks [1, n]``: the tokens but the last prefilled into a
+    cache (int8 when ``quantized``, else bf16) with ``prefill_fn``, then
+    the last decoded over it with ``fn``. An MoE model's routing calls
+    come in order, the prefill's layers then the decode step's: ``record``
+    (a list), when given, receives each call's tokens and chosen experts;
+    ``force`` (``{call: {row: experts}}``) sends those rows to those
+    experts, gated by their own probabilities."""
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.models.transformer import (
@@ -2491,21 +2514,132 @@ def token_partings(params, cfg, prompts, outs, other, quantized: bool) -> dict:
         forward,
         prefill,
     )
+    from kata_xpu_device_plugin_tpu_torch.ops import moe
+
+    n = toks.shape[1]
+    pad = -(-(n - 1) // CUDA_PAD) * CUDA_PAD
+    head = torch.nn.functional.pad(toks[:, :-1], (0, pad - (n - 1)))
+    real, calls, force = moe._route, [], force or {}
+
+    def route(prm, tokens, c):
+        gates, top_e, probs = real(prm, tokens, c)
+        for row, experts in force.get(len(calls), {}).items():
+            top_e[row] = experts
+            g = probs[row, experts]
+            gates[row] = g / g.sum() if c.top_k > 1 else g
+        calls.append(None)
+        if record is not None:
+            record.append((tokens.detach().clone(), top_e.clone()))
+        return gates, top_e, probs
+
+    moe._route = route
+    try:
+        caches, _l, _p = prefill(p, head, cfg, pad + 1, attn_fn=prefill_fn,
+                                 kv_quantized=quantized, true_len=n - 1)
+        at = torch.full((1,), n - 1, dtype=torch.int32, device=toks.device)
+        return forward(p, toks[:, -1:], cfg, attn_fn=fn,
+                       positions=at[:, None], kv_caches=caches,
+                       cache_offset=at)[0][0, -1].float()
+    finally:
+        moe._route = real
+
+
+# The routing-flip witness: once two plain steps route alike, each token's
+# MoE input on the split step lies within this share of its largest |input|
+# on the unsplit one. Rounding alone keeps it near 2^-7 at the first layer
+# and grows it layer by layer on random weights (0.007-0.10 over the 4
+# layers of the Mixtral test config on the CPU; 0.014-0.096 over 4 layers
+# at Mixtral's widths on an H100); a shard's arithmetic wrong moves it by
+# the input's size (1.3-2.3 on the CPU, one shard's experts misordered).
+ROUTING_INPUT_TOL = 0.25
+
+
+def routing_flip_witness(params, split, cfg, toks, quantized: bool,
+                         got: int, ref: int, bound: float) -> dict:
+    """Whether a parting of the server over ``split`` (the same MoE
+    weights cut across shards, ``tp_serving_params``) from the unsplit
+    server is a routing tie resolved the other way. The plain step over
+    ``split`` (the code under test) must pick the server's token, and so
+    must an independent path: the plain step over the unsplit ``params``
+    with the experts of the tokens whose routing the two steps resolve
+    apart forced to the split step's, level by level (layer l's routing
+    depends only on the layers below it), until every token of every
+    layer routes alike. Its gap ``logits[ref] - logits[got]`` must lie
+    within ``bound``, and every layer's MoE inputs of the two routed-alike
+    steps must agree within :data:`ROUTING_INPUT_TOL` of each token's
+    largest |input|: then the two differ by rounding alone. A fault in the
+    shards' arithmetic moves those inputs, whatever the routing. Printed
+    beside: the tokens forced at each level."""
+    import torch
+
     from kata_xpu_device_plugin_tpu_torch.ops import attention
 
     ref_attn = attention.reference_attention
+    L, n = cfg.n_layers, toks.shape[1]
+    rec_s = []
+    split_logits = plain_step_logits(split, cfg, toks, ref_attn, ref_attn,
+                                     quantized, rec_s)
 
-    def step_logits(toks, fn, prefill_fn):
-        n = toks.shape[1]
-        pad = -(-(n - 1) // CUDA_PAD) * CUDA_PAD
-        head = torch.nn.functional.pad(toks[:, :-1], (0, pad - (n - 1)))
-        caches, _l, _p = prefill(params, head, cfg, pad + 1, attn_fn=prefill_fn,
-                                 kv_quantized=quantized, true_len=n - 1)
-        at = torch.full((1,), n - 1, dtype=torch.int32, device="cuda")
-        return forward(params, toks[:, -1:], cfg, attn_fn=fn,
-                       positions=at[:, None], kv_caches=caches,
-                       cache_offset=at)[0][0, -1].float()
+    def level(rec, lvl):  # layer lvl's real tokens: the prefill's, the decoded one
+        return (torch.cat([rec[lvl][0][:n - 1], rec[L + lvl][0]]),
+                torch.cat([rec[lvl][1][:n - 1], rec[L + lvl][1]]))
 
+    force, forced = {}, []
+    for _ in range(L + 1):
+        rec_u = []
+        logits = plain_step_logits(params, cfg, toks, ref_attn, ref_attn,
+                                   quantized, rec_u, force)
+        moved = None
+        for lvl in range(L):
+            eu, es = level(rec_u, lvl)[1], level(rec_s, lvl)[1]
+            rows = (eu.sort(-1).values != es.sort(-1).values).any(-1).nonzero()
+            if len(rows):
+                moved = lvl, [int(r) for r in rows[:, 0]]
+                break
+        if moved is None:
+            break
+        lvl, rows = moved
+        forced.append({"level": lvl, "tokens": len(rows)})
+        for r in rows:
+            call, row = (lvl, r) if r < n - 1 else (L + lvl, 0)
+            force.setdefault(call, {})[row] = rec_s[call][1][row]
+    errs = []
+    for lvl in range(L):
+        xu, xs = level(rec_u, lvl)[0].float(), level(rec_s, lvl)[0].float()
+        errs.append(round(float(((xs - xu).abs().amax(-1)
+                                 / xu.abs().amax(-1).clamp_min(2.0 ** -30)).max()), 6))
+    split_gap = float(split_logits[ref] - split_logits[got])
+    forced_gap = float(logits[ref] - logits[got])
+    return {"split_gap": round(split_gap, 5), "forced_gap": round(forced_gap, 5),
+            "forced": forced, "routed_alike": moved is None,
+            "input_err_x_token_max": errs,
+            "ok": (moved is None and split_gap <= bound
+                   and forced_gap <= bound and max(errs) <= ROUTING_INPUT_TOL)}
+
+
+def token_partings(params, cfg, prompts, outs, other, quantized: bool,
+                   split=None) -> dict:
+    """Where each request of ``outs`` first parts from ``other`` (the
+    reference server's tokens): the index, both tokens, and the plain
+    path's gap between the two, ``logits[ref] - logits[got]``, beside the
+    logit RMS there and the gap's noise. The plain path is the lock-step
+    server's step that chose the token (:func:`plain_step_logits`, the
+    plain attention). The noise is the largest distance of the same two
+    tokens' gap through an equally valid bf16 path: :func:`plain_fp32_p`
+    in place of the plain attention, or the servers' own prefill (the
+    flash kernel) before the plain step. A parting is a bf16 argmax flip,
+    not a wrong token, when the gap lies within LOGIT_BOUND["decode"] x
+    the RMS or :data:`NOISE_FACTOR` x its noise. ``split`` (the same MoE
+    weights cut across shards) allows one more kind: a parting past that
+    bound whose :func:`routing_flip_witness` holds, where the shards'
+    step agrees with the unsplit one up to a router tie and past it picks
+    the server's token. ``all_flips`` says whether every parting is one."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.ops import attention
+
+    ref_attn = attention.reference_attention
     rows = []
     for i, (a, b) in enumerate(zip(outs, other)):
         n = min(len(a), len(b))
@@ -2516,21 +2650,27 @@ def token_partings(params, cfg, prompts, outs, other, quantized: bool) -> dict:
         got, ref = int(a[j]), int(b[j])
         ctx = np.concatenate([prompts[i], b[:j]]).astype(np.int64)
         toks = torch.from_numpy(ctx)[None].to("cuda")
-        logits, *alts = (step_logits(toks, fn, pre) for fn, pre in (
-            (ref_attn, ref_attn), (plain_fp32_p, plain_fp32_p),
-            (ref_attn, None)))
+        logits, *alts = (plain_step_logits(params, cfg, toks, fn, pre, quantized)
+                         for fn, pre in ((ref_attn, ref_attn),
+                                         (plain_fp32_p, plain_fp32_p),
+                                         (ref_attn, None)))
         gap = float(logits[ref] - logits[got])
         alt_gaps = [float(x[ref] - x[got]) for x in alts]
         noise = max(abs(gap - g) for g in alt_gaps)
         rms = float(logits.square().mean().sqrt())
         top = torch.topk(logits, 2).values
-        rows.append({"request": i, "index": j, "tokens": [got, ref],
-                     "gap": round(gap, 5), "gap_x_rms": round(gap / rms, 5),
-                     "alt_gaps": [round(g, 5) for g in alt_gaps],
-                     "gap_noise": round(noise, 5), "logit_rms": round(rms, 5),
-                     "plain_top2_margin": round(float(top[0] - top[1]), 5),
-                     "flip": gap <= max(LOGIT_BOUND["decode"] * rms,
-                                        NOISE_FACTOR * noise)})
+        bound = max(LOGIT_BOUND["decode"] * rms, NOISE_FACTOR * noise)
+        row = {"request": i, "index": j, "tokens": [got, ref],
+               "gap": round(gap, 5), "gap_x_rms": round(gap / rms, 5),
+               "alt_gaps": [round(g, 5) for g in alt_gaps],
+               "gap_noise": round(noise, 5), "logit_rms": round(rms, 5),
+               "plain_top2_margin": round(float(top[0] - top[1]), 5),
+               "flip": gap <= bound}
+        if split is not None and not row["flip"]:
+            row["routing_witness"] = routing_flip_witness(
+                params, split, cfg, toks, quantized, got, ref, bound)
+            row["flip"] = row["routing_witness"]["ok"]
+        rows.append(row)
     return {"parted": len(rows), "all_flips": all(r["flip"] for r in rows),
             "partings": rows}
 
@@ -3025,8 +3165,12 @@ def phase_prefix(params, cfg, seed: int = 0) -> dict:
 # of its depth (with the window and rope cycles cut with it), max_len, and
 # how many of its 16 prompts are long (4200-6000 tokens; the rest 64-1000).
 LONG_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 6144, 8192)
+# Gemma-2-2B's depth in the families and spec phases: 8 of its 26 layers
+# (four window pairs). Its plain decode over 8192-key views is most of both
+# phases' time, and the script's phases share one time limit.
+FAMILY_GEMMA2_LAYERS = 8
 FAMILIES = {
-    "gemma2_2b": dict(layers=None, max_len=8192, long=4),
+    "gemma2_2b": dict(layers=FAMILY_GEMMA2_LAYERS, max_len=8192, long=4),
     "qwen2_7b": dict(layers=None, max_len=2048, long=0),
     "gemma3_4b": dict(layers=6, max_len=2048, long=0),
     "mistral_7b": dict(layers=4, max_len=8192, long=4),
@@ -4342,7 +4486,7 @@ def phase_spec(params, cfg, seed: int = 0) -> dict:
          prompt_lens=[len(p) for p in prompts], budgets=budgets.tolist(),
          **rows, verify_attention=verify_attention_ms(cfg, 8, SERVE_KW["max_len"]),
          library=spec_library_checks(params, cfg, seed))
-    failures += ring_serve("gemma2_2b", None, seed, counts)
+    failures += ring_serve("gemma2_2b", FAMILY_GEMMA2_LAYERS, seed, counts)
     failures += ring_serve("mistral_7b", 4, seed, counts)
     if failures:
         raise AssertionError("spec: " + "; ".join(failures))
@@ -5918,6 +6062,525 @@ def phase_local_blocks() -> dict:
     return rows
 
 
+# ----- serving over a caller's mesh, MoE under tp, conversion, probe --------
+
+MESH_SHAPE = {"fsdp": 2, "model": 2}
+MESH_LLAMA_LAYERS = 8  # of 32
+
+
+def fsdp_gather_ms(mparams, cfg, smesh) -> float:
+    """Device time of one decode step's fsdp gathers alone, by CUDA-graph
+    replay: every layer's weights for every model shard
+    (``ServingMesh.layer_source``) and the vocab shards of the
+    unembedding, the copies the mesh server's decode step makes."""
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import local
+
+    src = smesh.layer_source(mparams["layers"])
+    proj = "embed" if cfg.tie_embeddings else "unembed"
+
+    def gathers():
+        for i in range(cfg.n_layers):
+            src(i)
+        for m in range(smesh.tp):
+            local(mparams[proj], model=m)
+
+    return graph_ms(gathers, 20)
+
+
+def mesh_side(params, cfg, kw, prompts, budgets, lens, mesh=None):
+    """One server of the serve_mesh phase over ``prompts``: its outputs and
+    its row (:func:`serve_row`'s times, shard counters, peak memory, the
+    bytes of its params as it holds them, the ``extra_bytes`` of the
+    server's own ``kv_replicated`` event, None when it emitted none)."""
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.serving import _tensor_leaves
+    from kata_xpu_device_plugin_tpu_torch.obs import flight
+
+    # The server's construction events, on a ring of their own.
+    ring = flight.FlightRecorder(256)
+    prev = flight.set_default_recorder(ring)
+    srv = GenerationServer(params, cfg, **kw, **({"mesh": mesh} if mesh else {}))
+    flight.set_default_recorder(prev)
+    warned = [e["extra_bytes"] for e in ring.snapshot()
+              if e["name"] == "kv_replicated" and e["server"] == srv._label]
+    outs, wall, runs, stats = run_requests(srv, prompts, budgets)
+    row = tp_row(stats, wall, budgets, lens, runs)
+    row.update(peak_mem_bytes=serve_row(stats, wall, budgets, lens,
+                                        runs)["peak_mem_bytes"],
+               kv_replicated_extra_bytes=warned[0] if warned else None,
+               params_bytes=sum(t.nbytes for t in _tensor_leaves(srv.params)))
+    del srv
+    return outs, row, runs
+
+
+# The per-shard kernel shapes of the serve_mesh and moe_tp servers (model 2):
+# (name, flash (B, S, H, KV, D), paged decode (B, H, KV, D, tile)). Mixtral's
+# shard shape is Llama-3-8B's (16 query heads over 4 KV heads, D 128).
+MESH_SHARDS = (
+    ("gemma_2b model-shard", (1, 1024, 4, 1, 256), (16, 4, 1, 256, 16)),
+    ("llama3_8b/mixtral model-shard", (1, 1024, 16, 4, 128), (16, 16, 4, 128, 16)),
+)
+
+
+def phase_mesh_shards() -> dict:
+    """The flash forward and the paged decode kernel (int8 pool, tile 16)
+    at the model-shard shapes the serve_mesh and moe_tp servers give them
+    (:data:`MESH_SHARDS`), against their plain versions, timed beside the
+    bound. Returns the cases by kernel."""
+    rows = {"flash_fwd": [], "paged_decode": []}
+    for name, (B, S, H, KV, D), (Bd, Hd, KVd, Dd, bs) in MESH_SHARDS:
+        f = flash_case(f"{name} prefill", B, S, H, KV, D, timed=True)
+        d = decode_case(f"{name} decode", Bd, Hd, KVd, Dd, bs, True, timed=True)
+        rows["flash_fwd"].append(f)
+        rows["paged_decode"].append(d)
+        emit("mesh_shard", case=name,
+             **{f"fwd_{k}": f[k] for k in ("ms", "library_ms", "bound_ms",
+                                           "plain_ms", "max_err_over_bound")},
+             **{f"decode_{k}": d[k] for k in ("ms", "bound_ms", "plain_ms",
+                                              "max_err_over_bound")})
+    return rows
+
+
+def phase_serve_mesh(seed: int = 0, profile: bool = False) -> dict:
+    """Configuration 21 (PERF.md): serving straight from a training layout,
+    ``GenerationServer(mesh=build_mesh({"fsdp": 2, "model": 2}))``, every
+    shard on the one card, beside the unsharded server on the same
+    requests. (a) Gemma-2B, all 18 layers at full width, random bf16 fused
+    weights, configuration 2's paged server (int8 KV, 16 lanes, tile 16, 32
+    requests): its one KV head does not divide, so the KV replicates
+    (``kv_replicated``, JAX's ``extra_bytes``) and each model shard's query
+    heads run the paged kernel over it. (b) Llama-3-8B at its widths with
+    8 of 32 layers, unfused, 16 requests: its KV heads are cut, the paged
+    kernel launches once a shard on its own heads; then the same weights
+    born sharded (``init_sharded_params``) served on the same mesh, taken
+    as they are and bit-equal in tokens to the mesh server over
+    ``shard_params`` of the plain tree. Each mesh run: launches (paged =
+    rounds x chunk x layers x model shards), tok/s, TTFT p50, ITL p50/p99
+    and peak memory against the unsharded run, ``graph_check`` (replay
+    bit-equal to eager), every request's first parting from the unsharded
+    server a bf16 flip (:func:`token_partings`), and the fsdp gathers'
+    device time a step (:func:`fsdp_gather_ms`) against the step.
+    ``profile`` adds a profiled window of the Gemma-2B mesh server's decode
+    rounds."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.tp_serving import ServingMesh
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        fuse_decoder_params,
+        gemma_2b,
+        init_params,
+        llama3_8b,
+    )
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import tp_serving_params
+    from kata_xpu_device_plugin_tpu_torch.parallel.mesh import build_mesh
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import (
+        init_sharded_params,
+    )
+
+    mesh = build_mesh(MESH_SHAPE)
+    launches, failures = {}, []
+    for model in ("gemma_2b", "llama3_8b"):
+        if model == "gemma_2b":
+            cfg = gemma_2b()
+            reduced = "none: all 18 layers"
+            params = fuse_decoder_params(
+                init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16))
+            prompts, budgets, lens = phase_requests(32, cfg.vocab_size, seed)
+        else:
+            cfg = llama3_8b(n_layers=MESH_LLAMA_LAYERS)
+            reduced = f"n_layers={MESH_LLAMA_LAYERS} of 32"
+            params = init_params(cfg, seed=seed, device="cuda",
+                                 dtype=torch.bfloat16)
+            prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed)
+        kw = dict(**PAGED_KW, **SERVE_KW)
+        outs1, row1, _ = mesh_side(params, cfg, kw, prompts, budgets, lens)
+        torch.cuda.empty_cache()
+        outs, row, runs = mesh_side(params, cfg, kw, prompts, budgets, lens,
+                                    mesh)
+        add_launches(launches, runs)
+        torch.cuda.empty_cache()
+        if row["tp_degree"] != MESH_SHAPE["model"]:
+            failures.append(f"{model}: tp_degree {row['tp_degree']}")
+        replicated = cfg.n_kv_heads % MESH_SHAPE["model"] != 0
+        if (row["kv_replicated_extra_bytes"] is not None) != replicated:
+            failures.append(f"{model}: kv_replicated {row['kv_replicated_extra_bytes']}")
+        smesh = ServingMesh.for_mesh(cfg, mesh)
+        mparams = tp_serving_params(params, cfg, smesh)
+        gather_ms = fsdp_gather_ms(mparams, cfg, smesh)
+        del mparams
+        gc_row = graph_check(params, cfg, dict(kw, mesh=mesh), seed=seed)
+        parts = token_partings(params, cfg, prompts, outs, outs1, quantized=True)
+        if not parts["all_flips"]:
+            failures.append(f"{model}: a parting from the unsharded server is "
+                            f"not a flip {parts}")
+        sharded = None
+        if model == "llama3_8b":
+            born = init_sharded_params(cfg, mesh, seed=seed, dtype=torch.bfloat16)
+            srv = GenerationServer(born, cfg, **kw, mesh=mesh)
+            taken = srv.params["layers"]["wq"] is born["layers"]["wq"]
+            outs_b, wall_b, runs_b, stats_b = run_requests(srv, prompts, budgets)
+            del srv, born
+            torch.cuda.empty_cache()
+            add_launches(launches, runs_b)
+            same = token_match(outs_b, outs, budgets)
+            sharded = {"pieces_taken_as_they_are": taken,
+                       "tok_s": round(int(sum(budgets)) / wall_b, 2),
+                       "token_match_vs_mesh_of_plain": same}
+            if not taken or same["requests_identical"] != len(budgets):
+                failures.append(f"{model}: init_sharded_params tree {sharded}")
+        itl = row["itl_p50_s"] * 1e3
+        emit("serve_mesh", model=model, reduced=reduced, mesh=MESH_SHAPE,
+             config=dict(kw), prompt_lens=lens.tolist(), unsharded=row1,
+             mesh_server=row,
+             vs_unsharded={
+                 "tok_s": round(row["tok_s"] / row1["tok_s"], 4),
+                 "itl_p50": round(row["itl_p50_s"] / row1["itl_p50_s"], 4),
+                 "ttft_p50": round(row["ttft_p50_s"] / row1["ttft_p50_s"], 4)},
+             fsdp_gather_ms_per_step=round(gather_ms, 5),
+             fsdp_gather_share_of_itl_p50=round(gather_ms / itl, 4),
+             graph_check=gc_row["outputs_bit_equal"] and gc_row["arena_bit_equal"],
+             token_match_vs_unsharded=token_match(outs, outs1, budgets),
+             partings=parts, sharded_tree=sharded)
+        if profile and model == "gemma_2b":
+            profile_rounds(params, cfg, dict(kw, mesh=mesh),
+                           np.random.default_rng(seed), lanes=16,
+                           model="gemma_2b over fsdp 2 x model 2")
+        del params
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("serve_mesh: " + "; ".join(failures))
+    return launches
+
+
+# The moe_tp layer check's capacity factors: Mixtral's own (2.0) and one
+# at which the prefill's copies overflow some experts' buffers.
+MOE_TP_FACTORS = (2.0, 1.0)
+
+
+def tp_moe_layer_check(params, cfg, prompts, buckets, max_len: int) -> dict:
+    """The ``tp=2`` serving MoE layer (:func:`..ops.moe.moe_ffn_tp`: each
+    shard's experts on the one global dispatch, the shards' combines
+    summed) against ``moe_ffn`` over the whole stacks on the card, on the
+    last layer's recorded prefill and decode inputs (as
+    :func:`moe_layer_check` records them), at each capacity factor of
+    :data:`MOE_TP_FACTORS`, where copies may drop: each token's largest
+    error within :data:`MOE_LAYER_TOL` of its largest output (both sides
+    route and drop alike; only the order of the fp32 sums and the expert
+    GEMMs' batching differ). The copies routed and dropped by the global
+    capacity are counted."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import (
+        forward,
+        map_leaf,
+        prefill_batch,
+    )
+    from kata_xpu_device_plugin_tpu_torch.ops import moe
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+
+    lens = [len(p) for p in prompts]
+    pad = next(b for b in buckets if b >= max(lens))
+    toks = torch.zeros((len(prompts), pad), dtype=torch.int32, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :lens[i]] = torch.from_numpy(np.asarray(p, np.int32))
+    seen, real = [], moe.moe_ffn
+
+    def recording(p, x, c):
+        seen.append(x.detach().clone())
+        return real(p, x, c)
+
+    moe.moe_ffn = recording
+    try:
+        caches, logits, pos = prefill_batch(
+            params, toks, cfg, max_len, torch.tensor(lens, dtype=torch.int32),
+            kv_quantized=True)
+        first = torch.argmax(logits, -1).to(torch.int32)
+        forward(params, first[:, None], cfg, attn_fn=reference_attention,
+                positions=pos[:, None], kv_caches=caches, cache_offset=pos)
+    finally:
+        moe.moe_ffn = real
+    L, last = cfg.n_layers, cfg.n_layers - 1
+    layer = params["layers"]
+    whole = {"router": layer["router"][last]}
+    whole.update({k: map_leaf(lambda t: t[last], layer[f"moe_{k}"])
+                  for k in ("w_gate", "w_in", "w_out")})
+    n = cfg.moe_num_experts // 2
+    shards = {"router": whole["router"]}
+    shards.update({k: [map_leaf(lambda t, s=s: t[s * n:(s + 1) * n].contiguous(),
+                                whole[k]) for s in range(2)]
+                   for k in ("w_gate", "w_in", "w_out")})
+    row = {"layer": last, "tol_x_token_max": MOE_LAYER_TOL, "cases": []}
+    for factor in MOE_TP_FACTORS:
+        mcfg = replace(cfg.moe_cfg(), capacity_factor=factor)
+        for what, x in (("prefill", seen[last].reshape(-1, cfg.d_model)),
+                        ("decode", seen[L + last].reshape(-1, cfg.d_model))):
+            got, _ = moe.moe_ffn_tp(shards, x, mcfg)
+            want, _ = moe.moe_ffn(whole, x, mcfg)
+            err = (got.float() - want.float()).abs().amax(-1)
+            top = want.float().abs().amax(-1).clamp_min(2.0 ** -30)
+            _g, experts, _p = moe._route(whole, x, mcfg)
+            counts = torch.bincount(experts.reshape(-1),
+                                    minlength=mcfg.num_experts)
+            cap = moe.capacity(mcfg, x.shape[0])
+            kept = int(counts.clamp(max=cap).sum())
+            row["cases"].append({
+                "inputs": what, "capacity_factor": factor,
+                "tokens": x.shape[0], "capacity": cap,
+                "copies": int(experts.numel()),
+                "dropped": int(experts.numel()) - kept,
+                "bit_equal": bool(torch.equal(got, want)),
+                "max_abs_err": float(err.max()),
+                "max_err_over_token_max": float((err / top).max())})
+    row["dropped"] = sum(c["dropped"] for c in row["cases"])
+    row["ok"] = all(c["max_err_over_token_max"] <= MOE_LAYER_TOL
+                    for c in row["cases"])
+    return row
+
+
+def phase_moe_tp(seed: int = 0) -> dict:
+    """Configuration 22 (PERF.md): MoE under tensor-parallel serving.
+    Mixtral-8x7B at its widths with 4 of 32 layers, configuration 14's
+    server (paged, int8 KV, 16 lanes, tile 16, 16 requests, Mixtral's
+    capacity factor 2.0) at ``tp=2`` (the expert stacks cut over the
+    shards, 4 experts each, the router whole; each shard's query heads
+    over its own KV heads) beside ``tp=1``, with bf16 and then int8
+    experts. The timed runs: launches (paged = rounds x chunk x layers x
+    2), tok/s, ITL and TTFT against tp=1, tokens against tp=1 (printed),
+    ``graph_check`` (replay bit-equal to eager, the MoE dispatch and its
+    drops inside) and :func:`tp_moe_layer_check` (the tp=2 layer against
+    ``moe_ffn`` at 2.0 and 1.0, drops counted). At 2.0 a decode step's
+    drops depend on every lane's routing, so once two runs part, the other
+    lanes' tokens may part by drops no single-request plain step has:
+    the token check serves both degrees again, untimed, at a capacity
+    factor of E/K (no copy drops; a request's tokens depend on its own
+    context), where every first parting from tp=1 must be a bf16 flip
+    (:func:`token_partings`, with the tp=2 split of the weights for its
+    routing-flip witness). The witness of batch-dependent drops (bf16,
+    printed): tp=1 served again with request 0's budget cut to 4, at 2.0
+    and at E/K; the other requests' tokens against the full run."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.tp_serving import ServingMesh
+    from kata_xpu_device_plugin_tpu_torch.models import init_params, mixtral_8x7b
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import tp_serving_params
+    from kata_xpu_device_plugin_tpu_torch.ops.quant import quantize_decoder_params
+
+    cfg = mixtral_8x7b(n_layers=MIXTRAL_LAYERS)
+    ample = replace(cfg, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    params = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+    max_len = 2048
+    buckets = (128, 256, 512, 1024)
+    kw = dict(max_batch=16, max_len=max_len, prefill_buckets=buckets, chunk=8,
+              kv_pool_tokens=16 * max_len + 32, kv_block_size=16,
+              heartbeat_rounds=HEARTBEAT_ROUNDS)
+    prompts, budgets, lens = phase_requests(16, cfg.vocab_size, seed)
+    launches, failures = {}, []
+
+    def serve(c, tp, bud=budgets):
+        srv = GenerationServer(params, c, **kw, tp=tp)
+        out = run_requests(srv, prompts, bud)
+        del srv
+        torch.cuda.empty_cache()
+        return out
+
+    for experts in ("bf16", "int8"):
+        if experts == "int8":
+            params = quantize_decoder_params(params)
+            torch.cuda.empty_cache()
+        rows, outs, checked = {}, {}, {}
+        for tp in (1, 2):
+            outs[tp], wall, runs, stats = serve(cfg, tp)
+            rows[tp] = tp_row(stats, wall, budgets, lens, runs)
+            if tp == 2:
+                add_launches(launches, runs)
+            checked[tp] = serve(ample, tp)[0]
+        split = tp_serving_params(params, ample,
+                                  ServingMesh.for_config(ample, 2, "cuda"))
+        parts = token_partings(params, ample, prompts, checked[2], checked[1],
+                               quantized=True, split=split)
+        del split
+        if not parts["all_flips"]:
+            failures.append(f"{experts}: a parting from tp=1 is not a flip {parts}")
+        drops_witness = None
+        if experts == "bf16":
+            cut = budgets.copy()
+            cut[0] = 4
+            drops_witness = {"request_0_budget": [int(budgets[0]), 4]}
+            for name, c, full in (("factor_2", cfg, outs[1]),
+                                  ("factor_e_over_k", ample, checked[1])):
+                got = serve(c, 1, cut)[0]
+                drops_witness[name] = token_match(got[1:], full[1:], budgets[1:])
+        gc_row = graph_check(params, cfg, dict(kw, tp=2), seed=seed)
+        layer_row = tp_moe_layer_check(params, cfg, prompts, buckets, max_len)
+        if not layer_row["ok"]:
+            failures.append(f"{experts}: tp=2 MoE layer against moe_ffn {layer_row}")
+        emit("moe_tp", model="mixtral_8x7b", experts=experts,
+             reduced=f"n_layers={MIXTRAL_LAYERS} of 32",
+             served_capacity_factor=cfg.moe_capacity_factor, config=dict(kw),
+             prompt_lens=lens.tolist(), tp1=rows[1], tp2=rows[2],
+             tp2_vs_tp1={"tok_s": round(rows[2]["tok_s"] / rows[1]["tok_s"], 4),
+                         "itl_p50": round(rows[2]["itl_p50_s"]
+                                          / rows[1]["itl_p50_s"], 4),
+                         "ttft_p50": round(rows[2]["ttft_p50_s"]
+                                           / rows[1]["ttft_p50_s"], 4)},
+             token_match_vs_tp1=token_match(outs[2], outs[1], budgets),
+             token_check_capacity_factor=ample.moe_capacity_factor,
+             token_check_match_vs_tp1=token_match(checked[2], checked[1], budgets),
+             partings=parts, drops_witness=drops_witness,
+             graph_check=gc_row["outputs_bit_equal"] and gc_row["arena_bit_equal"],
+             moe_layer_tp2=layer_row)
+    del params
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("moe_tp: " + "; ".join(failures))
+    return launches
+
+
+@contextlib.contextmanager
+def peak_rss():
+    """The process's peak resident bytes above its start while the block
+    runs, sampled from ``/proc/self/statm`` every 5 ms (a dict filled on
+    exit)."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    out, stop = {"start": rss(), "peak": 0}, threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak"] = max(out["peak"], rss())
+            stop.wait(0.005)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        out["peak"] = max(out["peak"], rss())
+        out["peak_above_start_bytes"] = out["peak"] - out["start"]
+
+
+def phase_convert(seed: int = 0) -> dict:
+    """Configuration 23 (PERF.md): the HF conversion in memory, no files.
+    Gemma-2B at full width (random bf16 weights) through
+    ``to_hf_state_dict`` then ``from_hf`` back onto the card: every leaf
+    and the config equal (Gemma's norms carry no offset, so the round trip
+    is exact), then 8 requests served from each tree by the slotted serve
+    configuration, tokens bit-equal. Then Llama-3-8B's widths at 2 layers
+    (its norms go through the ``w - 1`` offset in fp32 and back to bf16):
+    the converted tree's prefill logits against the original's within the
+    serving bound. Printed: each direction's seconds and the host's peak
+    resident bytes above its start."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.models import (
+        from_hf,
+        gemma_2b,
+        init_params,
+        llama3_8b,
+        to_hf_state_dict,
+    )
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import prefill
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
+
+    failures, rows = [], {}
+    for model, family, cfg in (("gemma_2b", "gemma", gemma_2b()),
+                               ("llama3_8b", "llama", llama3_8b(n_layers=2))):
+        params = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        with peak_rss() as mem_out:
+            t0 = time.perf_counter()
+            sd, hf_cfg = to_hf_state_dict(params, cfg, family)
+            out_s = time.perf_counter() - t0
+        with peak_rss() as mem_in:
+            t0 = time.perf_counter()
+            back, bcfg = from_hf(sd, hf_cfg, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            in_s = time.perf_counter() - t0
+        del sd
+        row = {"hf_config": hf_cfg, "state_dict_to_hf_s": round(out_s, 3),
+               "from_hf_s": round(in_s, 3),
+               "to_hf_peak_rss_above_start_bytes": mem_out["peak_above_start_bytes"],
+               "from_hf_peak_rss_above_start_bytes": mem_in["peak_above_start_bytes"],
+               "config_equal": bcfg == cfg}
+        if not row["config_equal"]:
+            failures.append(f"{model}: config {bcfg} != {cfg}")
+        pairs = list(zip(leaves(params), leaves(back)))
+        row["leaves_bit_equal"] = sum(torch.equal(a, b) for a, b in pairs)
+        row["leaves"] = len(pairs)
+        if model == "gemma_2b":
+            if row["leaves_bit_equal"] != row["leaves"]:
+                failures.append(f"{model}: round trip changed "
+                                f"{row['leaves'] - row['leaves_bit_equal']} leaves")
+            prompts, budgets, lens = phase_requests(8, cfg.vocab_size, seed)
+            kw = dict(max_batch=8, **SERVE_KW)
+            got = []
+            for tree in (params, back):
+                srv = GenerationServer(tree, cfg, **kw)
+                rids = [srv.submit(p, int(b)) for p, b in zip(prompts, budgets)]
+                res = srv.run()
+                got.append([res[r] for r in rids])
+                del srv
+            row["served"] = token_match(got[1], got[0], budgets)
+            if row["served"]["requests_identical"] != len(budgets):
+                failures.append(f"{model}: converted tree served other tokens "
+                                f"{row['served']}")
+        else:
+            rng = np.random.default_rng(seed)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 512))).to("cuda")
+            want = prefill(params, toks, cfg, 512, return_logits=True)[1].float()
+            have = prefill(back, toks, cfg, 512, return_logits=True)[1].float()
+            rms = float(want.square().mean().sqrt())
+            err = float((have - want).abs().max())
+            row["prefill_logits"] = {"max_abs_err": err, "logit_rms": rms,
+                                     "err_x_rms": err / rms,
+                                     "bound_x_rms": LOGIT_BOUND["prefill"]}
+            if err > LOGIT_BOUND["prefill"] * rms:
+                failures.append(f"{model}: converted logits {row['prefill_logits']}")
+        rows[model] = row
+        del params, back
+        torch.cuda.empty_cache()
+    emit("convert", **rows)
+    if failures:
+        raise AssertionError("convert: " + "; ".join(failures))
+    return rows
+
+
+def phase_probe() -> dict:
+    """Configuration 24 (PERF.md): the guest's validation ladder on the
+    card, ``run_ladder(expected_devices=torch.cuda.device_count())``: its
+    three JSON lines (devices, a 256 x 256 bf16 product, the all-reduce),
+    every check ``ok``."""
+    import io
+
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.guest.probe import run_ladder
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_ladder(expected_devices=torch.cuda.device_count())
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    for line in lines:
+        emit("probe", **line)
+    if rc != 0 or len(lines) != 3 or not all(x["ok"] for x in lines):
+        raise AssertionError(f"probe: rc {rc}, {lines}")
+    return {x["check"]: x["ok"] for x in lines}
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -5979,6 +6642,16 @@ def main(argv: list[str]) -> int:
         launches[name] = timed_phase(name, fn)
         torch.cuda.empty_cache()
     for name, cases in timed_phase("local_blocks", phase_local_blocks).items():
+        checks[name] += cases
+    launches["serve_mesh"] = timed_phase("serve_mesh", phase_serve_mesh,
+                                         profile=profile)
+    torch.cuda.empty_cache()
+    launches["moe_tp"] = timed_phase("moe_tp", phase_moe_tp)
+    torch.cuda.empty_cache()
+    timed_phase("convert", phase_convert)
+    torch.cuda.empty_cache()
+    timed_phase("probe", phase_probe)
+    for name, cases in timed_phase("mesh_shards", phase_mesh_shards).items():
         checks[name] += cases
     for name, n in timed_phase("families", phase_families,
                                profile=profile).items():

@@ -154,8 +154,17 @@ cache (ring and draft servers), chunked admission, ``decode_steps > 1``,
 persistent rounds and ``tp > 1``; speculative servers refuse host
 checkpoints.
 
-A caller's training-layout ``mesh`` (not ported yet) raises
-``NotImplementedError`` naming its ROADMAP item when set.
+A caller's training mesh (``mesh=``, a :func:`..parallel.mesh.build_mesh`
+of data, fsdp and model axes; not with ``tp=``) serves a model straight
+from its training layout: the params are the ``PARAM_RULES`` pieces
+(:func:`..parallel.sharding.shard_params`; a tree already so placed, such
+as :func:`..parallel.sharding.init_sharded_params`' or a sharded
+checkpoint's, is taken as it is), the degree is the mesh's ``model`` size
+and each layer gathers its weights over fsdp when it runs
+(:meth:`.tp_serving.ServingMesh.layer_source`). The ``tp=`` path's
+refusals (ring, speculation) do not apply, a draft is placed on the same
+mesh, and a permanent fault fails the load (``why="mesh_injected"``): the
+caller owns the layout, so it never shrinks.
 """
 from __future__ import annotations
 
@@ -240,6 +249,8 @@ from .scheduler import (
     make_scheduler,
 )
 from .tp_serving import KV_LAYOUT_BLOCKS, KV_LAYOUT_HEADS, KV_LAYOUTS, ServingMesh
+from ..parallel.mesh import AXIS_MODEL
+from ..parallel.sharding import Sharded, leaves
 
 BACKEND_PAGED = attention.BACKEND_PAGED
 BACKEND_REFERENCE = attention.BACKEND_REFERENCE
@@ -814,11 +825,19 @@ class _Inflight:
     fused: Optional[_FusedChunk] = None  # an admission slice riding along
 
 
+def _params_device(params) -> torch.device:
+    """The device a params tree (whole or sharded) lives on."""
+    return leaves(params["embed"])[0].device
+
+
 def _tensor_leaves(tree) -> list:
-    """The tensors of a params or cache tree (dicts, lists, tuples and
-    QTensors of tensors), in a fixed order; other leaves are skipped."""
+    """The tensors of a params or cache tree (dicts, lists, tuples, QTensors
+    of tensors and :class:`..parallel.sharding.Sharded` pieces), in a fixed
+    order; other leaves are skipped."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, Sharded):
+        return list(tree.pieces)
     if isinstance(tree, dict):
         return [t for k in sorted(tree, key=str) for t in _tensor_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -967,7 +986,9 @@ class GenerationServer:
     the env value degrades to ``"heads"``) and makes the pool one
     sub-pool a shard. An explicit ``tp`` below 1, with ``ring_kv`` or
     ``speculative_k``, or one the model's heads, KV features or MLP do
-    not divide, raises; the env value degrades to 1.
+    not divide, raises; the env value degrades to 1. ``mesh`` (module doc)
+    serves over a caller's training mesh; with ``tp`` it raises JAX's
+    ``ValueError``.
 
     Crash tolerance (module doc): ``fault_injector`` (else one from
     ``KATA_TPU_FAULTS``/``KATA_TPU_FAULTS_SEED``), ``fence_timeout_s``
@@ -1062,13 +1083,24 @@ class GenerationServer:
         self._init_resilience(
             fault_injector, fence_timeout_s, quarantine_after,
             recovery_backoff_s, checkpoint_rounds, speculative=speculative)
-        self._tp = resolve_tp(tp, cfg, ring_kv, speculative,
-                              emit=self._emit, label=self._label,
-                              trace=self._trace)
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a caller's training-layout mesh, ROADMAP Queue 1 item "
-                "12b) is not ported yet")
+            if tp is not None:
+                raise ValueError(
+                    "pass tp= OR mesh=, not both — tp builds its own 1×N "
+                    "serving mesh (guest/tp_serving.py)")
+            # A caller's training mesh: the degree is its model axis, and
+            # the tp= path's refusals (ring, speculation) do not apply.
+            self._tp = mesh.shape.get(AXIS_MODEL, 1)
+            for c in (cfg,) + ((draft[1],) if draft is not None else ()):
+                reason = tp_conflict(c, self._tp, False, False)
+                if reason is not None:
+                    raise ValueError(f"mesh {mesh.shape} is incompatible "
+                                     f"with this server ({reason})")
+        else:
+            self._tp = resolve_tp(tp, cfg, ring_kv, speculative,
+                                  emit=self._emit, label=self._label,
+                                  trace=self._trace)
+        self._mesh_injected = mesh is not None
         # Degraded mode: the shrink ladder's floor and the kill switch.
         if tp_min is not None:
             if int(tp_min) < 1:
@@ -1088,27 +1120,39 @@ class GenerationServer:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             require_flash_buckets(prefill_buckets, cfg.head_dim)
-        if params["embed"].device != self.device:
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh lives on {mesh.device}, the server runs "
+                             f"on {self.device}")
+        if _params_device(params) != self.device:
             raise ValueError(
-                f"params live on {params['embed'].device}, the server runs on "
+                f"params live on {_params_device(params)}, the server runs on "
                 f"{self.device}")
         if draft is not None:
             check_supported(draft[1])
-            if draft[0]["embed"].device != self.device:
+            if _params_device(draft[0]) != self.device:
                 raise ValueError(
-                    f"draft params live on {draft[0]['embed'].device}, the "
+                    f"draft params live on {_params_device(draft[0])}, the "
                     f"server runs on {self.device}")
         self.cfg = cfg
         # The shards of a tensor-parallel server (every one on this device);
         # params split across them by the serving rules. The unsplit params
         # stay on the host for a shrink to re-split (the JAX server's donor
-        # copy).
-        self._mesh = (ServingMesh.for_config(cfg, self._tp, self.device)
-                      if self._tp > 1 else None)
+        # copy). A caller's mesh keeps its training layout (PARAM_RULES
+        # pieces; the draft's too) and never shrinks, so keeps no copy.
+        if mesh is not None:
+            self._mesh = ServingMesh.for_mesh(cfg, mesh)
+            if draft is not None:
+                self.draft = draft = (tp_serving_params(
+                    draft[0], draft[1], ServingMesh.for_mesh(draft[1], mesh)),
+                    draft[1])
+        else:
+            self._mesh = (ServingMesh.for_config(cfg, self._tp, self.device)
+                          if self._tp > 1 else None)
         self.params = (tp_serving_params(params, cfg, self._mesh)
                        if self._mesh is not None else params)
         self._params_host = (_tree_to(params, torch.device("cpu"), copy=True)
-                             if self._tp > 1 and self._degraded_ok else None)
+                             if self._tp > 1 and self._degraded_ok
+                             and mesh is None else None)
         self.max_batch, self.max_len = max_batch, max_len
         self.eos_id, self.chunk = eos_id, chunk
         self.top_k, self.top_p = top_k, top_p
@@ -1366,14 +1410,23 @@ class GenerationServer:
 
     def _note_kv_replicated(self) -> None:
         """The JAX server's warning that the KV heads replicate across the
-        shards, once a degree (a shrink may reach another); every shard
-        here reads the one copy on the device, so it costs no bytes."""
-        if (self._tp > 1 and self._kv_layout == KV_LAYOUT_HEADS
-                and not tp_serving.kv_heads_shardable(self.cfg, self._tp)
+        shards (:func:`.tp_serving.kv_cache_spec` replicated), once a
+        degree (a shrink may reach another). Every shard here reads the
+        one copy on the device: a ``tp=`` server reports the 0 bytes that
+        costs, a server over a caller's mesh JAX's figure, the ``tp - 1``
+        extra copies a mesh across devices would hold."""
+        layout = self._kv_layout if self.paged else KV_LAYOUT_HEADS
+        if (self._tp > 1 and layout == KV_LAYOUT_HEADS
+                and tp_serving.kv_cache_spec(self.cfg, self._tp, layout) == ()
                 and self._tp not in self._kv_replicated_warned):
             self._kv_replicated_warned.add(self._tp)
+            extra = 0
+            if self._mesh_injected:
+                arena = self.kv_pool.arena if self.paged else self.arena
+                extra = (self._tp - 1) * sum(
+                    t.nbytes for t in _tensor_leaves(arena))
             self._emit("kv_replicated", tp=self._tp,
-                       n_kv_heads=self.cfg.n_kv_heads, extra_bytes=0)
+                       n_kv_heads=self.cfg.n_kv_heads, extra_bytes=extra)
 
     def _build_decode(self) -> None:
         """The decode executables over the current params and mesh: the
@@ -3177,8 +3230,11 @@ class GenerationServer:
             reason, survivors = "ici_error", self._tp
         else:
             reason, survivors = "cuda_error", 0
-        if self._tp <= 1 or not self._degraded_ok or survivors == 0:
-            why = "degraded_disabled" if not self._degraded_ok else "single_chip"
+        if (self._tp <= 1 or not self._degraded_ok or survivors == 0
+                or self._mesh_injected):
+            why = ("degraded_disabled" if not self._degraded_ok
+                   else "single_chip" if self._tp <= 1 or survivors == 0
+                   else "mesh_injected")
             self._emit("chip_loss_fatal", reason=reason, tp=self._tp, why=why)
             return False
         new_tp = tp_serving.shrink_ladder(self._tp, survivors, self._tp_min)

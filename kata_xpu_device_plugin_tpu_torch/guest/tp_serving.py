@@ -30,9 +30,10 @@ divide the degree (:func:`kv_heads_shardable`) and replicates otherwise;
 under ``"blocks"`` (paged pools only) the pool's token axis splits into
 per-shard sub-pools of whole blocks. With every shard on one device a
 split is a view of the one physical tensor and a replicated leaf is that
-tensor itself, so the KV state is placed once, unsplit. JAX's placement
-specs of the KV state (``kv_cache_spec``, ``kv_rows_spec``) and its
-overlapped sum across shards act only across devices, and are not ported.
+tensor itself, so the KV state is placed once, unsplit;
+:func:`kv_cache_spec` names the cut the shards read. JAX's
+``kv_rows_spec`` and its overlapped sum across shards act only across
+devices, and are not ported.
 
 Degraded mode (:func:`shrink_ladder`, :func:`tp_min_from_env`,
 :func:`degraded_enabled`): after a permanent fault that names a shard
@@ -44,7 +45,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -57,7 +58,7 @@ KV_LAYOUTS = (KV_LAYOUT_HEADS, KV_LAYOUT_BLOCKS)
 
 __all__ = ["ENV_DEGRADED", "ENV_KV_LAYOUT", "ENV_TP", "ENV_TP_MIN",
            "KV_LAYOUTS", "ServingMesh", "allocation_chips", "degraded_enabled",
-           "kv_heads_shardable", "shrink_ladder", "env_degree", "tp_from_env",
+           "kv_cache_spec", "kv_heads_shardable", "shrink_ladder", "env_degree", "tp_from_env",
            "tp_min_from_env"]
 
 # TPU families: (chips per host, whether the type's suffix counts
@@ -183,18 +184,42 @@ def kv_heads_shardable(cfg, tp: int) -> bool:
     return tp > 1 and cfg.n_kv_heads % tp == 0
 
 
+def kv_cache_spec(cfg, tp: int, layout: str = KV_LAYOUT_HEADS) -> tuple:
+    """The partition spec of every serving KV arena layout (JAX
+    ``kv_cache_spec``), one entry a dim of ``[L, B|1, S|NT, KV, D]``: the
+    KV-head axis (3) over ``model`` when :func:`kv_heads_shardable`, the
+    token axis (2) under ``"blocks"`` at ``tp > 1``, else replicated
+    (``()``). Every shard here is on one device, so the spec places
+    nothing: it says which cut the shards read of the one tensor, and
+    whether JAX would hold it once a shard (replicated)."""
+    if layout == KV_LAYOUT_BLOCKS:
+        return (None, None, "model", None, None) if tp > 1 else ()
+    if kv_heads_shardable(cfg, tp):
+        return (None, None, None, "model", None)
+    return ()
+
+
 @dataclass(frozen=True)
 class ServingMesh:
     """``tp`` shards of one model on one device. Shard ``s`` holds query
     heads :meth:`q_heads` (``H/tp`` of them) and the matching slices of the
     column- and row-parallel weights (:func:`..parallel.sharding.
     shard_serving_params`); :meth:`reduce` is the sum across shards that
-    follows each row-parallel projection."""
+    follows each row-parallel projection.
+
+    ``train_mesh``: a caller's training mesh (:meth:`for_mesh`, the
+    server's ``mesh=``). The params are then the
+    :class:`..parallel.sharding.Sharded` pieces of ``PARAM_RULES`` on it,
+    ``tp`` its ``model`` size: each layer gathers its weights over fsdp
+    when it runs (:meth:`layer_source`), the embedding is looked up and
+    the logits made vocab-parallel (:meth:`embed`, :meth:`unembed`), and a
+    fused weight's pieces are cuts of its whole out axis."""
 
     tp: int
     device: torch.device
     n_heads: int
     n_kv_heads: int
+    train_mesh: Any = None
 
     @classmethod
     def for_config(cls, cfg, tp: int, device) -> "ServingMesh":
@@ -202,6 +227,39 @@ class ServingMesh:
             raise ValueError(f"tp must be >= 1, got {tp}")
         return cls(tp=tp, device=torch.device(device), n_heads=cfg.n_heads,
                    n_kv_heads=cfg.n_kv_heads)
+
+    @classmethod
+    def for_mesh(cls, cfg, mesh) -> "ServingMesh":
+        """The serving view of a training mesh: ``tp`` its ``model``
+        size, every shard on its device."""
+        return cls(tp=mesh.shape.get("model", 1), device=mesh.device,
+                   n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                   train_mesh=mesh)
+
+    def layer_source(self, layers: dict):
+        """``i -> [shard m's layer i dict]`` over a training mesh's stacked
+        pieces: each call gathers layer ``i``'s weights over fsdp
+        (``Sharded.select``) for every model shard, so one layer's
+        gathered weights live at a time, never the whole model."""
+        from ..parallel.sharding import layer_leaves, local
+
+        stacks = {k: layer_leaves(v) for k, v in layers.items()}
+        return lambda i: [{k: local(v[i], model=m) for k, v in stacks.items()}
+                          for m in range(self.tp)]
+
+    def embed(self, params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+        """The vocab-parallel lookup (``parallel.spmd.vocab_embed``)."""
+        from ..parallel.spmd import vocab_embed
+
+        return vocab_embed(params["embed"], tokens, cfg, self.tp)
+
+    def unembed(self, params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+        """fp32 logits: each model shard's vocab slice (its unembedding
+        gathered over fsdp), gathered side by side in vocab order."""
+        from ..parallel.spmd import _vocab_logits
+
+        return collectives.all_gather(_vocab_logits(params, x, cfg, self.tp),
+                                      dim=-1)
 
     def q_heads(self, s: int) -> slice:
         n = self.n_heads // self.tp

@@ -1,6 +1,7 @@
 """Decoder models of the port: the transformer core, family configs (dense
-and Mixtral's mixture of experts) and the weight bridge from the JAX
-package's parameters."""
+and Mixtral's mixture of experts), the weight bridge from the JAX
+package's parameters and the Hugging Face checkpoint conversion."""
+from .convert import from_hf, to_hf_state_dict
 from .gemma import (
     gemma2_2b,
     gemma2_9b,
@@ -28,7 +29,8 @@ from .transformer import (
 )
 
 __all__ = [
-    "DecoderConfig", "draft_propose", "forward", "fuse_decoder_params",
+    "DecoderConfig", "draft_propose", "forward", "from_hf",
+    "fuse_decoder_params",
     "gemma2_2b",
     "gemma2_9b", "gemma2_test_config", "gemma3_4b", "gemma3_test_config",
     "gemma_2b", "gemma_7b", "generate", "generate_speculative",
@@ -36,5 +38,5 @@ __all__ = [
     "llama3_train_test", "llama31_8b", "mistral_7b", "mistral_test_config",
     "mixtral_8x7b", "mixtral_test_config",
     "prefill", "prefill_batch", "qwen2_7b", "qwen2_test_config",
-    "sample_token", "self_draft", "tiny_test_config",
+    "sample_token", "self_draft", "tiny_test_config", "to_hf_state_dict",
 ]

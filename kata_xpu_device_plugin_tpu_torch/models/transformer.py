@@ -315,7 +315,11 @@ def _gate_act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def embed(params: Params, tokens: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """Token embedding; Gemma scales by sqrt(d_model) rounded to the model
-    dtype first (bf16 45.25 at d_model 2048)."""
+    dtype first (bf16 45.25 at d_model 2048). Params over a training mesh
+    look up vocab-parallel (:meth:`..guest.tp_serving.ServingMesh.embed`)."""
+    mesh = params.get("mesh")
+    if getattr(mesh, "train_mesh", None) is not None:
+        return mesh.embed(params, tokens, cfg)
     return embed_rows(params["embed"][tokens], cfg)
 
 
@@ -332,7 +336,12 @@ def embed_rows(rows: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
 
 def unembed(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """Final norm, then the (tied) unembedding with fp32 logits from
-    operands of the model dtype, then the optional final softcap."""
+    operands of the model dtype, then the optional final softcap. Params
+    over a training mesh project vocab-parallel and gather the logits in
+    vocab order (:meth:`..guest.tp_serving.ServingMesh.unembed`)."""
+    mesh = params.get("mesh")
+    if getattr(mesh, "train_mesh", None) is not None:
+        return mesh.unembed(params, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     proj = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     return project_logits(x, proj, cfg)
@@ -549,7 +558,12 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     every shard's view reads; each shard attends with its own query heads
     (``decode_kernel_fn`` then returns the shards' outputs as a list);
     ``wo`` and ``w_down`` are row-parallel, each followed by the sum
-    across shards; norms are replicated.
+    across shards; norms are replicated. An MoE layer routes once over all
+    the tokens and each shard runs its own experts
+    (:func:`..ops.moe.moe_ffn_tp`). Over a caller's training mesh
+    (:class:`..guest.tp_serving.ServingMesh` with ``train_mesh``) a fused
+    ``wqkv``/``w_gateup`` is cut anywhere along its concatenated out axis,
+    so its pieces' products are gathered whole before the parts split.
 
     A training mesh (:class:`..parallel.spmd.LayerShards`, ``layer`` the
     list of its model shards' layer dicts, each gathered over fsdp) runs
@@ -572,8 +586,15 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     if cfg.attn_logits_softcap:
         akw["logits_softcap"] = cfg.attn_logits_softcap
     h = rms_norm(x, shards[0]["attn_norm"], cfg.norm_eps)
-    q, k, v = (_gather(list(p)) for p in zip(
-        *(_qkv_parts(cfg, h, sh, tp) for sh in shards)))
+    fused_cut = getattr(mesh, "train_mesh", None) is not None
+    if fused_cut and "wqkv" in shards[0]:
+        qkv = _gather([_bias(weight_matmul(h, sh["wqkv"]), sh["bqkv"])
+                       if "bqkv" in sh else weight_matmul(h, sh["wqkv"])
+                       for sh in shards])
+        q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    else:
+        q, k, v = (_gather(list(p)) for p in zip(
+            *(_qkv_parts(cfg, h, sh, tp) for sh in shards)))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
@@ -589,7 +610,7 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
 
     def kernel(*args):
         out = decode_kernel_fn(*args)
-        return out if mesh is not None else [out]
+        return out if isinstance(out, list) else [out]
 
     if kv_cache is not None and prefill:
         ck, cv = kv_cache
@@ -695,8 +716,6 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     if cfg.moe:
         from ..ops import moe as moe_mod
 
-        if mesh is not None and not hasattr(mesh, "attend"):
-            raise NotImplementedError(_MOE_TP)
         moe_params = {"router": shards[0]["router"]}
         for n in ("w_gate", "w_in", "w_out"):
             parts = [sh[f"moe_{n}"] for sh in shards]
@@ -705,12 +724,17 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
                 h.shape[:2], cfg.moe_num_experts, moe_mesh):
             y, aux = moe_mod.moe_ffn_sharded(moe_params, h, cfg.moe_cfg(),
                                              moe_mesh)
+        elif tp > 1:  # each shard's experts on the one global dispatch
+            y, aux = moe_mod.moe_ffn_tp(moe_params, h, cfg.moe_cfg())
         else:
-            if tp > 1:  # the experts whole: the one global dispatch
-                for n in ("w_gate", "w_in", "w_out"):
-                    moe_params[n] = torch.cat(moe_params[n], dim=0)
             y, aux = moe_mod.moe_ffn(moe_params, h, cfg.moe_cfg())
         mlp_out = y.to(x.dtype)
+    elif fused_cut and "w_gateup" in shards[0]:
+        gu = _gather([weight_matmul(h, sh["w_gateup"]) for sh in shards])
+        f = cfg.d_ff
+        act = _gate_act(gu[..., :f], cfg.activation) * gu[..., f:]
+        mlp_out = _row_parallel(mesh, list(act.tensor_split(tp, dim=-1)),
+                                shards, "w_down")
     else:
         acts = []
         for sh in shards:
@@ -728,8 +752,17 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     return x + mlp_out, aux
 
 
-_MOE_TP = ("MoE under tensor-parallel serving (the serving shards splitting "
-           "the experts) is not ported: ROADMAP item 12b")
+def _layer_source(params: Params, mesh):
+    """``i -> layer i's params`` as :func:`_layer` takes them: the layer's
+    dict, or the shards' dicts of tensor-parallel params (over a training
+    mesh, each layer's pieces gathered over fsdp as it runs)."""
+    if getattr(mesh, "train_mesh", None) is not None:
+        return mesh.layer_source(params["layers"])
+    trees = params["shards"] if mesh is not None else [params["layers"]]
+    per_shard = [{k: _unbind(v) for k, v in t.items()} for t in trees]
+    if mesh is None:
+        return lambda i: {k: v[i] for k, v in per_shard[0].items()}
+    return lambda i: [{k: v[i] for k, v in t.items()} for t in per_shard]
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
@@ -765,14 +798,12 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
         view_tables = torch.where(block_tables == PAGED_SCRATCH_BLOCK,
                                   PAGED_ZERO_BLOCK, block_tables)
     mesh = params.get("mesh")
-    trees = params["shards"] if mesh is not None else [params["layers"]]
-    per_shard = [{k: _unbind(v) for k, v in t.items()} for t in trees]
+    layer_at = _layer_source(params, mesh)
     P = len(cfg.window_cycle)
     cycle_arena = ring and P > 1
     auxes = []
     for i in range(cfg.n_layers):
-        shard_layers = [{k: v[i] for k, v in t.items()} for t in per_shard]
-        layer = shard_layers if mesh is not None else shard_layers[0]
+        layer = layer_at(i)
         if remat and kv_caches is None:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, cfg, attn_fn, x, layer, positions, index=i,
@@ -804,11 +835,16 @@ def tp_serving_params(params: Params, cfg: DecoderConfig, mesh) -> Params:
     (:func:`..parallel.sharding.shard_serving_params`): the replicated
     leaves (embeddings, final norm) as they are, ``"shards"`` the shards'
     layer trees and ``"mesh"`` the mesh. Every function of this module that
-    takes params runs them tensor-parallel."""
-    from ..parallel.sharding import shard_serving_params
+    takes params runs them tensor-parallel. Over a caller's training mesh
+    (``mesh.train_mesh``) the params are instead its ``PARAM_RULES``
+    pieces (:func:`..parallel.sharding.shard_params`; leaves already so
+    placed are taken as they are) beside ``"mesh"``."""
+    from ..parallel.sharding import shard_params, shard_serving_params
 
-    if cfg.moe:
-        raise NotImplementedError(_MOE_TP)
+    if mesh.train_mesh is not None:
+        out = shard_params(params, mesh.train_mesh, copy=False)
+        out["mesh"] = mesh
+        return out
     trees = shard_serving_params(params, cfg, mesh.tp)
     out = {k: v for k, v in params.items() if k != "layers"}
     out["shards"] = [t["layers"] for t in trees]

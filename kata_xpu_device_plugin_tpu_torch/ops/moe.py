@@ -145,13 +145,19 @@ def _expert_mlp(params: Params, expert_in: torch.Tensor) -> torch.Tensor:
 
 
 def _combine(expert_out: torch.Tensor, slot: torch.Tensor, weight: torch.Tensor,
-             order: torch.Tensor, top_e: torch.Tensor) -> torch.Tensor:
+             order: torch.Tensor, top_e: torch.Tensor,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each copy's expert output times its gate, summed per token in
     ascending expert order (the order a sequential scatter-add over the
-    expert-sorted copies takes). Dropped copies weigh zero."""
+    expert-sorted copies takes). Dropped copies weigh zero, and so do the
+    copies ``keep`` (in sorted order) leaves out."""
     T, K = top_e.shape
     d = expert_out.shape[-1]
     gathered = expert_out.reshape(-1, d)[slot] * weight[:, None]
+    if keep is not None:
+        gathered = torch.where(keep[:, None], gathered,
+                               torch.zeros((), dtype=gathered.dtype,
+                                           device=gathered.device))
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     per_copy = gathered[inv].reshape(T, K, d)  # copy t*K + j at [t, j]
@@ -177,6 +183,44 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig):
         tokens, top_e, gates, E, capacity(cfg, T))
     expert_out = _expert_mlp(params, expert_in)
     y = _combine(expert_out, slot, weight, order, top_e)
+    frac_routed = counts.float() / (T * K)
+    aux = E * torch.sum(frac_routed * probs.mean(dim=0))
+    return y.reshape(shape), aux
+
+
+def moe_ffn_tp(params: Params, x: torch.Tensor, cfg: MoEConfig):
+    """:func:`moe_ffn` under tensor-parallel serving (JAX's ``moe_ffn``
+    over the serving rules, which cut the expert stacks over the model
+    axis and replicate the router; GSPMD partitions the one global
+    dispatch): ``params["w_gate"/"w_in"/"w_out"]`` are lists of the
+    shards' stacks, ``E/tp`` consecutive experts each. The tokens are
+    routed and dispatched once, at :func:`moe_ffn`'s capacity over all of
+    them (a per-shard capacity would drop other copies); shard ``s`` runs
+    its experts' MLPs on their capacity slots and combines its own copies
+    in the fixed expert order; the shards' outputs are summed
+    (``all_reduce_sum``). At K <= 2 the result equals :func:`moe_ffn`'s bit
+    for bit."""
+    shape = x.shape
+    tokens = x.reshape(-1, cfg.d_model)
+    T, E, K = tokens.shape[0], cfg.num_experts, cfg.top_k
+    tp = len(params["w_gate"])
+    if E % tp:
+        raise ValueError(f"{E} experts do not divide over {tp} shards")
+    gates, top_e, probs = _route(params, tokens, cfg)
+    cap = capacity(cfg, T)
+    expert_in, slot, weight, counts, order = _dispatch(
+        tokens, top_e, gates, E, cap)
+    n = E // tp
+    parts = []
+    for s in range(tp):
+        mlp = {k: params[k][s] for k in ("w_gate", "w_in", "w_out")}
+        out = _expert_mlp(mlp, expert_in[s * n:(s + 1) * n])
+        lo = s * n * cap
+        mine = (slot >= lo) & (slot < lo + n * cap)
+        parts.append(_combine(out, torch.where(mine, slot - lo,
+                                               torch.zeros_like(slot)),
+                              weight, order, top_e, keep=mine))
+    y = collectives.all_reduce_sum(parts)
     frac_routed = counts.float() / (T * K)
     aux = E * torch.sum(frac_routed * probs.mean(dim=0))
     return y.reshape(shape), aux

@@ -376,11 +376,22 @@ class Layout:
     def __repr__(self) -> str:
         return f"Layout(spec={self.spec}, cuts={self.cuts})"
 
+    def _full(self, ndim: int) -> tuple:
+        return (self.spec + (None,) * (ndim - len(self.spec)),
+                self.cuts + (1,) * (ndim - len(self.cuts)))
+
+    def holds(self, leaf: Any, device: torch.device) -> bool:
+        """Is ``leaf`` already this layout's pieces on ``device``?"""
+        if not isinstance(leaf, Sharded):
+            return False
+        spec, cuts = self._full(len(leaf.shape))
+        return (leaf.spec == spec and leaf.cuts == cuts
+                and all(p.device == device for p in leaf.pieces))
+
     def cut(self, t: torch.Tensor, copy: bool = False) -> Any:
         """``t`` as its pieces, each a contiguous copy; when nothing is cut,
         ``t`` itself (a copy with ``copy``)."""
-        spec = self.spec + (None,) * (t.ndim - len(self.spec))
-        cuts = self.cuts + (1,) * (t.ndim - len(self.cuts))
+        spec, cuts = self._full(t.ndim)
         if math.prod(cuts) == 1:
             return t.detach().clone() if copy else t
         return Sharded(spec, cuts, cut_pieces(t, cuts), t.shape)
@@ -431,15 +442,22 @@ def param_shardings(params: Any, mesh: Mesh) -> Any:
     return node(param_specs(params))
 
 
-def shard_params(params: Any, mesh: Mesh) -> Any:
+def shard_params(params: Any, mesh: Mesh, copy: bool = True) -> Any:
     """``params`` (whole tensors, or already sharded on another mesh) cut
     into pieces on ``mesh``'s device by :data:`PARAM_RULES`: a tree of its
     own, so a step that updates it in place leaves ``params`` as they
-    were."""
+    were. ``copy=False`` (JAX's ``device_put`` of an array already so
+    placed) passes through every leaf that already has its layout on the
+    mesh's device, a :class:`Sharded` leaf of the same cuts or a whole
+    tensor no axis cuts, so a tree born sharded
+    (:func:`init_sharded_params`, a sharded checkpoint's restore) is taken
+    as it is, never gathered whole."""
 
     def place(layout, t):
-        t = local(t)  # a leaf already sharded: its whole tensor
-        return layout.cut(t.to(mesh.device), copy=True)
+        if not copy and layout.holds(t, mesh.device):
+            return t
+        t = local(t)  # a leaf sharded otherwise: its whole tensor
+        return layout.cut(t.to(mesh.device), copy=copy)
 
     return _tree_map2(place, param_shardings(params, mesh), params)
 
@@ -656,7 +674,8 @@ def _layout_axis(axis: Optional[int], value: Any) -> Any:
     """A weight rule's axis expanded to its serving layout, as JAX's
     ``_layout_spec`` does: an int8 :class:`..ops.quant.QTensor`'s payload
     takes the rule's axis and its scale ``[..., 1, out]`` the same axis
-    where that is the out axis (the reduced in axis stays whole); a
+    where that is the out axis or a leading one (an expert stack's ``E``);
+    the reduced in axis stays whole; a
     :class:`..ops.lora.LoRAWeight`'s base follows its rule, ``a [..., in,
     r]`` takes the axis where it is the in axis, ``b [..., r, out]`` where
     it is the out axis, and ``scale`` stays whole, so a row-parallel sum
@@ -668,7 +687,7 @@ def _layout_axis(axis: Optional[int], value: Any) -> Any:
                           b=axis if axis == last else None, scale=None)
     if isinstance(value, QTensor):
         last = value.q.ndim - 1
-        return QTensor(q=axis, scale=axis if axis == last else None)
+        return QTensor(q=axis, scale=None if axis == last - 1 else axis)
     return axis
 
 

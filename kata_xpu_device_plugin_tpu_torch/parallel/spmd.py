@@ -37,8 +37,8 @@ import torch.utils.checkpoint
 
 from ..models import transformer as tfm
 from ..ops import collectives
-from .mesh import AXIS_MODEL, Mesh
-from .sharding import layer_leaves, local
+from .mesh import AXIS_FSDP, AXIS_MODEL, Mesh
+from .sharding import Sharded, layer_leaves, local
 
 
 def model_size(mesh: Mesh) -> int:
@@ -64,21 +64,33 @@ class LayerShards:
         return list(out.tensor_split(self.tp, dim=-1))
 
 
+def _model_rows(table: Any, m: int) -> list:
+    """Model shard ``m``'s rows of an embedding table as its fsdp pieces
+    (each a slice of ``d_model``), not gathered: a lookup gathers only the
+    rows it reads, as GSPMD partitions a gather."""
+    if isinstance(table, Sharded) and AXIS_FSDP in table.spec:
+        n = table.cuts[table.spec.index(AXIS_FSDP)]
+        return [table.select(**{AXIS_MODEL: m, AXIS_FSDP: f}) for f in range(n)]
+    return [local(table, **{AXIS_MODEL: m})]
+
+
 def vocab_embed(table: Any, tokens: torch.Tensor, cfg, tp: int) -> torch.Tensor:
     """The vocab-parallel lookup: model shard m holds rows ``[lo_m,
-    hi_m)`` of the table (gathered over fsdp), looks up the tokens in its
-    range, zeros elsewhere, and the shards' rows are summed. Exactly one
-    shard contributes to each token, so the fp32 sum is the row itself
-    and the result equals ``models.transformer.embed`` bit for bit."""
+    hi_m)`` of the table, looks up the tokens in its range in each fsdp
+    piece and gathers the looked-up rows over fsdp, zeros elsewhere, and
+    the shards' rows are summed. Exactly one shard contributes to each
+    token, so the fp32 sum is the row itself and the result equals
+    ``models.transformer.embed`` bit for bit."""
     rows, lo = [], 0
     for m in range(tp):
-        part = local(table, **{AXIS_MODEL: m})
-        hi = lo + part.shape[0]
+        parts = _model_rows(table, m)
+        hi = lo + parts[0].shape[0]
         inside = (tokens >= lo) & (tokens < hi)
         idx = torch.where(inside, tokens - lo, torch.zeros_like(tokens))
-        rows.append(torch.where(inside[..., None], part[idx],
-                                torch.zeros((), dtype=part.dtype,
-                                            device=part.device)))
+        got = collectives.all_gather([p[idx] for p in parts], dim=-1)
+        rows.append(torch.where(inside[..., None], got,
+                                torch.zeros((), dtype=got.dtype,
+                                            device=got.device)))
         lo = hi
     return tfm.embed_rows(collectives.all_reduce_sum(rows), cfg)
 

@@ -1983,14 +1983,15 @@ def _small_mixtral():
                    n_kv_heads=2, d_ff=512, vocab_size=512)
 
 
-def _chunk_replay_equals_eager(params, cfg, dev, paged: bool):
+def _chunk_replay_equals_eager(params, cfg, dev, paged: bool, **server_kw):
     """The server's second decode chunk by capture and first replay against
     the same chunk eager on a clone of the arena: tokens, last, pos and
-    every arena byte equal; the paged kernel launched once a layer step."""
+    every arena byte equal; the paged kernel launched once a layer step
+    and shard. ``server_kw`` (``tp``, ``mesh``) goes to the server."""
     from kata_xpu_device_plugin_tpu_torch.guest.decode_graph import serve_decode
 
     kw = dict(max_batch=4, max_len=512, prefill_buckets=(128, 256), chunk=4,
-              overlap=False)
+              overlap=False, **server_kw)
     if paged:
         kw.update(kv_pool_tokens=4096, kv_block_size=16)
     srv = GenerationServer(params, cfg, **kw)
@@ -2009,13 +2010,14 @@ def _chunk_replay_equals_eager(params, cfg, dev, paged: bool):
 
     extra = {"block_tables": to_dev(srv._bt_host)} if paged else {}
     tok, pos = to_dev(srv._last), to_dev(srv._pos)
-    want = serve_decode(params, eager_arena, tok, pos, cfg, exe.steps,
+    want = serve_decode(srv.params, eager_arena, tok, pos, cfg, exe.steps,
                         exe.decode_kernel_fn, **extra, **exe._kw)
     d0 = decode_attn.paged_decode_attention.launches
     got = exe(tok, pos, **extra)
     torch.cuda.synchronize()
     assert (exe.captures, exe.replays) == (1, 1)
-    assert decode_attn.paged_decode_attention.launches - d0 == exe.steps * cfg.n_layers
+    assert (decode_attn.paged_decode_attention.launches - d0
+            == exe.steps * cfg.n_layers * srv.stats()["tp_degree"])
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     for a, c in zip(_leaves(arena), clone):
@@ -2037,6 +2039,37 @@ def test_moe_decode_graph_replay_is_bit_equal_to_eager(cuda_device, paged,
         params = quant.quantize_decoder_params(params)
     stats = _chunk_replay_equals_eager(params, cfg, cuda_device, paged)
     assert stats["decode_graph_captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mesh-gemma-fused", "mesh-mixtral",
+                                  "tp2-mixtral-int8"])
+def test_mesh_and_moe_tp_decode_graph_replay_is_bit_equal_to_eager(cuda_device,
+                                                                    case):
+    """The two serving paths of a caller's mesh and of MoE under tp: a
+    fused Gemma-shaped tree and a Mixtral-shaped one over fsdp 2 x model 2
+    (each layer's fsdp gathers inside the graph), and the Mixtral-shaped
+    tree with int8 experts at ``tp=2``: replay equals eager, the paged
+    kernel once a shard a layer step."""
+    from dataclasses import replace
+
+    from kata_xpu_device_plugin_tpu_torch.parallel.mesh import build_mesh
+
+    if case == "mesh-gemma-fused":
+        cfg = replace(gemma_2b(), n_layers=2, vocab_size=512)
+        params = transformer.fuse_decoder_params(
+            init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16))
+    else:
+        cfg = _small_mixtral()
+        params = init_params(cfg, seed=0, device=cuda_device, dtype=torch.bfloat16)
+    if case == "tp2-mixtral-int8":
+        params = quant.quantize_decoder_params(params)
+        kw = {"tp": 2}
+    else:
+        kw = {"mesh": build_mesh({"fsdp": 2, "model": 2})}
+    for paged in (False, True):
+        stats = _chunk_replay_equals_eager(params, cfg, cuda_device, paged, **kw)
+        assert stats["tp_degree"] == 2 and stats["decode_graph_captures"] == 1
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """PyTorch port against Hugging Face ``transformers``: random-init tiny
 Qwen2 (GQA groups 2 and 7), Mistral, Gemma-2 and Gemma-3 models built from
-config objects (no downloads), their weights taken through the JAX
-package's ``params_from_hf`` and the port's bridge, and the port's logits
-and greedy tokens held against the HF model's. Windows small enough to
-bite at the test length."""
+config objects (no downloads), their weights taken through the port's
+``models.convert.from_hf``, and the port's logits and greedy tokens held
+against the HF model's. One case still goes through the JAX package's
+``from_hf`` and the bridge and holds the two conversions together.
+Windows small enough to bite at the test length."""
 import dataclasses
 
 import jax
@@ -16,6 +17,7 @@ transformers = pytest.importorskip("transformers")
 
 from kata_xpu_device_plugin_tpu.models.convert import from_hf  # noqa: E402
 from kata_xpu_device_plugin_tpu_torch.models import bridge  # noqa: E402
+from kata_xpu_device_plugin_tpu_torch.models import convert as tconvert  # noqa: E402
 from kata_xpu_device_plugin_tpu_torch.models import transformer as tt  # noqa: E402
 
 B, S = 2, 32
@@ -48,12 +50,8 @@ MODELS = {
 
 
 def _port_model(hf_model):
-    params, jcfg = from_hf(hf_model)
-    tcfg = bridge.config_from_fields(
-        {**dataclasses.asdict(jcfg), "dtype": "float32"})
-    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params), tcfg,
-                                       "cpu")
-    return tparams, tcfg
+    tparams, tcfg = tconvert.from_hf(hf_model, device="cpu")
+    return tparams, dataclasses.replace(tcfg, dtype=torch.float32)
 
 
 def _hf_model(name, seed):
@@ -104,9 +102,19 @@ def test_greedy_tokens_match_hf(name):
 
 
 def test_bridge_config_keeps_the_family_flags():
-    """The converted Gemma-3 config keeps its cycles through the bridge."""
-    _, jcfg = from_hf(_hf_model("gemma3", seed=1))
+    """The converted Gemma-3 config keeps its cycles through the bridge,
+    and JAX's conversion taken through the bridge is the port's own."""
+    model = _hf_model("gemma3", seed=1)
+    jparams, jcfg = from_hf(model)
     tcfg = bridge.config_from_fields(dataclasses.asdict(jcfg))
     assert tcfg.attn_windows == tuple(jcfg.attn_windows)
     assert tcfg.rope_theta_cycle == tuple(jcfg.rope_theta_cycle)
     assert tcfg.dtype == torch.bfloat16 and jcfg.dtype == jnp.bfloat16
+    ours, ocfg = tconvert.from_hf(model, device="cpu")
+    assert ocfg == tcfg
+    bridged = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       dataclasses.replace(tcfg, dtype=torch.float32),
+                                       "cpu")
+    for k in bridged["layers"]:
+        assert torch.equal(ours["layers"][k], bridged["layers"][k]), k
+    assert torch.equal(ours["embed"], bridged["embed"])

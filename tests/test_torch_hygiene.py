@@ -36,7 +36,8 @@ def _forbidden(name: str) -> bool:
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((REPO / "scripts").glob("torch_*.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -115,10 +116,55 @@ def test_every_cuda_source_is_named_in_chip_smoke():
 
 
 def test_new_port_modules_are_under_the_import_guard():
-    names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if p.is_relative_to(PORT)}
     assert {"guest/kv_arena.py", "guest/serving.py", "ops/decode_attn.py",
             "parallel/spmd.py", "parallel/flash_spmd.py", "parallel/pipeline.py",
-            "parallel/composed.py"} <= names
+            "parallel/composed.py", "models/convert.py", "guest/probe.py",
+            "guest/distributed.py"} <= names
+    assert REPO / "scripts" / "torch_serve_mesh_phase.py" in _sources()
+
+
+def test_convert_imports_safetensors_only_in_its_file_functions():
+    """No module of the port imports ``safetensors`` or ``transformers`` at
+    import time; ``models/convert.py`` reaches ``safetensors`` only from
+    ``load_hf_checkpoint`` and ``save_hf_checkpoint``. With both packages
+    blocked the module imports, converts in memory, and a file function
+    raises an ``ImportError`` that names the package."""
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert not any(n.split(".")[0] in ("safetensors", "transformers")
+                               for n in names), f"{path}:{node.lineno}"
+    tree = ast.parse((PORT / "models" / "convert.py").read_text())
+    callers = {f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+               and any(isinstance(c, ast.Call) and getattr(c.func, "id", "")
+                       == "_safetensors" for c in ast.walk(f))}
+    assert callers == {"load_hf_checkpoint", "save_hf_checkpoint"}
+    code = "\n".join([
+        "import sys",
+        "sys.modules['safetensors'] = None",
+        "sys.modules['transformers'] = None",
+        "import torch",
+        "from kata_xpu_device_plugin_tpu_torch.models import convert, init_params",
+        "from kata_xpu_device_plugin_tpu_torch.models.transformer import tiny_test_config",
+        "cfg = tiny_test_config(dtype=torch.float32, activation='swiglu',"
+        " scale_embeddings=False, tie_embeddings=False)",
+        "p = init_params(cfg, device='cpu')",
+        "sd, hf = convert.to_hf_state_dict(p, cfg, 'llama')",
+        "q, c = convert.from_hf(sd, hf, device='cpu')",
+        "assert torch.equal(q['layers']['wq'], p['layers']['wq'])",
+        "try:",
+        "    convert.load_hf_checkpoint('.', device='cpu')",
+        "except ImportError as e:",
+        "    assert 'safetensors' in str(e), e",
+        "    print('ok')",
+    ])
+    res = _run(code)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):

@@ -3,8 +3,9 @@
 term, int8 experts, the per-token reference), the Mixtral test config's
 logits, aux and loss, one MoE train step, and MoE serving against the JAX
 server (tokens, counters, events) slotted and paged, overlapped and
-lock-step, on the same numpy weights (fp32, the CPU). Then the refusals
-that stay: MoE under tensor parallelism (ROADMAP item 12b) and JAX's own
+lock-step, on the same numpy weights (fp32, the CPU); MoE under
+tensor-parallel serving (``tp=2``) against JAX's ``tp=2`` server and the
+layer against ``moe_ffn``'s global dispatch. Then JAX's own refusal of
 ``top_k > num_experts``.
 
 Tolerances: outputs of one MoE layer within 1e-5 (fp32, only the two
@@ -135,6 +136,14 @@ def test_dispatch_needs_no_host_sync_and_combines_in_expert_order():
 def mixtral():
     jcfg = jmixtral.mixtral_test_config(dtype=jnp.float32)
     return (jcfg,) + numpy_pair(jcfg, seed=4)
+
+
+@pytest.fixture(scope="module")
+def mixtral_drops():
+    """One layer at a capacity factor that drops token copies."""
+    jcfg = jmixtral.mixtral_test_config(dtype=jnp.float32, n_layers=1,
+                                        moe_capacity_factor=0.5)
+    return (jcfg,) + numpy_pair(jcfg, seed=5)
 
 
 @pytest.fixture(scope="module")
@@ -337,10 +346,66 @@ def test_moe_server_modes_match_jax(mixtral_1l, mode):
     assert {k: stats[1][k] for k in COUNTERS} == {k: stats[0][k] for k in COUNTERS}
 
 
-def test_moe_under_tensor_parallelism_raises(mixtral):
-    _, _, tp, tcfg = mixtral
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        GenerationServer(tp, tcfg, device="cpu", max_batch=2, max_len=32, tp=2)
+def test_moe_under_tensor_parallelism_raises(mixtral_drops):
+    """Once refused, MoE under tensor-parallel serving now serves (the
+    name is kept): the ``tp=2`` Mixtral server, slotted and paged, gives
+    the tokens and counters of JAX's ``tp=2`` server and of the port's own
+    ``tp=1`` server, over a capacity factor that drops copies (a per-shard
+    capacity would drop others)."""
+    jcfg, jp, tp, tcfg = mixtral_drops
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in LENGTHS]
+    for layout in ("slotted", "paged"):
+        kw = dict(kv_quant=True, **LAYOUTS[layout],
+                  **{k: v for k, v in KW.items() if k != "heartbeat_rounds"},
+                  heartbeat_rounds=0)
+        outs, stats = [], []
+        for srv in (JaxServer(jp, jcfg, tp=2, **kw),
+                    GenerationServer(tp, tcfg, device="cpu", tp=2, **kw),
+                    GenerationServer(tp, tcfg, device="cpu", tp=1, **kw)):
+            rids = [srv.submit(p, b) for p, b in zip(prompts, BUDGETS)]
+            res = srv.run()
+            outs.append([np.asarray(res[r]) for r in rids])
+            stats.append(srv.stats())
+        for other in outs[1:]:
+            for g, w in zip(other, outs[0]):
+                np.testing.assert_array_equal(g, w)
+        keys = COUNTERS + ("tp_degree",)
+        assert ({k: stats[1][k] for k in keys}
+                == {k: stats[0][k] for k in keys}), layout
+        assert stats[1]["tp_degree"] == 2
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("top_k,factor", [(2, 0.5), (3, 0.75)],
+                         ids=["k2-drops", "k3-drops"])
+def test_tp2_moe_layer_is_the_global_dispatch(top_k, factor, quantized):
+    """The ``tp=2`` serving layer (each shard's experts on the one global
+    dispatch, the shards' combines summed) against ``moe_ffn`` over the
+    whole stacks, whose capacity counts every token: bit-equal at K = 2,
+    within 1e-6 at K = 3 (the cross-shard sum regroups the K adds), and
+    within :data:`MOE_TOL` of JAX's ``moe_ffn``; capacity drops happen."""
+    cfg_kw = dict(d_model=16, d_ff=32, num_experts=4, capacity_factor=factor,
+                  top_k=top_k)
+    jcfg, tcfg = jmoe.MoEConfig(**cfg_kw), tmoe.MoEConfig(**cfg_kw)
+    jp, tp = _both(_layer_params(50 + top_k), quantized)
+    x = np.random.default_rng(4).standard_normal((3, 7, 16)).astype(np.float32)
+    whole, aux = tmoe.moe_ffn(tp, torch.from_numpy(x), tcfg)
+    shards = {"router": tp["router"]}
+    for k in ("w_gate", "w_in", "w_out"):
+        shards[k] = [tt.map_leaf(lambda t, s=s: t[2 * s:2 * s + 2], tp[k])
+                     for s in range(2)]
+    got, aux_tp = tmoe.moe_ffn_tp(shards, torch.from_numpy(x), tcfg)
+    if top_k == 2:
+        assert torch.equal(got, whole)
+    else:
+        np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(aux_tp, aux)
+    yj, _ = jmoe.moe_ffn(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(yj), **MOE_TOL)
+    _g, experts, _p = tmoe._route(tp, torch.from_numpy(x).reshape(-1, 16), tcfg)
+    counts = torch.bincount(experts.reshape(-1), minlength=4)
+    assert int(counts.clamp(max=tmoe.capacity(tcfg, 21)).sum()) < 21 * top_k
 
 
 def test_devledger_counts_the_experts(mixtral):
