@@ -244,8 +244,9 @@ a local block, with no operand copied:
    against their plain versions, timed beside SDPA and the bound.
 
 Then serving over a caller's mesh, MoE under tensor parallelism, the HF
-conversion and the guest probe (PERF.md configurations 21-24;
-``scripts/torch_serve_mesh_phase.py`` runs them alone):
+conversion, the guest probe (PERF.md configurations 21-24;
+``scripts/torch_serve_mesh_phase.py`` runs them alone) and the host
+daemon (configuration 25):
 8k. serve_mesh — ``GenerationServer(mesh=build_mesh({"fsdp": 2, "model":
    2}))`` beside the unsharded server: Gemma-2B, all 18 layers, the paged
    configuration's 32 requests (one KV head: ``kv_replicated``), and
@@ -268,7 +269,24 @@ conversion and the guest probe (PERF.md configurations 21-24;
    (:func:`phase_convert`);
 8n. probe — ``guest.probe.run_ladder`` on the card, its three lines, every
    check ``ok``;
-8o. mesh_shards — the flash forward and the paged decode kernel at those
+8o. host — the GPU daemon and the guest it hands the card to (PERF.md
+   configuration 25, :func:`phase_host`; ``scripts/torch_host_phase.py``
+   runs it alone). A fresh daemon process, which never initializes CUDA
+   (asserted): ``scan_gpus`` over this machine's real /sys, /dev and /proc
+   finds ``torch.cuda.device_count()`` GPUs, each a char device 195:N with
+   the minor, BDF and device id ``nvidia-smi`` gives (``[N/A]`` where the
+   machine hides them); ``scan_vfio`` lists none of them; the manager
+   writes the JSON CDI spec, read back and validated, every node in it
+   present; an Allocate over the plugin's socket with int8 KV, 8 decode
+   steps, a pool of 8000 tokens, a guest events dir and a heartbeat every
+   4 rounds. The guest, a process started with exactly that allocation's
+   env: the probe ladder, Gemma-2B (all 18 layers) served, 8 requests, by
+   a server that takes those knobs from the env (launches by the launch
+   rule, the knobs in ``stats()``, every event under the allocation's
+   trace), ``graph_check``. The daemon then aggregates the guest's
+   heartbeats under the granted device id. Printed: scan, spec write and
+   Allocate ms, the guest's tok/s, beside the card's name and power limit;
+8p. mesh_shards — the flash forward and the paged decode kernel at those
    servers' model-shard shapes against their plain versions, timed.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
@@ -286,8 +304,11 @@ import contextlib
 import json
 import math
 import os
+import shutil
+import stat
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -1595,9 +1616,11 @@ def _bits(t):
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
-def graph_check(params, cfg, kw, seed: int = 0) -> dict:
+def graph_check(params, cfg, kw, seed: int = 0, budget: int = 64) -> dict:
     """One decode chunk by CUDA graph against the same chunk run eagerly:
-    a server with ``kw`` admits 8 requests and decodes its warm-up chunk
+    a server with ``kw`` admits 8 requests of ``budget`` tokens (more
+    than a chunk's steps, so lanes live on into the second chunk) and
+    decodes its warm-up chunk
     (lock-step), then the second chunk is run eagerly on a clone of the
     arena and through the server's graph (its capture, then its first
     replay) on the live arena, from the same inputs. Tokens, ``last``,
@@ -1617,7 +1640,7 @@ def graph_check(params, cfg, kw, seed: int = 0) -> dict:
     srv = GenerationServer(params, cfg, **{**kw, "overlap": False})
     rng = np.random.default_rng(seed)
     for n in rng.integers(64, 1001, 8):
-        srv.submit(rng.integers(0, cfg.vocab_size, n), 64)
+        srv.submit(rng.integers(0, cfg.vocab_size, n), budget)
     srv.step()
     srv._ensure_blocks()
     arena = srv.kv_pool.arena if srv.paged else srv.arena
@@ -6581,11 +6604,316 @@ def phase_probe() -> dict:
     return {x["check"]: x["ok"] for x in lines}
 
 
+# Configuration 25 (PERF.md): the GPU daemon's knobs for the guest it
+# hands a card to, and the guest's serving run under them.
+HOST_KNOBS = dict(kv_quant="int8", decode_steps=8, kv_pool_tokens=8000,
+                  heartbeat_rounds=4)
+HOST_REQUESTS = 8
+HOST_TIMEOUT_S = 600
+
+
+def _smi_gpus() -> list:
+    """``nvidia-smi``'s view of each card: ``(BDF or None, device id or
+    None, minor)``; ``[N/A]`` where the machine hides a field."""
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pci.bus_id,pci.device_id",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    query = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True,
+                           check=True, timeout=60).stdout
+    minors = [int(line.split(":")[1]) for line in query.splitlines()
+              if line.strip().startswith("Minor Number")
+              and line.split(":")[1].strip().isdigit()]
+    out = []
+    for row, minor in zip(rows, minors):
+        bus, dev = (f.strip() for f in row.split(","))
+        known = [v if not v.startswith("[") else None for v in (bus, dev)]
+        # pci.device_id is the device and vendor ids as one word, 0x233010DE.
+        out.append((known[0], known[1][2:6].lower() if known[1] else None, minor))
+    if len(out) != len(rows):
+        raise AssertionError(f"nvidia-smi: {len(rows)} cards, minors {minors}")
+    return out
+
+
+def host_daemon(expected: int, work: str) -> dict:
+    """The daemon side of configuration 25, in a process of its own that
+    never initializes CUDA (asserted before the guest starts and after it
+    ends). Discovery over the machine's real /sys, /dev and /proc against
+    ``nvidia-smi``; the VFIO scan; the manager writing the JSON CDI spec,
+    read back and checked; an Allocate over the plugin's socket with
+    :data:`HOST_KNOBS`; the guest child (:func:`host_guest`) started with
+    exactly that allocation's env; the guest's heartbeat stream
+    aggregated under the granted device id. Returns the phase's fields."""
+    import threading
+    from concurrent import futures
+
+    import grpc
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import cdi
+    from kata_xpu_device_plugin_tpu_torch.cdi import constants as C
+    from kata_xpu_device_plugin_tpu_torch.config import Config
+    from kata_xpu_device_plugin_tpu_torch.discovery import (
+        normalize_bdf, scan_gpus, scan_pci, scan_vfio)
+    from kata_xpu_device_plugin_tpu_torch.discovery.gpu import proc_gpu_minors
+    from kata_xpu_device_plugin_tpu_torch.plugin import PluginManager
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import deviceplugin_pb2 as pb
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import glue
+    from kata_xpu_device_plugin_tpu_torch.utils import metrics
+
+    failures, row = [], {}
+
+    def no_context(when: str) -> None:
+        if torch.cuda.is_initialized():
+            failures.append(f"the daemon initialized CUDA ({when})")
+
+    t0 = time.perf_counter()
+    inv = scan_gpus()
+    row["scan_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    smi = _smi_gpus()
+    row["gpus"] = [dict(index=c.index, dev_path=c.dev_path, major=c.major,
+                        minor=c.minor, pci_address=c.pci_address,
+                        pci_device=c.pci_device, numa_node=c.numa_node)
+                   for c in inv.chips]
+    row["nvidia_smi_gpus"] = [dict(bus_id=b, device_id=d, minor=m) for b, d, m in smi]
+    row["model"] = inv.model_suffix
+    if inv.count != expected:
+        failures.append(f"scan found {inv.count} GPUs, CUDA counts {expected}")
+    if sorted(c.index for c in inv.chips) != sorted(m for _, _, m in smi):
+        failures.append("scan's minors are not nvidia-smi's")
+    by_minor = {m: (b, d) for b, d, m in smi}
+    # What this machine lets the phase check, said as such rather than
+    # passed: without the driver's procfs the scan takes its sandbox
+    # branch; where nvidia-smi hides the bus and device ids there is no
+    # PCI identity to hold the scan's against; without a PCI tree the VFIO
+    # scan has nothing to leave out.
+    row["procfs_minors_checked"] = proc_gpu_minors() is not None
+    row["pci_identity_checked"] = bool(smi) and all(b and d for b, d, _ in smi)
+    row["vfio_checked"] = bool(scan_pci())
+    for c in inv.chips:
+        st = os.stat(c.dev_path)
+        if not (stat.S_ISCHR(st.st_mode) and os.major(st.st_rdev) == C.GPU_DEVICE_MAJOR
+                and os.minor(st.st_rdev) == c.index):
+            failures.append(f"{c.dev_path} is not char device 195:{c.index}")
+        bus, dev = by_minor.get(c.index, (None, None))
+        if row["pci_identity_checked"] and (
+                normalize_bdf(bus) != c.pci_address or dev != c.pci_device):
+            failures.append(f"GPU {c.index}: scan {c.pci_address} {c.pci_device}, "
+                            f"nvidia-smi {bus} {dev}")
+    vfio = scan_vfio(vendors=("10de",))
+    row["vfio_groups"] = len(vfio.groups)
+    ours = {c.pci_address for c in inv.chips if c.pci_address}
+    if row["vfio_checked"] and any(
+            d.address in ours for devs in vfio.groups.values() for d in devs):
+        failures.append("a GPU the nvidia driver holds is listed as vfio-bound")
+
+    class Kubelet(glue.RegistrationServicer):
+        def __init__(self):
+            self.registered = threading.Event()
+
+        def Register(self, request, context):  # noqa: N802 - the API's name
+            self.registered.set()
+            return pb.Empty()
+
+    kubelet = Kubelet()
+    kdir = os.path.join(work, "k")
+    os.makedirs(kdir)
+    kserver = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+    glue.add_registration_to_server(kubelet, kserver)
+    kserver.add_insecure_port(f"unix://{os.path.join(kdir, 'kubelet.sock')}")
+    kserver.start()
+    events = os.path.join(work, "events")
+    cfg = Config(cdi_dir=os.path.join(work, "cdi"), cdi_format="json",
+                 kubelet_socket_dir=kdir, state_dir=os.path.join(work, "state"),
+                 rescan_interval_s=0, metrics_port=0, guest_events_dir=events,
+                 **HOST_KNOBS)
+    mgr = PluginManager(cfg)
+    try:
+        t0 = time.perf_counter()
+        mgr.start()
+        row["start_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        if not kubelet.registered.wait(10):
+            failures.append("the plugin did not register")
+        t0 = time.perf_counter()
+        (path,) = mgr.write_specs()
+        row["spec_write_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        spec = cdi.load(path)
+        nodes = [n.host_path for n in spec.container_edits.device_nodes] + [
+            n.host_path for d in spec.devices for n in d.container_edits.device_nodes]
+        row["spec"] = dict(path=os.path.basename(path), kind=spec.kind,
+                           devices=spec.device_names(), nodes=nodes)
+        if (spec.kind != C.DEFAULT_KIND
+                or spec.device_names() != [str(c.index) for c in inv.chips]
+                or not all(os.path.exists(n) for n in nodes)):
+            failures.append(f"CDI spec: {row['spec']}")
+        index = str(inv.chips[0].index)
+        with grpc.insecure_channel(
+                f"unix://{mgr.plugins()[0].socket_path}") as ch:
+            stub = glue.DevicePluginStub(ch)
+            req = pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(device_ids=[index])])
+            stub.Allocate(req)  # the channel's first call connects
+            t0 = time.perf_counter()
+            resp = stub.Allocate(req)
+            row["allocate_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        t0 = time.perf_counter()
+        mgr.gpu_allocator().allocate([index])
+        row["allocator_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        envs = dict(resp.container_responses[0].envs)
+        row["envs"] = envs
+        want = {C.ENV_KV_QUANT: "int8", C.ENV_DECODE_STEPS: "8",
+                C.ENV_KV_POOL_TOKENS: "8000", C.ENV_HEARTBEAT_ROUNDS: "4",
+                C.ENV_TPU_VISIBLE_CHIPS: index, C.ENV_OBS: "1"}
+        if any(envs.get(k) != v for k, v in want.items()):
+            failures.append(f"Allocate env {envs}")
+        no_context("before the guest")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("KATA_TPU_", "KATATPU_"))}
+        env.update(envs)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                "--host-guest"], env=env, cwd=HERE,
+                               capture_output=True, text=True, timeout=HOST_TIMEOUT_S)
+        row["guest_s"] = round(time.perf_counter() - t0, 2)
+        no_context("after the guest")
+        lines = [json.loads(x) for x in child.stdout.splitlines() if x.startswith("{")]
+        guest = next((x for x in lines if x.get("phase") == "host_guest"), None)
+        if child.returncode != 0 or guest is None:
+            raise AssertionError(f"host: guest rc {child.returncode}\n"
+                                 f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+        row["guest"] = guest
+        if guest["trace"] != envs[C.ENV_TRACE_CTX]:
+            failures.append("the guest did not adopt the allocation's trace")
+        # The manager's aggregator thread tails the stream while the guest
+        # runs; one more pass takes what it has not yet read. Its counter
+        # holds every heartbeat either pass consumed.
+        agg = mgr.aggregator
+        agg.poll_once()
+        row["aggregated"] = agg.snapshot()
+        keys = list(row["aggregated"])
+        row["heartbeats_aggregated"] = sum(
+            metrics.guest_heartbeats_total.labels(
+                allocation=k.split("/", 1)[0], server=k.split("/", 1)[1]).get()
+            for k in keys)
+        if (row["heartbeats_aggregated"] != guest["heartbeats"]
+                or row["heartbeats_aggregated"] < 1
+                or not keys or not all(k.startswith(f"{index}/") for k in keys)):
+            failures.append(f"aggregated {row['heartbeats_aggregated']} heartbeats "
+                            f"as {keys}, guest emitted {guest['heartbeats']}")
+    finally:
+        mgr.stop()
+        kserver.stop(grace=1).wait()
+    no_context("at the end")
+    row["cuda_initialized"] = torch.cuda.is_initialized()
+    if failures:
+        raise AssertionError("host: " + "; ".join(failures))
+    return row
+
+
+def host_guest() -> dict:
+    """The guest side of configuration 25: a process started with exactly
+    the allocation's env. The probe ladder, then Gemma-2B (all 18 layers)
+    served by a ``GenerationServer`` that takes its KV dtype, pool, decode
+    steps and heartbeat from that env: :data:`HOST_REQUESTS` requests
+    through :func:`run_requests` (the launch rule), the knobs in
+    ``stats()``, every event of its stream under the allocation's trace,
+    then ``graph_check`` (replay bit-equal to eager)."""
+    import io
+
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import obs
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.probe import run_ladder
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_ladder(expected_devices=1)
+    ladder = [json.loads(x) for x in buf.getvalue().splitlines()]
+    if rc != 0 or len(ladder) != 3 or not all(x["ok"] for x in ladder):
+        raise AssertionError(f"host guest probe: rc {rc}, {ladder}")
+    params, cfg = gemma_setup()
+    kw = dict(max_batch=HOST_REQUESTS, **SERVE_KW)
+    srv = GenerationServer(params, cfg, **kw)
+    prompts, budgets, lens = phase_requests(HOST_REQUESTS, cfg.vocab_size, seed=7)
+    outs, wall, launches, stats = run_requests(srv, prompts, budgets)
+    trace = os.environ["KATA_TPU_TRACE_CTX"]
+    knobs = {k: stats[k] for k in ("kv_quant", "decode_steps", "kv_pool_tokens",
+                                   "heartbeat_rounds", "trace", "decode_backend")}
+    want = dict(kv_quant="int8", decode_steps=8, heartbeat_rounds=4, trace=trace,
+                decode_backend="cuda_paged")
+    if any(knobs[k] != v for k, v in want.items()) or not stats["kv_pool_tokens"]:
+        raise AssertionError(f"host guest: the server did not take the env: {knobs}")
+    row = dict(probe={x["check"]: x["ok"] for x in ladder}, knobs=knobs,
+               trace=stats["trace"], heartbeats=stats["heartbeats"],
+               **serve_row(stats, wall, budgets, lens, launches))
+    del srv
+    torch.cuda.empty_cache()
+    # A chunk is chunk x decode_steps = 64 steps here: budgets of two
+    # chunks and more keep the lanes live through the checked chunk.
+    steps = SERVE_KW["chunk"] * HOST_KNOBS["decode_steps"]
+    row["graph_check"] = graph_check(params, cfg, kw, budget=2 * steps + 8)
+    if not row["graph_check"]["lanes"]:
+        raise AssertionError("host guest: graph_check ran no live lane")
+    sink = obs.default_sink()
+    sink.close()
+    evs = obs.read_events(os.environ["KATATPU_OBS_FILE"])
+    row["events"] = len(evs)
+    row["event_traces"] = sorted({e.get("trace") for e in evs})
+    if not evs or row["event_traces"] != [trace]:
+        raise AssertionError(f"host guest: events under {row['event_traces']}")
+    return row
+
+
+def host_work_dir() -> str:
+    """A fresh directory for the host phase's sockets and files: under the
+    temp dir, else the checkout's ``build/``, whichever leaves a unix
+    socket path below it inside its 107 bytes (a plugin socket's name is
+    about 40 bytes)."""
+    for base in (tempfile.gettempdir(), os.path.join(HERE, "build")):
+        if len(base) <= 48:
+            os.makedirs(base, exist_ok=True)
+            return tempfile.mkdtemp(prefix="kh-", dir=base)
+    return tempfile.mkdtemp(prefix="kh-", dir="/tmp")
+
+
+def phase_host(smi: str) -> dict:
+    """Configuration 25 (PERF.md): the GPU daemon on this machine's real
+    /sys, /dev and /proc, and Gemma-2B served on the card under the
+    daemon's allocation. This process holds a CUDA context since the
+    first phase, so the daemon side runs in a fresh one
+    (``chip_smoke.py --host-daemon``, :func:`host_daemon`), which starts
+    the guest (``--host-guest``, :func:`host_guest`) with the allocation's
+    env. Returns the guest run's kernel launches."""
+    import torch
+
+    work = host_work_dir()
+    try:
+        res = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--host-daemon",
+             str(torch.cuda.device_count()), work],
+            capture_output=True, text=True, cwd=HERE, timeout=HOST_TIMEOUT_S + 120)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    row = next((x for x in lines if x.get("phase") == "host_daemon"), None)
+    if res.returncode != 0 or row is None:
+        raise AssertionError(f"host: daemon rc {res.returncode}\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    del row["phase"]
+    emit("host", nvidia_smi=smi, **row)
+    return row["guest"]["launches"]
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if argv[:1] == ["--host-daemon"]:  # phase_host's daemon side: no CUDA
+        emit("host_daemon", **host_daemon(int(argv[1]), argv[2]))
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -6593,6 +6921,9 @@ def main(argv: list[str]) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--host-guest"]:  # phase_host's guest, under its env
+        emit("host_guest", **host_guest())
+        return 0
     profile = "--profile" in argv  # adds profiled decode rounds and a train step
     seconds = {}
 
@@ -6651,6 +6982,7 @@ def main(argv: list[str]) -> int:
     timed_phase("convert", phase_convert)
     torch.cuda.empty_cache()
     timed_phase("probe", phase_probe)
+    launches["host"] = timed_phase("host", phase_host, smi)
     for name, cases in timed_phase("mesh_shards", phase_mesh_shards).items():
         checks[name] += cases
     for name, n in timed_phase("families", phase_families,

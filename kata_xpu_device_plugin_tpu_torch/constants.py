@@ -172,7 +172,7 @@ ENV_W8A8 = "KATA_TPU_W8A8"
 # Multi-host identity the device plugin injects into every guest of a
 # slice (guest/distributed.py): the ordered worker hostnames (worker 0's is
 # the coordinator) and this guest's index in them. The TPU daemon's names,
-# kept as they are until the daemon is re-targeted.
+# which the GPU daemon (cdi/constants.py) injects unchanged.
 ENV_WORKER_HOSTNAMES = "TPU_WORKER_HOSTNAMES"
 ENV_WORKER_ID = "TPU_WORKER_ID"
 DEFAULT_COORDINATOR_PORT = 8476

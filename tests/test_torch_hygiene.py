@@ -1,7 +1,8 @@
 """PyTorch port, hygiene: the port imports nothing of JAX, of the JAX
 package or of ``prometheus_client`` (the card's machine has none: the
 port's metrics are plain Python), its modules import without nvcc, Triton
-or a card, its entry
+or a card, the host daemon's kubelet API files are the JAX package's byte
+for byte and PyYAML is reached only for YAML specs, its entry
 points refuse to fall back to the CPU on their own, and ``chip_smoke.py``
 fails without a card or outside a checkout."""
 import ast
@@ -122,7 +123,65 @@ def test_new_port_modules_are_under_the_import_guard():
             "parallel/spmd.py", "parallel/flash_spmd.py", "parallel/pipeline.py",
             "parallel/composed.py", "models/convert.py", "guest/probe.py",
             "guest/distributed.py"} <= names
+    assert set(DAEMON_MODULES) <= names
     assert REPO / "scripts" / "torch_serve_mesh_phase.py" in _sources()
+    assert REPO / "scripts" / "torch_host_phase.py" in _sources()
+
+
+# The host daemon's modules (the GPU device plugin).
+DAEMON_MODULES = (
+    "__main__.py", "config.py", "cdi/__init__.py", "cdi/constants.py",
+    "cdi/model.py", "cdi/names.py", "cdi/writer.py", "discovery/__init__.py",
+    "discovery/gpu.py", "discovery/pciids.py", "discovery/sysfs.py",
+    "discovery/vfio.py", "topology/__init__.py", "topology/host.py",
+    "topology/preferred.py", "plugin/__init__.py", "plugin/allocators.py",
+    "plugin/health.py", "plugin/manager.py", "plugin/server.py",
+    "plugin/api/__init__.py", "plugin/api/glue.py",
+    "plugin/api/deviceplugin_pb2.py", "plugin/api/podresources_pb2.py",
+    "utils/__init__.py", "utils/inotify.py", "utils/log.py", "utils/metrics.py",
+)
+
+
+def test_plugin_api_copies_are_byte_identical():
+    """The kubelet API files are the JAX package's, byte for byte: a proto
+    edited under the same file name would clash in protobuf's default
+    descriptor pool the moment one process loads both packages."""
+    jax_api = REPO / JAX_PKG / "plugin" / "api"
+    names = sorted(p.name for p in jax_api.iterdir() if p.is_file())
+    assert names == ["__init__.py", "deviceplugin.proto", "deviceplugin_pb2.py",
+                     "glue.py", "podresources.proto", "podresources_pb2.py"]
+    for name in names:
+        assert (PORT / "plugin" / "api" / name).read_bytes() == (
+            jax_api / name).read_bytes(), name
+
+
+def test_daemon_reaches_yaml_only_for_yaml_specs():
+    """No daemon module imports ``yaml`` at import time: with PyYAML
+    blocked the daemon imports, writes and reads a JSON spec, and only a
+    YAML render raises."""
+    for rel in DAEMON_MODULES:
+        tree = ast.parse((PORT / rel).read_text(), rel)
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert "yaml" not in names, f"{rel}:{node.lineno}"
+    code = "\n".join([
+        "import sys, tempfile",
+        "sys.modules['yaml'] = None",
+        "from kata_xpu_device_plugin_tpu_torch import cdi",
+        "from kata_xpu_device_plugin_tpu_torch.plugin import PluginManager",
+        "spec = cdi.Spec(kind='nvidia.com/gpu')",
+        "spec.add_device(cdi.Device(name='0'))",
+        "path = cdi.save(spec, tempfile.mkdtemp(), cdi.FORMAT_JSON)",
+        "assert cdi.load(path).device_names() == ['0']",
+        "try:",
+        "    cdi.render(spec, cdi.FORMAT_YAML)",
+        "except ImportError:",
+        "    print('ok')",
+    ])
+    res = _run(code)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
 def test_convert_imports_safetensors_only_in_its_file_functions():
