@@ -270,8 +270,8 @@ daemon (configuration 25):
 8n. probe — ``guest.probe.run_ladder`` on the card, its three lines, every
    check ``ok``;
 8o. host — the GPU daemon and the guest it hands the card to (PERF.md
-   configuration 25, :func:`phase_host`; ``scripts/torch_host_phase.py``
-   runs it alone). A fresh daemon process, which never initializes CUDA
+   configuration 25, :func:`phase_host`; ``scripts/torch_multihost_phase.py
+   --phases host`` runs it alone). A fresh daemon process, which never initializes CUDA
    (asserted): ``scan_gpus`` over this machine's real /sys, /dev and /proc
    finds ``torch.cuda.device_count()`` GPUs, each a char device 195:N with
    the minor, BDF and device id ``nvidia-smi`` gives (``[N/A]`` where the
@@ -286,8 +286,43 @@ daemon (configuration 25):
    trace), ``graph_check``. The daemon then aggregates the guest's
    heartbeats under the granted device id. Printed: scan, spec write and
    Allocate ms, the guest's tok/s, beside the card's name and power limit;
-8p. mesh_shards — the flash forward and the paged decode kernel at those
+8p. multihost — two daemons on this machine as workers 0 and 1 of one
+   two-host membership (PERF.md configuration 26, :func:`phase_multihost`;
+   ``scripts/torch_multihost_phase.py`` runs it alone): each ``python -m
+   kata_xpu_device_plugin_tpu_torch run`` with its own state, CDI and
+   socket dirs and a stand-in kubelet that answers pod-resources ``List``
+   with what was granted; worker 0 by ``--worker-hostnames
+   127.0.0.1,localhost --node-name 127.0.0.1``, worker 1 by a metadata
+   dir (``0:127.0.0.1:8476,1:localhost:8476``, worker number 1). Asserted:
+   both JSON specs carry one hostname list and the ids 0 and 1; ``status
+   --json`` of each lists its pod assignment and leaves the state file's
+   bytes and mtime unchanged; worker 1, restarted with its metadata dir
+   emptied, keeps id 1 from its state file (its log says so); no daemon
+   initializes CUDA. Two guests with their spec's and allocation's env:
+   ``initialize_from_env(device="cpu")`` (gloo; NCCL refuses two ranks on
+   one device, so no NCCL group is formed: item 10), each its
+   ``make_loader`` stride of one global batch, together covering it;
+   worker 0's guest serves ``gemma_2b_bench`` (18 layers, int8 KV from the
+   env) 8 requests at 8 lanes by the launch rule, ``graph_check``;
+8q. mesh_shards — the flash forward and the paged decode kernel at those
    servers' model-shard shapes against their plain versions, timed.
+
+After the seq phases:
+
+13. bench_configs — the JAX bench's configs (PERF.md configuration 27,
+   :func:`phase_bench_configs`): ``fit`` of ``llama3_train_bench`` (all 12
+   layers, head_dim 64) at B=16, S=1024 with remat, 4 steps, the loss
+   falling and the launches exact (the forward twice a layer a step); its
+   three flash kernels at ``[16, 1024, 16/8, 64]`` against their plain
+   versions, timed beside SDPA and their bounds; the paged decode kernel
+   at its heads (4 lanes, 16/8, 64), int8 and bf16, at the tile the
+   ladder's ``generate`` takes (128) and over 16-row blocks with a dead
+   lane, against its plain version; then
+   ``scripts/torch_eval_quality.py --config llama3_train_bench --dtype
+   bfloat16`` (its four rungs printed, the flash and paged kernels
+   launched), and a second witness for its int8-KV rung: the same
+   decodes through the plain attention, each kernel run against the plain
+   run over its cache, the plain top-2 margin where the int8 runs part.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
@@ -1457,24 +1492,22 @@ SERVE_KW = dict(max_len=2048, prefill_buckets=(128, 256, 512, 1024), chunk=8)
 PAGED_KW = dict(max_batch=16, kv_pool_tokens=8000, kv_block_size=16)
 
 
-def gemma_setup(seed: int = 0):
-    """Full-width Gemma-2B, random bf16 weights from ``seed``, fused."""
+def gemma_setup(seed: int = 0, model: str = "gemma_2b"):
+    """Full-width Gemma-2B (or ``model``, a config of the port's
+    ``models``), random bf16 weights from ``seed``, fused."""
     import torch
 
-    from kata_xpu_device_plugin_tpu_torch.models import (
-        fuse_decoder_params,
-        gemma_2b,
-        init_params,
-    )
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.models import fuse_decoder_params, init_params
 
-    cfg = gemma_2b()
+    cfg = getattr(models, model)()
     t0 = time.perf_counter()
     params = fuse_decoder_params(
         init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in [params["embed"], params["final_norm"],
                                        *params["layers"].values()])
-    emit("serve_setup", model="gemma_2b", params=n_params,
+    emit("serve_setup", model=model, params=n_params,
          init_s=round(time.perf_counter() - t0, 3))
     return params, cfg
 
@@ -4531,14 +4564,16 @@ def train_flops_per_step(cfg, B: int, S: int) -> float:
 TRAIN_MODELS = {  # model -> (layers of the published depth, why cut)
     "llama3_8b": (32, "one card's memory"),
     "gemma_2b": (18, "the phase's share of the run's time"),
+    "llama3_train_bench": (12, None),
 }
 
 
 def phase_train(model: str = "llama3_8b", n_layers: int = 8, steps: int = 6,
-                seed: int = 0, profile: bool = False, phase: str = "train") -> dict:
+                seed: int = 0, profile: bool = False, phase: str = "train",
+                B: int = 2, seq_len: int = 2047, remat: bool = False) -> dict:
     """``fit`` at ``model``'s published widths with ``n_layers`` of its
-    layers on one batch of B=2 windows of 2048 tokens, seen every step.
-    ``profile`` adds one more step under the profiler."""
+    layers on one batch of ``B`` windows of ``seq_len + 1`` tokens, seen
+    every step. ``profile`` adds one more step under the profiler."""
     import numpy as np
     import torch
 
@@ -4553,11 +4588,10 @@ def phase_train(model: str = "llama3_8b", n_layers: int = 8, steps: int = 6,
     from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves
 
     cfg = getattr(models, model)(n_layers=n_layers)
-    B, seq_len = 2, 2047
     stream = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, B * (seq_len + 1)).astype(np.int32)
     loader = TokenBatchLoader(stream, batch=B, seq_len=seq_len, shuffle=False)
-    init_state, step = make_train_step(cfg, make_optimizer(), remat=False)
+    init_state, step = make_train_step(cfg, make_optimizer(), remat=remat)
     stamps = []
 
     def on_step(_s, loss):
@@ -4587,7 +4621,8 @@ def phase_train(model: str = "llama3_8b", n_layers: int = 8, steps: int = 6,
     flops = train_flops_per_step(cfg, B, seq_len + 1)
     full, why = TRAIN_MODELS[model]
     emit(phase, model=model, n_layers=n_layers,
-         reduced=f"n_layers={n_layers} (from {full}; {why})", params=n_params,
+         reduced=f"n_layers={n_layers} (from {full}; {why})" if n_layers < full
+         else None, params=n_params, remat=remat,
          B=B, S=seq_len + 1, head_dim=cfg.head_dim, steps=steps, losses=losses,
          first_step_s=stamps[0] - t0, step_s=step_s, step_p50_s=p50,
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
@@ -4596,9 +4631,11 @@ def phase_train(model: str = "llama3_8b", n_layers: int = 8, steps: int = 6,
          launches=launches)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase} loss not finite and falling: {losses}")
-    want = steps * n_layers
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"{phase} launches {launches}, want {want} each")
+    # Under remat each layer's forward runs again in the backward.
+    want = dict.fromkeys(launches, steps * n_layers)
+    want["flash_fwd"] *= 2 if remat else 1
+    if launches != want:
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
     return launches
 
 
@@ -6645,9 +6682,6 @@ def host_daemon(expected: int, work: str) -> dict:
     :data:`HOST_KNOBS`; the guest child (:func:`host_guest`) started with
     exactly that allocation's env; the guest's heartbeat stream
     aggregated under the granted device id. Returns the phase's fields."""
-    import threading
-    from concurrent import futures
-
     import grpc
     import torch
 
@@ -6708,24 +6742,11 @@ def host_daemon(expected: int, work: str) -> dict:
             d.address in ours for devs in vfio.groups.values() for d in devs):
         failures.append("a GPU the nvidia driver holds is listed as vfio-bound")
 
-    class Kubelet(glue.RegistrationServicer):
-        def __init__(self):
-            self.registered = threading.Event()
-
-        def Register(self, request, context):  # noqa: N802 - the API's name
-            self.registered.set()
-            return pb.Empty()
-
-    kubelet = Kubelet()
-    kdir = os.path.join(work, "k")
-    os.makedirs(kdir)
-    kserver = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
-    glue.add_registration_to_server(kubelet, kserver)
-    kserver.add_insecure_port(f"unix://{os.path.join(kdir, 'kubelet.sock')}")
-    kserver.start()
+    kubelet = stand_in_kubelet(os.path.join(work, "k"))
     events = os.path.join(work, "events")
     cfg = Config(cdi_dir=os.path.join(work, "cdi"), cdi_format="json",
-                 kubelet_socket_dir=kdir, state_dir=os.path.join(work, "state"),
+                 kubelet_socket_dir=kubelet.socket_dir,
+                 state_dir=os.path.join(work, "state"),
                  rescan_interval_s=0, metrics_port=0, guest_events_dir=events,
                  **HOST_KNOBS)
     mgr = PluginManager(cfg)
@@ -6733,7 +6754,7 @@ def host_daemon(expected: int, work: str) -> dict:
         t0 = time.perf_counter()
         mgr.start()
         row["start_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
-        if not kubelet.registered.wait(10):
+        if not kubelet.wait_registrations(1, 10):
             failures.append("the plugin did not register")
         t0 = time.perf_counter()
         (path,) = mgr.write_specs()
@@ -6803,7 +6824,7 @@ def host_daemon(expected: int, work: str) -> dict:
                             f"as {keys}, guest emitted {guest['heartbeats']}")
     finally:
         mgr.stop()
-        kserver.stop(grace=1).wait()
+        kubelet.stop()
     no_context("at the end")
     row["cuda_initialized"] = torch.cuda.is_initialized()
     if failures:
@@ -6906,6 +6927,492 @@ def phase_host(smi: str) -> dict:
     return row["guest"]["launches"]
 
 
+# ----- multi-host membership, pod-resources, loader strides (config 26) -----
+
+# Configuration 26 (PERF.md): two daemons on one card machine as workers 0
+# and 1 of one two-host membership, each resolving it from another source.
+MULTIHOST_HOSTS = ("127.0.0.1", "localhost")
+MULTIHOST_ENDPOINTS = "0:127.0.0.1:8476,1:localhost:8476"
+MULTIHOST_MODEL = "gemma_2b_bench"
+MULTIHOST_REQUESTS = 8
+# The global batch the two guests stride: rows of MULTIHOST_SEQ + 1 tokens.
+MULTIHOST_BATCH, MULTIHOST_SEQ, MULTIHOST_STEPS = 8, 15, 2
+MULTIHOST_TIMEOUT_S = 600
+NCCL_NOTE = ("no NCCL group: NCCL refuses two ranks on one device, so the "
+             "NCCL group across cards waits for ROADMAP item 10")
+
+
+def stand_in_kubelet(kdir: str):
+    """A stand-in kubelet on ``<kdir>/kubelet.sock``: Registration (each
+    request kept) and pod-resources ``List``, which answers with the
+    devices :meth:`grant` recorded. ``.stop()`` ends its server."""
+    import threading
+    from concurrent import futures
+
+    import grpc
+
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import deviceplugin_pb2 as pb
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import glue
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import podresources_pb2 as prpb
+
+    class Kubelet(glue.RegistrationServicer, glue.PodResourcesListerServicer):
+        def __init__(self):
+            self.socket_dir = kdir
+            self.socket_path = os.path.join(kdir, "kubelet.sock")
+            self.registrations = []
+            self.changed = threading.Condition()
+            self.pods = prpb.ListPodResourcesResponse()
+            self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+
+        def Register(self, request, context):  # noqa: N802 - the API's name
+            with self.changed:
+                self.registrations.append(request)
+                self.changed.notify_all()
+            return pb.Empty()
+
+        def List(self, request, context):  # noqa: N802 - the API's name
+            return self.pods
+
+        def wait_registrations(self, n: int, timeout: float) -> bool:
+            with self.changed:
+                return self.changed.wait_for(
+                    lambda: len(self.registrations) >= n, timeout)
+
+        def grant(self, pod: str, resource: str, ids: list) -> None:
+            self.pods.pod_resources.add(
+                name=pod, namespace="default",
+                containers=[prpb.ContainerResources(name="guest", devices=[
+                    prpb.ContainerDevices(resource_name=resource,
+                                          device_ids=ids)])])
+
+        def stop(self) -> None:
+            self.server.stop(grace=1).wait()
+
+    kubelet = Kubelet()
+    os.makedirs(kdir)
+    glue.add_registration_to_server(kubelet, kubelet.server)
+    glue.add_pod_resources_to_server(kubelet, kubelet.server)
+    kubelet.server.add_insecure_port(f"unix://{kubelet.socket_path}")
+    kubelet.server.start()
+    return kubelet
+
+
+def _daemon_env() -> dict:
+    """This process's env without the daemon's knobs and any node identity,
+    so each daemon resolves only what its flags name."""
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith(("KATA_TPU_", "KATATPU_", "TPU_", "GLOO_"))}
+
+
+def multihost_daemons(work: str) -> dict:
+    """The host side of configuration 26, in a process that never
+    initializes CUDA. Two daemons (``python -m kata_xpu_device_plugin_tpu_torch
+    run``, wrapped by ``chip_smoke.py --multihost-daemon``, which reports
+    whether the daemon initialized CUDA) as workers 0 and 1 of one
+    membership, each with its own state, CDI and socket dirs and stand-in
+    kubelet: worker 0 resolves through ``--worker-hostnames`` and
+    ``--node-name``, worker 1 through a metadata dir. Their JSON specs
+    must carry one hostname list and the ids 0 and 1; one Allocate each;
+    ``status --json`` of each lists its pod assignment from the kubelet's
+    pod-resources and leaves the state file's bytes and mtime as they
+    were; worker 1, restarted with its metadata dir emptied, keeps id 1
+    from its state file. Then a guest per worker (``--multihost-guest``)
+    with its spec's env and its allocation's: a gloo rendezvous at worker
+    0's address, each its loader stride, and worker 0's guest serving
+    :data:`MULTIHOST_MODEL` on the card."""
+    import glob
+    import signal
+    import socket
+
+    import grpc
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import cdi
+    from kata_xpu_device_plugin_tpu_torch.cdi import constants as C
+    from kata_xpu_device_plugin_tpu_torch.discovery import scan_gpus
+    from kata_xpu_device_plugin_tpu_torch.multihost.resolver import (
+        ATTR_WORKER_ENDPOINTS,
+        ATTR_WORKER_NUMBER,
+        STATE_FILE,
+    )
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import deviceplugin_pb2 as pb
+    from kata_xpu_device_plugin_tpu_torch.plugin.api import glue
+
+    failures, row = [], {"hosts": list(MULTIHOST_HOSTS), "nccl": NCCL_NOTE}
+    index = str(scan_gpus().chips[0].index)
+    md = os.path.join(work, "md1")
+    os.makedirs(md)
+    for name, text in ((ATTR_WORKER_ENDPOINTS, MULTIHOST_ENDPOINTS),
+                       (ATTR_WORKER_NUMBER, "1")):
+        with open(os.path.join(md, name), "w") as f:
+            f.write(text)
+    kubelets, flags, procs, logs = [], [], {}, {}
+    for w in (0, 1):
+        wdir = os.path.join(work, f"w{w}")
+        kubelets.append(stand_in_kubelet(os.path.join(wdir, "k")))
+        flags.append([
+            "--cdi-dir", os.path.join(wdir, "cdi"), "--cdi-format", "json",
+            "--kubelet-socket-dir", kubelets[w].socket_dir,
+            "--pod-resources-socket", kubelets[w].socket_path,
+            "--state-dir", os.path.join(wdir, "state"), "--metrics-port", "0",
+            "--rescan-interval-s", "0", "--kv-quant", "int8",
+            "--log-format", "json",
+            *(["--worker-hostnames", ",".join(MULTIHOST_HOSTS),
+               "--node-name", MULTIHOST_HOSTS[0]] if w == 0
+              else ["--metadata-dir", md])])
+
+    def start(w: int, run: int) -> None:
+        logs[w] = os.path.join(work, f"daemon{w}.{run}")
+        with open(logs[w] + ".log", "w") as err:
+            procs[w] = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--multihost-daemon", logs[w] + ".json", "run", *flags[w]],
+                env=_daemon_env(), cwd=HERE, stdout=subprocess.DEVNULL,
+                stderr=err)
+
+    def stop(w: int) -> None:
+        procs[w].send_signal(signal.SIGTERM)
+        rc = procs[w].wait(timeout=60)
+        with open(logs[w] + ".json") as f:
+            res = json.load(f)
+        if rc != 0 or res["rc"] != 0 or res["cuda_initialized"]:
+            failures.append(f"daemon {w} ({logs[w]}): rc {rc}, {res}")
+
+    def spec_env(w: int) -> dict:
+        (path,) = glob.glob(os.path.join(work, f"w{w}", "cdi", "*.json"))
+        return dict(e.split("=", 1) for e in cdi.load(path).container_edits.env)
+
+    def status(w: int) -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, "-m", PKG, "status", "--json", *flags[w]],
+            env=_daemon_env(), cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def state_file(w: int) -> tuple:
+        path = os.path.join(work, f"w{w}", "state", STATE_FILE)
+        with open(path, "rb") as f:
+            return f.read(), os.stat(path).st_mtime_ns
+
+    guests = []
+    try:
+        t0 = time.perf_counter()
+        for w in (0, 1):
+            start(w, 0)
+        for w in (0, 1):
+            if not kubelets[w].wait_registrations(1, 60):
+                raise AssertionError(f"daemon {w} did not register")
+        row["start_s"] = round(time.perf_counter() - t0, 3)
+        envs = [spec_env(w) for w in (0, 1)]
+        row["spec_env"] = envs
+        hostnames = ",".join(MULTIHOST_HOSTS)
+        if ([e.get(C.ENV_WORKER_HOSTNAMES) for e in envs] != [hostnames] * 2
+                or [e.get(C.ENV_WORKER_ID) for e in envs] != ["0", "1"]):
+            failures.append(f"the specs' identities: {envs}")
+        allocs = []
+        for w in (0, 1):
+            reg = kubelets[w].registrations[0]
+            sock = os.path.join(kubelets[w].socket_dir, reg.endpoint)
+            with grpc.insecure_channel(f"unix://{sock}") as ch:
+                resp = glue.DevicePluginStub(ch).Allocate(pb.AllocateRequest(
+                    container_requests=[pb.ContainerAllocateRequest(
+                        device_ids=[index])]))
+            allocs.append(dict(resp.container_responses[0].envs))
+            kubelets[w].grant(f"multihost-w{w}", reg.resource_name, [index])
+        row["allocate_env"] = allocs
+        row["status"] = []
+        before = [state_file(w) for w in (0, 1)]
+        t0 = time.perf_counter()
+        runs = [status(w) for w in (0, 1)]  # both at once: each a process
+        for w, run in enumerate(runs):
+            out, err = run.communicate(timeout=120)
+            if run.returncode != 0:
+                raise AssertionError(f"status {w}: rc {run.returncode}\n{err}")
+            rep = json.loads(out)
+            got = dict(ms=round((time.perf_counter() - t0) * 1e3, 3),
+                       worker_id=rep["gpu"]["worker_id"],
+                       worker_hostnames=rep["gpu"]["worker_hostnames"],
+                       pod_assignments=rep.get("pod_assignments"),
+                       error=rep.get("pod_assignments_error"))
+            row["status"].append(got)
+            want = [{"pod": f"multihost-w{w}", "namespace": "default",
+                     "container": "guest", "resource": C.DEFAULT_KIND,
+                     "device_ids": [index]}]
+            if (got["pod_assignments"] != want or got["worker_id"] != w
+                    or got["worker_hostnames"] != list(MULTIHOST_HOSTS)):
+                failures.append(f"status {w}: {got}")
+            if state_file(w) != before[w]:
+                failures.append(f"status {w} wrote the state file")
+        # A metadata outage across a restart: worker 1 keeps its identity.
+        stop(1)
+        for name in os.listdir(md):
+            os.remove(os.path.join(md, name))
+        t0 = time.perf_counter()
+        start(1, 1)
+        if not kubelets[1].wait_registrations(2, 60):
+            raise AssertionError("daemon 1 did not register after its restart")
+        row["restart_s"] = round(time.perf_counter() - t0, 3)
+        env1 = spec_env(1)
+        with open(logs[1] + ".log") as f:
+            lines = [json.loads(x) for x in f if x.startswith("{")]
+        said = [x["msg"] for x in lines if x.get("logger") == "katatpu.multihost"]
+        row["restart"] = dict(worker_id=env1.get(C.ENV_WORKER_ID),
+                              worker_hostnames=env1.get(C.ENV_WORKER_HOSTNAMES),
+                              resolver_log=said)
+        if (env1.get(C.ENV_WORKER_ID) != "1"
+                or env1.get(C.ENV_WORKER_HOSTNAMES) != hostnames
+                or not any("reusing persisted worker id 1" in m for m in said)):
+            failures.append(f"worker 1 after the outage: {row['restart']}")
+        # The guests: each with its spec's env and its allocation's.
+        with socket.socket() as s:
+            s.bind((MULTIHOST_HOSTS[0], 0))
+            port = s.getsockname()[1]
+        lo = any(name == "lo" for _, name in socket.if_nameindex())
+        for w in (0, 1):
+            env = {**_daemon_env(), **envs[w], **allocs[w]}
+            if lo:  # gloo's pair connections over loopback, as its store's
+                env["GLOO_SOCKET_IFNAME"] = "lo"
+            guests.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--multihost-guest", str(port)], env=env, cwd=HERE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        rows = []
+        for w, g in enumerate(guests):
+            out, err = g.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            got = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+            guest = next((x for x in got if x.get("phase") == "multihost_guest"),
+                         None)
+            if g.returncode != 0 or guest is None:
+                raise AssertionError(f"multihost: guest {w} rc {g.returncode}\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+            del guest["phase"]
+            rows.append(guest)
+        row["guests"] = rows
+        for w, guest in enumerate(rows):
+            d = guest["distributed"]
+            if (d["process_id"] != w or d["num_processes"] != 2
+                    or not d["initialized"] or not guest["strides_cover"]):
+                failures.append(f"guest {w}: {d}, cover {guest['strides_cover']}")
+        if sum(g["stride_rows"] for g in rows) != MULTIHOST_BATCH * MULTIHOST_STEPS:
+            failures.append("the strides' rows do not add up to the global batches")
+    finally:
+        for g in guests:
+            if g.poll() is None:
+                g.kill()
+                g.wait()
+        for w, p in procs.items():
+            if p.poll() is None:
+                stop(w)
+        for k in kubelets:
+            k.stop()
+    row["cuda_initialized"] = torch.cuda.is_initialized()
+    if row["cuda_initialized"]:
+        failures.append("the daemons' host process initialized CUDA")
+    if failures:
+        raise AssertionError("multihost: " + "; ".join(failures))
+    return row
+
+
+def multihost_guest(port: int) -> dict:
+    """A guest of configuration 26, started with its spec's and its
+    allocation's env: ``initialize_from_env(device="cpu")``, a gloo
+    rendezvous at worker 0's address, then ``make_loader``'s stride of
+    :data:`MULTIHOST_STEPS` global batches (the world size and rank from
+    the group), gathered over the group and held against the batches of a
+    one-process loader. Worker 0 then serves :data:`MULTIHOST_MODEL` (all
+    layers, int8 KV from the env, 8 lanes, :data:`MULTIHOST_REQUESTS`
+    requests) through :func:`run_requests` (the launch rule) and
+    ``graph_check``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.guest.distributed import initialize_from_env
+    from kata_xpu_device_plugin_tpu_torch.parallel import TokenBatchLoader
+    from kata_xpu_device_plugin_tpu_torch.parallel.loader import make_loader
+
+    t0 = time.perf_counter()
+    summary = initialize_from_env(port=port, device="cpu")
+    row = {"distributed": summary,
+           "rendezvous_s": round(time.perf_counter() - t0, 3)}
+    rank = dist.get_rank()
+    window = MULTIHOST_SEQ + 1
+    stream = np.random.default_rng(0).integers(
+        0, 32128, 4 * MULTIHOST_BATCH * window).astype(np.int32)
+    loader = make_loader(stream, MULTIHOST_BATCH, MULTIHOST_SEQ)
+    whole = TokenBatchLoader(stream, MULTIHOST_BATCH, MULTIHOST_SEQ)
+    mine = [next(loader) for _ in range(MULTIHOST_STEPS)]
+    strides = [None] * dist.get_world_size()
+    dist.all_gather_object(strides, mine)
+    cover = True
+    for step in range(MULTIHOST_STEPS):
+        batch = next(whole)
+        merged = np.empty_like(batch)
+        for r, s in enumerate(strides):
+            merged[r::len(strides)] = s[step]
+        cover &= bool(np.array_equal(merged, batch))
+    row.update(host_count=loader.host_count, host_index=loader.host_index,
+               stride_rows=sum(len(b) for b in mine), strides_cover=cover,
+               cursor=loader.state_dict(), nccl=NCCL_NOTE)
+    dist.destroy_process_group()
+    if rank != 0:
+        return row
+    params, cfg = gemma_setup(model=MULTIHOST_MODEL)
+    kw = dict(max_batch=MULTIHOST_REQUESTS, **SERVE_KW)
+    srv = GenerationServer(params, cfg, **kw)
+    prompts, budgets, lens = phase_requests(MULTIHOST_REQUESTS, cfg.vocab_size,
+                                            seed=11)
+    _, wall, launches, stats = run_requests(srv, prompts, budgets)
+    if stats["kv_quant"] != "int8" or stats["decode_backend"] != "cuda_paged":
+        raise AssertionError(f"multihost guest: {stats['kv_quant']} KV, "
+                             f"{stats['decode_backend']} decode")
+    row["serve"] = dict(model=MULTIHOST_MODEL, n_layers=cfg.n_layers,
+                        vocab=cfg.vocab_size, kv_quant=stats["kv_quant"],
+                        **serve_row(stats, wall, budgets, lens, launches))
+    del srv
+    torch.cuda.empty_cache()
+    row["graph_check"] = graph_check(params, cfg, kw)
+    if not row["graph_check"]["lanes"]:
+        raise AssertionError("multihost guest: graph_check ran no live lane")
+    return row
+
+
+def phase_multihost(smi: str) -> dict:
+    """Configuration 26 (PERF.md). This process holds a CUDA context, so the
+    daemons' side runs in a fresh one (``chip_smoke.py --multihost-daemons``,
+    :func:`multihost_daemons`). Returns worker 0's guest's serving
+    launches."""
+    work = host_work_dir()
+    try:
+        res = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--multihost-daemons", work],
+            capture_output=True, text=True, cwd=HERE,
+            timeout=MULTIHOST_TIMEOUT_S + 240)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    row = next((x for x in lines if x.get("phase") == "multihost_daemons"), None)
+    if res.returncode != 0 or row is None:
+        raise AssertionError(f"multihost: rc {res.returncode}\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    del row["phase"]
+    emit("multihost", nvidia_smi=smi, **row)
+    return row["guests"][0]["serve"]["launches"]
+
+
+# ----- the bench configs at head_dim 64 and the quality ladder (config 27) --
+
+# Configuration 27 (PERF.md): llama3_train_bench, all 12 layers, at the JAX
+# bench's train shape (bench.py measure_train: B=16, S=1024, remat on).
+BENCH_TRAIN = dict(B=16, seq_len=1023, steps=4, remat=True)
+BENCH_D64 = ("llama3_train_bench B16 S1024 D64", 16, 1024, 16, 8, 64)
+EVAL_ARGS = ["--config", "llama3_train_bench", "--dtype", "bfloat16"]
+# The paged decode kernel at llama3_train_bench's heads (B=4, H=16, KV=8,
+# D=64): at the tile the ladder's generate takes (its 32 + 64 positions pad
+# to a slotted arena of 128, one 128-row block a lane: dense_decode_tile),
+# then over permuted 16-row blocks of a 2048-position view with a dead lane.
+BENCH_DECODE = ((128, 128, False), (16, 2048, True))  # (tile, view, dead)
+
+
+def kv_witness(ladder) -> dict:
+    """A second witness for the ladder's int8-KV rung, on its weights,
+    prompts and steps (``ladder.setup`` with :data:`EVAL_ARGS`): the
+    kernels' bf16 and int8 runs again (their ``kv_agree`` must equal the
+    rung's: the kernels are deterministic), the plain attention's own pair
+    (prefill and decode through ``reference_attention``), each kernel run
+    against the plain run over the same cache, and where the int8 runs
+    first part, the plain path's top-2 logit margin, beside the scale of
+    the logits and of their drift between the flash and the plain forward
+    on the ladder's tokens."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.models.transformer import forward
+    from kata_xpu_device_plugin_tpu_torch.ops.attention import reference_attention
+
+    args = ladder.parse_args(EVAL_ARGS)
+    cfg, params, tokens = ladder.setup(args, torch.device("cuda"))
+    toks = torch.as_tensor(tokens, device="cuda")
+    with torch.no_grad():
+        flash_lg, plain_lg = (
+            forward(params, toks[:, :-1], cfg, attn_fn=fn).float()
+            for fn in (None, reference_attention))
+    drift = (flash_lg - plain_lg).abs()
+    kern = ladder.kv_decodes(params, cfg, toks, args.decode_steps)
+    plain = ladder.kv_decodes(params, cfg, toks, args.decode_steps,
+                              attn_fn=reference_attention)
+    prompts = tokens[:, :ladder.kv_prompt_len(tokens.shape[1])]
+    return {"logit_rms": float(plain_lg.pow(2).mean().sqrt()),
+            "flash_vs_plain_max_drift": float(drift.max()),
+            "flash_vs_plain_mean_drift": float(drift.mean()),
+            "kernel": ladder.agreement(*kern, "kv_agree"),
+            "plain": ladder.agreement(*plain, "kv_agree"),
+            "bf16_kernel_vs_plain": ladder.agreement(kern[0], plain[0], "agree"),
+            "int8_kernel_vs_plain": ladder.agreement(kern[1], plain[1], "agree"),
+            "int8_first_parting": first_difference_margin(
+                params, cfg, prompts, kern[1], plain[1])}
+
+
+def phase_bench_configs(profile: bool = False) -> tuple:
+    """``fit`` of ``llama3_train_bench`` (the loss must fall, the launches
+    exact), its three flash kernels at D = 64 alone against their plain
+    versions within ``kernel_tolerance``, timed beside SDPA and the bound
+    (:func:`flash_case`, :func:`bwd_case`), then
+    ``scripts/torch_eval_quality.py`` with :data:`EVAL_ARGS` in this
+    process, its rows printed and its launches counted. Returns the
+    phase's launches and the cases by kernel."""
+    import importlib.util
+    import io
+
+    launches = phase_train("llama3_train_bench", n_layers=12, profile=profile,
+                           phase="bench_train", **BENCH_TRAIN)
+    f = flash_case(*BENCH_D64, lse=True, timed=True)
+    b = bwd_case(*BENCH_D64, timed=True)
+    dec = [decode_case(f"llama3_train_bench {'int8' if q else 'bf16'} bs{bs} "
+                       f"L{view}", 4, 16, 8, 64, bs, q, max_len=view,
+                       timed=not dead, dead=dead)
+           for bs, view, dead in BENCH_DECODE for q in (True, False)]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "max_err_over_bound")
+    emit("bench_d64", case=BENCH_D64[0], shape=list(BENCH_D64[1:]),
+         **{f"fwd_{k}": f[k] for k in keys},
+         **{f"{g}_{k}": b[g][k] for g in ("dq", "dkv") for k in keys},
+         decode=[{k: c.get(k) for k in ("case",) + keys} for c in dec])
+    spec = importlib.util.spec_from_file_location(
+        "torch_eval_quality", os.path.join(HERE, "scripts", "torch_eval_quality.py"))
+    ladder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ladder)
+    kernels = counted_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ladder.main(EVAL_ARGS)
+    seconds = round(time.perf_counter() - t0, 2)
+    rows = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    counted = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    emit("eval_quality", args=EVAL_ARGS, seconds=seconds, rows=rows,
+         launches=counted)
+    if rc != 0 or [r["variant"] for r in rows] != ["baseline", "int8", "w8a8",
+                                                   "int8_kv"]:
+        raise AssertionError(f"eval_quality: rc {rc}, {rows}")
+    if not all(math.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float)):
+        raise AssertionError(f"eval_quality: a rung is not finite: {rows}")
+    if set(counted) != {"flash_fwd", "paged_decode"}:
+        raise AssertionError(f"eval_quality must launch the flash and paged "
+                             f"kernels and no other: {counted}")
+    for k, n in counted.items():
+        launches[k] = launches.get(k, 0) + n
+    witness = kv_witness(ladder)
+    emit("eval_quality_kv_witness", **witness)
+    if witness["kernel"]["kv_agree"] != rows[3]["kv_agree"]:
+        raise AssertionError(f"eval_quality: the kernels' int8-KV rung gave "
+                             f"{rows[3]} and then {witness['kernel']}")
+    return launches, {"flash_fwd": [f], "flash_bwd_dq": [b["dq"]],
+                      "flash_bwd_dkv": [b["dkv"]], "paged_decode": dec}
+
+
 def main(argv: list[str]) -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
@@ -6914,6 +7421,18 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--host-daemon"]:  # phase_host's daemon side: no CUDA
         emit("host_daemon", **host_daemon(int(argv[1]), argv[2]))
         return 0
+    if argv[:1] == ["--multihost-daemons"]:  # phase_multihost's host side
+        emit("multihost_daemons", **multihost_daemons(argv[1]))
+        return 0
+    if argv[:1] == ["--multihost-daemon"]:  # one daemon: the CLI, then a report
+        from kata_xpu_device_plugin_tpu_torch.__main__ import main as daemon_main
+
+        rc = daemon_main(argv[2:])
+        import torch
+
+        with open(argv[1], "w") as f:
+            json.dump({"rc": rc, "cuda_initialized": torch.cuda.is_initialized()}, f)
+        return rc
     import torch
 
     if not torch.cuda.is_available():
@@ -6923,6 +7442,9 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if argv[:1] == ["--host-guest"]:  # phase_host's guest, under its env
         emit("host_guest", **host_guest())
+        return 0
+    if argv[:1] == ["--multihost-guest"]:  # a guest of phase_multihost
+        emit("multihost_guest", **multihost_guest(int(argv[1])))
         return 0
     profile = "--profile" in argv  # adds profiled decode rounds and a train step
     seconds = {}
@@ -6983,6 +7505,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     timed_phase("probe", phase_probe)
     launches["host"] = timed_phase("host", phase_host, smi)
+    launches["multihost"] = timed_phase("multihost", phase_multihost, smi)
     for name, cases in timed_phase("mesh_shards", phase_mesh_shards).items():
         checks[name] += cases
     for name, n in timed_phase("families", phase_families,
@@ -7007,6 +7530,11 @@ def main(argv: list[str]) -> int:
     launches["seq_gemma2"] = timed_phase(
         "seq_gemma2", phase_seq, model="gemma2_2b", n_layers=4, steps=3,
         phase="seq_gemma2")
+    torch.cuda.empty_cache()
+    launches["bench_configs"], bench_cases = timed_phase(
+        "bench_configs", phase_bench_configs, profile=profile)
+    for name, cases in bench_cases.items():
+        checks[name] += cases
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
     src = f"{PKG}/csrc"
     jax_flash = "kata_xpu_device_plugin_tpu/ops/flash.py"

@@ -3,7 +3,8 @@
 ``cmd/main.go:5-7``):
 
 - ``run``     start the device-plugin daemon (every constant is a flag)
-- ``status``  one-shot report: discovery and the CDI specs on disk
+- ``status``  one-shot report: discovery, the worker identity, the CDI
+  specs on disk and the pods holding the devices
 - ``version``
 
     python -m kata_xpu_device_plugin_tpu_torch run|status|version [flags]
@@ -123,18 +124,20 @@ def _run(args: argparse.Namespace) -> int:
     return 0
 
 
-def pod_assignments(cfg) -> list[dict]:
-    """Which pods hold which devices, from the kubelet's pod-resources API:
-    not ported yet (ROADMAP item 13, step 6, with ``utils/podresources``)."""
-    raise NotImplementedError(
-        "pod assignments need the kubelet pod-resources client, not ported "
-        "to the GPU daemon yet: ROADMAP item 13, step 6"
-    )
+def pod_assignments(cfg, timeout_s: float = 2.0) -> list[dict]:
+    """Which pods hold which of this namespace's devices, from the kubelet's
+    pod-resources socket (``cfg.pod_resources_socket``)."""
+    from .utils.podresources import device_assignments, list_pod_resources
+
+    resp = list_pod_resources(cfg.pod_resources_socket, timeout_s=timeout_s)
+    return device_assignments(resp, cfg.resource_namespace)
 
 
 def status_report(cfg) -> dict:
-    """``status --json``'s report: discovery as the daemon's manager scans
-    it, the CDI specs on disk, and the pod-assignment section's error."""
+    """``status --json``'s report: discovery with the multi-host identity
+    as the daemon's manager resolves it (read-only: the state dir is never
+    written), the CDI specs on disk, and the pod assignments, or
+    ``pod_assignments_error`` when the kubelet's socket does not answer."""
     from .plugin.manager import PluginManager
 
     gpu, vfio = PluginManager(cfg, state_readonly=True).scan()
@@ -155,6 +158,7 @@ def status_report(cfg) -> dict:
             ],
             "num_hosts": gpu.topology.num_hosts,
             "worker_id": gpu.topology.worker_id,
+            "worker_hostnames": list(gpu.topology.worker_hostnames),
         },
         "cdi_specs": sorted(
             os.path.join(cfg.cdi_dir, f)
@@ -168,8 +172,8 @@ def status_report(cfg) -> dict:
         }
     try:
         report["pod_assignments"] = pod_assignments(cfg)
-    except NotImplementedError as e:
-        report["pod_assignments_error"] = str(e)
+    except Exception as e:  # the report stands without the kubelet's answer
+        report["pod_assignments_error"] = str(e) or type(e).__name__
     return report
 
 
@@ -193,7 +197,14 @@ def _status(args: argparse.Namespace) -> int:
         print(f"cdi spec: {path}")
     for model, groups in report.get("vfio", {}).items():
         print(f"vfio {model}: groups {','.join(groups)}")
-    print(f"pod-resources: unavailable ({report['pod_assignments_error']})")
+    if g["worker_hostnames"]:
+        print(f"workers: {','.join(g['worker_hostnames'])}")
+    if "pod_assignments" in report:
+        for a in report["pod_assignments"]:
+            print(f"pod {a['namespace']}/{a['pod']}/{a['container']}: "
+                  f"{a['resource']} = {','.join(a['device_ids'])}")
+    else:
+        print(f"pod-resources: unavailable ({report['pod_assignments_error']})")
     return 0
 
 

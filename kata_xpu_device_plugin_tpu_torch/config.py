@@ -12,10 +12,10 @@ of ``--tpu-resource-class`` and ``--proc-root`` is new (the driver's
 procfs names each GPU's minor); ``--accelerator-type``,
 ``--libtpu-host-path`` and ``--compile-cache-dir`` are TPU- or XLA-only and
 dropped, as are the TPU multislice flags (``--num-slices``, ``--slice-id``,
-``--megascale-coordinator``) and ``--node-name``, which only membership
-read. The membership flags ``--worker-id``, ``--worker-hostnames`` and
-``--metadata-dir`` parse, but a manager given one raises until membership
-is ported (ROADMAP item 13, step 6).
+``--megascale-coordinator``), whose ``MEGASCALE_*`` env only libtpu reads.
+The membership flags ``--worker-id``, ``--worker-hostnames``,
+``--node-name`` and ``--metadata-dir`` are the JAX package's: the manager
+resolves them through :mod:`.multihost` into the spec's ``TPU_WORKER_*``.
 """
 from __future__ import annotations
 
@@ -56,12 +56,19 @@ class Config:
 
     kata_annotations: bool = True  # attach-pci/bdf hints for Kata hot-plug
 
-    # Multi-host identity. Any of these set asks for membership across
-    # hosts, which this package does not resolve yet (PluginManager raises).
-    worker_id: int = -1  # -1 = none
+    # Multi-host identity, resolved through the multihost ladder (flags,
+    # TPU_WORKER_* env, metadata dir, derived from the hostname order); a
+    # standalone host needs none of them.
+    worker_id: int = -1  # -1 = auto
     worker_hostnames: tuple[str, ...] = ()
-    metadata_dir: str = ""
-    # Persisted daemon state (the allocation journal); "" disables.
+    # Name to match against worker lists. In a DaemonSet without
+    # hostNetwork the pod's hostname is the pod name, never the node's:
+    # project spec.nodeName through the downward API into
+    # KATA_TPU_NODE_NAME.
+    node_name: str = ""
+    metadata_dir: str = ""  # dir of metadata attribute files
+    # Persisted daemon state (the worker identity and the allocation
+    # journal); "" disables.
     state_dir: str = "/var/run/kata-tpu"
 
     # Generalized VFIO path. Empty vendor tuple = VFIO discovery disabled;
@@ -170,12 +177,6 @@ class Config:
                 f"worker-id {self.worker_id} out of range for "
                 f"{len(self.worker_hostnames)} worker-hostnames"
             )
-
-    @property
-    def asks_for_membership(self) -> bool:
-        """Does this config name a multi-host identity?"""
-        return bool(self.worker_id >= 0 or self.worker_hostnames
-                    or self.metadata_dir)
 
     @property
     def gpu_resource_name(self) -> str:

@@ -34,9 +34,10 @@ from __future__ import annotations
 import errno
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional
 
 from ..cdi import constants as C
+from ..multihost.resolver import env_hostnames, from_env
 from ..topology.host import HostTopology
 from . import sysfs
 from .pciids import NVIDIA_VENDOR, PciIds, resource_suffix
@@ -156,9 +157,17 @@ def scan_gpus(
     dev_root: str = sysfs.DEFAULT_DEV_ROOT,
     proc_root: str = sysfs.DEFAULT_PROC_ROOT,
     pci_ids: Optional[PciIds] = None,
+    env: Optional[Mapping[str, str]] = None,
+    resolve_env_identity: bool = True,
 ) -> GpuInventory:
     """One-shot scan (the manager re-runs it every rescan interval); the
-    module doc gives the rules."""
+    module doc gives the rules.
+
+    The host's worker identity comes from the node's ``TPU_WORKER_ID`` and
+    ``TPU_WORKER_HOSTNAMES`` (``env``, default ``os.environ``), parsed by
+    :func:`..multihost.resolver.from_env`. The manager passes
+    ``resolve_env_identity=False``: its membership overlay resolves the env
+    again with ``--node-name`` and the other sources."""
     minors = proc_gpu_minors(proc_root)
     funcs = {
         f.address: f for f in sysfs.scan_pci(sysfs_root)
@@ -192,5 +201,13 @@ def scan_gpus(
         ))
     device_id = next((c.pci_device for c in chips if c.pci_device), None)
     suffix = resource_suffix(NVIDIA_VENDOR, device_id, pci_ids) if device_id else "GPU"
-    return GpuInventory(chips=tuple(chips), topology=HostTopology.from_chips(chips),
-                        model_suffix=suffix)
+    environ = os.environ if env is None else env
+    mem = (from_env(environ, hostname=environ.get("HOSTNAME", ""))
+           if resolve_env_identity else None)
+    # When no id is derivable the peer list still passes through (worker 0),
+    # so a direct caller still sees the node's membership.
+    hostnames = (mem.hostnames if mem
+                 else env_hostnames(environ) if resolve_env_identity else ())
+    topo = HostTopology.from_chips(chips, worker_id=mem.worker_id if mem else 0,
+                                   worker_hostnames=hostnames)
+    return GpuInventory(chips=tuple(chips), topology=topo, model_suffix=suffix)

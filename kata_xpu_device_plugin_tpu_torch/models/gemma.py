@@ -30,6 +30,13 @@ def gemma_7b(**overrides) -> DecoderConfig:
     return replace(cfg, **overrides)
 
 
+def gemma_2b_bench(**overrides) -> DecoderConfig:
+    """The 2B architecture with the vocabulary cut to 32128 for one-card
+    benchmarks: the 256k embedding costs memory at no benefit to a
+    throughput benchmark of random weights. Layer compute is gemma_2b's."""
+    return gemma_2b(vocab_size=32128, **overrides)
+
+
 def gemma2_2b(**overrides) -> DecoderConfig:
     """Gemma-2 2B: a 4096-token window on even layers, global odd layers,
     pre and post norms on each sublayer, attention logits capped at 50 and

@@ -25,6 +25,20 @@ def llama31_8b(**overrides) -> DecoderConfig:
                    **overrides)
 
 
+def llama3_train_bench(**overrides) -> DecoderConfig:
+    """Llama-3 architecture at one-card train-bench scale (~256M params,
+    power-of-two widths, head_dim 64): a step is GEMM-bound, so its MFU
+    means something, and params, AdamW moments and rematerialized
+    activations fit one card beside a decode model."""
+    cfg = DecoderConfig(
+        vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
+        n_kv_heads=8, head_dim=64, d_ff=4096, rope_theta=500000.0,
+        norm_eps=1e-5, activation="swiglu", scale_embeddings=False,
+        tie_embeddings=False,
+    )
+    return replace(cfg, **overrides)
+
+
 def llama3_train_test(**overrides) -> DecoderConfig:
     """Llama-3 architecture at test scale."""
     cfg = DecoderConfig(

@@ -1,15 +1,21 @@
 """Deterministic, resumable token-batch loader for the training path (a
 numpy-only copy of ``TokenBatchLoader`` in
 ``kata_xpu_device_plugin_tpu/parallel/loader.py``, without the mesh
-placement and the multi-host stride: one device takes whole batches).
+placement: every shard of this package's mesh is on one device, and the
+step cuts the batch itself).
 
 - **deterministic**: a ``(seed, epoch)`` pair fixes the sample order
   exactly, the same order as the JAX package's loader;
 - **resumable**: ``state_dict()``/``load_state_dict()`` capture the
-  cursor, so a restored run continues with the same remaining batches.
+  cursor, so a restored run continues with the same remaining batches;
+- **process-strided**: with ``host_count > 1`` each process takes the
+  disjoint ``host_index``-th stride of every global batch (``batch //
+  host_count`` rows), the rows JAX's loader gives each host. In a Kata
+  guest the two come from the plugin-injected identity through
+  ``guest.distributed``'s process group.
 
-Every batch is the same ``[batch, seq_len + 1]`` int32 numpy array (inputs
-``[:, :-1]``, targets ``[:, 1:]``, the convention of
+Every batch is the same ``[batch // host_count, seq_len + 1]`` int32 numpy
+array (inputs ``[:, :-1]``, targets ``[:, 1:]``, the convention of
 :func:`..models.transformer.next_token_loss`); a trailing partial batch is
 dropped. On the card, ``seq_len + 1`` must be a flash-kernel length (a
 multiple of 32 with a divisor of at least 128), e.g. ``seq_len=2047``.
@@ -28,10 +34,14 @@ class TokenBatchLoader:
     generator seeded with ``(seed, epoch)``."""
 
     def __init__(self, tokens: Any, batch: int, seq_len: int, seed: int = 0,
-                 shuffle: bool = True):
+                 shuffle: bool = True, host_count: int = 1, host_index: int = 0):
         self.tokens = np.asarray(tokens)
         if self.tokens.ndim != 1:
             raise ValueError(f"tokens must be 1-D, got {self.tokens.ndim}-D")
+        if batch % host_count != 0:
+            raise ValueError(f"batch {batch} not divisible by host_count {host_count}")
+        if not 0 <= host_index < host_count:
+            raise ValueError(f"host_index {host_index} not in [0, {host_count})")
         self.batch, self.seq_len = batch, seq_len
         self.window = seq_len + 1
         self.n_windows = len(self.tokens) // self.window
@@ -41,8 +51,9 @@ class TokenBatchLoader:
                 f"tokens; need at least batch={batch}"
             )
         self.seed, self.shuffle = seed, shuffle
+        self.host_count, self.host_index = host_count, host_index
         self.epoch = 0
-        self.step_in_epoch = 0  # next batch index within the epoch
+        self.step_in_epoch = 0  # next global batch index within the epoch
         self._order_cache: Optional[tuple[int, np.ndarray]] = None
 
     @property
@@ -68,6 +79,9 @@ class TokenBatchLoader:
         order = self._epoch_order(self.epoch)
         start = self.step_in_epoch * self.batch
         rows = order[start: start + self.batch]
+        # This process's stride of the global batch: every process computes
+        # the same order, so the strides are disjoint and cover it.
+        rows = rows[self.host_index:: self.host_count]
         batch = np.stack(
             [self.tokens[r * self.window: (r + 1) * self.window] for r in rows]
         ).astype(np.int32)
@@ -103,13 +117,21 @@ def make_loader(tokens: Any, batch: int, seq_len: int, mesh: Any = None,
                 seed: int = 0, shuffle: bool = True,
                 host_count: Optional[int] = None,
                 host_index: Optional[int] = None) -> TokenBatchLoader:
-    """A :class:`TokenBatchLoader` (JAX ``make_loader``). Every shard of
-    this package's mesh is on one device of one process, so the process
-    takes whole batches (``mesh`` places nothing; the step cuts the batch
-    itself); a multi-process stride (``host_count > 1``) is not ported:
-    ROADMAP item 10."""
+    """A :class:`TokenBatchLoader` (JAX ``make_loader``). ``host_count`` and
+    ``host_index`` default to ``torch.distributed``'s world size and rank
+    when a process group is initialized (in a Kata guest, the one
+    ``guest.distributed.initialize_from_env`` forms from the plugin's
+    identity), else to 1 and 0. The loader returns the process's own rows,
+    the rows a data-parallel rank trains on. ``mesh`` places nothing: every
+    shard of this package's mesh is on one device."""
     del mesh
-    if (host_count or 1) > 1 or (host_index or 0) > 0:
-        raise NotImplementedError(
-            "a loader strided over processes is not ported: ROADMAP item 10")
-    return TokenBatchLoader(tokens, batch, seq_len, seed=seed, shuffle=shuffle)
+    if host_count is None or host_index is None:
+        import torch.distributed as dist
+
+        group = dist.is_available() and dist.is_initialized()
+        if host_count is None:
+            host_count = dist.get_world_size() if group else 1
+        if host_index is None:
+            host_index = dist.get_rank() if group else 0
+    return TokenBatchLoader(tokens, batch, seq_len, seed=seed, shuffle=shuffle,
+                            host_count=host_count, host_index=host_index)

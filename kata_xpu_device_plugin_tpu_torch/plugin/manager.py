@@ -5,11 +5,12 @@ The reference's ``InitiateDevicePlugin`` + ``generateCDISpec`` +
 ``createDevicePlugins`` (``device_plugin.go:44-124``), with what the
 reference lacks: periodic re-discovery, one shutdown path for every plugin,
 per-kind CDI spec files, the allocation journal and the guest heartbeat
-aggregator. Multi-host slice membership is not ported yet: a config that
-asks for it raises ``NotImplementedError`` (ROADMAP item 13, step 6).
+aggregator, and the host's multi-host identity (:mod:`..multihost`)
+overlaid on every scan.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
@@ -23,6 +24,8 @@ from ..discovery import pciids
 from ..discovery.gpu import GpuInventory, scan_gpus
 from ..discovery.sysfs import PCI_DEVICES_SUBDIR, read_id_file, read_link_base
 from ..discovery.vfio import VfioInventory, scan_vfio
+from ..multihost import resolve_membership
+from ..multihost.resolver import persist_membership
 from ..topology import runtime_env
 from ..utils import log, metrics
 from . import health
@@ -31,12 +34,6 @@ from .health import HealthWatcher
 from .server import DevicePluginServer, DeviceState, WatchedDevice
 
 LOG = log.get("manager")
-
-MEMBERSHIP_NOT_PORTED = (
-    "multi-host membership (--worker-id, --worker-hostnames, "
-    "--metadata-dir) is not ported to the GPU daemon yet: ROADMAP item 13, "
-    "step 6 (multihost/)"
-)
 
 
 # ----- CDI spec builders ---------------------------------------------------
@@ -519,11 +516,9 @@ class PluginManager:
     """Owns discovery state and the fleet of per-resource plugin servers."""
 
     def __init__(self, cfg: Config, state_readonly: bool = False):
-        if cfg.asks_for_membership:
-            raise NotImplementedError(MEMBERSHIP_NOT_PORTED)
         self.cfg = cfg
-        # True for one-shot introspection (the `status` subcommand): never
-        # write or clear the daemon's persisted state.
+        # True for one-shot introspection (the `status` subcommand): resolve
+        # the identity without writing or clearing the daemon's state.
         self.state_readonly = state_readonly
         self._db = pciids.PciIds.load(cfg.pci_ids_path or None)
         self._lock = threading.Lock()
@@ -573,7 +568,9 @@ class PluginManager:
     def scan(self) -> tuple[GpuInventory, VfioInventory]:
         cfg = self.cfg
         gpu_inv = scan_gpus(cfg.sysfs_root, cfg.dev_root, cfg.proc_root,
-                            pci_ids=self._db)
+                            pci_ids=self._db,
+                            resolve_env_identity=False)  # the overlay's
+        gpu_inv = self._apply_membership(gpu_inv)
         if cfg.vfio_vendors:
             vendors = () if cfg.vfio_vendors == ("*",) else cfg.vfio_vendors
             # A GPU the nvidia driver holds is not vfio-bound, so no group
@@ -585,6 +582,34 @@ class PluginManager:
             self._gpu_inv = gpu_inv
             self._vfio_inv = vfio_inv
         return gpu_inv, vfio_inv
+
+    def _apply_membership(self, gpu_inv: GpuInventory) -> GpuInventory:
+        """Overlay the resolved worker identity on the scanned topology (JAX
+        ``PluginManager._apply_membership`` on its autodetected path). A TPU
+        accelerator type fixes a host count that a membership must match,
+        and JAX refuses or rescales on a mismatch; a GPU host has no such
+        type, so the membership always stands over the local GPUs
+        (``num_hosts_hint=0``) and nothing it resolved is refused here. It
+        is persisted only after this accepts it (``defer_save``); a
+        hostname-less identity (a bare id) is never persisted."""
+        cfg = self.cfg
+        mem = resolve_membership(
+            hostname=cfg.node_name or None,
+            explicit_worker_id=cfg.worker_id,
+            explicit_hostnames=cfg.worker_hostnames,
+            metadata_dir=cfg.metadata_dir,
+            state_dir=cfg.state_dir,
+            num_hosts_hint=0,
+            state_readonly=self.state_readonly,
+            defer_save=True,
+        )
+        if mem is None:
+            return gpu_inv
+        if not self.state_readonly:
+            persist_membership(cfg.state_dir, mem)
+        topo = dataclasses.replace(gpu_inv.topology, worker_id=mem.worker_id,
+                                   worker_hostnames=mem.hostnames)
+        return dataclasses.replace(gpu_inv, topology=topo)
 
     def write_specs(self) -> list[str]:
         cfg = self.cfg
@@ -815,6 +840,10 @@ class PluginManager:
             self._gpu_plugin.state.replace(
                 gpu_watched_devices(gpu_inv, self.cfg.sysfs_root)
             )
+        if gpu_inv.topology != old_gpu.topology:
+            # The identity can resolve after start-up (a metadata agent
+            # racing the DaemonSet): the spec on disk must follow it.
+            changed = True
         if vfio_inv.models != old_vfio.models:
             changed = True
             # Runs on the rescan thread while gRPC handlers call

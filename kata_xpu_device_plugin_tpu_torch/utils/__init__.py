@@ -1,4 +1,4 @@
 """Host-daemon utilities (counterpart of ``kata_xpu_device_plugin_tpu/utils``):
 structured logging, the daemon's Prometheus metrics over the port's
-``obs.metrics``, and a ctypes inotify binding. The kubelet pod-resources
-client is not ported yet (ROADMAP item 13, step 6)."""
+``obs.metrics``, a ctypes inotify binding and the kubelet pod-resources
+client."""

@@ -2253,3 +2253,79 @@ def test_moe_and_lora_steps_over_a_mesh_run_on_the_card(cuda_device):
     assert torch.isfinite(loss)
     assert torch.equal(local(state["params"]["layers"]["wq"].base),
                        base["layers"]["wq"])
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_the_bench_train_shape(cuda_device):
+    """The three flash kernels at ``llama3_train_bench``'s train shape,
+    head_dim 64 (``[16, 1024, 16/8, 64]``): the forward with its lse and
+    both backward kernels within the derived bounds of the plain
+    versions."""
+    B, S, H, KV, D = 16, 1024, 16, 8, 64
+    rng = np.random.default_rng(64)
+    q, k, v, do = (_randn(rng, (B, S, n, D), cuda_device) for n in (H, KV, KV, H))
+    out, lse = flash.flash_forward(q, k, v, return_lse=True)
+    ref, ref_lse = flash.flash_reference(q, k, v)
+    mag = attention.reference_attention(q.float(), k.float(), v.abs().float())
+    torch.cuda.synchronize()
+    res = attention.kernel_tolerance(out, ref, mag)
+    assert res["ok"], res
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    del ref, ref_lse, mag
+    got = flash.flash_backward(q, k, v, out, lse, do)
+    want = flash.flash_backward_reference(q, k, v, out, lse, do)
+    mags = flash.backward_magnitudes(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b, m in zip(("dq", "dk", "dv"), got, want, mags):
+        res = attention.kernel_tolerance(a, b, m)
+        assert res["ok"], (name, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs,NB", [(128, 1), (16, 8)])
+def test_paged_decode_kernel_at_the_bench_width(cuda_device, int8, bs, NB):
+    """The paged decode kernel at ``llama3_train_bench``'s heads (16/8,
+    head_dim 64): one 128-row block a lane (the tile ``generate`` takes for
+    the quality ladder's 96 positions) and 16-row blocks through permuted
+    tables, within the derived bound of the plain version; the last lane
+    is dead."""
+    rng = np.random.default_rng(64 + bs + int8)
+    B, H, KV, D = 4, 16, 8, 64
+    pos_l = [0, NB * bs // 2, NB * bs - 1, 10_000]
+    k, v, tables = _paged_pool(rng, cuda_device, B, NB, bs, KV, D, int8, pos_l)
+    q = _randn(rng, (B, 1, H, D), cuda_device)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda_device)
+    kw = dict(block_size=bs, paged_len=NB * bs)
+    before = decode_attn.paged_decode_attention.launches
+    out = decode_attn.paged_decode_attention(q, k, v, tables, pos, **kw)
+    ref = decode_attn.paged_decode_reference(q, k, v, tables, pos, **kw)
+    v_abs = (quant.QTensor(v.q.abs(), v.scale) if int8 else v.abs())
+    mag = decode_attn.paged_decode_reference(q.float(), k, v_abs, tables, pos,
+                                             **kw)
+    torch.cuda.synchronize()
+    assert decode_attn.paged_decode_attention.launches == before + 1
+    res = attention.kernel_tolerance(out[:3], ref[:3], mag[:3])
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_bench_train_step_runs_the_flash_kernels_at_d64(cuda_device):
+    """Two layers of ``llama3_train_bench`` (head_dim 64) under remat at
+    S = 1024: the forward kernel twice a layer, each backward kernel once,
+    a finite loss."""
+    from kata_xpu_device_plugin_tpu_torch.models import llama3_train_bench
+    from kata_xpu_device_plugin_tpu_torch.parallel import make_train_step
+
+    cfg = llama3_train_bench(n_layers=2)
+    init_state, step = make_train_step(cfg, remat=True)
+    state = init_state(0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 1024))
+    counts = [f.launches for f in (flash.flash_forward, flash.flash_bwd_dq,
+                                   flash.flash_bwd_dkv)]
+    state, loss = step(state, toks)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (flash.flash_forward, flash.flash_bwd_dq,
+                                  flash.flash_bwd_dkv)]
+    assert [a - b for a, b in zip(after, counts)] == [4, 2, 2]
+    assert torch.isfinite(loss)

@@ -428,7 +428,8 @@ def test_fit_resumes_a_sharded_run(tmp_path, llama):
     """``fit`` over fsdp 2 x model 2 with a checkpoint every 2 steps,
     interrupted after 2 steps and resumed to 4, replays the uninterrupted
     4 steps' losses and state bit for bit; ``make_loader`` builds the
-    loader as JAX's does on one process."""
+    loader as JAX's does on one process, and a process's stride takes its
+    rows of the global batch."""
     _, _, tcfg, _ = llama
     cfg = dataclasses.replace(tcfg, dtype=torch.float32)
     mesh = _tmesh({"fsdp": 2, "model": 2})
@@ -449,5 +450,6 @@ def test_fit_resumes_a_sharded_run(tmp_path, llama):
     with open(tmp_path / "b" / "loader_4.json") as f:
         assert json.load(f)["step_in_epoch"] >= 0
     assert isinstance(make_loader(stream, 2, 32), TokenBatchLoader)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_loader(stream, 2, 32, host_count=2, host_index=1)
+    whole = next(make_loader(stream, 2, 32))
+    stride = next(make_loader(stream, 2, 32, host_count=2, host_index=1))
+    np.testing.assert_array_equal(stride, whole[1::2])

@@ -125,7 +125,10 @@ def test_new_port_modules_are_under_the_import_guard():
             "guest/distributed.py"} <= names
     assert set(DAEMON_MODULES) <= names
     assert REPO / "scripts" / "torch_serve_mesh_phase.py" in _sources()
-    assert REPO / "scripts" / "torch_host_phase.py" in _sources()
+    assert {"multihost/__init__.py", "multihost/resolver.py",
+            "utils/podresources.py"} <= names
+    for script in ("torch_eval_quality.py", "torch_multihost_phase.py"):
+        assert REPO / "scripts" / script in _sources()
 
 
 # The host daemon's modules (the GPU device plugin).
@@ -139,6 +142,7 @@ DAEMON_MODULES = (
     "plugin/api/__init__.py", "plugin/api/glue.py",
     "plugin/api/deviceplugin_pb2.py", "plugin/api/podresources_pb2.py",
     "utils/__init__.py", "utils/inotify.py", "utils/log.py", "utils/metrics.py",
+    "utils/podresources.py", "multihost/__init__.py", "multihost/resolver.py",
 )
 
 

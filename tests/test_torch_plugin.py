@@ -702,12 +702,36 @@ def test_config_validation_and_register_plumbing(hgx, kubelet, short_dir):
         mgr.stop()
 
 
-@pytest.mark.parametrize("membership", [
-    dict(worker_id=1, worker_hostnames=("a", "b")), dict(metadata_dir="/x"),
-    dict(worker_id=0), dict(worker_hostnames=("a",))])
-def test_membership_is_not_ported(hgx, kubelet, short_dir, membership):
-    with pytest.raises(NotImplementedError, match="item 13, step 6"):
-        PluginManager(make_config(hgx, kubelet, short_dir, **membership))
+@pytest.mark.parametrize("membership,want", [
+    (dict(worker_id=1, worker_hostnames=("a", "b")), ("1", "a,b")),
+    (dict(metadata_dir="md"), ("1", "a,b")),
+    (dict(worker_id=0), ("0", None)),
+    (dict(worker_hostnames=("a",), node_name="a"), ("0", "a"))],
+    ids=["flags", "metadata", "bare-id", "derived"])
+def test_membership_overlays_the_started_spec(hgx, kubelet, short_dir, membership,
+                                             want):
+    """A started daemon's spec carries the resolved identity (the cases the
+    manager once refused; their resolution is held to JAX's in
+    ``tests/test_torch_multihost.py``)."""
+    if "metadata_dir" in membership:
+        md = os.path.join(short_dir, "md")
+        os.makedirs(md)
+        for name, text in (("worker-network-endpoints", "a:10.0.0.1:8476,b"),
+                           ("agent-worker-number", "1")):
+            Path(md, name).write_text(text)
+        membership = dict(metadata_dir=md)
+    mgr = PluginManager(make_config(hgx, kubelet, short_dir, cdi_format="json",
+                                    **membership))
+    mgr.start()
+    try:
+        assert kubelet.registered.wait(5)
+        (path,) = [os.path.join(short_dir, "cdi", f)
+                   for f in os.listdir(os.path.join(short_dir, "cdi"))]
+        env = dict(e.split("=", 1) for e in cdi.load(path).container_edits.env)
+        assert (env.get("TPU_WORKER_ID"), env.get("TPU_WORKER_HOSTNAMES")) == want
+        assert mgr.debug_report()["gpu"]["worker_id"] == int(want[0])
+    finally:
+        mgr.stop()
 
 
 def test_journal_reconciles_across_a_restart(hgx, kubelet, short_dir, tmp_path):
@@ -808,16 +832,18 @@ def test_cli_run_serves_and_stops_on_sigterm(hgx, kubelet, short_dir):
 
 
 def test_cli_status_json(hgx, short_dir):
-    """``status --json`` reports discovery and the specs on disk; the
-    pod-assignment section names the step that ports it."""
+    """``status --json`` reports discovery and the specs on disk; without a
+    kubelet on the pod-resources socket its pod section is the error."""
     res = subprocess.run(
         [sys.executable, "-m", "kata_xpu_device_plugin_tpu_torch", "status", "--json",
          "--sysfs-root", hgx.sysfs, "--dev-root", hgx.dev, "--proc-root", hgx.proc,
-         "--cdi-dir", os.path.join(short_dir, "none"), "--state-dir", ""],
+         "--cdi-dir", os.path.join(short_dir, "none"), "--state-dir", "",
+         "--pod-resources-socket", os.path.join(short_dir, "no-kubelet.sock")],
         env=_env(), capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     rep = json.loads(res.stdout)
     assert [g["index"] for g in rep["gpu"]["gpus"]] == list(range(8))
     assert rep["gpu"]["gpus"][2]["pci_address"] == bdf(2)
     assert rep["gpu"]["model"] == "H100_SXM5_80GB" and rep["cdi_specs"] == []
-    assert "ROADMAP item 13, step 6" in rep["pod_assignments_error"]
+    assert rep["gpu"]["worker_hostnames"] == [] and rep["gpu"]["worker_id"] == 0
+    assert "pod_assignments" not in rep and rep["pod_assignments_error"]
