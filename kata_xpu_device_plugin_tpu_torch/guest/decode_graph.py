@@ -52,12 +52,12 @@ On the CPU every call runs :func:`serve_decode` eagerly, the plain path.
 from __future__ import annotations
 
 import gc
-import time
 from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import obs
 from ..compat.torchapi import allow_transfer, note_compile
 from ..models.transformer import (
     _decode_scan,
@@ -162,9 +162,11 @@ class DecodeGraph:
                  decode_kernel_fn=None, table_width: int = 0,
                  block_size: int = 0, paged_len: int = 0,
                  budget: bool = False, eos_id: Optional[int] = None,
-                 sampling: Optional[Sampling] = None, ring: bool = False):
+                 sampling: Optional[Sampling] = None, ring: bool = False,
+                 trace_id: Optional[str] = None):
         self.params, self.arena, self.cfg = params, arena, cfg
         self.steps = steps
+        self.trace_id = trace_id  # the server's: its capture span joins it
         self.device = torch.device(device)
         # Read at the warm-up and the capture: a wrapper set here before
         # them (a checked kernel call) runs in both.
@@ -260,11 +262,12 @@ class DecodeGraph:
 
     def _capture(self) -> None:
         note_compile("graph capture")
-        t0 = time.perf_counter()
         # torch.cuda.graph synchronizes and empties the allocator's cache
         # itself; doing it first makes the reserved bytes' growth the pool's.
         # A capture happens once a server: strict mode sanctions its syncs.
-        with allow_transfer("decode graph capture (once a signature)"), \
+        with obs.span("serving.graph_capture", trace_id=self.trace_id,
+                      graph="decode", steps=self.steps) as sp, \
+                allow_transfer("decode graph capture (once a signature)"), \
                 _capture_counts() as delta:
             torch.cuda.synchronize(self.device)
             gc.collect()
@@ -277,7 +280,7 @@ class DecodeGraph:
             with torch.cuda.graph(graph, stream=self._stream):
                 out = self._run(**self._in)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = sp.duration_s
         self._delta = delta
         self._graph, self._out = graph, out
         self.captures += 1
@@ -317,11 +320,12 @@ class PersistentRound:
     def __init__(self, params, arena, cfg, *, batch: int, cap: int, device,
                  sub_steps: int = PERSISTENT_SUB_STEPS, decode_kernel_fn=None,
                  table_width: int = 0, block_size: int = 0, paged_len: int = 0,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None, trace_id: Optional[str] = None):
         if sub_steps < 1 or cap < 1:
             raise ValueError(f"sub_steps {sub_steps} and cap {cap} must be >= 1")
         self.params, self.arena, self.cfg = params, arena, cfg
         self.cap, self.sub_steps = int(cap), int(sub_steps)
+        self.trace_id = trace_id
         self.device = torch.device(device)
         self.decode_kernel_fn = decode_kernel_fn
         self._kw = dict(block_size=block_size, paged_len=paged_len,
@@ -370,18 +374,24 @@ class PersistentRound:
         st["stop"].zero_()
         if self._tables is not None:
             self._tables.copy_(block_tables, non_blocking=True)
-        if self.device.type != "cuda":
-            if not self._warm:
-                self._warm = True
-                note_compile("persistent signature")
-            self._eager_round()
-        elif self._graph is None and not self._warm:
-            self._warm_up()
-        else:
-            if self._graph is None:
-                self._capture()
-            self._replay_round()
-        return st["out"], st["tok"], st["pos"], int(st["delivered"])
+        # The host reads the round's exit flag after each replay (a CUDA
+        # graph holds no loop), and then the delivered count: JAX's
+        # persistent round fence, a sanctioned sync as strict mode sees it.
+        with allow_transfer("persistent round fence — the delivered count "
+                            "IS the round boundary read"):
+            if self.device.type != "cuda":
+                if not self._warm:
+                    self._warm = True
+                    note_compile("persistent signature")
+                self._eager_round()
+            elif self._graph is None and not self._warm:
+                self._warm_up()
+            else:
+                if self._graph is None:
+                    self._capture()
+                self._replay_round()
+            delivered = int(st["delivered"])
+        return st["out"], st["tok"], st["pos"], delivered
 
     def _eager_round(self) -> None:
         """The round's steps run eagerly, the exit flag read on the host
@@ -421,8 +431,9 @@ class PersistentRound:
 
     def _capture(self) -> None:
         note_compile("graph capture")
-        t0 = time.perf_counter()
-        with allow_transfer("persistent graph capture (once a server)"), \
+        with obs.span("serving.graph_capture", trace_id=self.trace_id,
+                      graph="persistent", steps=self.sub_steps) as sp, \
+                allow_transfer("persistent graph capture (once a server)"), \
                 _capture_counts() as delta:
             torch.cuda.synchronize(self.device)
             gc.collect()
@@ -432,7 +443,7 @@ class PersistentRound:
             with torch.cuda.graph(graph, stream=self._stream):
                 self._steps()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = sp.duration_s
         self._delta = delta
         self._graph = graph
         self.captures += 1

@@ -1461,12 +1461,12 @@ class GenerationServer:
             eos_id=self.eos_id,
             sampling=Sampling(self.generator, self._temp_dev, self.top_k,
                               self.top_p) if self._do_sample else None,
-            ring=self.ring_kv, **paged_kw)
+            ring=self.ring_kv, trace_id=self._trace, **paged_kw)
         self._round = PersistentRound(
             self.params, arena, self.cfg, batch=self.max_batch,
             cap=self._persistent_cap, device=self.device,
             decode_kernel_fn=decode_kernel, eos_id=self.eos_id,
-            **paged_kw) if self._persistent else None
+            trace_id=self._trace, **paged_kw) if self._persistent else None
 
     # ----- arena model -----------------------------------------------------
 
@@ -2334,8 +2334,8 @@ class GenerationServer:
         arena or reserved pool blocks), then insert each prompt into the
         prefix cache."""
         if not self.paged:
-            _write_slots(self.arena, caches, torch.as_tensor(
-                slots, dtype=torch.long, device=self.device))
+            _write_slots(self.arena, caches,
+                         table_tensor(slots, self.device).long())
         elif len(reqs) == 1:
             self._paged_commit(slots[0], reqs[0], caches, 0)
         else:
@@ -2576,7 +2576,7 @@ class GenerationServer:
         return True
 
     def _sample_first(self, logits: torch.Tensor) -> int:
-        return int(_next_token(logits, self.generator, self._do_sample,
+        return int(_next_token(logits, self.generator, self._do_sample,  # torchguard: allow(TG101) admission host read — sanctioned sync (runs under allow_transfer)
                                self._temp_dev, self.top_k, self.top_p)[0])
 
     def _commit_partial(self, p: _PartialPrefill, first: int,
@@ -3242,7 +3242,6 @@ class GenerationServer:
             self._emit("chip_loss_fatal", reason=reason, tp=self._tp,
                        why=f"tp_min_floor:{self._tp_min}", survivors=survivors)
             return False
-        t0 = time.perf_counter()
         old_tp = self._tp
         self._release_prefix_state()
         if isinstance(self.prefix_store, PrefixStore):
@@ -3255,21 +3254,24 @@ class GenerationServer:
                     self.prefill_buckets, kv_quant=self.kv_quant,
                     device=self.device, label=self._label)
         self._tp = new_tp
-        with torchapi.allow_transfer("degraded-mode shrink: the params "
-                                     "re-split from the host copy"):
+        with obs.span("serving.tp_resplit", trace_id=self._trace,
+                      server=self._label, old_tp=old_tp, tp=new_tp) as sp, \
+                torchapi.allow_transfer("degraded-mode shrink: the params "
+                                        "re-split from the host copy"):
             params = _tree_to(self._params_host, self.device)
             self._mesh = (ServingMesh.for_config(self.cfg, new_tp, self.device)
                           if new_tp > 1 else None)
             self.params = (tp_serving_params(params, self.cfg, self._mesh)
                            if self._mesh is not None else params)
             self._build_decode()
+            sp.fence(self.params)
         self._shard_peak = self._shard_peak[:new_tp]
         self._tp_shrinks += 1
         # The scheduler's rates were measured at the old degree.
         self._sched.reset_estimates()
         self._emit("tp_degraded", reason=reason, old_tp=old_tp, tp=new_tp,
                    survivors=survivors, tp_min=self._tp_min,
-                   resplit_s=round(time.perf_counter() - t0, 6))
+                   resplit_s=round(sp.duration_s, 6))
         return True
 
     def _fail_all(self, err: str) -> bool:
@@ -3658,12 +3660,12 @@ class GenerationServer:
             drafts_dev, q_dev, _c = draft_sample_propose(
                 d_params, self.draft_arena, cur_dev, pos_dev, d_cfg, k,
                 self._temp_dev, self.generator)
-            drafts = drafts_dev.cpu().numpy()
+            drafts = drafts_dev.cpu().numpy()  # torchguard: allow(TG101) speculative rounds are lock-step by design (verify needs host drafts)
         elif self.draft is not None:
             d_params, d_cfg = self.draft
             toks_dev, _l, _p = serve_decode(d_params, self.draft_arena, cur_dev,
                                             pos_dev, d_cfg, k + 1)
-            drafts = toks_dev.cpu().numpy()[:, :k]
+            drafts = toks_dev.cpu().numpy()[:, :k]  # torchguard: allow(TG101) speculative rounds are lock-step by design
         else:
             drafts = np.zeros((self.max_batch, k), np.int32)
             for b in active:
@@ -3679,11 +3681,11 @@ class GenerationServer:
             tok_acc, counts = sample_accept_device(
                 self._to_device(drafts), q_dev, logits, self._temp_dev,
                 self.generator, k, has_q=q_dev is not None)
-            tok_acc, counts = tok_acc.cpu().numpy(), counts.cpu().numpy()
+            tok_acc, counts = tok_acc.cpu().numpy(), counts.cpu().numpy()  # torchguard: allow(TG101) accept decision is host scheduling input
         else:
             greedy, _c = verify_step(self.params, self.arena, toks, pos_dev,
                                      self.cfg, ring=self.ring_kv)
-            greedy = greedy.cpu().numpy()
+            greedy = greedy.cpu().numpy()  # torchguard: allow(TG101) accept decision is host scheduling input
         self._rounds += 1
         for b in active:
             if sampling:

@@ -1056,7 +1056,9 @@ def ring_caches_from_prefill(caches, pos, window: int) -> tuple:
     position is zero (its ring position is negative: never attended). A
     gather and a select: bit-exact, int8 payloads with their scales."""
     ref = (caches[0].q if isinstance(caches[0], QTensor) else caches[0])
-    pos = torch.as_tensor(pos, dtype=torch.int64).to(ref.device)
+    # A host position fills a device scalar (no host-to-card copy to wait for).
+    pos = (pos.to(device=ref.device, dtype=torch.int64) if torch.is_tensor(pos)
+           else torch.full((), int(pos), dtype=torch.int64, device=ref.device))
     src = ring_positions(pos - 1, window)  # [window]
     valid = src >= 0
     idx = src.clamp_min(0)
@@ -1183,7 +1185,11 @@ def prefill_suffix(params: Params, suffix: torch.Tensor, cfg: DecoderConfig,
                 offset, False, None)
     if true_len is None:
         true_len = S
-    tl = torch.as_tensor(true_len, dtype=torch.int32, device=dev)
+    # A host int fills a device scalar: copying it to the card would make
+    # the host wait (strict mode's guard), and a fused slice runs inside
+    # the guarded decode dispatch.
+    tl = (true_len.to(device=dev, dtype=torch.int32) if torch.is_tensor(true_len)
+          else torch.full((), int(true_len), dtype=torch.int32, device=dev))
     last = _last_logits(params, x, (tl - 1).expand(B), cfg)
     if not return_logits:
         last = greedy_token(last)

@@ -99,7 +99,7 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
             else:
                 state, loss = step_fn(state, batch)[:2]
             if log_every and (s + 1) % log_every == 0:
-                LOG.info("step %d loss %.6f", s + 1, float(loss))
+                LOG.info("step %d loss %.6f", s + 1, float(loss))  # torchguard: allow(TG101) log_every-gated: logging a loss forces its read by design
             if on_step is not None:
                 on_step(s + 1, loss)
             losses.append(loss)
@@ -127,7 +127,7 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
                  dur_s=round(max(0.0, step_durs[0] - steady), 6),
                  first_step_s=round(step_durs[0], 6),
                  steady_step_s=round(steady, 6))
-    return state, [float(x) for x in losses]
+    return state, [float(x) for x in losses]  # torchguard: allow(TG101) end-of-run conversion, after the loop
 
 
 def _instrumented_step(step_fn, state, batch, step_num: int, first: bool,
@@ -147,7 +147,7 @@ def _instrumented_step(step_fn, state, batch, step_num: int, first: bool,
         state, loss = out[:2]
         aux = dict(out[2]) if len(out) == 3 else {}
         sp.fence(loss)
-        loss_val = float(loss)
+        loss_val = float(loss)  # torchguard: allow(TG101) instrumented step syncs by design (honest step times)
         sp.set(loss=round(loss_val, 6))
         grad_norm = aux.get("grad_norm")
         if grad_norm is not None:

@@ -222,10 +222,10 @@ class AllocationJournal:
             # (the journal is tiny; the write is bounded).
             d = os.path.dirname(self.path)
             if d:
-                os.makedirs(d, exist_ok=True) 
-            with open(tmp, "w", encoding="utf-8") as fh: 
-                json.dump({"version": 1, "devices": self._devices}, fh) 
-            os.replace(tmp, self.path) 
+                os.makedirs(d, exist_ok=True)  # torchguard: allow(TG203) serialized journal checkpoint
+            with open(tmp, "w", encoding="utf-8") as fh:  # torchguard: allow(TG203) serialized journal checkpoint
+                json.dump({"version": 1, "devices": self._devices}, fh)  # torchguard: allow(TG203) serialized journal checkpoint
+            os.replace(tmp, self.path)  # torchguard: allow(TG203) serialized journal checkpoint
         except OSError as e:
             # A read-only state dir must not fail Allocate — the journal
             # is a restart hint, never the allocation's source of truth.

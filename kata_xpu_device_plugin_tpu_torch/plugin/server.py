@@ -33,6 +33,14 @@ LOG = log.get("server")
 
 SOCKET_PREFIX = "kata-tpu"
 
+# The plugin's own dials (the self-check of its socket, the registration):
+# a subchannel of their own. gRPC shares subchannels between the channels
+# of one process that name one target, and a peer's channel to the plugin's
+# socket sits in reconnect backoff after every restart (the old server went
+# away under it): sharing its subchannel made the self-check wait out that
+# backoff (tests/torch_race_harness.py, stress_reregister).
+_DIAL_OPTIONS = (("grpc.use_local_subchannel_pool", 1),)
+
 
 @dataclass
 class WatchedDevice:
@@ -217,7 +225,8 @@ class DevicePluginServer(glue.DevicePluginServicer):
     def _wait_ready(self, timeout: float = 5.0) -> None:
         """Self-dial until our socket answers (ref waitForGrpcServer,
         generic_device_plugin.go:98-115 — without the leaked context)."""
-        with grpc.insecure_channel(f"unix://{self.socket_path}") as ch:
+        with grpc.insecure_channel(f"unix://{self.socket_path}",
+                                   options=_DIAL_OPTIONS) as ch:
             grpc.channel_ready_future(ch).result(timeout=timeout)
 
     def register(self, attempts: Optional[int] = None,
@@ -239,7 +248,8 @@ class DevicePluginServer(glue.DevicePluginServicer):
             if self._stop.is_set():
                 return
             try:
-                with grpc.insecure_channel(f"unix://{self.kubelet_socket}") as ch:
+                with grpc.insecure_channel(f"unix://{self.kubelet_socket}",
+                                           options=_DIAL_OPTIONS) as ch:
                     grpc.channel_ready_future(ch).result(
                         timeout=self.register_dial_timeout_s
                     )

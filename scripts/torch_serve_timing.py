@@ -22,7 +22,13 @@ setting, one ``torch.profiler`` window over at least 48 decode steps of a
 loaded server after two warm rounds (``chip_smoke.profiled``; its
 ``device_idle_share`` is the card's idle share).
 
-    python3 scripts/torch_serve_timing.py [--profile] [CHECKOUT ...]
+    python3 scripts/torch_serve_timing.py [--profile] [--chunked] [CHECKOUT ...]
+
+``--chunked`` runs, in place of that matrix, the paged layout's requests
+through ``slo_chunked`` admission (``itl_slo_ms=0``, ``prefill_chunk=128``)
+with fused slices and without: the chunked forms of the ``guards`` phase,
+without strict mode, so that a checkout whose slices wait for the card
+runs them too.
 
 Each ``CHECKOUT`` is the root of a checkout (an older commit unpacked with
 ``git archive``); the default is this one. With several, each runs its
@@ -59,6 +65,8 @@ LAYOUTS = {
     "paged": (cs.PAGED_KW, 32, 16),
 }
 SETTINGS = [dict(overlap=o, decode_steps=k) for o in (True, False) for k in (1, 4)]
+CHUNKED = [dict(sched_policy="slo_chunked", itl_slo_ms=0.0, prefill_chunk=128,
+                fused=f) for f in (True, False)]
 
 
 def load_serving(root: str):
@@ -142,16 +150,20 @@ def main(argv: list[str]) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     do_profile = "--profile" in argv
-    roots = [os.path.abspath(a) for a in argv if a != "--profile"] or [HERE]
+    chunked = "--chunked" in argv
+    roots = [os.path.abspath(a) for a in argv
+             if a not in ("--profile", "--chunked")] or [HERE]
+    layouts = {"paged": LAYOUTS["paged"]} if chunked else LAYOUTS
+    settings = CHUNKED if chunked else SETTINGS
     smi = cs.phase_device()
     params = cfg = None
     for root in roots:
         serving = load_serving(root)
         if params is None:
             params, cfg = cs.gemma_setup()
-        for layout, (kw, n, lanes) in LAYOUTS.items():
+        for layout, (kw, n, lanes) in layouts.items():
             prompts, budgets = requests(cfg, n)
-            for setting in SETTINGS:
+            for setting in settings:
                 kwargs = dict(**kw, **cs.SERVE_KW)
                 srv = server(serving, params, cfg, kwargs, setting)
                 if srv is None:
