@@ -334,6 +334,16 @@ After the seq phases:
    launched), and a second witness for its int8-KV rung: the same
    decodes through the plain attention, each kernel run against the plain
    run over its cache, the plain top-2 margin where the int8 runs part.
+14. journey — ``scripts/torch_train_demo.py``'s stages at
+   ``llama3_train_bench``'s full width and depth (PERF.md configuration
+   29, :func:`phase_journey`): pretrain over data 2 x fsdp 2 x model 2 at
+   B=16, S=1024 with a checkpoint every 2 steps, preempted at 4 and
+   resumed to 8, bit-equal to an uninterrupted run; LoRA rank 8, 5 steps,
+   the base frozen; merge, fuse, int8; 8 prompts served by the
+   speculative int8-KV server and a paged reference server, every parting
+   a flip; launches by the mesh rule, the LoRA steps and the reference's
+   rounds; the flash kernels at a mesh block's shape and the paged decode
+   kernel at the serving shape against their plain versions.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.
 ``--profile`` adds ``torch.profiler`` windows over decode rounds of a loaded
@@ -5621,17 +5631,12 @@ def phase_kv_gate(params, cfg, seed: int = 0) -> dict:
     logit drift) were set on the JAX package's tiny test model, not for
     this model on random weights: the verdict is printed, not asserted;
     the evidence must be finite and in range."""
-    import importlib.util
-
     import torch
 
     from kata_xpu_device_plugin_tpu_torch.models.transformer import CUDA_PAD
     from kata_xpu_device_plugin_tpu_torch.ops import attention, decode_attn, flash
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_eval_kv_quant", os.path.join(HERE, "scripts", "torch_eval_kv_quant.py"))
-    gate_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gate_mod)
+    gate_mod = load_script("torch_eval_kv_quant")
     lengths = [CUDA_PAD * (i + 1) for i in range(4)]
     steps = 12
     max_len = -(-(lengths[-1] + steps) // CUDA_PAD) * CUDA_PAD
@@ -7560,6 +7565,17 @@ def kv_witness(ladder) -> dict:
                 params, cfg, prompts, kern[1], plain[1])}
 
 
+def load_script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_bench_configs(profile: bool = False) -> tuple:
     """``fit`` of ``llama3_train_bench`` (the loss must fall, the launches
     exact), its three flash kernels at D = 64 alone against their plain
@@ -7568,7 +7584,6 @@ def phase_bench_configs(profile: bool = False) -> tuple:
     ``scripts/torch_eval_quality.py`` with :data:`EVAL_ARGS` in this
     process, its rows printed and its launches counted. Returns the
     phase's launches and the cases by kernel."""
-    import importlib.util
     import io
 
     import torch
@@ -7586,10 +7601,7 @@ def phase_bench_configs(profile: bool = False) -> tuple:
          **{f"fwd_{k}": f[k] for k in keys},
          **{f"{g}_{k}": b[g][k] for g in ("dq", "dkv") for k in keys},
          decode=[{k: c.get(k) for k in ("case",) + keys} for c in dec])
-    spec = importlib.util.spec_from_file_location(
-        "torch_eval_quality", os.path.join(HERE, "scripts", "torch_eval_quality.py"))
-    ladder = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ladder)
+    ladder = load_script("torch_eval_quality")
     kernels = counted_kernels()
     for fn in kernels.values():
         fn.launches = 0
@@ -7621,6 +7633,265 @@ def phase_bench_configs(profile: bool = False) -> tuple:
                              f"{rows[3]} and then {witness['kernel']}")
     return launches, {"flash_fwd": [f], "flash_bwd_dq": [b["dq"]],
                       "flash_bwd_dkv": [b["dkv"]], "paged_decode": dec}
+
+
+# ----- the guest journey at llama3_train_bench's width (configuration 29) --
+
+# scripts/torch_train_demo.py's journey on the card: its bench size, every
+# shard of its data x fsdp x model mesh on the one device.
+JOURNEY = "llama3_train_bench"
+
+
+@contextlib.contextmanager
+def timing_checkpoints(marks: list):
+    """Each ``TrainCheckpointer.save`` and ``restore`` while open appended
+    to ``marks`` as ``(name, seconds)``, synchronized."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch.parallel import TrainCheckpointer
+
+    real = {n: getattr(TrainCheckpointer, n) for n in ("save", "restore")}
+
+    def timed(name):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kw)
+            torch.cuda.synchronize()
+            marks.append((name, round(time.perf_counter() - t0, 3)))
+            return out
+        return call
+
+    for n in real:
+        setattr(TrainCheckpointer, n, timed(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(TrainCheckpointer, n, fn)
+
+
+def phase_journey(smi: str, seed: int = 0) -> tuple:
+    """Configuration 29 (PERF.md): ``scripts/torch_train_demo.py``'s stages
+    at ``llama3_train_bench``'s full width and depth (12 layers, d_model
+    1024, 16/8 heads of 64, d_ff 4096, vocab 32768), bf16 compute.
+    Pretrain over data 2 x fsdp 2 x model 2 on the one card, B=16, S=1024,
+    on the script's synthetic corpus, a checkpoint every 2 steps,
+    preempted at 4 and resumed to 8, beside an uninterrupted 8-step run:
+    its losses, params and moments bit-equal to the resumed run's, the
+    loss falling. LoRA rank 8 on wq/wk/wv/wo over the resumed params, 5
+    steps on ``[8, 1024]`` tokens, the loss falling, the base bit-equal
+    before and after. Merge, fuse, int8. Then 8 prompts of 64-1000 tokens,
+    64 new tokens each, ``max_batch=4``, ``max_len=2048``, through the
+    speculative server (k=3, int8 KV) and the reference, a paged int8-KV
+    server over the same tree: every budget delivered, the slots, queue
+    and pool empty at the end, each speculative request's first parting
+    from the reference a bf16 flip (:func:`token_partings`). Launches
+    reset before and read after each stage: flash forward, dq and dk/dv
+    steps x 12 layers x 8 local blocks for the mesh steps, 5 x 12 for the
+    LoRA steps; the reference server's paged decode rounds x chunk x 12
+    (:func:`run_requests`). The flash kernels at a mesh block's training
+    shape and the paged decode kernel at the serving shape against their
+    plain versions, timed. Returns the phase's launches and the cases by
+    kernel."""
+    import numpy as np
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.guest import GenerationServer
+    from kata_xpu_device_plugin_tpu_torch.ops.lora import DEFAULT_TARGETS
+    from kata_xpu_device_plugin_tpu_torch.parallel import build_mesh
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import leaves, local
+
+    demo = load_script("torch_train_demo")
+    size, cfg = demo.SIZES[JOURNEY], getattr(models, JOURNEY)()
+    L = cfg.n_layers
+    mesh = build_mesh(demo.MESH)
+    blocks = math.prod(demo.MESH.values())  # batch over data x fsdp, heads over model
+    B, S = size["batch"], size["seq_len"] + 1
+    corpus = demo.corpus_for(cfg, JOURNEY, seed)
+    train = dict(batch=size["batch"], seq_len=size["seq_len"], seed=seed)
+    stages, marks, failures = {}, [], []
+
+    def stage(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        stages[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    # 1-2. Pretrain, preempted at 4, resumed to 8; then the same 8 steps
+    # uninterrupted, the run the resumed one must replay.
+    ckpt_dir = tempfile.mkdtemp(prefix="journey_ckpt_")
+    reset_counts()
+    try:
+        with timing_checkpoints(marks):
+            _, losses_a = stage("pretrain", demo.pretrain, cfg, mesh, corpus,
+                                ckpt_dir, size["preempt_at"],
+                                size["ckpt_every"], **train)
+            state, losses_b = stage("resume", demo.resume, cfg, mesh, corpus,
+                                    ckpt_dir, size["steps"],
+                                    size["ckpt_every"], **train)
+        ckpt_bytes = os.path.getsize(
+            os.path.join(ckpt_dir, f"step_{size['steps']}.pt"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    on_step, stamps = step_timer()
+    whole, losses_w = stage("uninterrupted", demo.pretrain, cfg, mesh, corpus,
+                            None, size["steps"], 0, on_step=on_step, **train)
+    train_counts = read_counts()
+    trees = [(state["params"], whole["params"]),
+             (state["opt"]["mu"], whole["opt"]["mu"]),
+             (state["opt"]["nu"], whole["opt"]["nu"])]
+    resume_equal = losses_a + losses_b == losses_w and all(
+        torch.equal(a, b) for x, y in trees for a, b in zip(leaves(x), leaves(y)))
+    del whole, trees
+    torch.cuda.empty_cache()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    p50 = float(np.median(step_s))
+    train_steps = 2 * size["steps"]
+
+    # 3. LoRA over the resumed params (the mesh's pieces gathered whole).
+    before = {k: local(state["params"]["layers"][k]).clone()
+              for k in DEFAULT_TARGETS}
+    toks = demo.lora_tokens(cfg, size["lora_tokens"],
+                            torch.Generator(device="cuda").manual_seed(seed + 2))
+    reset_counts()
+    lora_on, lora_stamps = step_timer()
+    lstate, lora_losses = stage(
+        "lora", demo.lora_finetune, state["params"], cfg,
+        torch.Generator(device="cuda").manual_seed(seed + 1),
+        rank=size["lora_rank"], steps=size["lora_steps"], tokens=toks,
+        lr=size["lora_lr"], on_step=lora_on)
+    lora_counts = read_counts()
+    del state
+    frozen = all(torch.equal(lstate["params"]["layers"][k].base, w)
+                 for k, w in before.items())
+    lora_p50 = float(np.median([b - a for a, b in zip(lora_stamps,
+                                                      lora_stamps[1:])]))
+    del before
+
+    # 4. Merge, fuse, int8.
+    served = stage("prepare", demo.prepare_for_serving, lstate["params"])
+    del lstate
+    torch.cuda.empty_cache()
+    held_bytes, bf16_bytes = tree_bytes(served)
+
+    # 5. Serve: the speculative server, then the reference over the same
+    # tree (a paged int8-KV server, the paged decode kernel every step).
+    prompts = demo.prompts_for(corpus, JOURNEY, seed)
+    budgets = np.full(len(prompts), size["new_tokens"])
+    lens = [len(p) for p in prompts]
+    serving = {}
+    spec = GenerationServer(served, cfg, **size["server"])
+    outs, wall, spec_launches, st = stage("serve_spec", spec_serve, spec,
+                                          prompts, budgets, serving)
+    spec_row = dict(tok_s=round(int(budgets.sum()) / wall, 2),
+                    wall_s=round(wall, 4), rounds=st["rounds"],
+                    draft_acceptance=st["draft_acceptance"],
+                    tokens_per_round=round((st["tokens_emitted"] - st["prefills"])
+                                           / max(st["rounds"], 1), 3),
+                    ttft_p50_s=st["ttft_s"]["p50"],
+                    itl_p50_s=st["decode_token_s"]["p50"],
+                    decode_backend=st["decode_backend"], launches=spec_launches)
+    ends = {"spec": spec.stats()}
+    del spec
+    kw = {k: v for k, v in size["server"].items()
+          if k not in ("speculative_k", "spec_opt_in")}
+    ref = GenerationServer(served, cfg, kv_pool_tokens=kw["max_batch"] * kw["max_len"],
+                           kv_block_size=16, **kw)
+    ref_outs, ref_row, ref_launches = stage("serve_reference", serve_launch_row,
+                                            ref, prompts, budgets, lens)
+    ends["reference"] = ref.stats()
+    del ref
+    add_launches(serving, ref_launches)
+    for name, end in ends.items():
+        left = {k: end[k] for k in ("slots_busy", "queued", "kv_blocks_in_use",
+                                    "preempted_waiting")}
+        if any(left.values()):
+            failures.append(f"{name} server ends holding {left}")
+    partings = token_partings(served, cfg, prompts, outs, ref_outs, True)
+    if not partings["all_flips"]:
+        failures.append(f"the speculative server parts from the reference: "
+                        f"{partings}")
+    del served
+    torch.cuda.empty_cache()
+
+    # The kernels at the journey's shapes: a mesh block of the train step
+    # (the batch over data x fsdp, the heads over model) and a decode step
+    # of the reference server (4 lanes over 16-row blocks of 2048 positions).
+    name = f"journey {JOURNEY} mesh block"
+    m = demo.MESH
+    shape = (B // (m["data"] * m["fsdp"]), S, cfg.n_heads // m["model"],
+             cfg.n_kv_heads // m["model"], cfg.head_dim)
+    f = flash_case(name, *shape, lse=True, timed=True)
+    b = bwd_case(name, *shape, timed=True)
+    dec = decode_case(f"journey {JOURNEY} int8 bs16 L{kw['max_len']}",
+                      kw["max_batch"], cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, 16, True, max_len=kw["max_len"], timed=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "max_err_over_bound")
+
+    want_train = train_steps * L * blocks
+    want_lora = size["lora_steps"] * L
+    launches = {k: train_counts[k] + lora_counts[k] for k in FLASH_KERNELS}
+    add_launches(launches, serving)
+    ck = dict(marks)
+    emit("journey", model=JOURNEY, nvidia_smi=smi, mesh=demo.MESH,
+         n_layers=L, B=B, S=S, stage_s=stages,
+         losses_interrupted=losses_a, losses_resumed=losses_b,
+         losses_uninterrupted=losses_w, resume_bit_equal=resume_equal,
+         checkpoint_bytes=ckpt_bytes,
+         checkpoint_write_s=[s for n, s in marks if n == "save"],
+         checkpoint_restore_s=ck.get("restore"),
+         step_s=step_s, step_p50_s=p50, tokens_per_s=B * S / p50,
+         lora_rank=size["lora_rank"], lora_losses=lora_losses,
+         lora_step_p50_s=lora_p50, base_frozen=frozen,
+         served_tree_bytes=held_bytes, bf16_tree_bytes=bf16_bytes,
+         requests=len(prompts), prompt_lens=lens, budgets=budgets.tolist(),
+         spec=spec_row,
+         reference={k: ref_row[k] for k in SIDE_KEYS},
+         token_match=token_match(outs, ref_outs, budgets), partings=partings,
+         kernels={"flash_fwd": {k: f[k] for k in keys},
+                  **{g: {k: b[g][k] for k in keys} for g in ("dq", "dkv")},
+                  "paged_decode": {k: dec.get(k) for k in keys}},
+         launches={"train": train_counts, "lora": lora_counts,
+                   "serving": serving},
+         launches_want={"train": want_train, "lora": want_lora})
+    for name, losses in (("pretrain", losses_w), ("lora", lora_losses)):
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            failures.append(f"{name} loss not finite and falling: {losses}")
+    if not resume_equal:
+        failures.append(f"the resumed run {losses_a + losses_b} is not the "
+                        f"uninterrupted run {losses_w} bit for bit")
+    if not frozen:
+        failures.append("a LoRA step moved the base weights")
+    if failures:
+        raise AssertionError("journey: " + "; ".join(failures))
+    expect_counts("journey train", train_counts,
+                  {k: want_train for k in FLASH_KERNELS})
+    expect_counts("journey lora", lora_counts,
+                  {k: want_lora for k in FLASH_KERNELS})
+    if spec_launches.get("paged_decode") or not spec_launches.get("flash_fwd"):
+        raise AssertionError(f"journey: the speculative server launches "
+                             f"{spec_launches}")
+    if serving["flash_fwd"] % L:
+        raise AssertionError(f"journey: an admission left the flash kernel: "
+                             f"{serving}")
+    return launches, {"flash_fwd": [f], "flash_bwd_dq": [b["dq"]],
+                      "flash_bwd_dkv": [b["dkv"]], "paged_decode": [dec]}
+
+
+def tree_bytes(params: dict) -> tuple:
+    """A decoder tree's bytes as held, and the same weights' in bf16 (an
+    int8 weight's payload at 2 bytes, its scales dropped)."""
+    held = bf16 = 0
+    for v in [*(params[k] for k in params if k != "layers"),
+              *params["layers"].values()]:
+        ts = list(v) if isinstance(v, tuple) else [v]
+        held += sum(t.numel() * t.element_size() for t in ts)
+        bf16 += 2 * ts[0].numel()
+    return held, bf16
 
 
 def main(argv: list[str]) -> int:
@@ -7745,6 +8016,11 @@ def main(argv: list[str]) -> int:
     launches["bench_configs"], bench_cases = timed_phase(
         "bench_configs", phase_bench_configs, profile=profile)
     for name, cases in bench_cases.items():
+        checks[name] += cases
+    torch.cuda.empty_cache()
+    launches["journey"], journey_cases = timed_phase("journey", phase_journey,
+                                                     smi)
+    for name, cases in journey_cases.items():
         checks[name] += cases
     emit("seconds", **seconds, total=round(sum(seconds.values()), 2))
     src = f"{PKG}/csrc"

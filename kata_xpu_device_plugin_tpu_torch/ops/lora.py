@@ -73,7 +73,16 @@ def apply_lora(params: dict, generator: torch.Generator, rank: int = 8,
     (``b = 0``: the adapted model equals the base), drawn from
     ``generator`` in the order of ``targets``. Works on the training
     layout, the fused layout (``targets=("wqkv", ...)``) and int8 bases
-    (QLoRA)."""
+    (QLoRA).
+
+    A tree held as a mesh's pieces (a ``fit`` state of
+    ``make_train_step(mesh=)``) is gathered whole first: every shard lies
+    on the mesh's one device, so the result is the plain tree that the
+    one-device step takes (and that ``make_lora_train_step(mesh=)`` cuts
+    again), where JAX keeps its arrays' shardings."""
+    from ..parallel.sharding import whole_params
+
+    params = whole_params(params)
     layers = params["layers"]
     present = [t for t in targets if t in layers]
     if not present:

@@ -476,6 +476,18 @@ def init_sharded_params(cfg: tfm.DecoderConfig, mesh: Mesh, seed: int = 0,
                            place=place)
 
 
+def whole_params(params: Any) -> Any:
+    """A (possibly sharded) param tree with every leaf gathered whole on its
+    device, wrappers field by field; a whole leaf is taken as it is."""
+
+    def node(v):
+        if isinstance(v, dict):
+            return {k: node(x) for k, x in v.items()}
+        return _wrap_map(lambda _l, t: local(t), v, v)
+
+    return node(params)
+
+
 def host_param_copy(params: Any) -> Any:
     """A whole host copy of a (possibly sharded) param tree: every leaf
     gathered and moved to the CPU, wrappers field by field."""
