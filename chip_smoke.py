@@ -243,6 +243,13 @@ a local block, with no operand copied:
    ``fit`` with a sharded checkpoint at step 2 and a ``fit`` that resumes
    from it (step 3's loss bit for bit), 16 launches of each kernel a step;
    then one step over seq 2 x fsdp 2 x model 2 at S=4096 through K1;
+8f'. procmesh — fsdp_tp's step over a process mesh (PERF.md
+   configuration 30, :func:`phase_procmesh`): four gloo ranks on the one
+   card (``chip_smoke.py --procmesh-rank``), each holding its own pieces
+   and rows, 3 steps, every loss within fsdp_tp's bound of its
+   one-process loss, replicated leaves bit-equal across ranks, 12
+   launches of each flash kernel a rank; the kernels at a rank's block
+   against their plain versions; an NCCL pair on the one card refused;
 8g. pipeline — Llama-3-8B, 4 layers, ``make_pp_train_step`` on
    ``composed_mesh(2, 2, 2)``, 4 microbatches of 2, 3 steps, beside the
    flat step over fsdp 4 x model 2 on the same weights and batch;
@@ -5848,7 +5855,7 @@ def train_mfu(cfg, B: int, S: int, step_s: float) -> tuple:
 
 
 def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
-                  profile: bool = False) -> dict:
+                  profile: bool = False, keep: dict | None = None) -> dict:
     """Configuration 17 (PERF.md): Llama-3-8B at its published widths, 4 of
     32 layers (8 before the guards phase joined; the checkpoint's write was
     most of the phase), ``make_train_step(cfg, mesh=build_mesh({"data": 1, "fsdp":
@@ -5866,7 +5873,10 @@ def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
     operand copied. Then one step over ``{"fsdp": 2, "model": 2, "seq":
     2}`` at S=4096 (the ring per batch and head shard through K1), its
     loss within its own bound of the unsharded loss. ``profile`` adds a
-    profiled fifth step."""
+    profiled fifth step. ``keep`` receives the first run's losses and the
+    bound, and the held leaves (:func:`held_steps`) of this mesh's step
+    and of the unsharded step, each run again from the weights outside
+    the counted runs, for :func:`phase_procmesh`."""
     import shutil
     import tempfile
 
@@ -5892,11 +5902,14 @@ def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
     bound = rounding_bound(whole, torch.from_numpy(toks).cuda(), cfg,
                            tp=shape["model"])
     unsharded_counts = read_counts()
+    mesh = build_mesh(shape)
+    if keep is not None:
+        keep["held_p0"] = {path: ent["p"] for path, ent in
+                           held_state({"params": whole}, mesh).items()}
     del whole
     torch.cuda.empty_cache()
 
-    init_state, step = make_train_step(cfg, make_optimizer(),
-                                       mesh=build_mesh(shape))
+    init_state, step = make_train_step(cfg, make_optimizer(), mesh=mesh)
     ckpt_dir = tempfile.mkdtemp(prefix="fsdp_tp_ckpt_")
     free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
     runs = {}
@@ -5927,6 +5940,15 @@ def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    if keep is not None:
+        # Outside the counted and timed runs: the held leaves after each
+        # step of this mesh's step and of the unsharded step, from the
+        # same weights and tokens, for phase procmesh.
+        keep["held_one"] = held_steps(init_state, step, toks, seed, mesh)
+        torch.cuda.empty_cache()
+        keep["held_unsharded"] = held_steps(
+            *make_train_step(cfg, make_optimizer()), toks, seed, mesh)
+        torch.cuda.empty_cache()
     first, resumed = runs["first"], runs["resumed"]
     losses = first["losses"] + resumed["losses"][1:]
     # Step 3 of the first run follows step 2's checkpoint write: its span
@@ -5956,6 +5978,9 @@ def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
            "launches": counts, "steps_launched": n_steps,
            "launches_per_step": per_step, "unsharded_launches": unsharded_counts}
     emit("fsdp_tp", **row)
+    if keep is not None:
+        keep.update(losses=first["losses"], bound=bound, shape=shape, B=B, S=S,
+                    n_layers=n_layers, seed=seed, steps=len(first["losses"]))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"fsdp_tp loss not finite and falling: {losses}")
     if not row["resume_bit_equal"]:
@@ -5999,6 +6024,429 @@ def phase_fsdp_tp(n_layers: int = 4, seed: int = 0, seq_layers: int = 8,
     for k in BLOCK_KERNELS:
         out[k] = counts2[k]
     return out
+
+
+# ----- the training mesh across processes (configuration 30) ---------------
+
+PROCMESH_STEPS = 3
+PROCMESH_TIMEOUT_S = 420
+PROCMESH_NCCL_TIMEOUT_S = 90
+PROCMESH_DIR = os.path.join(HERE, "build", "procmesh")
+# The leaves whose pieces the procmesh phase holds against the one-process
+# mesh's after each step: the first layer of a column-parallel and of a
+# row-parallel matrix (cut over fsdp and model), the replicated norms, and
+# the first 1024 vocab rows of each piece of the vocab-parallel tables
+# (path -> (dim, count) of the prefix kept, or None: whole).
+PROCMESH_HELD = {"layers.wq": (0, 1), "layers.wo": (0, 1),
+                 "layers.attn_norm": None, "layers.mlp_norm": None,
+                 "final_norm": None, "embed": (0, 1024), "unembed": (1, 1024)}
+# How far the process mesh's first moments and parameter changes may lie
+# from the one-process mesh's: twice as far as the unsharded step's lie
+# from it after the same step, or this floor. The three steps differ only
+# in where bf16 roundings fall (the one-process mesh cuts the
+# contractions, the process mesh also sums the batch shards' gradients in
+# another order), so the unsharded step measures what rounding alone does
+# along this trajectory; a gradient that lost or doubled a batch shard's
+# or a model shard's share lies about its own size away (one window's
+# gradient against the two windows') from the first step on.
+PROCMESH_HELD_FLOOR = 0.05
+
+
+def procmesh_env(rank: int, world: int) -> dict:
+    """A rank's identity as ``torchrun`` hands it on one host."""
+    return {"LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)}
+
+
+def procmesh_rank(job_path: str, index: int) -> dict:
+    """One rank of phase procmesh (``chip_smoke.py --procmesh-rank JOB
+    INDEX``): the job's identity through ``initialize_from_env`` (its
+    backend, its device), ``process_mesh``, then either the NCCL probe
+    (one sum over the mesh, its error kept) or the job's steps of
+    ``make_train_step(cfg, mesh=...)`` on this rank's rows, each timed to
+    its loss, with the launches, the bytes through host memory and the
+    share of each leaf (and, for a held run, this rank's pieces of the
+    held leaves after each step, written to a file for the parent); the
+    replicated leaves gathered over the mesh and
+    held bit-equal; on rank 0 of a checked run the flash kernels at the
+    local block's shape against their plain versions, after the counts
+    are read."""
+    import torch
+
+    from kata_xpu_device_plugin_tpu_torch import models
+    from kata_xpu_device_plugin_tpu_torch.guest.distributed import initialize_from_env
+    from kata_xpu_device_plugin_tpu_torch.ops import collectives
+    from kata_xpu_device_plugin_tpu_torch.parallel import (
+        make_optimizer,
+        make_train_step,
+        process_mesh,
+        sharding,
+    )
+
+    with open(job_path) as f:
+        job = json.load(f)
+    t_start = time.time()
+    summary = initialize_from_env(port=job["port"], device=job["device"],
+                                  backend=job["backend"])
+    if summary["process_id"] != index:
+        raise AssertionError(f"procmesh: rank {summary['process_id']} from "
+                             f"the env of process {index}")
+    mesh = process_mesh(job["shape"], device=job["device"])
+    row = {"rank": mesh.rank, "coords": mesh.coords, "summary": summary,
+           "backend": job["backend"], "device": str(mesh.device),
+           "start_s": time.time() - job["t_spawn"],
+           "join_s": time.time() - t_start}
+    world = mesh.line()
+    if job.get("probe"):
+        try:
+            x = torch.ones(4, device=mesh.device)
+            collectives.group_all_reduce_sum(x, world)
+            torch.cuda.synchronize()
+            row["raised"] = None
+        except Exception as e:  # the backend's own error, kept as it came
+            row["raised"] = {"type": type(e).__name__, "words": str(e)[:600]}
+        return row
+    cfg = models.llama3_8b(n_layers=job["n_layers"])
+    toks = batch_tokens(cfg, job["B"], job["S"], job["seed"])
+    init_state, step = make_train_step(cfg, make_optimizer(), mesh=mesh)
+    state = init_state(job["seed"])
+    batch = sharding.shard_batch(toks, mesh)
+    held = share_ok = 0
+    for leaf in sharding.leaves(state["params"]):
+        held += 3 * leaf.numel() * leaf.element_size()  # params, mu, nu
+    for leaf in _tree_leaves(state["params"]):
+        whole = math.prod(leaf.shape)
+        local = leaf.pieces[0].numel() if isinstance(leaf, sharding.Sharded) \
+            else leaf.numel()
+        cuts = math.prod(leaf.cuts) if isinstance(leaf, sharding.Sharded) else 1
+        share_ok += local * cuts == whole
+    row.update(held_bytes=held, leaves=len(_tree_leaves(state["params"])),
+               leaves_at_share=share_ok, batch_rows=int(batch.shape[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, staged, held = [], [], [], []
+    for _ in range(job["steps"]):
+        b0 = mesh.procs.staging.bytes
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        staged.append(mesh.procs.staging.bytes - b0)
+        if job.get("held"):
+            held.append(held_state(state, mesh))
+    counts = read_counts()
+    equal = True
+    for tree in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
+        for leaf in _tree_leaves(tree):
+            if isinstance(leaf, sharding.Sharded):
+                continue
+            got = collectives.group_all_gather(leaf.reshape(1, -1), world, 0)
+            equal &= all(torch.equal(got[0], r) for r in got[1:])
+    row.update(losses=losses, step_s=step_s, staged_bytes=staged,
+               launches=counts, replicated_bit_equal=bool(equal),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if held:
+        row["held_file"] = os.path.join(PROCMESH_DIR, f"held_rank{mesh.rank}.pt")
+        torch.save(held, row["held_file"])
+    if job.get("check_kernels") and mesh.rank == 0:
+        B, S = int(batch.shape[0]), job["S"]
+        H, KV = cfg.n_heads // mesh.shape["model"], cfg.n_kv_heads // mesh.shape["model"]
+        name = f"llama3_8b procmesh rank block [{B}, {S}, {H}/{KV}, {cfg.head_dim}]"
+        f_case = flash_case(name, B, S, H, KV, cfg.head_dim, lse=True)
+        b_case = bwd_case(name, B, S, H, KV, cfg.head_dim)
+        row["cases"] = {"flash_fwd": f_case, "flash_bwd_dq": b_case["dq"],
+                        "flash_bwd_dkv": b_case["dkv"]}
+    return row
+
+
+def leaf_at(tree, path: str):
+    """The leaf of a param tree at a dotted path."""
+    for k in path.split("."):
+        tree = tree[k]
+    return tree
+
+
+def held_state(state: dict, mesh) -> dict:
+    """The :data:`PROCMESH_HELD` leaves of a train state (its moments when
+    it has them) as ``{path: {"p": {index: piece}, "mu": ...}}``, each
+    piece narrowed to its prefix and copied to the host, indexed as
+    :class:`Sharded` lays pieces out over ``mesh``'s cuts: a whole leaf
+    is cut here, a process mesh's rank holds its one piece (a replicated
+    leaf is index 0 on rank 0 alone; the others' are bit-equal to it)."""
+    from kata_xpu_device_plugin_tpu_torch.parallel.sharding import (
+        Layout,
+        Sharded,
+        param_spec,
+        piece_index,
+    )
+
+    rank = mesh.rank if mesh.procs is not None else None
+    out = {}
+    for path, band in PROCMESH_HELD.items():
+        out[path] = {}
+        for name, tree in (("p", state["params"]),
+                           ("mu", state.get("opt", {}).get("mu"))):
+            if tree is None:
+                continue
+            leaf = leaf_at(tree, path)
+            if not isinstance(leaf, Sharded):
+                leaf = Layout(param_spec(path), mesh).cut(leaf)
+            if not isinstance(leaf, Sharded):
+                pieces = {0: leaf} if rank in (None, 0) else {}
+            elif rank is None:
+                pieces = dict(enumerate(leaf.pieces))
+            else:
+                pieces = {piece_index(leaf.spec, leaf.cuts, mesh.coords):
+                          leaf.pieces[0]}
+            out[path][name] = {}
+            for k, t in pieces.items():
+                t = t.detach()
+                if band is not None:
+                    t = t.narrow(band[0], 0, band[1])
+                out[path][name][k] = t.to("cpu", copy=True)
+    return out
+
+
+def held_steps(init_state, step, toks, seed: int, mesh) -> list:
+    """:func:`held_state` after each of :data:`PROCMESH_STEPS` steps of
+    ``step`` from ``init_state(seed)`` on ``toks``."""
+    state = init_state(seed)
+    out = []
+    for _ in range(PROCMESH_STEPS):
+        state, _ = step(state, toks)
+        out.append(held_state(state, mesh))
+    del state
+    return out
+
+
+def held_rel(got: dict, ref: dict, p0: dict) -> dict:
+    """Per held leaf, ``||mu - mu_ref|| / ||mu_ref||`` and ``||p - p_ref||
+    / ||p_ref - p0||`` over its pieces (fp64 sums), every piece of
+    ``ref`` present in ``got``."""
+    out = {}
+    for path, r in ref.items():
+        g = got[path]
+        if sorted(g["p"]) != sorted(r["p"]) or sorted(g["mu"]) != sorted(r["mu"]):
+            raise AssertionError(f"procmesh: pieces {sorted(g['p'])} of "
+                                 f"{path}, not {sorted(r['p'])}")
+        sums = [0.0, 0.0, 0.0, 0.0]
+        for i in r["p"]:
+            p, p1, q = (x[i].double() for x in (g["p"], r["p"], p0[path]))
+            mu, mu1 = g["mu"][i].double(), r["mu"][i].double()
+            sums[0] += float((mu - mu1).square().sum())
+            sums[1] += float(mu1.square().sum())
+            sums[2] += float((p - p1).square().sum())
+            sums[3] += float((p1 - q).square().sum())
+        out[path] = {"mu_rel": math.sqrt(sums[0] / sums[1]),
+                     "param_rel": math.sqrt(sums[2] / sums[3])}
+    return out
+
+
+def held_held_to(ref: dict, rows: list) -> dict:
+    """The ranks' held pieces (their files, merged step by step) against
+    the one-process mesh's after each step, beside the unsharded step's
+    against the same; the limit of each is :data:`PROCMESH_HELD_FLOOR`
+    or twice the unsharded step's."""
+    import torch
+
+    steps = None
+    for r in rows:
+        got = torch.load(r["held_file"])
+        os.remove(r["held_file"])
+        if steps is None:
+            steps = [{p: {"p": {}, "mu": {}} for p in PROCMESH_HELD}
+                     for _ in got]
+        for merged, part in zip(steps, got):
+            for path, ent in part.items():
+                for name in ("p", "mu"):
+                    merged[path][name].update(ent[name])
+    p0 = ref["held_p0"]
+    out = []
+    for k, (got, one, uns) in enumerate(zip(steps, ref["held_one"],
+                                            ref["held_unsharded"])):
+        proc, ctrl = held_rel(got, one, p0), held_rel(uns, one, p0)
+        for path in proc:
+            for m in ("mu_rel", "param_rel"):
+                limit = max(PROCMESH_HELD_FLOOR, 2 * ctrl[path][m])
+                proc[path][m + "_limit"] = limit
+                proc[path][m + "_held"] = proc[path][m] <= limit
+        out.append({"step": k + 1, "process_mesh": proc, "unsharded": ctrl})
+    return out
+
+
+def _tree_leaves(tree) -> list:
+    """A param tree's leaves, Sharded leaves whole (not their pieces)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def procmesh_launch(job: dict, timeout: float) -> list:  # torchguard: allow(TL004) the ranks time their own steps; this window only waits for processes
+    """``job["world"]`` ranks of :func:`procmesh_rank`, started together;
+    returns each rank's row (None for a rank that did not report), every
+    process ended."""
+    os.makedirs(PROCMESH_DIR, exist_ok=True)
+    path = os.path.join(PROCMESH_DIR, f"job_{job['backend']}.json")
+    job = {**job, "t_spawn": time.time()}
+    with open(path, "w") as f:
+        json.dump(job, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--procmesh-rank",
+         path, str(r)], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, **procmesh_env(r, job["world"])})
+        for r in range(job["world"])]
+    rows = []
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            got = [json.loads(x) for x in out.splitlines()
+                   if x.startswith('{"phase": "procmesh_rank"')]
+            rows.append({**got[-1], "rc": p.returncode} if got else
+                        {"rc": p.returncode, "stderr": err[-3000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rows
+
+
+def phase_procmesh(ref: dict, smi: str) -> dict:
+    """Configuration 30 (PERF.md): the fsdp_tp phase's step (Llama-3-8B, 4
+    of 32 layers, B=2, S=2048, ``{"fsdp": 2, "model": 2}``, the same seed)
+    over a process mesh: four ranks, one shard each, ``process_mesh`` over
+    a gloo group, every rank on ``cuda:0`` (the one card; gloo because
+    NCCL refuses two ranks on one device), the collectives' card tensors
+    through pinned host memory. Each rank draws its pieces from the seed
+    and takes its rows of the same batch, 3 steps.
+
+    Held: every step's loss the same on all ranks and within the fsdp_tp
+    phase's :func:`rounding_bound` of the one-process mesh's loss at that
+    step (the first also of the unsharded loss); after each step the
+    first moments and parameter changes of the :data:`PROCMESH_HELD`
+    leaves against the one-process mesh's, within twice the unsharded
+    step's distance from it (or :data:`PROCMESH_HELD_FLOOR`); the
+    replicated leaves bit-equal across ranks; each leaf's piece its share;
+    each flash kernel
+    launched steps x layers x 1 local block on every rank, no operand
+    copied; the kernels at the rank's block against their plain versions.
+    Then an NCCL group of two ranks on the one card: its first collective
+    must raise (NCCL's words kept), and nothing retries it on gloo. Where
+    the card count reaches the world size, the same step over NCCL, one
+    rank a card. Returns the launches summed over the ranks and the kernel
+    cases."""
+    import numpy as np
+    import torch
+
+    shape, layers = ref["shape"], ref["n_layers"]
+    world = math.prod(shape.values())
+    steps = PROCMESH_STEPS
+    job = dict(world=world, shape=shape, n_layers=layers, B=ref["B"],
+               S=ref["S"], seed=ref["seed"], steps=steps)
+    if ref["steps"] != steps:
+        raise AssertionError(f"procmesh: fsdp_tp kept the losses of "
+                             f"{ref['steps']} steps, not {steps}")
+    rows = procmesh_launch({**job, "backend": "gloo", "device": "cuda:0",
+                            "port": free_port(), "check_kernels": True,
+                            "held": True}, PROCMESH_TIMEOUT_S)
+    bad = [r for r in rows if r.get("rc") != 0 or "losses" not in r]
+    if bad:
+        raise AssertionError(f"procmesh: ranks failed {bad}")
+    losses = rows[0]["losses"]
+    if any(r["losses"] != losses for r in rows):
+        raise AssertionError(f"procmesh: ranks' losses differ "
+                             f"{[r['losses'] for r in rows]}")
+    bound = ref["bound"]
+    one = ref["losses"][:steps]
+    diffs = [a - b for a, b in zip(losses, one)]
+    if not all(math.isfinite(x) and abs(d) <= bound["bound"]
+               for x, d in zip(losses, diffs)):
+        raise AssertionError(f"procmesh: losses {losses} against the "
+                             f"one-process {one}, bound {bound['bound']}")
+    per_rank = steps * layers  # one local block a rank
+    for r in rows:
+        expect_counts(f"procmesh rank {r['rank']}", r["launches"],
+                      {k: per_rank for k in FLASH_KERNELS})
+        if not r["replicated_bit_equal"]:
+            raise AssertionError(f"procmesh: rank {r['rank']}'s replicated "
+                                 "leaves differ from the other ranks'")
+        if r["leaves_at_share"] != r["leaves"]:
+            raise AssertionError(f"procmesh: rank {r['rank']} holds "
+                                 f"{r['leaves_at_share']} of {r['leaves']} "
+                                 "leaves at its share")
+    held = held_held_to(ref, rows)
+    far = [(h["step"], p, v) for h in held
+           for p, v in h["process_mesh"].items()
+           if not (v["mu_rel_held"] and v["param_rel_held"])]
+    step_s = [r["step_s"] for r in rows]
+    row = {"model": "llama3_8b", "n_layers": layers, "mesh": shape,
+           "ranks": world, "backend": "gloo", "device": "cuda:0 (every rank)",
+           "B": ref["B"], "S": ref["S"], "steps": steps, "losses": losses,
+           "one_process_losses": one, "loss_diffs": diffs,
+           **held_to("procmesh", "first", losses[0], bound),
+           "first_step_s": max(s[0] for s in step_s),
+           "step_s_rank0": step_s[0],
+           "step_p50_s": float(np.median([x for s in step_s for x in s[1:]])),
+           "host_bytes_per_step": rows[0]["staged_bytes"],
+           "host_bytes_per_step_all_ranks": sum(r["staged_bytes"][-1]
+                                                for r in rows),
+           "process_start_s": [round(r["start_s"], 3) for r in rows],
+           "join_s": [round(r["join_s"], 3) for r in rows],
+           "held_bytes": [r["held_bytes"] for r in rows],
+           "peak_mem_bytes": [r["peak_mem_bytes"] for r in rows],
+           "launches_per_rank": rows[0]["launches"],
+           "replicated_bit_equal": True,
+           "held_against_one_process": held, "nvidia_smi": smi}
+    launches = {k: sum(r["launches"][k] for r in rows) for k in FLASH_KERNELS}
+    cases = rows[0]["cases"]
+    row["kernel_cases"] = {k: {f: c[f] for f in ("case", "max_abs_err",
+                                                 "max_err_over_bound")}
+                           for k, c in cases.items()}
+
+    # NCCL: two ranks on the one card must fail, and fail as NCCL says.
+    probe = procmesh_launch({**job, "world": 2, "shape": {"data": 2},
+                             "backend": "nccl", "device": "cuda:0",
+                             "port": free_port(), "probe": True},
+                            PROCMESH_NCCL_TIMEOUT_S)
+    raised = [r.get("raised") for r in probe if "raised" in r]
+    if not raised or not all(raised):
+        raise AssertionError(f"procmesh: an NCCL group of two ranks on one "
+                             f"card did not raise: {probe}")
+    row["nccl_one_card"] = {"raised": True, "ranks_reported": len(raised),
+                            "words": raised[0]["words"],
+                            "type": raised[0]["type"], "retried": False}
+    if torch.cuda.device_count() >= world:
+        nrows = procmesh_launch({**job, "backend": "nccl", "device": None,
+                                 "port": free_port()}, PROCMESH_TIMEOUT_S)
+        if any(r.get("rc") != 0 or "losses" not in r for r in nrows):
+            raise AssertionError(f"procmesh nccl: ranks failed {nrows}")
+        nl = nrows[0]["losses"]
+        if not all(abs(a - b) <= bound["bound"] for a, b in zip(nl, one)):
+            raise AssertionError(f"procmesh nccl: losses {nl} against {one}")
+        row["nccl"] = {"losses": nl, "step_s_rank0": nrows[0]["step_s"]}
+        for k in FLASH_KERNELS:
+            launches[k] += sum(r["launches"][k] for r in nrows)
+    else:
+        row["nccl"] = (f"not run: {torch.cuda.device_count()} card(s) for "
+                       f"{world} ranks, and NCCL takes one rank a card")
+    emit("procmesh", **row)
+    if far:
+        raise AssertionError(f"procmesh: (step, leaf) beyond the limit of its "
+                             f"first moment or parameter change: {far}")
+    return launches, cases
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def phase_pipeline(n_layers: int = 4, steps: int = 3, seed: int = 0) -> dict:
@@ -7150,8 +7598,9 @@ MULTIHOST_REQUESTS = 8
 # The global batch the two guests stride: rows of MULTIHOST_SEQ + 1 tokens.
 MULTIHOST_BATCH, MULTIHOST_SEQ, MULTIHOST_STEPS = 8, 15, 2
 MULTIHOST_TIMEOUT_S = 600
-NCCL_NOTE = ("no NCCL group: NCCL refuses two ranks on one device, so the "
-             "NCCL group across cards waits for ROADMAP item 10")
+NCCL_NOTE = ("no NCCL group: NCCL refuses two ranks on one device (phase "
+             "procmesh records its error); NCCL across cards needs a machine "
+             "with more than one")
 
 
 def stand_in_kubelet(kdir: str):
@@ -7927,6 +8376,11 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--multihost-guest"]:  # a guest of phase_multihost
         emit("multihost_guest", **multihost_guest(int(argv[1])))
         return 0
+    if argv[:1] == ["--procmesh-rank"]:  # a rank of phase_procmesh
+        emit("procmesh_rank", **procmesh_rank(argv[1], int(argv[2])))
+        # Out at once: the NCCL probe leaves a failed communicator, whose
+        # teardown at exit need not return.
+        os._exit(0)
     profile = "--profile" in argv  # adds profiled decode rounds and a train step
     seconds = {}
 
@@ -7970,8 +8424,14 @@ def main(argv: list[str]) -> int:
     launches["lora"] = timed_phase("lora", phase_lora)
     launches["moe"] = timed_phase("moe", phase_moe, profile=profile)
     torch.cuda.empty_cache()
-    launches["fsdp_tp"] = timed_phase("fsdp_tp", phase_fsdp_tp, profile=profile)
+    fsdp_ref = {}
+    launches["fsdp_tp"] = timed_phase("fsdp_tp", phase_fsdp_tp, profile=profile,
+                                      keep=fsdp_ref)
     torch.cuda.empty_cache()
+    launches["procmesh"], procmesh_cases = timed_phase(
+        "procmesh", phase_procmesh, fsdp_ref, smi)
+    for name, case in procmesh_cases.items():
+        checks[name].append(case)
     for name, fn in (("pipeline", phase_pipeline), ("ep_moe", phase_ep_moe),
                      ("lora_mesh", phase_lora_mesh)):
         launches[name] = timed_phase(name, fn)

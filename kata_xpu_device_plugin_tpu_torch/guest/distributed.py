@@ -4,10 +4,19 @@
 The plugin's CDI edits hand every guest of a multi-host slice a consistent
 identity (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``). This module turns
 that identity into a ``torch.distributed`` process group: ``nccl`` on
-CUDA, ``gloo`` on the CPU, rendezvous at ``tcp://`` worker 0's hostname on
-the JAX package's coordinator port. :func:`resolve` keeps the JAX
-package's env contract and every one of its refusals; ``dry_run`` reports
-what would be passed without starting a group.
+CUDA, ``gloo`` on the CPU (or the caller's backend), rendezvous at
+``tcp://`` worker 0's hostname on the JAX package's coordinator port.
+:func:`resolve` keeps the JAX package's env contract and every one of its
+refusals; ``dry_run`` reports what would be passed without starting a
+group.
+
+One process a card, the PyTorch idiom: a guest with several cards runs
+``LOCAL_WORLD_SIZE`` processes under ``torchrun``, which sets
+``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``. Where they are set, a process's
+global rank is worker id x processes a host + ``LOCAL_RANK`` and the world
+is hosts x processes a host; where they are not, one process a host, as in
+the JAX package. Each process owns one device, so the global devices are
+the world's processes.
 """
 from __future__ import annotations
 
@@ -17,8 +26,12 @@ from typing import Optional
 
 from ..constants import DEFAULT_COORDINATOR_PORT, ENV_WORKER_HOSTNAMES, ENV_WORKER_ID
 
-__all__ = ["DEFAULT_COORDINATOR_PORT", "DistributedConfig", "initialize_from_env",
-           "resolve"]
+# torchrun's names for a process's place on its host.
+ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+
+__all__ = ["DEFAULT_COORDINATOR_PORT", "ENV_LOCAL_RANK", "ENV_LOCAL_WORLD_SIZE",
+           "DistributedConfig", "initialize_from_env", "resolve"]
 
 
 @dataclass(frozen=True)
@@ -27,7 +40,9 @@ class DistributedConfig:
 
     num_processes: int
     process_id: int
-    coordinator_address: Optional[str]  # None for single-host: no-op init
+    coordinator_address: Optional[str]  # None for one process: no-op init
+    local_rank: int = 0
+    local_world: int = 1
 
     @property
     def multi_host(self) -> bool:
@@ -39,11 +54,13 @@ def resolve(env: Optional[dict] = None,
     """Derive the process group from the plugin-injected env.
 
     Worker 0's hostname is the coordinator (every host computes the same
-    ordered list, so the choice is consistent without any extra channel).
-    Missing/single-host env resolves to a no-op config rather than raising:
-    single-host pods must run unmodified.
+    ordered list, so the choice is consistent without any extra channel;
+    ``localhost`` when one host runs several processes with no list).
+    Missing/single-host env with one process a host resolves to a no-op
+    config rather than raising: single-host pods must run unmodified.
     """
     env = os.environ if env is None else env
+    local_rank, local_world = _local_place(env)
     hostnames = [h for h in env.get(ENV_WORKER_HOSTNAMES, "").split(",") if h]
     if len(hostnames) <= 1:
         # Fail closed on the inverse contradiction too: a nonzero worker id
@@ -57,7 +74,11 @@ def resolve(env: Optional[dict] = None,
                 "TPU_WORKER_HOSTNAMES is missing/single — refusing to run "
                 "single-host while slice peers wait"
             )
-        return DistributedConfig(1, 0, None)
+        if local_world == 1:
+            return DistributedConfig(1, 0, None)
+        host = hostnames[0] if hostnames else "localhost"
+        return DistributedConfig(local_world, local_rank, f"{host}:{port}",
+                                 local_rank, local_world)
     try:
         worker_id = int(env.get(ENV_WORKER_ID, ""))
     except ValueError:
@@ -72,21 +93,44 @@ def resolve(env: Optional[dict] = None,
             f"{len(hostnames)} worker hostnames"
         )
     return DistributedConfig(
-        num_processes=len(hostnames),
-        process_id=worker_id,
+        num_processes=len(hostnames) * local_world,
+        process_id=worker_id * local_world + local_rank,
         coordinator_address=f"{hostnames[0]}:{port}",
+        local_rank=local_rank,
+        local_world=local_world,
     )
+
+
+def _local_place(env) -> tuple:
+    """``(LOCAL_RANK, LOCAL_WORLD_SIZE)``, ``(0, 1)`` where unset; a
+    malformed or out-of-range pair raises (a process that guessed its place
+    would collide with a peer)."""
+    raw_rank = env.get(ENV_LOCAL_RANK, "").strip()
+    raw_world = env.get(ENV_LOCAL_WORLD_SIZE, "").strip()
+    try:
+        rank = int(raw_rank) if raw_rank else 0
+        world = int(raw_world) if raw_world else 1
+    except ValueError:
+        raise ValueError(f"LOCAL_RANK={raw_rank!r} / LOCAL_WORLD_SIZE="
+                         f"{raw_world!r} are not integers")
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(f"LOCAL_RANK={rank} out of range for "
+                         f"LOCAL_WORLD_SIZE={world}")
+    return rank, world
 
 
 def initialize_from_env(env: Optional[dict] = None,
                         port: int = DEFAULT_COORDINATOR_PORT,
-                        dry_run: bool = False, device=None) -> dict:
+                        dry_run: bool = False, device=None,
+                        backend: Optional[str] = None) -> dict:
     """Start the ``torch.distributed`` process group the injected env
     describes; returns a JSON-friendly summary with the JAX package's keys.
 
-    Single-host: no-op. ``dry_run=True`` reports what would be passed
-    without starting anything. The backend is ``nccl`` for CUDA (the
-    default device) and ``gloo`` for ``device="cpu"``."""
+    One process: no-op. ``dry_run=True`` reports what would be passed
+    without starting anything. The device is ``cuda:LOCAL_RANK`` unless
+    ``device`` names one (processes sharing a card name it; ``"cpu"`` for
+    the CPU). The backend is the caller's, else ``nccl`` for CUDA and
+    ``gloo`` for the CPU; a backend's failure is not caught."""
     import torch
 
     from .. import resolve_device
@@ -103,13 +147,16 @@ def initialize_from_env(env: Optional[dict] = None,
         return summary
     import torch.distributed as dist
 
+    if device is None and torch.cuda.is_available():
+        device = f"cuda:{cfg.local_rank}"
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     dist.init_process_group(
-        backend="nccl" if dev.type == "cuda" else "gloo",
+        backend=backend or ("nccl" if dev.type == "cuda" else "gloo"),
         init_method=f"tcp://{cfg.coordinator_address}",
         world_size=cfg.num_processes, rank=cfg.process_id)
-    local = torch.cuda.device_count() if dev.type == "cuda" else 1
     summary["initialized"] = True
-    summary["global_devices"] = local * cfg.num_processes
-    summary["local_devices"] = local
+    summary["global_devices"] = cfg.num_processes
+    summary["local_devices"] = 1
     return summary

@@ -23,7 +23,10 @@ devices present places every shard on one device. The algorithm of
 tensor-parallel serving runs as it would across devices (per-shard
 column- and row-parallel weights, the sums across shards, per-shard
 attention and the shard-local decode kernel with its merge), so one card
-checks it at full width; placing shards on distinct GPUs is not ported.
+checks it at full width. Shards on devices of their own are ported for
+training, one shard a process (``parallel.mesh.process_mesh``); serving
+over a process mesh, every rank running the server's loop in lockstep,
+is not ported yet, and a server given one raises.
 
 KV layouts: under ``"heads"`` the KV-head axis splits when the KV heads
 divide the degree (:func:`kv_heads_shardable`) and replicates otherwise;
@@ -32,8 +35,10 @@ per-shard sub-pools of whole blocks. With every shard on one device a
 split is a view of the one physical tensor and a replicated leaf is that
 tensor itself, so the KV state is placed once, unsplit;
 :func:`kv_cache_spec` names the cut the shards read. JAX's
-``kv_rows_spec`` and its overlapped sum across shards act only across
-devices, and are not ported.
+``kv_rows_spec`` acts only across devices and waits for serving over a
+process mesh; its overlapped sum across shards is
+``ops.collectives.group_overlapped_sum``, a collective over a process
+mesh's line.
 
 Degraded mode (:func:`shrink_ladder`, :func:`tp_min_from_env`,
 :func:`degraded_enabled`): after a permanent fault that names a shard
@@ -231,7 +236,12 @@ class ServingMesh:
     @classmethod
     def for_mesh(cls, cfg, mesh) -> "ServingMesh":
         """The serving view of a training mesh: ``tp`` its ``model``
-        size, every shard on its device."""
+        size, every shard on its device. A process mesh raises: serving
+        over processes is not ported yet."""
+        if getattr(mesh, "procs", None) is not None:
+            raise ValueError("serving over a process mesh is not ported yet "
+                             "(every rank running the server's loop in "
+                             "lockstep); serve over a one-process mesh")
         return cls(tp=mesh.shape.get("model", 1), device=mesh.device,
                    n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                    train_mesh=mesh)
@@ -260,6 +270,17 @@ class ServingMesh:
 
         return collectives.all_gather(_vocab_logits(params, x, cfg, self.tp),
                                       dim=-1)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the column-parallel products: every shard reads
+        ``x`` itself."""
+        return x
+
+    def gather(self, parts: list) -> torch.Tensor:
+        """The shards' column-parallel pieces side by side."""
+        from ..models.transformer import _gather
+
+        return _gather(parts)
 
     def q_heads(self, s: int) -> slice:
         n = self.n_heads // self.tp

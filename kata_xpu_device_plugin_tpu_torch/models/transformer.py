@@ -569,7 +569,10 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
     list of its model shards' layer dicts, each gathered over fsdp) runs
     the same column- and row-parallel products; it calls ``attn_fn`` once
     on the whole q, k and v (the attention cuts its own blocks) and its
-    MoE layer keeps its experts split over the shards.
+    MoE layer keeps its experts split over the shards. Over a process
+    mesh (:class:`..parallel.spmd.GroupShards`, ``layer`` this rank's one
+    shard) q, k and v are this rank's heads, or gathered over the model
+    line when the heads do not divide it (``mesh.gather``).
 
     Returns ``(x, aux)``: ``aux`` is the MoE layer's load-balancing term
     (:func:`..ops.moe.moe_ffn`, over exactly this call's ``B x S`` tokens;
@@ -585,7 +588,11 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
         akw["window"] = window
     if cfg.attn_logits_softcap:
         akw["logits_softcap"] = cfg.attn_logits_softcap
+    # The input of the column-parallel products (``mesh.enter``): over a
+    # process mesh's model line its gradient sums the ranks' partial ones.
     h = rms_norm(x, shards[0]["attn_norm"], cfg.norm_eps)
+    if mesh is not None:
+        h = mesh.enter(h)
     fused_cut = getattr(mesh, "train_mesh", None) is not None
     if fused_cut and "wqkv" in shards[0]:
         qkv = _gather([_bias(weight_matmul(h, sh["wqkv"]), sh["bqkv"])
@@ -593,11 +600,12 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
                        for sh in shards])
         q, k, v = qkv.split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     else:
-        q, k, v = (_gather(list(p)) for p in zip(
+        gather = _gather if mesh is None else mesh.gather
+        q, k, v = (gather(list(p)) for p in zip(
             *(_qkv_parts(cfg, h, sh, tp) for sh in shards)))
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if "q_norm" in shards[0]:  # per-head QK-norm over head_dim, before rope
         q = rms_norm(q, shards[0]["q_norm"], cfg.norm_eps)
         k = rms_norm(k, shards[0]["k_norm"], cfg.norm_eps)
@@ -712,6 +720,8 @@ def _layer(cfg: DecoderConfig, attn_fn: AttnFn, x: torch.Tensor, layer,
         attn_proj = rms_norm(attn_proj, shards[0]["post_attn_norm"], cfg.norm_eps)
     x = x + attn_proj
     h = rms_norm(x, shards[0]["mlp_norm"], cfg.norm_eps)
+    if mesh is not None:
+        h = mesh.enter(h)
     aux = None
     if cfg.moe:
         from ..ops import moe as moe_mod

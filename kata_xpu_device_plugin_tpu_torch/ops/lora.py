@@ -174,6 +174,9 @@ def make_lora_train_step(cfg, lr: float = 1e-4, attn_fn: Any = None,
     from ..parallel.sharding import AdamW, _tokens_on
 
     optimizer = AdamW(lr, weight_decay=1e-4, b1=0.9, b2=0.999)
+    if getattr(mesh, "procs", None) is not None:
+        raise ValueError("LoRA training over a process mesh is not ported "
+                         "yet; train over a one-process mesh")
     if mesh is not None:
         from ..parallel import spmd
         from ..parallel.sharding import mesh_attention

@@ -2,8 +2,9 @@
 AdamW train step over dp x fsdp x tp (x seq) meshes, sequence parallelism
 (ring attention over the K1 block kernels, or Ulysses), the GPipe pipeline
 and the composed pp x fsdp x tp step, the deterministic resumable loader,
-sharded checkpoints and the ``fit`` loop. Every shard of a mesh sits on
-its one device (:mod:`.mesh`)."""
+sharded checkpoints and the ``fit`` loop. Every shard of a one-process
+mesh sits on its one device; a process mesh (:func:`.mesh.process_mesh`)
+puts one shard in each rank of a ``torch.distributed`` group (:mod:`.mesh`)."""
 from .checkpoint import TrainCheckpointer
 from .composed import (
     composed_mesh,
@@ -27,6 +28,7 @@ from .mesh import (
     default_mesh_shape,
     mesh_1d,
     pipe_mesh,
+    process_mesh,
     seq_mesh,
 )
 from .pipeline import (
@@ -56,6 +58,8 @@ __all__ = [
     "shard_microbatches", "to_pp_params",
     "AXIS_DATA", "AXIS_FSDP", "AXIS_MODEL", "AXIS_SEQ", "build_mesh",
     "default_mesh_shape", "seq_mesh",
+    # the port's own: one shard a process
+    "process_mesh",
     "AXIS_PIPE", "make_pipeline", "make_transformer_pipeline", "pipe_mesh",
     "sequential_reference", "stack_stage_params",
     "make_ring_attention", "make_sharded_attention", "make_ulysses_attention",

@@ -12,6 +12,10 @@ tensor: batch rows are a slice, a head range a strided view, and the
 kernels take both through their strides (``ops.flash._kernel_operand``
 copies only an operand whose strides or base they cannot read, and counts
 the copies).
+
+On a process mesh (:func:`.mesh.process_mesh`) each rank holds its own
+block already (its batch rows, its model shard's heads), so the attention
+is that one block: one launch of each kernel a call, no cut, no join.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Optional
 import torch
 
 from ..ops import collectives
-from .mesh import AXIS_DATA, AXIS_FSDP, Mesh
+from .mesh import AXIS_DATA, AXIS_FSDP, Mesh, is_process_mesh
 
 
 def _count(mesh: Mesh, axes) -> int:
@@ -56,7 +60,8 @@ def make_sharded_attention(mesh: Mesh, batch_axes=(AXIS_DATA, AXIS_FSDP),
     takes ``flash_attention`` for every block (its plain version on the
     CPU), ``False`` the plain attention. JAX's ``flash_interpret`` (Pallas
     interpret mode) has no counterpart: on the CPU the kernels' plain
-    versions stand in."""
+    versions stand in. On a process mesh the tensors are this rank's
+    local block, attended as one."""
     from ..ops.attention import (
         flash_attention,
         flash_eligible,
@@ -65,6 +70,8 @@ def make_sharded_attention(mesh: Mesh, batch_axes=(AXIS_DATA, AXIS_FSDP),
 
     nb = _count(mesh, batch_axes)
     nh, nkv = _count(mesh, head_axis), _count(mesh, kv_head_axis)
+    if is_process_mesh(mesh):
+        nb = nh = nkv = 1
 
     def sharded_attn(q, k, v, causal: bool = True, q_offset=None,
                      window: int = 0, logits_softcap: float = 0.0):

@@ -1,8 +1,9 @@
 """Deterministic, resumable token-batch loader for the training path (a
 numpy-only copy of ``TokenBatchLoader`` in
 ``kata_xpu_device_plugin_tpu/parallel/loader.py``, without the mesh
-placement: every shard of this package's mesh is on one device, and the
-step cuts the batch itself).
+placement: every shard of a one-process mesh is on one device, and the
+step cuts the batch itself; under a process mesh each rank reads its own
+batch shard's rows).
 
 - **deterministic**: a ``(seed, epoch)`` pair fixes the sample order
   exactly, the same order as the JAX package's loader;
@@ -12,7 +13,8 @@ step cuts the batch itself).
   disjoint ``host_index``-th stride of every global batch (``batch //
   host_count`` rows), the rows JAX's loader gives each host. In a Kata
   guest the two come from the plugin-injected identity through
-  ``guest.distributed``'s process group.
+  ``guest.distributed``'s process group; under a process mesh, from the
+  rank's batch shard (its ``(data, fsdp)`` coordinate).
 
 Every batch is the same ``[batch // host_count, seq_len + 1]`` int32 numpy
 array (inputs ``[:, :-1]``, targets ``[:, 1:]``, the convention of
@@ -117,14 +119,26 @@ def make_loader(tokens: Any, batch: int, seq_len: int, mesh: Any = None,
                 seed: int = 0, shuffle: bool = True,
                 host_count: Optional[int] = None,
                 host_index: Optional[int] = None) -> TokenBatchLoader:
-    """A :class:`TokenBatchLoader` (JAX ``make_loader``). ``host_count`` and
-    ``host_index`` default to ``torch.distributed``'s world size and rank
-    when a process group is initialized (in a Kata guest, the one
+    """A :class:`TokenBatchLoader` (JAX ``make_loader``). Under a process
+    mesh (:func:`.mesh.process_mesh`) ``host_count`` and ``host_index``
+    default to the mesh's batch shards and this rank's among them
+    (``sharding.batch_shards``: the ``(data, fsdp)`` coordinate, so the
+    model ranks of one coordinate read the same rows and the coordinates'
+    rows cover the global batch once). Otherwise they default to
+    ``torch.distributed``'s world size and rank when a process group is
+    initialized (in a Kata guest, the one
     ``guest.distributed.initialize_from_env`` forms from the plugin's
     identity), else to 1 and 0. The loader returns the process's own rows,
-    the rows a data-parallel rank trains on. ``mesh`` places nothing: every
-    shard of this package's mesh is on one device."""
-    del mesh
+    the rows a data-parallel rank trains on. A one-process ``mesh`` places
+    nothing: every shard is on one device."""
+    from .mesh import is_process_mesh
+
+    if is_process_mesh(mesh):
+        from .sharding import batch_shards
+
+        index, count = batch_shards(mesh)
+        host_count = count if host_count is None else host_count
+        host_index = index if host_index is None else host_index
     if host_count is None or host_index is None:
         import torch.distributed as dist
 

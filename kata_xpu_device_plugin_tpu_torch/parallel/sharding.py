@@ -3,7 +3,8 @@
 sharding.py``: ``PARAM_RULES``, ``param_specs``, ``shard_params``,
 ``init_sharded_params``, ``make_optimizer``, ``make_train_step``,
 ``batch_spec``, ``shard_batch``) on one device or over a mesh of data,
-fsdp, model and seq axes, every shard on the mesh's device (:mod:`.mesh`).
+fsdp, model and seq axes, every shard on the mesh's device, or over a
+process mesh of data, fsdp and model, one shard a rank (:mod:`.mesh`).
 And the serving partition rules of tensor-parallel serving
 (:data:`SERVING_RULES`, :func:`shard_serving_params`), which split
 serving parameters into per-shard trees.
@@ -19,7 +20,10 @@ shard by shard (:mod:`.spmd`): a layer's weights are gathered over fsdp
 when it runs, products are column- or row-parallel over model, and
 autograd through the gathers hands each piece the sum of its shards'
 gradients (the reduce-scatter). AdamW updates the pieces, so its moments
-mirror them, and the clip's global norm counts every element once.
+mirror them, and the clip's global norm counts every element once. On a
+process mesh a :class:`Sharded` leaf holds only its rank's piece; the
+gathers are group collectives, and the gradients' sums over the batch
+shards follow the backward (:func:`make_train_step`).
 
 The step contract is the JAX package's: ``init_state(seed)`` returns
 ``{"params", "opt", "step"}`` and ``step(state, tokens)`` returns
@@ -42,7 +46,7 @@ from .. import resolve_device
 from ..models import transformer as tfm
 from ..ops.lora import LoRAWeight
 from ..ops.quant import QTensor
-from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_SEQ, Mesh
+from .mesh import AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_SEQ, Mesh, is_process_mesh
 
 
 class Sharded:
@@ -50,14 +54,20 @@ class Sharded:
     the mesh axis that cuts it (None: whole), ``cuts`` the number of
     pieces along each dim (the axis's size on the mesh), and ``pieces``
     lists them row-major over ``cuts``, each the ``torch.tensor_split``
-    piece of its coordinates, contiguous and held once."""
+    piece of its coordinates, contiguous and held once.
 
-    __slots__ = ("spec", "cuts", "pieces", "shape")
+    On a process mesh (``mesh``) ``pieces`` is the one piece of this rank's
+    coordinates: the others live in the other ranks' processes."""
 
-    def __init__(self, spec: tuple, cuts: tuple, pieces: list, shape):
+    __slots__ = ("spec", "cuts", "pieces", "shape", "mesh")
+
+    def __init__(self, spec: tuple, cuts: tuple, pieces: list, shape,
+                 mesh: Optional[Mesh] = None):
         self.spec, self.cuts = tuple(spec), tuple(cuts)
         self.pieces, self.shape = list(pieces), torch.Size(shape)
-        if len(self.pieces) != math.prod(self.cuts):
+        self.mesh = mesh if is_process_mesh(mesh) else None
+        want = 1 if self.mesh is not None else math.prod(self.cuts)
+        if len(self.pieces) != want:
             raise ValueError(f"{len(self.pieces)} pieces for cuts {self.cuts}")
 
     def __repr__(self) -> str:
@@ -69,13 +79,21 @@ class Sharded:
         return self.pieces[0].dtype
 
     def with_pieces(self, pieces: list) -> "Sharded":
-        return Sharded(self.spec, self.cuts, pieces, self.shape)
+        return Sharded(self.spec, self.cuts, pieces, self.shape, self.mesh)
+
+    def cut_axes(self) -> frozenset:
+        """The mesh axes that cut this tensor into more than one piece."""
+        return frozenset(a for a, n in zip(self.spec, self.cuts) if n > 1)
 
     def select(self, **coords: int) -> torch.Tensor:
         """The tensor one shard sees: the pieces at ``coords`` (axis name
         to index) along the axes named there, gathered over every other
         cut (``collectives.all_gather``). No coordinates: the whole
-        tensor."""
+        tensor. On a process mesh the coordinates named must be this
+        rank's, and each gather is the differentiable group gather over
+        its axis's line (``collectives.gather_pieces``)."""
+        if self.mesh is not None:
+            return self._select_over_group(coords)
         from ..ops.collectives import all_gather
 
         def rec(d: int, flat: int) -> torch.Tensor:
@@ -90,6 +108,21 @@ class Sharded:
                               dim=d)
 
         return rec(0, 0)
+
+    def _select_over_group(self, coords: dict) -> torch.Tensor:
+        from ..ops.collectives import gather_pieces
+
+        own = self.mesh.coords
+        wrong = {a: c for a, c in coords.items() if own.get(a, 0) != c}
+        if wrong:
+            raise ValueError(f"rank {self.mesh.rank} at {own} holds no piece "
+                             f"at {wrong}: a process mesh holds only its "
+                             "rank's pieces")
+        out = self.pieces[0]
+        for d, (axis, n) in enumerate(zip(self.spec, self.cuts)):
+            if n > 1 and axis not in coords:
+                out = gather_pieces(out, self.mesh.line(axis), d)
+        return out
 
     def stage(self, s: int) -> "Sharded":
         """Entry ``s`` of the first dim when that dim is cut into pieces of
@@ -110,7 +143,8 @@ class Sharded:
             raise ValueError(f"the layer axis of {self!r} is cut")
         per = [p.unbind(0) for p in self.pieces]
         return [Sharded(self.spec[1:], self.cuts[1:], [u[i] for u in per],
-                        self.shape[1:]) for i in range(self.shape[0])]
+                        self.shape[1:], self.mesh)
+                for i in range(self.shape[0])]
 
 
 def local(leaf: Any, **coords: int) -> Any:
@@ -165,10 +199,47 @@ def _rebuild(tree, flat: list):
     return node(tree)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all tensors, fp32 (``optax.global_norm``)."""
-    return torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]
-                       ).square().sum().sqrt()
+def global_norm(tensors, mesh: Optional[Mesh] = None,
+                owned: Optional[list] = None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over all tensors, fp32 (``optax.global_norm``).
+
+    On a process mesh ``tensors`` are this rank's pieces and ``owned``
+    says which of them this rank counts (:func:`owned_pieces`): the squares
+    of those are summed here, then over every rank of the mesh, so each
+    element of the tree counts once, a replicated leaf too, and every rank
+    gets the same bits."""
+    if not is_process_mesh(mesh):
+        return torch.stack([torch.linalg.vector_norm(t.float())
+                            for t in tensors]).square().sum().sqrt()
+    from ..ops.collectives import group_all_reduce_sum
+
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for t, mine in zip(tensors, owned):
+        if mine:
+            sq = sq + torch.linalg.vector_norm(t.float()).square()
+    return group_all_reduce_sum(sq, mesh.line()).sqrt()
+
+
+def piece_cut_axes(tree) -> list:
+    """The mesh axes cutting each of :func:`leaves`' tensors (an empty set
+    for a whole leaf), in the same order."""
+    if isinstance(tree, dict):
+        return [c for k in sorted(tree) for c in piece_cut_axes(tree[k])]
+    if isinstance(tree, tuple):
+        return [c for v in tree for c in piece_cut_axes(v)]
+    if isinstance(tree, Sharded):
+        return [tree.cut_axes()] * len(tree.pieces)
+    return [frozenset()]
+
+
+def owned_pieces(tree, mesh: Mesh) -> list:
+    """Which of :func:`leaves`' tensors this rank of a process mesh counts
+    once for the whole tree: a piece is held by every rank that differs
+    only on the axes that do not cut it, and counted by the one of them at
+    coordinate 0 on each such axis."""
+    coords = mesh.coords
+    return [all(c == 0 for a, c in coords.items() if a not in cut)
+            for cut in piece_cut_axes(tree)]
 
 
 class AdamW:
@@ -220,12 +291,16 @@ class AdamW:
             "nu": _rebuild(params, [torch.zeros_like(p) for p in leaves(params)]),
         }
 
-    def clip(self, grads: list[torch.Tensor]) -> None:
+    def clip(self, grads: list[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> None:
         """``optax.clip_by_global_norm(grad_clip)`` in place, without a
-        host sync: ``g / norm * max_norm`` when ``norm >= max_norm``."""
+        host sync: ``g / norm * max_norm`` when ``norm >= max_norm``.
+        ``norm`` is the gradients' global norm where the caller has it
+        (over a process mesh, :func:`global_norm` of the whole tree)."""
         if self.grad_clip <= 0.0:
             return
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.grad_clip
         div = torch.where(keep, torch.ones_like(norm), norm)
         mul = torch.where(keep, torch.ones_like(norm),
@@ -234,10 +309,13 @@ class AdamW:
             g.div_(div).mul_(mul)
 
     @torch.no_grad()
-    def update(self, params, grads: list[torch.Tensor], state: dict) -> None:
+    def update(self, params, grads: list[torch.Tensor], state: dict,
+               norm: Optional[torch.Tensor] = None) -> None:
         """One AdamW step of ``params`` (in place) from ``grads`` (in the
-        order of :func:`leaves`; consumed as scratch)."""
-        self.clip(grads)
+        order of :func:`leaves`; consumed as scratch). On a process mesh
+        the tensors are this rank's pieces and ``norm`` the clip's global
+        norm of the whole tree."""
+        self.clip(grads, norm)
         lr = self.learning_rate(state["count"])
         state["count"] += 1
         t = state["count"]
@@ -359,15 +437,17 @@ def _axis_size(mesh: Mesh, entry) -> int:
 
 class Layout:
     """Where a leaf's pieces lie (JAX's ``NamedSharding``): its spec and
-    the cuts the mesh gives it."""
+    the cuts the mesh gives it (and, on a process mesh, the mesh, whose
+    rank keeps one piece)."""
 
-    __slots__ = ("spec", "cuts")
+    __slots__ = ("spec", "cuts", "mesh")
 
     def __init__(self, spec: tuple, mesh: Mesh):
         self.spec = tuple(spec)
         if any(isinstance(e, tuple) for e in self.spec):
             raise ValueError(f"a parameter dim is cut by one axis: {spec}")
         self.cuts = tuple(_axis_size(mesh, e) for e in self.spec)
+        self.mesh = mesh if is_process_mesh(mesh) else None
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Layout) and self.spec == other.spec
@@ -386,15 +466,45 @@ class Layout:
             return False
         spec, cuts = self._full(len(leaf.shape))
         return (leaf.spec == spec and leaf.cuts == cuts
+                and leaf.mesh is self.mesh
                 and all(p.device == device for p in leaf.pieces))
 
     def cut(self, t: torch.Tensor, copy: bool = False) -> Any:
         """``t`` as its pieces, each a contiguous copy; when nothing is cut,
-        ``t`` itself (a copy with ``copy``)."""
+        ``t`` itself (a copy with ``copy``). On a process mesh only this
+        rank's piece is kept, and every cut dim must divide (the group
+        collectives move equal pieces)."""
         spec, cuts = self._full(t.ndim)
         if math.prod(cuts) == 1:
             return t.detach().clone() if copy else t
-        return Sharded(spec, cuts, cut_pieces(t, cuts), t.shape)
+        if self.mesh is None:
+            return Sharded(spec, cuts, cut_pieces(t, cuts), t.shape)
+        for d, (axis, n) in enumerate(zip(spec, cuts)):
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"divide over the {n} ranks of axis {axis!r}")
+        with torch.no_grad():
+            piece = rank_piece(t, spec, cuts, self.mesh).clone(
+                memory_format=torch.contiguous_format)
+        return Sharded(spec, cuts, [piece], t.shape, self.mesh)
+
+
+def rank_piece(t: torch.Tensor, spec: tuple, cuts: tuple,
+               mesh: Mesh) -> torch.Tensor:
+    """The piece of ``t`` at this rank's coordinates of a process mesh
+    (its ``torch.tensor_split`` piece along each cut dim), a view."""
+    for d, (axis, n) in enumerate(zip(spec, cuts)):
+        if n > 1:
+            t = t.tensor_split(n, dim=d)[mesh.coords[axis]]
+    return t
+
+
+def piece_index(spec: tuple, cuts: tuple, coords: dict) -> int:
+    """The row-major index over ``cuts`` of the piece at ``coords``."""
+    flat = 0
+    for axis, n in zip(spec, cuts):
+        flat = flat * n + (coords[axis] if n > 1 else 0)
+    return flat
 
 
 def cut_pieces(t: torch.Tensor, cuts: tuple) -> list:
@@ -478,7 +588,9 @@ def init_sharded_params(cfg: tfm.DecoderConfig, mesh: Mesh, seed: int = 0,
 
 def whole_params(params: Any) -> Any:
     """A (possibly sharded) param tree with every leaf gathered whole on its
-    device, wrappers field by field; a whole leaf is taken as it is."""
+    device, wrappers field by field; a whole leaf is taken as it is. On a
+    process mesh every rank calls it: the pieces are all-gathered over
+    their axes' lines."""
 
     def node(v):
         if isinstance(v, dict):
@@ -522,15 +634,39 @@ def _tokens_on(tokens, device) -> torch.Tensor:
 def batch_spec(mesh: Mesh) -> tuple:
     """The token batch's partition spec (JAX ``batch_spec``): the batch over
     the data axes and, when the mesh has a ``seq`` axis, the sequence over
-    it. Every shard of this package's mesh is on its one device, so the
-    spec places nothing; it names the cut the ring and the step make."""
+    it. On a one-process mesh every shard is on its one device, so the
+    spec places nothing; it names the cut the ring and the step make. On a
+    process mesh :func:`shard_batch` cuts by it."""
     return ((AXIS_DATA, AXIS_FSDP), AXIS_SEQ if _seq_size(mesh) > 1 else None)
+
+
+def batch_shards(mesh: Mesh) -> tuple:
+    """``(index, count)``: this rank's place among the batch shards of a
+    process mesh, its ``(data, fsdp)`` coordinate flattened data-major
+    (``(0, 1)`` on a one-process mesh, which holds the whole batch). The
+    model ranks of one coordinate read the same rows."""
+    if not is_process_mesh(mesh):
+        return 0, 1
+    nf = mesh.shape.get(AXIS_FSDP, 1)
+    c = mesh.coords
+    return (c[AXIS_DATA] * nf + c[AXIS_FSDP],
+            mesh.shape.get(AXIS_DATA, 1) * nf)
 
 
 def shard_batch(tokens, mesh: Mesh) -> torch.Tensor:
     """The batch placed for a step over ``mesh`` (JAX ``shard_batch``): on
-    the mesh's device, as int64."""
-    return _tokens_on(tokens, mesh.device)
+    the mesh's device, as int64. On a process mesh, this rank's rows of
+    the global batch: block ``index`` of :func:`batch_shards`' ``count``
+    equal blocks, as ``NamedSharding`` places the batch over (data,
+    fsdp)."""
+    tokens = _tokens_on(tokens, mesh.device)
+    index, count = batch_shards(mesh)
+    if count == 1:
+        return tokens
+    if tokens.shape[0] % count:
+        raise ValueError(f"batch {tokens.shape[0]} does not divide over "
+                         f"{count} batch shards")
+    return tokens.chunk(count)[index]
 
 
 def heads_divide(cfg: tfm.DecoderConfig, mesh: Mesh) -> bool:
@@ -587,6 +723,19 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
     card), the kernels per local block on other CUDA meshes, the plain
     path on the CPU.
 
+    A process mesh (:func:`.mesh.process_mesh`; data, fsdp and model) runs
+    the same program with one shard a rank: each rank holds its own pieces
+    of the parameters and moments, ``step`` takes its own rows of the
+    global batch (:func:`shard_batch`, or a :func:`.loader.make_loader`
+    under the mesh) and every rank of the mesh calls it. Every cross-shard
+    step is a collective over an axis's line (:mod:`.spmd`); after the
+    backward the gradients are the mean over the data x fsdp batch shards
+    (the fsdp gathers' backward already summed the leaves fsdp cuts over
+    fsdp; the rest are summed over the lines of the batch axes, in
+    ascending rank order), so the loss a step returns is the global mean,
+    the same on every rank, and replicated leaves stay bit-equal across
+    ranks. MoE layers are not ported over processes (the expert dispatch).
+
     ``accum_steps > 1`` splits ``tokens [accum_steps·B, S]`` into equal
     microbatches, one live at a time, and applies the mean of their
     gradients (and losses) in one update. ``aux_metrics=True`` also
@@ -596,6 +745,11 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
     from . import spmd
 
     optimizer = optimizer or make_optimizer()
+    procs = is_process_mesh(mesh)
+    if procs and cfg.moe:
+        raise ValueError("MoE training over a process mesh is not ported "
+                         "yet (the expert dispatch, ops/moe.py "
+                         "moe_ffn_sharded)")
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's device "
@@ -650,12 +804,43 @@ def make_train_step(cfg: tfm.DecoderConfig, optimizer: Optional[AdamW] = None,
             for g in grads:
                 g.div_(accum_steps)
             loss = loss / accum_steps
-        aux = {"grad_norm": global_norm(grads)} if aux_metrics else None
-        optimizer.update(params, grads, state["opt"])
+        norm = None
+        if procs:
+            loss = _batch_mean(params, grads, loss, mesh)
+            if aux_metrics or optimizer.grad_clip > 0.0:
+                norm = global_norm(grads, mesh, owned_pieces(params, mesh))
+        aux = None
+        if aux_metrics:
+            aux = {"grad_norm": norm if procs else global_norm(grads)}
+        optimizer.update(params, grads, state["opt"], norm)
         state["step"] += 1
         return (state, loss, aux) if aux_metrics else (state, loss)
 
     return init_state, step
+
+
+@torch.no_grad()
+def _batch_mean(params, grads: list, loss: torch.Tensor,
+                mesh: Mesh) -> torch.Tensor:
+    """A process mesh's gradients of this rank's mean loss turned, in
+    place, into the gradients of the global mean: each summed over the
+    lines of the batch axes (fsdp, then data) whose sum the backward has
+    not made, then divided by the batch shards. Returns the global mean
+    loss."""
+    from ..ops.collectives import group_all_reduce_sum
+
+    _, count = batch_shards(mesh)
+    if count == 1:
+        return loss
+    axes = [a for a in (AXIS_FSDP, AXIS_DATA) if mesh.shape.get(a, 1) > 1]
+    for g, cut in zip(grads, piece_cut_axes(params)):
+        for axis in axes:
+            if axis not in cut:
+                g.copy_(group_all_reduce_sum(g, mesh.line(axis)))
+        g.div_(count)
+    for axis in axes:
+        loss = group_all_reduce_sum(loss, mesh.line(axis))
+    return loss / count
 
 
 # ----- tensor-parallel serving ------------------------------------------------

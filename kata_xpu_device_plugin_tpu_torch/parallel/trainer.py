@@ -5,7 +5,9 @@ A preempted-and-resumed run replays the uninterrupted one exactly — same
 batches, same losses, bit-identical state — because the loader cursor is
 saved next to the train state and both restore together. With the event
 sink on, each step is a ``train.step`` span fenced on its loss, feeding
-the ``kata_tpu_train_*`` metrics, as in the JAX package.
+the ``kata_tpu_train_*`` metrics, as in the JAX package. Over a process
+mesh every rank runs the loop and saves its pieces; rank 0 alone emits the
+events and metrics and writes the loader cursors.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any, Callable, Optional
 from .. import obs
 from .checkpoint import TrainCheckpointer
 from .loader import TokenBatchLoader
+from .mesh import Mesh, is_process_mesh
 
 LOG = logging.getLogger(__name__)
 
@@ -40,7 +43,8 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
         steps: int, seed: int = 0, ckpt_dir: Optional[str] = None,
         ckpt_every: int = 0, log_every: int = 0,
         on_step: Optional[Callable] = None,
-        profiler: Optional[obs.ProfilerHook] = None) -> tuple[Any, list]:
+        profiler: Optional[obs.ProfilerHook] = None,
+        mesh: Optional[Mesh] = None) -> tuple[Any, list]:
     """Train for ``steps`` optimizer steps; returns ``(state, losses)``
     with the losses as floats.
 
@@ -66,16 +70,24 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
     the first step's one-time cost from the steady state. That path waits
     for every step by design; without a sink the loop is as before.
     ``profiler`` (default: from ``KATATPU_OBS_PROFILE_DIR``) traces the
-    configured window of steps."""
+    configured window of steps.
+
+    ``mesh``: the process mesh ``step_fn`` runs over
+    (:func:`.mesh.process_mesh`), whose every rank calls ``fit`` with a
+    loader of its own rows (:func:`.loader.make_loader` under the mesh).
+    Each rank saves its pieces of the checkpoint; rank 0 alone writes the
+    cursors, logs, traces and emits the telemetry (every rank's loss is the
+    same global mean)."""
     if ckpt_every and not ckpt_dir:
         raise ValueError("ckpt_every needs ckpt_dir")
-    if profiler is None:
+    lead = not is_process_mesh(mesh) or mesh.rank == 0
+    if profiler is None and lead:
         profiler = obs.profiler_from_env()
     state = init_state(seed)
     ckpt: Optional[TrainCheckpointer] = None
     start = 0
     if ckpt_dir:
-        ckpt = TrainCheckpointer(ckpt_dir)
+        ckpt = TrainCheckpointer(ckpt_dir, mesh=mesh)
         latest = ckpt.latest_step()
         if latest is not None:
             state = ckpt.restore(state, step=latest)
@@ -83,7 +95,7 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
                 loader.load_state_dict(json.load(f))
             start = latest
             LOG.info("resumed at step %d from %s", latest, ckpt_dir)
-    instrument = obs.default_sink() is not None
+    instrument = lead and obs.default_sink() is not None
     step_durs: list[float] = []
     losses: list = []
     try:
@@ -98,7 +110,7 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
                                                  s == start, step_durs)
             else:
                 state, loss = step_fn(state, batch)[:2]
-            if log_every and (s + 1) % log_every == 0:
+            if lead and log_every and (s + 1) % log_every == 0:
                 LOG.info("step %d loss %.6f", s + 1, float(loss))  # torchguard: allow(TG101) log_every-gated: logging a loss forces its read by design
             if on_step is not None:
                 on_step(s + 1, loss)
@@ -108,10 +120,12 @@ def fit(init_state: Callable, step_fn: Callable, loader: TokenBatchLoader,
             if ckpt is not None and ckpt_every and (s + 1) % ckpt_every == 0:
                 # Cursor first, then the state: a kill between the two
                 # leaves the previous step latest, with its cursor intact.
-                with open(_cursor_path(ckpt_dir, s + 1), "w") as f:
-                    json.dump(loader.state_dict(), f)
+                if lead:
+                    with open(_cursor_path(ckpt_dir, s + 1), "w") as f:
+                        json.dump(loader.state_dict(), f)
                 ckpt.save(s + 1, state)
-                _prune_cursors(ckpt_dir, ckpt.steps())
+                if lead:
+                    _prune_cursors(ckpt_dir, ckpt.steps())
     finally:
         if profiler is not None:
             profiler.stop()

@@ -1,11 +1,13 @@
 """Run the training-at-scale phases of a checkout's ``chip_smoke.py``
-alone on the card (PERF.md configurations 17-20): the kernel build, then
-``fsdp_tp``, ``pipeline``, ``ep_moe``, ``lora_mesh`` and ``local_blocks``
-(all by default), each line as ``chip_smoke.py`` prints it, then their
-launches and seconds.
+alone on the card (PERF.md configurations 17-20 and 30): the kernel
+build, then ``fsdp_tp``, ``procmesh`` (the same step over a process mesh
+of four ranks; it needs ``fsdp_tp``'s losses and bound, so it runs
+``fsdp_tp`` first), ``pipeline``, ``ep_moe``, ``lora_mesh`` and
+``local_blocks`` (all by default), each line as ``chip_smoke.py`` prints
+it, then their launches and seconds.
 
     python scripts/torch_train_scale_phase.py
-        [--phases fsdp_tp,pipeline,ep_moe,lora_mesh,local_blocks]
+        [--phases fsdp_tp,procmesh,pipeline,ep_moe,lora_mesh,local_blocks]
         [--profile] [ROOT]
 
 ``ROOT`` is the checkout whose ``chip_smoke.py`` and port package run
@@ -21,7 +23,8 @@ import os
 import sys
 import time
 
-PHASES = ("fsdp_tp", "pipeline", "ep_moe", "lora_mesh", "local_blocks")
+PHASES = ("fsdp_tp", "procmesh", "pipeline", "ep_moe", "lora_mesh",
+          "local_blocks")
 
 
 def main(argv: list[str]) -> int:
@@ -36,6 +39,8 @@ def main(argv: list[str]) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "procmesh" in phases and "fsdp_tp" not in phases:
+        phases.append("fsdp_tp")
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(root, "chip_smoke.py"))
@@ -48,15 +53,21 @@ def main(argv: list[str]) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smoke.phase_device()
+    smi = smoke.phase_device()
     smoke.phase_build()
     out = {}
+    ref = {}
     for name in PHASES:
         if name not in phases:
             continue
         t0 = time.perf_counter()
         fn = getattr(smoke, f"phase_{name}")
-        got = fn(profile=args.profile) if name == "fsdp_tp" else fn()
+        if name == "fsdp_tp":
+            got = fn(profile=args.profile, keep=ref)
+        elif name == "procmesh":
+            got = fn(ref, smi)[0]
+        else:
+            got = fn()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         if name == "local_blocks":

@@ -37,8 +37,11 @@ def _forbidden(name: str) -> bool:
 
 
 def _sources():
+    # The process-mesh worker and the card's process-mesh tests run where
+    # the port runs: no JAX there either.
     return (sorted(PORT.rglob("*.py")) + sorted((REPO / "scripts").glob("torch_*.py"))
-            + [REPO / "chip_smoke.py"])
+            + [REPO / "chip_smoke.py", REPO / "tests" / "torch_procmesh_worker.py",
+               REPO / "tests" / "test_torch_procmesh_cuda.py"])
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
